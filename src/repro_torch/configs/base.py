@@ -1,0 +1,236 @@
+"""Config system: model architectures and input-shape cells.
+
+Every assigned architecture is a :class:`ModelConfig`; every benchmark/dry-run
+cell pairs one with a :class:`ShapeConfig`.  Configs are plain frozen
+dataclasses — no magic, serializable, diffable — and carry *derived* helpers
+(param counts, padded dims) used by the sharding rules and roofline analysis.
+
+Padding policy (recorded per-arch in DESIGN.md):
+  * ``vocab_padded`` rounds the embedding table up to a multiple of 512 so the
+    vocab dim shards evenly over the 16-way "model" mesh axis (standard
+    practice, cf. GPT-NeoX / Megatron).  Logits of padded slots are never
+    selected by the data pipeline (labels are always < vocab).
+  * Head counts are *not* padded; when ``n_heads % model_axis != 0`` the
+    sharding rules fall back to sequence-sharded attention (see
+    ``repro.distributed.sharding``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int            # routed experts
+    top_k: int
+    expert_d_ff: int          # d_ff of each routed expert
+    n_shared_experts: int = 0  # always-on experts (DeepSeek-MoE style)
+    shared_d_ff: int = 0       # d_ff of each shared expert
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"
+    every: int = 1             # MoE replaces the MLP every `every`-th layer
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) block hyperparameters."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 256           # SSD chunk length
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_ssm_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """One architecture.  ``family`` selects the block wiring:
+
+    dense  — attention + MLP every layer
+    moe    — attention + MoE (per MoEConfig.every)
+    ssm    — Mamba-2 (SSD) blocks only, attention-free
+    hybrid — Mamba-2 with attention every ``attn_every``-th layer (+ MoE)
+    vlm    — dense backbone with M-RoPE and a patch-embedding stub input
+    audio  — encoder-decoder (Whisper-style) with a conv-frontend stub
+    """
+
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: Optional[int] = None     # defaults to d_model // n_heads
+    qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    m_rope: bool = False             # multimodal 3D RoPE (Qwen2-VL)
+    sliding_window: Optional[int] = None   # SWA width (Mixtral)
+    mlp_kind: str = "swiglu"         # swiglu (3·d·dff) | gelu (2·d·dff)
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
+    attn_every: int = 1              # hybrid: 1 attention per this many layers
+    # encoder-decoder (audio family):
+    n_enc_layers: int = 0
+    enc_seq: int = 0                 # encoder frame count (frontend stub output)
+    # numerics
+    dtype: str = "bfloat16"
+    # long_500k applicability: sub-quadratic decode memory?
+    subquadratic: bool = False
+    notes: str = ""
+
+    # ------------------------------------------------------------------
+    def __post_init__(self):
+        if self.d_head is None:
+            object.__setattr__(self, "d_head", self.d_model // self.n_heads)
+        assert self.family in ("dense", "moe", "ssm", "hybrid", "vlm", "audio"), self.family
+        if self.family in ("moe",):
+            assert self.moe is not None
+        if self.family in ("ssm", "hybrid"):
+            assert self.ssm is not None
+
+    # -- derived dims ---------------------------------------------------
+    @property
+    def vocab_padded(self) -> int:
+        return round_up(self.vocab, 512)
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.d_head
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.d_head
+
+    def is_attn_layer(self, i: int) -> bool:
+        """Hybrid wiring: one attention layer per ``attn_every`` block,
+        placed at the *end* of the block (Jamba puts attn mid-block; end-of-
+        block keeps the scan structure identical — noted in DESIGN.md)."""
+        if self.family in ("ssm",):
+            return False
+        if self.family != "hybrid":
+            return True
+        return (i + 1) % self.attn_every == 0
+
+    def is_moe_layer(self, i: int) -> bool:
+        if self.moe is None:
+            return False
+        return (i + 1) % self.moe.every == 0
+
+    # -- parameter counting (analytic; cross-checked vs pytree in tests) --
+    def _attn_params(self) -> int:
+        qkv = self.d_model * (self.q_dim + 2 * self.kv_dim)
+        out = self.q_dim * self.d_model
+        qknorm = 2 * self.d_head if self.qk_norm else 0
+        return qkv + out + qknorm
+
+    def _mlp_params(self, d_ff: Optional[int] = None) -> int:
+        d_ff = self.d_ff if d_ff is None else d_ff
+        per = 3 if self.mlp_kind == "swiglu" else 2   # gate+up+down | up+down
+        return per * self.d_model * d_ff
+
+    def _moe_params(self) -> Tuple[int, int]:
+        """(total, active) params of one MoE layer."""
+        m = self.moe
+        assert m is not None
+        router = self.d_model * m.n_experts
+        routed = m.n_experts * 3 * self.d_model * m.expert_d_ff
+        shared = m.n_shared_experts * 3 * self.d_model * (m.shared_d_ff or m.expert_d_ff)
+        total = router + routed + shared
+        active = (
+            router
+            + m.top_k * 3 * self.d_model * m.expert_d_ff
+            + m.n_shared_experts * 3 * self.d_model * (m.shared_d_ff or m.expert_d_ff)
+        )
+        return total, active
+
+    def _ssm_params(self) -> int:
+        s = self.ssm
+        assert s is not None
+        d_in = s.d_inner(self.d_model)
+        nh = s.n_ssm_heads(self.d_model)
+        d_bc = 2 * s.n_groups * s.d_state
+        in_proj = self.d_model * (2 * d_in + d_bc + nh)   # z, x, B, C, dt
+        conv = (d_in + d_bc) * s.d_conv
+        out_proj = d_in * self.d_model
+        extras = nh * 2 + d_in                            # A_log, D, norm
+        return in_proj + conv + out_proj + extras
+
+    def param_count(self, *, active_only: bool = False) -> int:
+        """Analytic parameter count (embeddings included once; norms ignored
+        at <0.01%).  ``active_only`` counts routed experts at top_k (MoE
+        6*N_active*D roofline convention)."""
+        n = 0
+        emb = self.vocab_padded * self.d_model
+        n += emb if self.tie_embeddings else 2 * emb
+        layers = self.n_layers
+        for i in range(layers):
+            if self.family in ("ssm", "hybrid") and not self.is_attn_layer(i):
+                n += self._ssm_params()
+            else:
+                n += self._attn_params()
+            if self.family == "ssm":
+                continue  # mamba block has no separate MLP
+            if self.is_moe_layer(i):
+                total, active = self._moe_params()
+                n += active if active_only else total
+            else:
+                n += self._mlp_params()
+        # encoder stack (audio family): attention + MLP, cross-attn in decoder
+        if self.family == "audio":
+            enc = self.n_enc_layers * (self._attn_params() + self._mlp_params())
+            cross = self.n_layers * self._attn_params()   # decoder cross-attn
+            n += enc + cross
+        return n
+
+    def flops_per_token(self, *, seq_len: int = 0) -> float:
+        """Forward matmul FLOPs per token ~= 2 * N_active (+ attention)."""
+        n_active = self.param_count(active_only=True)
+        f = 2.0 * n_active
+        if seq_len and self.family not in ("ssm",):
+            attn_layers = sum(1 for i in range(self.n_layers) if self.is_attn_layer(i))
+            ctx = min(seq_len, self.sliding_window) if self.sliding_window else seq_len
+            f += attn_layers * 2.0 * 2.0 * ctx * self.q_dim   # QK^T + AV
+        return f
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell.  ``kind`` picks the lowered step:
+    train → train_step; prefill → prefill_step; decode → serve_step."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    def __post_init__(self):
+        assert self.kind in ("train", "prefill", "decode")
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", seq_len=4_096, global_batch=256, kind="train"),
+    "prefill_32k": ShapeConfig("prefill_32k", seq_len=32_768, global_batch=32, kind="prefill"),
+    "decode_32k": ShapeConfig("decode_32k", seq_len=32_768, global_batch=128, kind="decode"),
+    "long_500k": ShapeConfig("long_500k", seq_len=524_288, global_batch=1, kind="decode"),
+}
