@@ -11,26 +11,46 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and ``torch.backends.cudnn.allow_tf32`` both False).
 2. build    — builds the CUDA kernels from ``src/repro_torch/csrc``.
 3. kernels  — each kernel against its plain PyTorch version at the serving
-              path's shapes plus windowed, q_offset, ragged, pos = -1 and
-              wrapped-ring cases.  Tolerance: max abs error <= 1e-4 in f32
-              (only the summation order differs) and <= 2e-2 in bf16 (the
-              output is rounded to bf16 once, about 2^-8 of its magnitude).
-              Times the kernel, the plain version and one PyTorch library
-              call (``scaled_dot_product_attention``, a yardstick only).
+              paths' shapes plus edge cases (windowed, q_offset, ragged,
+              pos = -1, wrapped ring; paged: holes, a cur_pos sweep across
+              page boundaries, a fully unmapped slot, GQA 16:1, with the
+              trash page poisoned to 1e4; prefix: ragged Lp and Sq,
+              q_offset > 0, Lp = 0, GQA 8:1 at dh=64).  Tolerance: max abs
+              error <= 1e-4 in f32 (only the summation order differs) and
+              <= 2e-2 in bf16 (the output is rounded to bf16 once, about
+              2^-8 of its magnitude).  Times the kernel, the plain version
+              and one PyTorch library call (``scaled_dot_product_attention``,
+              after a torch page gather for the paged kernel; a yardstick
+              only).
 4. model    — full-width qwen3-0.6b cut to 2 layers, f32: prefill + 4 decode
-              steps with attn_impl="cuda" against attn_impl="torch"; logits
-              within 2e-3 max abs, greedy tokens identical.
-5. serve    — the main path: full qwen3-0.6b (28 layers, bf16, seeded random
-              weights) behind ``ContinuousBatcher`` in dense mode, 16
+              steps with attn_impl="cuda" against attn_impl="torch"; the
+              same decode on a shuffled paged pool (``page_table=``); and
+              ``prefix_prefill`` through the prefix kernel against a cold
+              prefill.  Logits within 2e-3 max abs, greedy tokens identical.
+5. serve    — the dense main path: full qwen3-0.6b (28 layers, bf16, seeded
+              random weights) behind ``ContinuousBatcher`` in dense mode, 16
               requests after a short warm-up; every request completes and
               the launch counters show that every prefill and decode step
               went through the kernels.
-6. trace    — the first rounds of the same requests, untraced and under
-              ``torch.profiler``: device busy time, idle share and device
-              time by kernel class.
+5b. paged   — the paged main path: the same model behind a paged batcher
+              with the prefix cache (128 pages of 16, below the 168 of dense
+              capacity), 16 requests sharing a 192-token system prompt;
+              every request completes, prefixes hit, every admission went
+              through the flash or the prefix kernel and every decode step
+              through the paged kernel, and the page ledger balances.
+6. trace    — the first rounds of the dense and of the paged path, both
+              untraced first, then each under ``torch.profiler``: device
+              busy time, idle share and device time by kernel class.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --memory
+
+runs phase 1 and only the memory probe of phase 5 (device memory of one
+dense admission prefill at the main path's shape), against the
+``src/repro_torch`` beside the script: a copy of the script placed in
+another checkout measures that checkout.
 """
 
 from __future__ import annotations
@@ -246,6 +266,180 @@ def check_decode(gen):
                 bound_by=by, library_ms=library)
 
 
+def _err(got, want) -> float:
+    """Max abs error, relative where |want| > 1 (the poisoned trash page
+    of the paged checks averages to 1e4, where f32 keeps ~1e-3 abs)."""
+    return ((got.float() - want.float()).abs()
+            / want.float().abs().clamp(min=1.0)).max().item()
+
+
+def _page_table(rng, B, max_pages, n_pages, cur, ps, *, holes=0.0):
+    """A shuffled (B, max_pages) int32 table: slot b maps logical pages
+    0..cur[b] // ps to distinct random pool pages, later pages unmapped
+    (-1); ``holes`` unmaps earlier pages at random, never the page that
+    holds cur[b]."""
+    perm = rng.permutation(n_pages)
+    table = np.full((B, max_pages), -1, np.int32)
+    for b in range(B):
+        last = int(cur[b]) // ps
+        ids = perm[b * max_pages:b * max_pages + last + 1]
+        table[b, :last + 1] = ids
+        if holes:
+            drop = rng.random(last) < holes
+            table[b, :last][drop] = -1
+    return table
+
+
+def check_paged_decode(gen):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import ops, ref
+
+    rng = np.random.default_rng(2)
+
+    def pools(P, ps, Hkv, dh, dtype):
+        kp = _rand(gen, (P + 1, ps, Hkv, dh), dtype)
+        vp = _rand(gen, (P + 1, ps, Hkv, dh), dtype)
+        kp[P] = 1e4                    # poisoned trash page: leaks are loud
+        vp[P] = 1e4
+        return kp, vp
+
+    def run_case(name, B, H, Hkv, dh, ps, max_pages, P, dtype, cur, *,
+                 holes=0.0, table=None):
+        q = _rand(gen, (B, H, dh), dtype)
+        kp, vp = pools(P, ps, Hkv, dh, dtype)
+        if table is None:
+            table = _page_table(rng, B, max_pages, P, cur, ps, holes=holes)
+        tab = torch.from_numpy(table).cuda()
+        cur_t = torch.as_tensor(np.asarray(cur, np.int32)).cuda()
+        got = ops.paged_decode_attention(q, kp, vp, tab, cur_t)
+        want = ref.paged_decode_attention_ref(q, kp, vp, tab, cur_t)
+        torch.cuda.synchronize()
+        err = _err(got, want)
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        log(f"  paged {name:<28} max_abs_err={err:.3e} (tol {tol:g})")
+        check(bool(torch.isfinite(got).all()), f"paged {name}: non-finite output")
+        check(err <= tol, f"paged {name}: max abs error {err} > {tol}")
+        return err, (q, kp, vp, tab, cur_t)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    # the paged main path: 8 slots of up to 21 pages of 16 over 168 pages
+    B, H, Hkv, dh, ps, maxp, P = 8, 16, 8, 128, 16, 21, 168
+    cur = rng.integers(256, 322, size=B)       # prompt 256 + decode so far
+    err, main = run_case("main bf16", B, H, Hkv, dh, ps, maxp, P, bf16, cur)
+    run_case("main f32", B, H, Hkv, dh, ps, maxp, P, f32, cur)
+    run_case("holes f32", B, H, Hkv, dh, ps, maxp, P, f32, cur, holes=0.3)
+    for c in (14, 15, 16, 17, 31, 32):         # across page boundaries
+        run_case(f"cur_pos={c} sweep f32", 2, H, Hkv, dh, ps, 4, 8, f32,
+                 [c, c])
+    unmapped = np.full((2, maxp), -1, np.int32)
+    unmapped[1, :3] = [5, 9, 2]
+    run_case("fully unmapped slot f32", 2, H, Hkv, dh, ps, maxp, 16, f32,
+             [40, 40], table=unmapped)
+    run_case("gqa 16:1 dh=64 f32", 4, 16, 1, 64, ps, maxp, 96, f32,
+             rng.integers(0, 330, size=4), holes=0.2)
+    run_case("gqa 16:1 dh=128 bf16", 4, 16, 1, 128, 8, 12, 64, bf16,
+             rng.integers(0, 96, size=4))
+
+    q, kp, vp, tab, cur_t = main
+    sets = copies_over_l2([q, kp, vp, tab, cur_t])
+    kernel = device_ms(lambda *a: ops.paged_decode_attention(*a), sets)
+    plain = device_ms(lambda *a: ref.paged_decode_attention_ref(*a), sets)
+    L = maxp * ps
+
+    def library_call(qq, kk, vv, tt, cc):
+        # a torch page gather, then SDPA with a boolean mask
+        mapped = tt >= 0
+        g = torch.where(mapped, tt, P).long()
+        kg = kk[g].reshape(B, L, Hkv, dh).transpose(1, 2)
+        vg = vv[g].reshape(B, L, Hkv, dh).transpose(1, 2)
+        pos = torch.arange(L, device=qq.device)
+        valid = mapped[:, pos // ps] & (pos[None, :] <= cc[:, None])
+        return F.scaled_dot_product_attention(
+            qq[:, :, None, :], kg, vg, attn_mask=valid[:, None, None, :],
+            enable_gqa=True)
+
+    library = device_ms(library_call, sets)
+    mapped_pages = int((tab >= 0).sum().item())
+    pos = torch.arange(L, device="cuda")
+    n_valid = int(((tab >= 0)[:, pos // ps] & (pos[None, :] <= cur_t[:, None]))
+                  .sum().item())
+    n_bytes = (2 * B * H * dh * 2                       # q in, out
+               + mapped_pages * ps * Hkv * dh * 2 * 2   # mapped K and V pages
+               + B * maxp * 4 + B * 4)                  # table, cur_pos
+    flops = 4.0 * dh * H * n_valid
+    bms, by = bound_ms(n_bytes, flops)
+    return dict(name="paged_decode_attention", route="cuda",
+                source="src/repro_torch/csrc/paged_decode_attention.cu",
+                replaces="src/repro/kernels/paged_attention/kernel.py:91",
+                max_abs_err=err, ms=kernel, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=library)
+
+
+def check_prefix(gen):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.prefix_attention import ops, ref
+
+    def run_case(name, B, Sq, Lp, Sk, H, Hkv, dh, dtype, *, q_offset=0):
+        q = _rand(gen, (B, Sq, H, dh), dtype)
+        pk = _rand(gen, (B, Lp, Hkv, dh), dtype)
+        pv = _rand(gen, (B, Lp, Hkv, dh), dtype)
+        k = _rand(gen, (B, Sk, Hkv, dh), dtype)
+        v = _rand(gen, (B, Sk, Hkv, dh), dtype)
+        got = ops.prefix_flash_attention(q, pk, pv, k, v, q_offset=q_offset)
+        want = ref.prefix_flash_attention_ref(q, pk, pv, k, v,
+                                              q_offset=q_offset)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        log(f"  prefix {name:<27} max_abs_err={err:.3e} (tol {tol:g})")
+        check(bool(torch.isfinite(got).all()), f"prefix {name}: non-finite output")
+        check(err <= tol, f"prefix {name}: max abs error {err} > {tol}")
+        return err, (q, pk, pv, k, v)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    # cached admission on the paged main path: 12 cached pages of 16 and a
+    # 64-token suffix
+    B, Sq, Lp, H, Hkv, dh = 8, 64, 192, 16, 8, 128
+    err, main = run_case("main bf16", B, Sq, Lp, Sq, H, Hkv, dh, bf16)
+    run_case("main f32", B, Sq, Lp, Sq, H, Hkv, dh, f32)
+    run_case("ragged Lp=77 Sq=45 f32", 3, 45, 77, 45, H, Hkv, dh, f32)
+    run_case("q_offset=30 f32", 2, 40, 100, 70, H, Hkv, dh, f32, q_offset=30)
+    run_case("no prefix Lp=0 f32", 2, 50, 0, 50, H, Hkv, dh, f32)
+    run_case("gqa 8:1 dh=64 bf16", 2, 96, 64, 96, 8, 1, 64, bf16)
+    run_case("gqa 8:1 dh=64 ragged f32", 2, 33, 21, 33, 8, 1, 64, f32)
+
+    sets = copies_over_l2(list(main))
+    kernel = device_ms(lambda *a: ops.prefix_flash_attention(*a), sets)
+    plain = device_ms(lambda *a: ref.prefix_flash_attention_ref(*a), sets)
+    rows = torch.arange(Sq, device="cuda")
+    cols = torch.arange(Lp + Sq, device="cuda") - Lp
+    mask = cols[None, :] <= rows[:, None]
+
+    def lib_args(s):
+        q, pk, pv, k, v = s
+        return (q.transpose(1, 2).contiguous(),
+                torch.cat([pk, k], 1).transpose(1, 2).contiguous(),
+                torch.cat([pv, v], 1).transpose(1, 2).contiguous())
+
+    library = device_ms(
+        lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, attn_mask=mask, enable_gqa=True),
+        [lib_args(s) for s in sets])
+    n_bytes = 2 * (2 * B * Sq * H * dh + 2 * B * (Lp + Sq) * Hkv * dh)
+    pairs = Sq * Lp + Sq * (Sq + 1) // 2        # prefix + causal suffix
+    flops = 4.0 * dh * pairs * B * H
+    bms, by = bound_ms(n_bytes, flops)
+    return dict(name="prefix_flash_attention", route="cuda",
+                source="src/repro_torch/csrc/prefix_flash_attention.cu",
+                replaces="src/repro/kernels/prefix_attention/kernel.py:94",
+                max_abs_err=err, ms=kernel, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=library)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the model through the kernels against the plain path
 # ---------------------------------------------------------------------------
@@ -255,7 +449,11 @@ def check_model():
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.prefix_attention import ops as pfx_ops
+    from repro_torch.models import (
+        decode_step, init_paged_caches, init_params, prefill, prefix_prefill)
+    from repro_torch.models.transformer import prefill_kv
 
     cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2,
                               dtype="float32")
@@ -264,30 +462,94 @@ def check_model():
     rng = np.random.default_rng(1)
     toks = torch.from_numpy(
         rng.integers(1, cfg.vocab, size=(B, S)).astype(np.int32)).cuda()
+
+    def greedy(logits):
+        return torch.argmax(logits[:, :cfg.vocab], -1).to(torch.int32)
+
+    # dense: prefill + decode through the kernels against the plain path
     runs = {}
     for impl in ("cuda", "torch"):
         logits, caches = prefill(params, toks, cfg, max_len=S + steps + 1,
                                  impl=impl)
         runs[impl] = [logits, caches]
     worst = 0.0
+    dense_tokens = []
     cur = torch.full((B,), S, dtype=torch.int32, device="cuda")
     for step in range(steps + 1):
         lk, lt = runs["cuda"][0], runs["torch"][0]
         err = (lk - lt).abs().max().item()
         worst = max(worst, err)
-        tk = torch.argmax(lk[:, :cfg.vocab], -1).to(torch.int32)
-        tt = torch.argmax(lt[:, :cfg.vocab], -1).to(torch.int32)
+        tk, tt = greedy(lk), greedy(lt)
         check(err <= MODEL_TOL, f"model step {step}: logits differ by {err}")
         check(bool((tk == tt).all()), f"model step {step}: greedy tokens differ")
+        dense_tokens.append(tt)
         if step == steps:
             break
         for impl in ("cuda", "torch"):
             runs[impl][0], runs[impl][1] = decode_step(
                 params, tt, runs[impl][1], cur, cfg, impl=impl)
         cur = cur + 1
-    log(f"  prefill + {steps} decode steps, 2 layers f32: max |logit diff| "
-        f"{worst:.3e} (tol {MODEL_TOL:g}), greedy tokens identical")
-    del params, runs
+    log(f"  dense: prefill + {steps} decode steps, 2 layers f32: max |logit "
+        f"diff| {worst:.3e} (tol {MODEL_TOL:g}), greedy tokens identical")
+    del runs
+
+    # paged: the prompt's K/V packed into a shuffled pool, then the same
+    # decode steps with page_table=, kernels against the plain path
+    ps = 16
+    max_pages = -(-(S + steps + 1) // ps)
+    n_pages = B * max_pages
+    table = torch.from_numpy(rng.permutation(n_pages).astype(np.int32)
+                             .reshape(B, max_pages)).cuda()
+    logits0, fresh = prefill_kv(params, toks, cfg, impl="torch")
+    prompt_pages = table[:, :S // ps].reshape(-1).long()
+    runs = {}
+    for impl in ("cuda", "torch"):
+        caches = init_paged_caches(cfg, B, n_pages, ps, device="cuda")
+        for p, view in caches.kv.items():
+            k, v = fresh[p]
+            view.k[:, prompt_pages] = k.reshape(k.shape[0], -1, ps, *k.shape[3:])
+            view.v[:, prompt_pages] = v.reshape(v.shape[0], -1, ps, *v.shape[3:])
+        runs[impl] = [logits0, caches]
+    before = pa_ops.paged_decode_attention.launches
+    worst = 0.0
+    cur = torch.full((B,), S, dtype=torch.int32, device="cuda")
+    for step in range(steps):
+        for impl in ("cuda", "torch"):
+            runs[impl][0], runs[impl][1] = decode_step(
+                params, dense_tokens[step], runs[impl][1], cur, cfg,
+                impl=impl, page_table=table)
+        cur = cur + 1
+        lk, lt = runs["cuda"][0], runs["torch"][0]
+        err = (lk - lt).abs().max().item()
+        worst = max(worst, err)
+        check(err <= MODEL_TOL, f"paged step {step}: logits differ by {err}")
+        check(bool((greedy(lk) == dense_tokens[step + 1]).all()),
+              f"paged step {step}: greedy tokens differ from the dense run")
+    check(pa_ops.paged_decode_attention.launches - before
+          == cfg.n_layers * steps, "paged decode missed the kernel")
+    log(f"  paged: {steps} decode steps on a shuffled pool of {n_pages} pages "
+        f"of {ps}: max |logit diff| {worst:.3e} (tol {MODEL_TOL:g}), greedy "
+        f"tokens identical to the dense run")
+    del runs
+
+    # prefix: suffix prefill against the first 3 pages' K/V, through the
+    # prefix kernel, against a cold prefill of the whole prompt
+    Lp = 3 * ps
+    cold, _ = prefill(params, toks, cfg, max_len=S, impl="cuda")
+    _, pkv = prefill_kv(params, toks[:, :Lp], cfg, impl="cuda")
+    before = pfx_ops.prefix_flash_attention.launches
+    warm, _ = prefix_prefill(params, toks[:, Lp:], pkv, cfg, prefix_len=Lp,
+                             impl="cuda")
+    check(pfx_ops.prefix_flash_attention.launches - before == cfg.n_layers,
+          "prefix_prefill missed the prefix kernel")
+    err = (warm - cold).abs().max().item()
+    check(err <= MODEL_TOL, f"prefix_prefill: logits differ by {err}")
+    check(bool((greedy(warm) == greedy(cold)).all()),
+          "prefix_prefill: next token differs from the cold prefill")
+    log(f"  prefix: suffix {S - Lp} rows over a cached {Lp}: max |logit diff| "
+        f"{err:.3e} against a cold prefill (tol {MODEL_TOL:g}), next token "
+        f"identical")
+    del params
 
 
 # ---------------------------------------------------------------------------
@@ -323,6 +585,48 @@ def _serve(params, cfg, reqs):
     return batcher, batcher.run()
 
 
+def _gib(n_bytes: int) -> str:
+    return f"{n_bytes / 2**30:.3f} GiB"
+
+
+def _param_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_param_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_param_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size() if hasattr(tree, "numel") else 0
+
+
+def admission_memory(params, cfg, card: str, B: int = 8, S: int = 256,
+                     max_len: int = 322):
+    """Device memory of one dense admission prefill at the main path's
+    shape (``prefill`` of B prompts of S tokens into rings of ``max_len``):
+    the allocator's peak above the memory allocated at its start, and what
+    its result (logits and rings) holds afterwards."""
+    import torch
+
+    from repro_torch.models import prefill
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    toks = torch.randint(1, cfg.vocab, (B, S), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    out = prefill(params, toks, cfg, max_len=max_len)   # builds, warms up
+    del out
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = prefill(params, toks, cfg, max_len=max_len)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    del out
+    log(f"  one dense admission prefill (B={B}, S={S}, max_len={max_len}): "
+        f"peak {peak / 2**20:.1f} MiB above its start, result holds "
+        f"{held / 2**20:.1f} MiB [{card}]")
+    return peak, held
+
+
 def serve_main_path(card: str):
     import torch
 
@@ -333,15 +637,22 @@ def serve_main_path(card: str):
 
     cfg = get_config("qwen3-0.6b")
     params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  allocated after init_params: {_gib(torch.cuda.memory_allocated())} "
+        f"(params {_gib(_param_bytes(params))})")
     # warm-up: first-use costs (cuBLAS handles, lazily loaded GEMM kernels)
     # stay out of the measured run
     t0 = time.perf_counter()
     _serve(params, cfg, _requests(cfg, n=8, seed=1))
     torch.cuda.synchronize()
-    log(f"  warm-up run (8 other requests): {time.perf_counter() - t0:.3f} s")
+    log(f"  warm-up run (8 other requests): {time.perf_counter() - t0:.3f} s; "
+        f"allocated after it: {_gib(torch.cuda.memory_allocated())}")
+
+    admission_memory(params, cfg, card)
 
     reqs = _requests(cfg)
     torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     fa_ops.flash_attention.launches = 0
     da_ops.decode_attention.launches = 0
@@ -373,11 +684,124 @@ def serve_main_path(card: str):
         f"{stats.prefills} prefills, {stats.chunks} chunks, {stats.steps} "
         f"decode steps in {wall:.3f} s [{card}]")
     log(f"  tokens/s={stats.tokens / wall:.1f} dispatches_per_token="
-        f"{stats.dispatches_per_token:.4f} peak_memory="
-        f"{peak / 2**30:.3f} GiB [{card}]")
+        f"{stats.dispatches_per_token:.4f} peak_memory={_gib(peak)} "
+        f"({_gib(peak - base)} above the {_gib(base)} allocated at the start, "
+        f"params {_gib(_param_bytes(params))}) [{card}]")
     log(f"  launches: flash_attention={fa_n} (= {L} x {stats.prefills}), "
         f"decode_attention={da_n} (= {L} x {stats.steps})")
     return {"flash_attention": fa_n, "decode_attention": da_n}, (params, cfg)
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the paged main path (paged pool + shared-prefix admission)
+# ---------------------------------------------------------------------------
+
+
+PAGED_CONFIG = dict(slots=8, prompt_len=256, max_len=322, chunk=8, paged=True,
+                    page_size=16, n_pages=128, prefix_cache=True)
+
+
+def _paged_requests(cfg, n=16, seed=0, namespace="tenant0"):
+    """``n`` prompts of 256 tokens, one 192-token system prompt shared by
+    all and a 64-token random tail each; ``max_new`` 16-64."""
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(seed)
+    system = rng.integers(1, cfg.vocab, size=192).astype(np.int32)
+    reqs = []
+    for rid in range(n):
+        tail = rng.integers(1, cfg.vocab, size=64).astype(np.int32)
+        reqs.append(Request(rid=rid, prompt=np.concatenate([system, tail]),
+                            max_new=int(rng.integers(16, 65)),
+                            namespace=namespace))
+    return reqs
+
+
+def _paged_batcher(params, cfg, reqs):
+    from repro_torch.serving import ContinuousBatcher, ServingConfig
+
+    batcher = ContinuousBatcher(params, cfg, ServingConfig(**PAGED_CONFIG))
+    for r in reqs:
+        batcher.submit(r)
+    return batcher
+
+
+def serve_paged_path(card: str, params, cfg):
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.prefix_attention import ops as pfx_ops
+
+    t0 = time.perf_counter()
+    _paged_batcher(params, cfg, _paged_requests(cfg, n=8, seed=1,
+                                                namespace="warm-up")).run()
+    torch.cuda.synchronize()
+    log(f"  warm-up run (8 other requests): {time.perf_counter() - t0:.3f} s")
+
+    reqs = _paged_requests(cfg)
+    torch.cuda.synchronize()
+    # the reset precedes the batcher, whose page pool then counts in the
+    # peak above the start as phase 5's rings do
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    batcher = _paged_batcher(params, cfg, reqs)
+    torch.cuda.synchronize()
+    counters = (fa_ops.flash_attention, pfx_ops.prefix_flash_attention,
+                pa_ops.paged_decode_attention, da_ops.decode_attention)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    stats = batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fa_n, pfx_n, pa_n, da_n = (c.launches for c in counters)
+
+    for r in reqs:
+        check(r.done and not r.dropped, f"paged request {r.rid} did not complete")
+        check(len(r.out) == r.max_new, f"paged request {r.rid}: {len(r.out)} "
+              f"tokens, expected {r.max_new}")
+        check(all(0 <= t < cfg.vocab for t in r.out),
+              f"paged request {r.rid}: token outside the vocab")
+    L = cfg.n_layers
+    check(stats.prefills > 0 and stats.steps > 0, "nothing was served")
+    check(stats.prefix_hits > 0, "no admission hit the prefix cache")
+    check(pfx_n > 0, "no admission went through the prefix kernel")
+    check(fa_n + pfx_n == L * stats.prefills,
+          f"flash {fa_n} + prefix {pfx_n} launches != {L} x {stats.prefills} "
+          f"prefills")
+    check(pa_n == L * stats.steps,
+          f"paged_decode_attention launches {pa_n} != {L} x {stats.steps} steps")
+    check(da_n == 0, f"the dense decode kernel ran {da_n} times on the paged path")
+    # a cache eviction is a dispatch (a page push) with no host sync
+    check(stats.dispatches - batcher.page_pushes == stats.prefills + stats.chunks,
+          "dispatches != prefills + chunks + page pushes")
+    check(stats.host_syncs == stats.prefills + stats.chunks,
+          "host syncs != one per admission + one per chunk")
+    pool = batcher.kv_pool
+    pool.check()
+    free_top = int(batcher.pages.free_top)
+    check(free_top + pool.shared == batcher.n_pages,
+          f"free_top {free_top} + shared {pool.shared} != {batcher.n_pages} pages")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {stats.completed}/16 requests, {stats.tokens} tokens, "
+        f"{stats.prefills} prefills ({stats.prefix_hits} prefix hits, "
+        f"{stats.prefill_tokens_skipped} prompt tokens from shared pages), "
+        f"{stats.chunks} chunks, {stats.steps} decode steps, "
+        f"{batcher.page_pushes} page pushes in {wall:.3f} s [{card}]")
+    log(f"  tokens/s={stats.tokens / wall:.1f} dispatches_per_token="
+        f"{stats.dispatches_per_token:.4f} peak_memory={_gib(peak)} "
+        f"({_gib(peak - base)} above the {_gib(base)} allocated at the start) "
+        f"peak_pages_in_use={stats.peak_pages_in_use}/{batcher.n_pages} "
+        f"[{card}]")
+    log(f"  ledger: free_top {free_top} + shared {pool.shared} = "
+        f"{batcher.n_pages} pages; launches: flash_attention={fa_n} + "
+        f"prefix_flash_attention={pfx_n} (= {L} x {stats.prefills}), "
+        f"paged_decode_attention={pa_n} (= {L} x {stats.steps}), "
+        f"decode_attention={da_n}")
+    return {"flash_attention": fa_n, "prefix_flash_attention": pfx_n,
+            "paged_decode_attention": pa_n}
 
 
 # ---------------------------------------------------------------------------
@@ -385,19 +809,23 @@ def serve_main_path(card: str):
 # ---------------------------------------------------------------------------
 
 
+# paged_dec_kernel before dec_kernel: the first match names the class
 _KERNEL_CLASSES = (("flash_attention", ("fa_kernel",)),
+                   ("prefix_flash_attention", ("pfx_kernel",)),
+                   ("paged_decode_attention", ("paged_dec_kernel",)),
                    ("decode_attention", ("dec_kernel",)),
                    # cuBLASLt's Hopper GEMMs are named nvjet_*
                    ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas",
                                         "nvjet")))
 
 
-def _rounds(params, cfg, n_rounds: int) -> float:
-    """Wall time of the first ``n_rounds`` scheduling rounds of the main
-    path's request set (admission of 8, then chunks), ending in a sync."""
+def _rounds(make_batcher, n_rounds: int) -> float:
+    """Wall time of the first ``n_rounds`` scheduling rounds of a fresh
+    batcher from ``make_batcher()`` (admission, then chunks), ending in a
+    sync."""
     import torch
 
-    batcher = _batcher(params, cfg, _requests(cfg))
+    batcher = make_batcher()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_rounds):
@@ -406,57 +834,64 @@ def _rounds(params, cfg, n_rounds: int) -> float:
     return time.perf_counter() - t0
 
 
-def trace_main_path(card: str, params, cfg, n_rounds: int = 3):
-    """The first rounds of the main path, once untraced and once under
-    ``torch.profiler`` (device activity only): device busy time (union of
-    kernel intervals), the idle share against the untraced window's wall
-    time, and device time by kernel class."""
+def trace_main_paths(card: str, paths, n_rounds: int = 3):
+    """The first rounds of each main path in ``paths`` ((label,
+    make_batcher) pairs), first all untraced, then each under
+    ``torch.profiler`` (device activity only), so no untraced window runs
+    after a profiler session: device busy time (union of kernel
+    intervals), the idle share against the untraced window's wall time, and
+    device time by kernel class."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    clean = _rounds(params, cfg, n_rounds)
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        traced = _rounds(params, cfg, n_rounds)
-    spans, by_class, by_name = [], {}, {}
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+    clean = {label: _rounds(make, n_rounds) for label, make in paths}
+    for label, make in paths:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced = _rounds(make, n_rounds)
+        spans, by_class, by_name = [], {}, {}
+        for evt in prof.events():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            start, end = evt.time_range.start, evt.time_range.end
+            if end <= start:
+                continue
+            spans.append((start, end))
+            name = evt.name.lower()
+            cls = "other (elementwise, reductions, copies)"
+            for cls_name, keys in _KERNEL_CLASSES:
+                if any(k in name for k in keys):
+                    cls = cls_name
+                    break
+            by_class[cls] = by_class.get(cls, 0.0) + (end - start)
+            by_name[evt.name] = by_name.get(evt.name, 0.0) + (end - start)
+        log(f"  {label}: profiler post-processing "
+            f"{time.perf_counter() - t0 - traced:.1f} s")
+        if not spans:
+            log(f"  {label}: device time not measured: the profiler saw no "
+                f"CUDA kernels")
             continue
-        start, end = evt.time_range.start, evt.time_range.end
-        if end <= start:
-            continue
-        spans.append((start, end))
-        name = evt.name.lower()
-        cls = "other (elementwise, reductions, copies)"
-        for label, keys in _KERNEL_CLASSES:
-            if any(k in name for k in keys):
-                cls = label
-                break
-        by_class[cls] = by_class.get(cls, 0.0) + (end - start)
-        by_name[evt.name] = by_name.get(evt.name, 0.0) + (end - start)
-    log(f"  profiler post-processing {time.perf_counter() - t0 - traced:.1f} s")
-    if not spans:
-        log("  device time not measured: the profiler saw no CUDA kernels")
-        return
-    spans.sort()
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    busy_s = busy * 1e-6
-    log(f"  first {n_rounds} rounds: {len(spans)} device kernels, device busy "
-        f"{busy_s * 1e3:.1f} ms; wall {clean:.3f} s untraced ({traced:.3f} s "
-        f"traced) -> device idle share {1 - busy_s / clean:.3f} [{card}]")
-    total = sum(by_class.values())
-    for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
-        log(f"    {cls:<42} {us * 1e-3:9.2f} ms  {us / total:6.1%} of kernel time")
-    log("  top kernels by device time:")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"    {us * 1e-3:9.2f} ms  {us / total:6.1%}  {name[:90]}")
+        spans.sort()
+        busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+        for s, e in spans[1:]:
+            if s > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        busy += cur_e - cur_s
+        busy_s = busy * 1e-6
+        log(f"  {label}, first {n_rounds} rounds: {len(spans)} device kernels, "
+            f"device busy {busy_s * 1e3:.1f} ms; wall {clean[label]:.3f} s "
+            f"untraced ({traced:.3f} s traced) -> device idle share "
+            f"{1 - busy_s / clean[label]:.3f} [{card}]")
+        total = sum(by_class.values())
+        for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
+            log(f"    {cls:<42} {us * 1e-3:9.2f} ms  {us / total:6.1%} of "
+                f"kernel time")
+        log("  top kernels by device time:")
+        for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"    {us * 1e-3:9.2f} ms  {us / total:6.1%}  {name[:90]}")
 
 
 def main() -> int:
@@ -479,6 +914,14 @@ def main() -> int:
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; TF32 off for "
         f"matmul and cuDNN")
 
+    if "--memory" in sys.argv[1:]:
+        from repro_torch.configs import get_config
+        from repro_torch.models import init_params
+
+        cfg = get_config("qwen3-0.6b")
+        admission_memory(init_params(cfg, 0, device="cuda"), cfg, card)
+        return 0
+
     log("phase 2: build")
     from repro_torch.kernels import _build
 
@@ -493,7 +936,8 @@ def main() -> int:
     log("phase 3: kernels against their plain versions")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    rows = [check_flash(gen), check_decode(gen)]
+    rows = [check_flash(gen), check_decode(gen), check_paged_decode(gen),
+            check_prefix(gen)]
 
     log("phase 4: model (cuda kernels) against the plain path")
     check_model()
@@ -502,11 +946,21 @@ def main() -> int:
     log("phase 5: main path, qwen3-0.6b behind ContinuousBatcher")
     launches, (params, cfg) = serve_main_path(card)
 
+    log("phase 5b: paged main path, qwen3-0.6b behind a paged batcher with "
+        "the prefix cache")
+    paged_launches = serve_paged_path(card, params, cfg)
+
     log("phase 6: where the time goes")
-    trace_main_path(card, params, cfg)
+    trace_main_paths(card, [
+        ("dense path", lambda: _batcher(params, cfg, _requests(cfg))),
+        ("paged path", lambda: _paged_batcher(params, cfg,
+                                              _paged_requests(cfg)))])
 
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        # each kernel's launches on the path that runs it: flash on the
+        # dense path (it runs on both), the others on their own path
+        row["launches"] = (launches[row["name"]] if row["name"] in launches
+                           else paged_launches[row["name"]])
         log(f"  {row['name']}: {row['ms'] * 1e3:.1f} us kernel, "
             f"{row['plain_ms'] * 1e3:.1f} us plain, {row['library_ms'] * 1e3:.1f}"
             f" us library, bound {row['bound_ms'] * 1e3:.2f} us "

@@ -1,0 +1,219 @@
+// Device helpers shared by the attention kernels of this directory, and the
+// tiled online-softmax step of the two prefill-shaped kernels
+// (flash_attention.cu, prefix_flash_attention.cu), which differ only in
+// their masks and in which K/V operands their k-tile loops walk.
+//
+// Every function here is inline, so each kernel source still compiles on
+// its own; _build.py rebuilds the library when this header changes.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+
+namespace attn {
+
+constexpr float NEG_INF = -1e30f;   // masked scores, as on the TPU
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// reductions over the 32 lanes of a warp
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// reductions over the 16 lanes that share one ty (lanes 0-15 or 16-31)
+__device__ __forceinline__ float max16(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+__device__ __forceinline__ float sum16(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// The tiled online softmax of the prefill-shaped kernels.
+//
+// One block of TILE_NT threads, a 16 x 16 grid, owns BQ query rows of one
+// head.  Thread (ty, tx) owns the score entries (rows ty + 16 i, cols
+// tx + 16 j), i, j < 4, and the output entries (rows ty + 16 i, dims
+// tx + 16 j), j < DH / 16: its rows are the same in both products, so the
+// rescale stays in registers.  Row max and sum reduce over the 16 tx lanes.
+// Q, K, V and P tiles are staged in shared memory as f32; Q and K rows are
+// padded by one word so the column walks hit distinct banks.  Operands are
+// read in the model layout (B, S, H or Hkv, DH); rows >= Sq are loaded as 0
+// and never written, cols >= S are staged as 0 and left to the mask.
+// ---------------------------------------------------------------------------
+
+constexpr int BQ = 64;              // query rows per block
+constexpr int BK = 64;              // keys per k-tile
+constexpr int TILE_NT = 256;        // threads per block (16 x 16)
+
+template <int DH>
+constexpr size_t tile_smem_bytes() {
+  // Q (BQ x DH+1), K (BK x DH+1), V (BK x DH), P (BQ x BK+1)
+  return sizeof(float) * (size_t)(BQ * (DH + 1) + BK * (DH + 1) + BK * DH + BQ * (BK + 1));
+}
+
+// the block's shared-memory tiles, carved from the dynamic allocation
+template <int DH>
+struct Tiles {
+  float* Qs;
+  float* Ks;
+  float* Vs;
+  float* Ps;
+  __device__ __forceinline__ explicit Tiles(float* smem)
+      : Qs(smem), Ks(smem + BQ * (DH + 1)), Vs(Ks + BK * (DH + 1)), Ps(Vs + BK * DH) {}
+};
+
+// the online-softmax state of one thread's 4 rows
+template <int DH>
+struct RowState {
+  float m[4], l[4], acc[4][DH / 16];
+  __device__ __forceinline__ RowState() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      m[i] = NEG_INF;
+      l[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < DH / 16; ++j) acc[i][j] = 0.f;
+    }
+  }
+};
+
+// stage query rows [row0, row0 + BQ) of head h
+template <typename T, int DH>
+__device__ __forceinline__ void load_q_tile(
+    const T* __restrict__ q, int b, int Sq, int H, int h, int row0, float* Qs,
+    int tid) {
+  constexpr int LD = DH + 1;
+  for (int idx = tid; idx < BQ * DH; idx += TILE_NT) {
+    const int r = idx / DH, d = idx % DH, row = row0 + r;
+    Qs[r * LD + d] = row < Sq
+        ? to_f32(q[(((long long)b * Sq + row) * H + h) * DH + d]) : 0.f;
+  }
+}
+
+// stage k-tile [k_lo, k_lo + BK) of kv head hk of one (B, S, Hkv, DH) pair
+template <typename T, int DH>
+__device__ __forceinline__ void stage_kv(
+    const T* __restrict__ k, const T* __restrict__ v, int b, int S, int Hkv,
+    int hk, int k_lo, float* Ks, float* Vs, int tid) {
+  constexpr int LD = DH + 1;
+  for (int idx = tid; idx < BK * DH; idx += TILE_NT) {
+    const int r = idx / DH, d = idx % DH, col = k_lo + r;
+    float kv = 0.f, vv = 0.f;
+    if (col < S) {
+      const long long off = (((long long)b * S + col) * Hkv + hk) * DH + d;
+      kv = to_f32(k[off]);
+      vv = to_f32(v[off]);
+    }
+    Ks[r * LD + d] = kv;
+    Vs[r * DH + d] = vv;
+  }
+}
+
+// one staged k-tile through the online softmax: S = Q K^T / sqrt(DH), masked
+// to NEG_INF where attend(row, col) is false (row = q_lo + the tile row, col
+// = k_lo + the tile col), then P V into the state.  The caller brackets the
+// staging with __syncthreads(); the one between P and P V is here.
+template <int DH, typename Attend>
+__device__ __forceinline__ void online_tile(
+    const Tiles<DH>& t, int tx, int ty, int k_lo, int q_lo, float sm,
+    Attend attend, RowState<DH>& st) {
+  constexpr int LD = DH + 1;
+  constexpr int NJ = DH / 16;
+  constexpr int LP = BK + 1;
+  float s[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < DH; ++d) {
+    float qv[4], kv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) qv[i] = t.Qs[(ty + 16 * i) * LD + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) kv[j] = t.Ks[(tx + 16 * j) * LD + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q_lo + ty + 16 * i;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = k_lo + tx + 16 * j;
+      s[i][j] = attend(row, col) ? s[i][j] / sm : NEG_INF;
+      mx = fmaxf(mx, s[i][j]);
+    }
+    const float m_new = fmaxf(st.m[i], max16(mx));
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[i][j] = expf(s[i][j] - m_new);
+      sum += s[i][j];
+    }
+    const float scale = expf(st.m[i] - m_new);
+    st.l[i] = st.l[i] * scale + sum16(sum);
+    st.m[i] = m_new;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) st.acc[i][j] *= scale;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) t.Ps[(ty + 16 * i) * LP + tx + 16 * j] = s[i][j];
+  }
+  __syncthreads();
+
+#pragma unroll 4
+  for (int c = 0; c < BK; ++c) {
+    float p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = t.Ps[(ty + 16 * i) * LP + c];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float vv = t.Vs[c * DH + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st.acc[i][j] = fmaf(p[i], vv, st.acc[i][j]);
+    }
+  }
+}
+
+// write the normalised rows [row0, row0 + BQ) of head h that lie below Sq
+template <typename T, int DH>
+__device__ __forceinline__ void store_rows(
+    T* __restrict__ o, int b, int Sq, int H, int h, int row0, int tx, int ty,
+    const RowState<DH>& st) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + ty + 16 * i;
+    if (row >= Sq) continue;
+    const float denom = fmaxf(st.l[i], 1e-30f);
+    T* dst = o + (((long long)b * Sq + row) * H + h) * DH;
+#pragma unroll
+    for (int j = 0; j < DH / 16; ++j) dst[tx + 16 * j] = from_f32<T>(st.acc[i][j] / denom);
+  }
+}
+
+}  // namespace attn

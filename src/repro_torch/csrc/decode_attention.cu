@@ -25,36 +25,17 @@
 //   reach the bandwidth bound.  Splitting C across blocks with a second
 //   merge pass (flash-decoding) is the fix.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <math_constants.h>
 
+#include "attn_common.cuh"
+
 namespace {
+
+using namespace attn;
 
 constexpr int BC = 64;          // cache slots per tile
 constexpr int NT = 128;         // threads per block (4 warps)
 constexpr int MAX_GROUP = 16;   // q heads per kv head the kernel takes
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 template <int DH>
 size_t dec_smem_bytes(int group) {

@@ -7,6 +7,8 @@ through the ctypes library that :mod:`._build` compiles at first use, and
 ``ops.py`` is the model-layout wrapper that picks the route by the tensor's
 device and counts launches.
 
-Ported so far: ``flash_attention`` (prefill) and ``decode_attention``
-(dense ring-buffer decode).
+Ported so far: ``flash_attention`` (prefill), ``decode_attention`` (dense
+ring-buffer decode), ``paged_attention`` (decode over the paged pool,
+walking the page table in the kernel) and ``prefix_attention`` (suffix
+prefill against a cached prefix).
 """

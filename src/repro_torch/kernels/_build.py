@@ -2,11 +2,12 @@
 
 Every ``*.cu`` file under ``repro_torch/csrc`` is compiled by ``nvcc`` for
 ``sm_90a`` into an object file (one ``nvcc`` per source, all started
-together), and the objects are linked into one shared library with a plain
-C interface, ``build/kernels/librepro_torch_kernels.so`` at the root of the
-checkout.  The library is loaded with ``ctypes``.  Nothing here runs when a
-module is imported: :func:`load_library` builds at the first launch and
-reuses the library while the sources and flags stay the same (a stamp of
+together; the ``*.cuh`` headers there are included by relative path), and
+the objects are linked into one shared library with a plain C interface,
+``build/kernels/librepro_torch_kernels.so`` at the root of the checkout.
+The library is loaded with ``ctypes``.  Nothing here runs when a module is
+imported: :func:`load_library` builds at the first launch and reuses the
+library while the sources, headers and flags stay the same (a stamp of
 their hash sits beside it).
 """
 
@@ -37,6 +38,12 @@ SIGNATURES = {
     # q, k, v, pos, cur, out, B, C, H, Hkv, dh, has_window, window,
     # is_bf16, stream
     "repro_decode_attention": [_P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    # q, k_pool, v_pool, table, cur, out, B, H, Hkv, dh, n_pages,
+    # page_size, max_pages, is_bf16, stream
+    "repro_paged_decode_attention": [_P] * 6 + [_I] * 8 + [_P],
+    # q, pk, pv, k, v, out, B, Sq, Lp, Sk, H, Hkv, dh, q_offset, is_bf16,
+    # stream
+    "repro_prefix_flash_attention": [_P] * 6 + [_I] * 9 + [_P],
 }
 
 # what the last build printed (registers, shared memory, spills per kernel)
@@ -60,7 +67,7 @@ def _sources():
 
 def _stamp(sources) -> str:
     h = hashlib.sha256()
-    for src in sources:
+    for src in sources + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(ARCH_FLAGS + CFLAGS).encode())

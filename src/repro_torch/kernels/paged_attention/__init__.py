@@ -1,0 +1,6 @@
+from . import ops, ref
+from .kernel import paged_decode_attention_kernel
+from .ops import paged_decode_attention
+
+__all__ = ["ops", "paged_decode_attention", "paged_decode_attention_kernel",
+           "ref"]

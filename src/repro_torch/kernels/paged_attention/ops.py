@@ -1,0 +1,35 @@
+"""Public wrapper for paged decode attention in the reference's layout.
+
+``paged_decode_attention`` is what
+``models.attention.paged_decode_attention(impl="cuda")`` calls.  The route
+follows the tensor's device: a CPU tensor takes the plain version
+(:mod:`.ref`), a CUDA tensor launches the kernel or raises.  There is no
+fallback between the two.  ``paged_decode_attention.launches`` counts
+kernel launches.
+
+The reference's wrapper maps ``-1`` table entries to the trash page before
+its kernel (``repro/kernels/paged_attention/ops.py:38``).  Here the CUDA
+kernel does that mapping itself as it reads the table (any entry outside
+``[0, n_pages)`` loads the trash page and is masked), so the raw table goes
+in unchanged and no extra elementwise launch is made per layer.
+"""
+
+from __future__ import annotations
+
+from .kernel import paged_decode_attention_kernel
+from .ref import paged_decode_attention_ref
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_table, cur_pos):
+    """q: (B, H, dh); k_pool/v_pool: (n_pages + 1, page_size, Hkv, dh);
+    page_table: (B, max_pages) int32, -1 = unmapped; cur_pos: (B,) int32.
+    Returns (B, H, dh)."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_ref(q, k_pool, v_pool, page_table,
+                                          cur_pos)
+    out = paged_decode_attention_kernel(q, k_pool, v_pool, page_table, cur_pos)
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

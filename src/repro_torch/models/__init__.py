@@ -6,15 +6,18 @@ from .transformer import (
     LayerSpec,
     decode_step,
     init_caches,
+    init_paged_caches,
     init_params,
     logits_fn,
     n_blocks,
     period_len,
     period_structure,
     prefill,
+    prefix_prefill,
 )
 
 __all__ = [
-    "Caches", "LayerSpec", "decode_step", "init_caches", "init_params",
-    "logits_fn", "n_blocks", "period_len", "period_structure", "prefill",
+    "Caches", "LayerSpec", "decode_step", "init_caches", "init_paged_caches",
+    "init_params", "logits_fn", "n_blocks", "period_len", "period_structure",
+    "prefill", "prefix_prefill",
 ]

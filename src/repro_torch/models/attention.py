@@ -1,11 +1,15 @@
-"""Attention: GQA + qk_norm + RoPE + sliding window + dense KV-cache decode.
+"""Attention: GQA + qk_norm + RoPE + sliding window + dense and paged
+KV-cache decode + prefix-context prefill.
 
-Counterpart of the dense parts of ``repro.models.attention``.  Three compute
-paths, selected by ``impl``:
+Counterpart of ``repro.models.attention`` for the serving modes the port
+runs.  Three compute paths, selected by ``impl``:
 
 * ``"cuda"``  — the hand-written kernels: prefill through
-  ``repro_torch.kernels.flash_attention``, decode through
-  ``repro_torch.kernels.decode_attention``.  A CPU tensor takes each
+  ``repro_torch.kernels.flash_attention``, dense decode through
+  ``repro_torch.kernels.decode_attention``, paged decode through
+  ``repro_torch.kernels.paged_attention`` (the page table is walked in the
+  kernel) and suffix prefill against a cached prefix through
+  ``repro_torch.kernels.prefix_attention``.  A CPU tensor takes each
   kernel's plain version; a CUDA tensor launches the kernel.
 * ``"torch"`` — chunked online-softmax attention in plain PyTorch (a loop
   over KV blocks), the counterpart of the reference's ``"xla"`` oracle.
@@ -25,6 +29,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import resolve_device, torch_dtype
 from ..kernels.common import NEG_INF
 from .layers import apply_rope, init_dense, init_rmsnorm, rmsnorm
 
@@ -33,12 +38,15 @@ from .layers import apply_rope, init_dense, init_rmsnorm, rmsnorm
 # Capability table: which attn impl is legal for which execution mode
 # ---------------------------------------------------------------------------
 #
-# Only the modes the port runs so far are listed; the others (train, paged,
-# prefix, verify) arrive with the ROADMAP items that port them, and asking
-# for one raises as an unknown mode.
+# Only the modes the port runs so far are listed; the others (train,
+# verify) arrive with the ROADMAP items that port them, and asking for one
+# raises as an unknown mode.  The paged and prefix rows mirror the
+# reference's (``"torch"`` stands for its ``"xla"``).
 
 ATTN_CAPABILITIES = {
     "dense": ("cuda", "torch", "naive"),
+    "paged": ("cuda", "torch"),
+    "prefix": ("cuda", "torch", "naive"),
     "sliding_window": ("cuda", "torch", "naive"),
 }
 
@@ -189,12 +197,43 @@ def chunked_flash_attention(
 def self_attention(
     params, x, cfg, *, positions=None, causal: bool = True,
     impl: str = "cuda", q_offset: int = 0, block_k: int = 512,
+    prefix_kv=None,
 ):
     """Prefill self-attention.  Returns (out, (k, v)) so prefill can seed the
-    KV cache.  (The reference's ``prefix_kv`` argument arrives with the
-    prefix-sharing slice.)"""
+    KV cache.
+
+    ``prefix_kv=(pk, pv)`` prepends an already-computed K/V context of
+    length ``Lp`` (shared-prefix admission: the cached prompt pages): the
+    queries attend to ``[prefix; self]`` with the causal mask offset by
+    ``Lp``, which is exactly rows ``[Lp:]`` of the full-sequence causal
+    attention.  Callers pass ``positions`` already offset by ``Lp``; the
+    returned (k, v) cover only the fresh suffix.  ``impl="cuda"`` keeps the
+    two as separate operands of the prefix kernel; ``"torch"`` and
+    ``"naive"`` concatenate.  Requires a non-windowed arch."""
     q, k, v = _project_qkv(params, x, cfg, positions=positions)
-    if impl == "cuda":
+    if prefix_kv is not None:
+        if cfg.sliding_window:
+            raise ValueError("prefix_kv requires a non-sliding-window arch")
+        pk, pv = prefix_kv
+        Lp = pk.shape[1]
+        if impl == "cuda":
+            from ..kernels.prefix_attention import ops as pfx_ops
+
+            out = pfx_ops.prefix_flash_attention(
+                q, pk.to(k.dtype), pv.to(v.dtype), k, v, q_offset=q_offset)
+        elif impl in ("torch", "naive"):
+            k_att = torch.cat([pk.to(k.dtype), k], dim=1)
+            v_att = torch.cat([pv.to(v.dtype), v], dim=1)
+            if impl == "naive":
+                out = naive_attention(q, k_att, v_att, causal=causal,
+                                      q_offset=q_offset + Lp)
+            else:
+                out = chunked_flash_attention(q, k_att, v_att, causal=causal,
+                                              q_offset=q_offset + Lp,
+                                              block_k=block_k)
+        else:
+            raise ValueError(f"unknown attn impl {impl!r}")
+    elif impl == "cuda":
         from ..kernels.flash_attention import ops as fa_ops
 
         out = fa_ops.flash_attention(
@@ -286,15 +325,141 @@ def _decode_attn_torch(q, k, v, pos, cur_pos, cfg):
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, *, dtype=None,
-                  device="cpu") -> KVCacheView:
+                  device="cuda") -> KVCacheView:
     """Cache for ONE attention layer.  Ring-buffer length = min(max_len,
     window) for sliding-window archs — the O(window) decode-memory property."""
-    from ..device import torch_dtype
-
     C = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     dt = torch_dtype(dtype or cfg.dtype)
+    device = resolve_device(device)
     return KVCacheView(
         k=torch.zeros((batch, C, cfg.n_kv_heads, cfg.d_head), dtype=dt, device=device),
         v=torch.zeros((batch, C, cfg.n_kv_heads, cfg.d_head), dtype=dt, device=device),
         pos=torch.full((batch, C), -1, dtype=torch.int32, device=device),
     )
+
+
+# ---------------------------------------------------------------------------
+# Paged decode path (block-granular KV virtualization)
+# ---------------------------------------------------------------------------
+
+
+class PagedKVView(NamedTuple):
+    """One layer's cache as a shared pool of fixed-size pages.
+
+    k, v: (n_pages + 1, page_size, Hkv, dh) — one extra *trash* page at
+    index ``n_pages`` that absorbs writes from slots with no mapping
+    (inactive, page-fault denied).  Which pool page holds which slot's
+    tokens lives outside the view, in the per-slot **page table**
+    (B, max_pages) int32 where entry j maps the slot's logical page j
+    (absolute positions [j*page_size, (j+1)*page_size)) to a physical page
+    id, -1 = unmapped.
+
+    Paged placement is position-indexed — logical page j, offset o *is*
+    absolute position j*page_size + o — so a gathered key is valid iff its
+    page is mapped and its position is <= cur_pos; no ``pos`` array exists.
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @property
+    def n_pages(self) -> int:
+        return self.k.shape[-4] - 1
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[-3]
+
+
+def init_paged_kv_cache(cfg, n_pages: int, page_size: int, *, dtype=None,
+                        device="cuda") -> PagedKVView:
+    """Page pool for ONE attention layer (+1 trash page).  Paging assumes a
+    full-length cache, i.e. no sliding-window ring (the ring would recycle
+    *within* a slot; pages recycle *across* slots)."""
+    if cfg.sliding_window:
+        raise ValueError("paged KV does not support sliding-window archs")
+    dt = torch_dtype(dtype or cfg.dtype)
+    device = resolve_device(device)
+    shape = (n_pages + 1, page_size, cfg.n_kv_heads, cfg.d_head)
+    return PagedKVView(k=torch.zeros(shape, dtype=dt, device=device),
+                       v=torch.zeros(shape, dtype=dt, device=device))
+
+
+def paged_write_target(page_table, cur_pos, page_size: int, n_pages: int):
+    """(physical page, offset) that position ``cur_pos`` writes in each slot:
+    ``page_table[b, cur_pos // page_size]``, or the trash page ``n_pages``
+    when that entry is unmapped or lies past the table.  JAX's gather
+    fills an out-of-range index (a slot stopped at ``cur_pos == max_len``
+    with ``max_len % page_size == 0``) and the fill lands on the trash
+    page; torch would raise, so the index is clamped and masked here."""
+    maxp = page_table.shape[1]
+    logical = (cur_pos // page_size).long()
+    inside = logical < maxp
+    pid = torch.gather(page_table, 1,
+                       logical.clamp(max=maxp - 1)[:, None])[:, 0]
+    mapped = inside & (pid >= 0) & (pid < n_pages)
+    dest = torch.where(mapped, pid, n_pages).long()
+    return dest, (cur_pos % page_size).long()
+
+
+def paged_decode_attention(params, x, cache: PagedKVView, cur_pos, page_table,
+                           cfg, write_target, *, impl: str = "cuda"):
+    """Single-token decode against a paged pool.
+
+    x: (B, 1, D); cur_pos: (B,) int32 absolute position of the new token;
+    page_table: (B, max_pages) int32 physical page per logical page.
+
+    The new token's K/V is written **in place** at (page_table[b, cur_pos //
+    ps], cur_pos % ps) — the trash page when unmapped — before attention
+    reads the pool, as in the reference.  ``write_target`` is that
+    (page, offset) pair from :func:`paged_write_target`, computed once per
+    step by the caller: it is the same for every layer.  ``impl="cuda"``
+    walks the page table inside the kernel; ``"torch"`` gathers the slot's pages into a
+    (B, max_pages*ps, Hkv, dh) view first (the reference's XLA oracle).
+    Returns (out (B, 1, D), the same cache view).
+    """
+    B = x.shape[0]
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions=cur_pos[:, None])
+    P = cache.n_pages
+    ps = cache.page_size
+    k_new = k_new.to(cache.k.dtype)
+    v_new = v_new.to(cache.v.dtype)
+    cur_pos = cur_pos.to(torch.int32)
+    dest, off = write_target
+    cache.k.index_put_((dest, off), k_new[:, 0])
+    cache.v.index_put_((dest, off), v_new[:, 0])
+
+    if impl == "cuda":
+        from ..kernels.paged_attention import ops as pa_ops
+
+        out = pa_ops.paged_decode_attention(
+            q[:, 0], cache.k, cache.v, page_table, cur_pos)[:, None]
+    elif impl == "torch":
+        mapped = (page_table >= 0) & (page_table < P)
+        gather = torch.where(mapped, page_table, P).long()   # (B, maxp)
+        maxp = page_table.shape[1]
+        L = maxp * ps
+        kg = cache.k[gather].reshape(B, L, cfg.n_kv_heads, cfg.d_head)
+        vg = cache.v[gather].reshape(B, L, cfg.n_kv_heads, cfg.d_head)
+        pos_l = torch.arange(L, device=x.device)             # flat == absolute
+        valid = mapped[:, pos_l // ps] & (pos_l[None, :] <= cur_pos[:, None])
+        out = _paged_attn_torch(q, kg, vg, valid, cfg)
+    else:
+        raise ValueError(f"unknown attn impl {impl!r} for paged decode")
+    y = out.reshape(B, 1, cfg.q_dim) @ params["wo"]
+    return y, cache
+
+
+def _paged_attn_torch(q, k, v, valid, cfg):
+    """Counterpart of the reference's ``_paged_attn_xla``.  q: (B,1,H,dh);
+    k/v: (B,L,Hkv,dh); valid: (B,L).  The masked-softmax math of
+    :func:`_decode_attn_torch`, validity precomputed from the page table."""
+    B, _, H, dh = q.shape
+    Hkv = k.shape[2]
+    group = H // Hkv
+    qg = (q.reshape(B, Hkv, group, dh).float() / math.sqrt(dh)).to(q.dtype)
+    s = torch.einsum("bgid,bkgd->bgik", qg.float(), k.float())
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bgik,bkgd->bgid", w.to(v.dtype).float(), v.float())
+    return out.reshape(B, 1, H, dh).to(q.dtype)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import torch_dtype
+from ..device import resolve_device, torch_dtype
 
 
 # ---------------------------------------------------------------------------
@@ -46,8 +46,9 @@ def embed(params, tokens):
     return params["w"][tokens.long()]
 
 
-def init_rmsnorm(d: int, dtype="bfloat16", *, device="cpu"):
-    return {"scale": torch.ones((d,), dtype=torch_dtype(dtype), device=device)}
+def init_rmsnorm(d: int, dtype="bfloat16", *, device="cuda"):
+    return {"scale": torch.ones((d,), dtype=torch_dtype(dtype),
+                                device=resolve_device(device))}
 
 
 def rmsnorm(params, x, *, eps: float = 1e-6):

@@ -9,8 +9,9 @@ mapping.  Where the reference runs the stacked blocks under ``lax.scan``,
 the port loops over them in Python, indexing block ``b`` of every stacked
 tensor (a view, no copy).
 
-Decode caches are the stacked :class:`KVCacheView` per period position;
-:func:`decode_step` updates them **in place** (the reference returns new
+Decode caches are the stacked :class:`KVCacheView` per period position, or
+the stacked :class:`PagedKVView` page pool (:func:`init_paged_caches`);
+:func:`decode_step` updates either **in place** (the reference returns new
 caches and relies on buffer donation).
 
 Other families (MoE, SSM, hybrid, VLM, audio) raise ``NotImplementedError``
@@ -26,7 +27,7 @@ import torch
 
 from ..device import resolve_device
 from . import attention as attn_mod
-from .attention import KVCacheView
+from .attention import KVCacheView, PagedKVView
 from .layers import embed, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm
 
 _OTHER_FAMILIES = (
@@ -126,11 +127,12 @@ def init_params(cfg, seed: int = 0, *, device="cuda") -> Dict[str, Any]:
 
 
 def _apply_layer_train(lp, spec: LayerSpec, x, cfg, *, positions, impl,
-                       causal: bool = True):
+                       causal: bool = True, prefix_kv=None):
     """One layer, full-sequence (prefill shape).  Returns (x, (k, v))."""
     h = rmsnorm(lp["ln1"], x, eps=cfg.norm_eps)
     y, kv = attn_mod.self_attention(lp["attn"], h, cfg, positions=positions,
-                                    causal=causal, impl=impl)
+                                    causal=causal, impl=impl,
+                                    prefix_kv=prefix_kv)
     x = x + y
     h2 = rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
     x = x + mlp(lp["mlp"], h2, kind=cfg.mlp_kind)
@@ -138,12 +140,18 @@ def _apply_layer_train(lp, spec: LayerSpec, x, cfg, *, positions, impl,
 
 
 def _apply_layer_decode(lp, spec: LayerSpec, x, cfg, *, cur_pos, kv_cache,
-                        impl):
+                        impl, page_table, write_target):
     """One layer, single-token decode.  Returns (x, kv_cache) with the cache
-    views updated in place."""
+    views updated in place; with ``page_table`` the cache is a page pool
+    and ``write_target`` the step's (page, offset) of the new token."""
     h = rmsnorm(lp["ln1"], x, eps=cfg.norm_eps)
-    y, kv_cache = attn_mod.decode_attention(lp["attn"], h, kv_cache, cur_pos,
-                                            cfg, impl=impl)
+    if page_table is not None:
+        y, kv_cache = attn_mod.paged_decode_attention(
+            lp["attn"], h, kv_cache, cur_pos, page_table, cfg, write_target,
+            impl=impl)
+    else:
+        y, kv_cache = attn_mod.decode_attention(lp["attn"], h, kv_cache,
+                                                cur_pos, cfg, impl=impl)
     x = x + y
     h2 = rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
     x = x + mlp(lp["mlp"], h2, kind=cfg.mlp_kind)
@@ -171,7 +179,7 @@ def logits_fn(params, hidden, cfg):
 class Caches(NamedTuple):
     """Decode-time state, aligned with the period structure.
 
-    kv:    {str(p): KVCacheView stacked over blocks}   (attn positions)
+    kv:    {str(p): KVCacheView or PagedKVView stacked over blocks}
     ssm:   {} until the SSM family is ported
     cross: None until the audio family is ported
     """
@@ -181,7 +189,8 @@ class Caches(NamedTuple):
     cross: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
 
 
-def init_caches(cfg, batch: int, max_len: int, *, device="cpu") -> Caches:
+def init_caches(cfg, batch: int, max_len: int, *, device="cuda") -> Caches:
+    device = resolve_device(device)
     specs = period_structure(cfg)
     nb = n_blocks(cfg)
     kv = {}
@@ -192,19 +201,36 @@ def init_caches(cfg, batch: int, max_len: int, *, device="cpu") -> Caches:
     return Caches(kv=kv, ssm={})
 
 
-def _block_cache(view: KVCacheView, b: int) -> KVCacheView:
-    return KVCacheView(k=view.k[b], v=view.v[b], pos=view.pos[b])
+def init_paged_caches(cfg, batch: int, n_pages: int, page_size: int, *,
+                      device="cuda") -> Caches:
+    """Decode caches with the attention layers backed by one shared page
+    pool (:class:`~repro_torch.models.attention.PagedKVView`, stacked over
+    blocks) instead of per-slot dense buffers.  The per-slot page *table*
+    lives with the slot bookkeeping (``serving.engine.PageState``), not in
+    the cache tree; ``batch`` is kept for the reference's signature."""
+    device = resolve_device(device)
+    specs = period_structure(cfg)
+    nb = n_blocks(cfg)
+    kv = {}
+    for p, _ in enumerate(specs):
+        one = attn_mod.init_paged_kv_cache(cfg, n_pages, page_size,
+                                           device=device)
+        kv[str(p)] = PagedKVView(
+            *(t[None].expand((nb,) + t.shape).clone() for t in one))
+    return Caches(kv=kv, ssm={})
 
 
-def prefill(params, tokens, cfg, *, max_len: int, positions=None,
-            impl: str = "cuda"):
-    """Run the full prompt, returning (last-token logits, seeded Caches).
+def _block_cache(view, b: int):
+    """Block ``b`` of a stacked cache view (views, no copies)."""
+    return type(view)(*(t[b] for t in view))
 
-    The KV buffers are sized ``min(max_len, window)``; prompt K/V are
-    scattered in ring-buffer order (see serving.kv_cache.seed_kv_cache).
-    """
-    from ..serving.kv_cache import seed_kv_cache
 
+def prefill_kv(params, tokens, cfg, *, positions=None, impl: str = "cuda"):
+    """Run the full prompt, returning (last-token logits, {str(p): (k, v)})
+    with k/v (nb, B, S, Hkv, dh) in absolute-position order — what
+    :func:`prefill` seeds a ring cache from, and what paged admission packs
+    into pool pages directly (the reference seeds a prompt-sized dense
+    cache and reads it back, an identity placement)."""
     specs = period_structure(cfg)
     x = embed(params["embed"], tokens)
     B, S, _ = x.shape
@@ -219,33 +245,97 @@ def prefill(params, tokens, cfg, *, max_len: int, positions=None,
             ys[str(p)].append(kv)
     x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
     logits = logits_fn(params, x[:, -1:, :], cfg)[:, 0]
-    kv = {}
-    for p in ys:
-        k = torch.stack([k for k, _ in ys[p]])
-        v = torch.stack([v for _, v in ys[p]])
-        kv[p] = seed_kv_cache(cfg, k, v, max_len=max_len, seq_positions=positions)
+    return logits, {p: (torch.stack([k for k, _ in ys[p]]),
+                        torch.stack([v for _, v in ys[p]])) for p in ys}
+
+
+def prefill(params, tokens, cfg, *, max_len: int, positions=None,
+            impl: str = "cuda"):
+    """Run the full prompt, returning (last-token logits, seeded Caches).
+
+    The KV buffers are sized ``min(max_len, window)``; prompt K/V are
+    scattered in ring-buffer order (see serving.kv_cache.seed_kv_cache).
+    """
+    from ..serving.kv_cache import seed_kv_cache
+
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)[None, :]
+    logits, ys = prefill_kv(params, tokens, cfg, positions=positions,
+                            impl=impl)
+    kv = {p: seed_kv_cache(cfg, k, v, max_len=max_len, seq_positions=positions)
+          for p, (k, v) in ys.items()}
     return logits, Caches(kv=kv, ssm={})
 
 
+def prefix_prefill(params, tokens, prefix_kv, cfg, *, prefix_len: int,
+                   impl: str = "cuda"):
+    """Suffix prefill against a cached prompt prefix (shared-prefix
+    admission): run only the uncached tail of the prompt, attending to the
+    per-layer prefix K/V gathered from the paged pool.
+
+    tokens:     (B, S_suffix) int32 — the prompt tail, absolute positions
+                ``prefix_len + [0, S_suffix)``.
+    prefix_kv:  {str(p): (k, v)} with k/v (nb, B, prefix_len, Hkv, dh).
+
+    Returns (last-token logits (B, Vp), {str(p): (k, v)}) where the output
+    K/V (nb, B, S_suffix, Hkv, dh) cover only the suffix, in
+    absolute-position order.  Causal attention makes the suffix rows
+    independent of whether the prefix was recomputed or read back, so this
+    reproduces the cold :func:`prefill`'s suffix (exactly when the cache
+    dtype is the compute dtype).
+    """
+    specs = period_structure(cfg)
+    x = embed(params["embed"], tokens)
+    B, S, _ = x.shape
+    positions = prefix_len + torch.arange(S, dtype=torch.int32,
+                                          device=x.device)[None, :]
+    ys: Dict[str, List] = {str(p): [] for p in range(len(specs))}
+    for b in range(n_blocks(cfg)):
+        for p, spec in enumerate(specs):
+            pk, pv = prefix_kv[str(p)]
+            x, kv = _apply_layer_train(
+                _index(params["blocks"][p], b), spec, x, cfg,
+                positions=positions, impl=impl, prefix_kv=(pk[b], pv[b]))
+            ys[str(p)].append(kv)
+    x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
+    logits = logits_fn(params, x[:, -1:, :], cfg)[:, 0]
+    out = {p: (torch.stack([k for k, _ in ys[p]]),
+               torch.stack([v for _, v in ys[p]])) for p in ys}
+    return logits, out
+
+
 def decode_step(params, tokens, caches: Caches, cur_pos, cfg, *,
-                impl: str = "cuda"):
+                impl: str = "cuda", page_table=None):
     """One decode step.  tokens: (B,) int32; cur_pos: (B,) int32 absolute
     position.  Returns (logits (B, Vp), caches) — the same Caches object,
-    its KV tensors updated in place."""
+    its KV tensors updated in place.
+
+    With ``page_table`` (B, max_pages) the attention caches are page pools
+    (:func:`init_paged_caches`); the table is read-only here — page
+    allocation happens in the caller (the chunk loop or admission)."""
     specs = period_structure(cfg)
     x = embed(params["embed"], tokens)[:, None, :]     # (B, 1, d)
+    target = None
+    if page_table is not None:
+        # every layer writes the same (page, offset): compute it once
+        pool = next(iter(caches.kv.values())).k          # (nb, P+1, ps, ...)
+        target = attn_mod.paged_write_target(
+            page_table, cur_pos.to(torch.int32), pool.shape[2],
+            pool.shape[1] - 1)
     for b in range(n_blocks(cfg)):
         for p, spec in enumerate(specs):
             x, _ = _apply_layer_decode(
                 _index(params["blocks"][p], b), spec, x, cfg, cur_pos=cur_pos,
-                kv_cache=_block_cache(caches.kv[str(p)], b), impl=impl)
+                kv_cache=_block_cache(caches.kv[str(p)], b), impl=impl,
+                page_table=page_table, write_target=target)
     x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
     logits = logits_fn(params, x, cfg)[:, 0]
     return logits, caches
 
 
 __all__ = [
-    "Caches", "LayerSpec", "decode_step", "init_caches", "init_params",
-    "logits_fn", "n_blocks", "period_len", "period_structure", "prefill",
-    "unembed_weight",
+    "Caches", "LayerSpec", "decode_step", "init_caches", "init_paged_caches",
+    "init_params", "logits_fn", "n_blocks", "period_len", "period_structure",
+    "prefill", "prefill_kv", "prefix_prefill", "unembed_weight",
 ]

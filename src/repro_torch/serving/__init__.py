@@ -1,25 +1,49 @@
-"""Serving on dense KV caches: engine steps, continuous batcher, config."""
+"""Serving on dense KV caches and on the paged pool with shared-prefix
+admission: engine steps, continuous batcher, config, page ledger and
+prefix cache."""
 
 from .batcher import BatcherStats, ContinuousBatcher, Request
 from .config import ServingConfig, config_from_legacy_kwargs
 from .engine import (
+    PageState,
     ServeConfig,
     SlotState,
     chunk_bucket,
     generate,
+    init_page_state,
     init_slot_state,
     make_admit_step,
+    make_cached_admit_step,
     make_decode_chunk,
+    make_page_push,
+    make_paged_admit_step,
+    make_paged_decode_chunk,
     make_prefill_step,
     select_token,
 )
-from .kv_cache import cache_len, kv_cache_bytes, seed_kv_cache, tree_bytes
+from .kv_cache import (
+    PagedKVPool,
+    PageQuotaError,
+    cache_len,
+    kv_cache_bytes,
+    page_bytes,
+    paged_kv_cache_bytes,
+    pages_for,
+    seed_kv_cache,
+    tree_bytes,
+)
+from .prefix_cache import PrefixCache, PrefixNode
 
 __all__ = [
     "BatcherStats", "ContinuousBatcher", "Request",
     "ServingConfig", "config_from_legacy_kwargs",
-    "ServeConfig", "SlotState", "chunk_bucket", "generate",
-    "init_slot_state", "make_admit_step", "make_decode_chunk",
-    "make_prefill_step", "select_token",
-    "cache_len", "kv_cache_bytes", "seed_kv_cache", "tree_bytes",
+    "PageState", "ServeConfig", "SlotState", "chunk_bucket", "generate",
+    "init_page_state", "init_slot_state", "make_admit_step",
+    "make_cached_admit_step", "make_decode_chunk", "make_page_push",
+    "make_paged_admit_step", "make_paged_decode_chunk", "make_prefill_step",
+    "select_token",
+    "PagedKVPool", "PageQuotaError", "cache_len", "kv_cache_bytes",
+    "page_bytes", "paged_kv_cache_bytes", "pages_for", "seed_kv_cache",
+    "tree_bytes",
+    "PrefixCache", "PrefixNode",
 ]

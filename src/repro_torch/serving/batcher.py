@@ -1,6 +1,8 @@
-"""Continuous batching over fixed decode slots on dense KV caches.
+"""Continuous batching over fixed decode slots, on dense KV caches or on the
+paged pool with shared-prefix admission.
 
-Counterpart of the dense mode of ``repro.serving.batcher``.  The batcher
+Counterpart of the dense, paged and prefix modes of
+``repro.serving.batcher``.  The batcher
 multiplexes a dynamic request stream onto B fixed slots:
 
 * new requests are prefilled **right-sized** (the joining rows only,
@@ -14,10 +16,13 @@ multiplexes a dynamic request stream onto B fixed slots:
 * the caches and slot state are updated in place by both steps;
 * slots free on EOS/max-tokens and are immediately refillable.
 
-A "dispatch" is one call of the admission or chunk step, and a "host sync"
-one blocking device-to-host fetch: ``(toks, emitted, poisoned)`` come back
-packed in one tensor with one ``.cpu()`` per chunk, and the first tokens
-with one ``.cpu()`` per admission — the same counts the reference keeps.
+A "dispatch" is one call of the admission or chunk step (or of the page
+push that returns evicted prefix-cache pages), and a "host sync" one
+blocking device-to-host fetch: ``(toks, emitted, poisoned)`` — plus, paged,
+``active``, ``free_top`` and the device counters — come back packed in one
+tensor with one ``.cpu()`` per chunk, and the first tokens (paged: with the
+written table rows) with one ``.cpu()`` per admission — the same counts the
+reference keeps.
 
 Invariants:
 
@@ -56,24 +61,31 @@ import torch
 
 from ..device import resolve_device
 from ..models.attention import check_attn_impl
-from ..models.transformer import Caches, init_caches
+from ..models.transformer import (
+    Caches, init_caches, init_paged_caches, period_structure,
+)
 from ..obs import MetricsRegistry, Telemetry
 from .config import ServingConfig, config_from_legacy_kwargs
 from .engine import (
+    PageState,
     ServeConfig,
     SlotState,
     chunk_bucket,
+    init_page_state,
     init_slot_state,
     make_admit_step,
+    make_cached_admit_step,
     make_decode_chunk,
+    make_page_push,
+    make_paged_admit_step,
+    make_paged_decode_chunk,
 )
-from .kv_cache import tree_bytes
+from .kv_cache import PagedKVPool, pages_for, tree_bytes
+from .prefix_cache import PrefixCache, PrefixNode
 
 # ServingConfig modes this slice does not run yet, with the ROADMAP item
 # (ROADMAP.md, Queue 1) that ports each
 _UNPORTED = (
-    ("paged", lambda c: c.paged, "item 7 (paged pool)"),
-    ("prefix_cache", lambda c: bool(c.prefix_cache), "item 9 (prefix sharing)"),
     ("speculative", lambda c: c.speculative,
      "item 10 (speculative decode and overlap)"),
     ("overlap", lambda c: c.overlap, "item 10 (speculative decode and overlap)"),
@@ -87,11 +99,13 @@ _UNPORTED = (
 class Request:
     """One generation request.
 
-    ``namespace`` keys the shared-prefix cache of the reference (not ported
-    yet; carried so requests mean the same in both packages).  ``deadline``
-    (same clock as the batcher's ``clock`` callable) lets the batcher shed
-    the request instead of starting it hopelessly late — ``dropped`` marks
-    that outcome (``done`` is set too, with no output).
+    ``namespace`` keys the shared-prefix cache: requests share cached prompt
+    pages only within a namespace, and the default ``None`` never shares.
+    Prompts are left-padded to the batcher's ``prompt_len`` bucket, so only
+    prompts of equal *total* length align positions and can share a prefix.
+    ``deadline`` (same clock as the batcher's ``clock`` callable) lets the
+    batcher shed the request instead of starting it hopelessly late —
+    ``dropped`` marks that outcome (``done`` is set too, with no output).
     """
 
     rid: int
@@ -103,8 +117,13 @@ class Request:
     namespace: Optional[str] = None
     deadline: Optional[float] = None
     dropped: bool = False
-    # set when the request was requeued mid-flight and re-admitted
+    # set when the request was requeued mid-flight and re-admitted: its row
+    # is left-padded differently than the original prompt, which shifts page
+    # alignment for the prefix cache
     resumed: bool = False
+    # prefix-cache nodes this request currently pins (internal)
+    _prefix_nodes: List[PrefixNode] = dataclasses.field(
+        default_factory=list, repr=False)
 
 
 # Every BatcherStats counter, in declaration order.  Each name is a view
@@ -245,7 +264,8 @@ class BatcherStats:
 
 
 class ContinuousBatcher:
-    """Fixed-slot continuous batcher for one tenant's model, dense mode.
+    """Fixed-slot continuous batcher for one tenant's model: dense rings, or
+    the paged pool with optional shared-prefix admission.
 
     Construct with a validated :class:`~repro_torch.serving.config.ServingConfig`::
 
@@ -288,16 +308,55 @@ class ContinuousBatcher:
         self.chunk = max(1, config.chunk)
         self.scfg = ServeConfig(max_len=config.max_len,
                                 attn_impl=config.attn_impl, chunk=self.chunk)
+        # structural and capability rules were checked by ServingConfig; the
+        # model-dependent rules live here, where cfg is known
         if cfg.sliding_window:
             check_attn_impl(config.attn_impl, "sliding_window")
+        prefix_cache = config.prefix_cache
+        if prefix_cache and (
+                any(s.mixer != "attn" for s in period_structure(cfg))
+                or cfg.family in ("audio", "vlm") or cfg.sliding_window):
+            raise ValueError(
+                "prefix caching requires a pure-attention, non-sliding-window "
+                "arch (SSM state is not positional; audio/vlm prompts shift "
+                "positions)")
+        self.paged = bool(config.paged)
         self._clock = clock if clock is not None else time.monotonic
         self._has_deadlines = False
         self.queue: Deque[Request] = deque()
         self.slot_req: List[Optional[Request]] = [None] * slots
         self.state: SlotState = init_slot_state(slots, device=self.device)
-        self.caches: Caches = init_caches(cfg, slots, config.max_len,
-                                          device=self.device)
-        self._admit_fn = make_admit_step(cfg, self.scfg)
+        self.prefix: Optional[PrefixCache] = None
+        if isinstance(prefix_cache, PrefixCache):
+            if prefix_cache.page_size != config.page_size:
+                raise ValueError("the prefix cache's page_size differs from "
+                                 "the batcher's")
+            self.prefix = prefix_cache
+        elif prefix_cache:
+            self.prefix = PrefixCache(config.page_size)
+        self.pages: Optional[PageState] = None
+        if self.paged:
+            self.page_size = max(1, config.page_size)
+            self.max_pages = pages_for(config.max_len, self.page_size)
+            # default pool == dense capacity; a smaller n_pages
+            # over-subscribes
+            self.n_pages = config.n_pages if config.n_pages is not None \
+                else slots * self.max_pages
+            self.reserve_pages = config.reserve_pages
+            self._page_limit = min(config.page_quota, self.n_pages) \
+                if config.page_quota is not None else self.n_pages
+            self.kv_pool = PagedKVPool(self.n_pages, self.page_size)
+            self.caches: Caches = init_paged_caches(
+                cfg, slots, self.n_pages, self.page_size, device=self.device)
+            self.pages = init_page_state(slots, self.n_pages, self.max_pages,
+                                         quota=self._page_limit,
+                                         device=self.device)
+            self._admit_fn = make_paged_admit_step(cfg, self.scfg)
+            self._push_fn = make_page_push()
+        else:
+            self.caches = init_caches(cfg, slots, config.max_len,
+                                      device=self.device)
+            self._admit_fn = make_admit_step(cfg, self.scfg)
         self.telemetry = telemetry if telemetry is not None else Telemetry()
         self._tracer = self.telemetry.tracer
         self._track = self.telemetry.track
@@ -306,6 +365,14 @@ class ContinuousBatcher:
                                   cache_bytes=tree_bytes(self.caches))
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(0)
+        self._stalled = 0           # consecutive zero-emission paged chunks
+        self._admitted_pages_since_sync = 0
+        # page pushes (cache evictions): dispatches with no host sync
+        self.page_pushes = 0
+        # over-subscription throttle: after a denied page fault, cap
+        # residency at the survivors so restarted requests stop thrashing
+        # the ones still making progress; recover one slot per clean round
+        self._resident_cap = slots
 
     # -- request intake ------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -313,6 +380,10 @@ class ContinuousBatcher:
             raise ValueError(
                 f"prompt of {req.prompt.shape[0]} tokens exceeds "
                 f"prompt_len={self.prompt_len}")
+        if self.paged and self._request_pages(req) > self.n_pages:
+            raise ValueError(
+                f"request {req.rid} needs {self._request_pages(req)} pages, "
+                f"more than the whole pool of {self.n_pages}")
         if req.deadline is not None:
             self._has_deadlines = True
         self.queue.append(req)
@@ -335,6 +406,85 @@ class ContinuousBatcher:
                 kept.append(req)
         self.queue = kept
 
+    # -- paged-mode ledger ----------------------------------------------
+    def _request_pages(self, req: Request) -> int:
+        """Ledger reservation for one request: its worst-case footprint
+        (bucketed prompt + full decode budget) when reserving, prompt pages
+        only when running over-subscribed."""
+        toks = self.prompt_len + (req.max_new if self.reserve_pages else 0)
+        return pages_for(toks, self.page_size)
+
+    def set_page_limit(self, n_pages: int) -> None:
+        """Adjust the tenant's ``kv_pages`` lease cap mid-run.  Takes effect
+        on the next dispatch; shrinking below the current allocation only
+        blocks further growth — resident pages drain as their slots
+        complete.  With a prefix cache, a shrink **evicts unpinned cache
+        entries first**, so the cache pays for the smaller lease before live
+        requests start faulting against it."""
+        if not self.paged:
+            raise ValueError("page limits only apply to paged batchers")
+        self._page_limit = max(0, min(int(n_pages), self.n_pages))
+        self.pages = self.pages._replace(quota=torch.tensor(
+            self._page_limit, dtype=torch.int32, device=self.device))
+        if self.prefix is not None:
+            est = self.stats.pages_in_use + self._admitted_pages_since_sync
+            if est > self._page_limit:
+                self._evict_cached(est - self._page_limit)
+
+    def _evict_cached(self, n: int) -> int:
+        """Reclaim up to ``n`` pages from the prefix cache (LRU, refcount-0
+        only): drop them from the shared ledger and push them back onto the
+        device free stack.  Returns how many pages came back."""
+        if self.prefix is None or n <= 0:
+            return 0
+        pids = self.prefix.evict(n)
+        if not pids:
+            return 0
+        self.kv_pool.drop_shared(pids)
+        self.stats.prefix_evictions += len(pids)
+        self.stats.shared_pages = self.kv_pool.shared
+        # back onto the device free stack: one dispatch, no sync; the id
+        # vector is padded to a power-of-two width with -1 (no-ops)
+        width = 1 << (len(pids) - 1).bit_length() if len(pids) > 1 else 1
+        vec = np.full((width,), -1, dtype=np.int32)
+        vec[: len(pids)] = pids
+        self.pages = self._push_fn(self.pages,
+                                   torch.from_numpy(vec).to(self.device))
+        self.stats.dispatches += 1
+        self.page_pushes += 1
+        self.stats.pages_in_use = max(0, self.stats.pages_in_use - len(pids))
+        return len(pids)
+
+    def _page_shortfall(self, need: int, pop_need: Optional[int] = None,
+                        ) -> int:
+        """Pages missing before ``need`` can be admitted: the worst deficit
+        over the lease bound, the ledger bound, and (without reservations)
+        the device free-stack estimate for ``pop_need`` (the pages the
+        admission will actually pop; defaults to ``need``).  0 means the
+        admission fits.  Every evicted cache page relieves all three bounds
+        at once, so this is how many pages an eviction pass must reclaim."""
+        if pop_need is None:
+            pop_need = need
+        short = max(0, self.kv_pool.used + need - self._page_limit)
+        short = max(short, need - self.kv_pool.available)
+        if not self.reserve_pages:
+            # the ledger reserved prompt pages only; residents' decode pages
+            # live on the device.  Bound admission by the device allocation
+            # seen at the last sync (plus prompts admitted since), keeping
+            # one page of headroom whenever someone is resident so at least
+            # one slot can take its decode-time fault and progress.
+            device_avail = (self.n_pages - self.stats.pages_in_use
+                            - self._admitted_pages_since_sync)
+            short = max(
+                short,
+                pop_need + int(any(r is not None for r in self.slot_req))
+                - device_avail)
+        return short
+
+    def _pages_available(self, need: int, pop_need: Optional[int] = None,
+                         ) -> bool:
+        return self._page_shortfall(need, pop_need) == 0
+
     # -- fault guard: requeue -------------------------------------------
     def _requeue_slot(self, slot: int, req: Request) -> bool:
         """Retire ``slot``'s request to the queue head.  Generated tokens
@@ -344,6 +494,10 @@ class ContinuousBatcher:
         emissions stay out of ``stats.tokens``.  Returns True when the
         tokens were kept."""
         self.slot_req[slot] = None
+        if self.paged:
+            if self.prefix is not None:
+                self._release_prefix(req)
+            self.kv_pool.free(req.rid)
         kept = bool(req.out) and \
             len(req.prompt) + len(req.out) <= self.prompt_len
         if kept:
@@ -358,21 +512,144 @@ class ContinuousBatcher:
     # -- admission: right-sized prefill + per-slot scatter ---------------
     def _padded_row(self, req: Request) -> np.ndarray:
         """The request's prompt-bucket row: prompt (plus any tokens kept by
-        a requeue) left-padded with 0s to ``prompt_len``."""
+        a requeue) left-padded with 0s to ``prompt_len``.  Memoised per
+        (request, emitted-token count): the witness scan asks for every
+        queued request's row each admission round."""
+        cached = getattr(req, "_row_cache", None)
+        if cached is not None and cached[0] == len(req.out):
+            return cached[1]
         row = np.zeros((self.prompt_len,), dtype=np.int32)
         toks = np.asarray(req.prompt, dtype=np.int32)
         if req.out:
             toks = np.concatenate(
                 [toks, np.asarray(req.out, dtype=np.int32)])
         row[self.prompt_len - len(toks):] = toks
+        req._row_cache = (len(req.out), row)
         return row
+
+    def _release_prefix(self, req: Request) -> None:
+        """Unpin the request's cached-prefix pages (tree refcounts + ledger
+        refcounts).  Refcount-0 pages stay cached until an eviction."""
+        if req._prefix_nodes:
+            self.prefix.release(req._prefix_nodes)
+            self.kv_pool.release([n.page_id for n in req._prefix_nodes])
+            req._prefix_nodes = []
+
+    def _queue_path_counts(self) -> Dict[Any, int]:
+        """How many pending requests carry each page-aligned prefix path —
+        the round's sharing witness for the insert heuristic.  Bounded to
+        the queue's first 16·B entries so a deep backlog doesn't make
+        admission O(queue²)."""
+        counts: Dict[Any, int] = {}
+        if self.prefix is None:
+            return counts
+        ps = self.page_size
+        max_share = self.prefix.max_shareable(self.prompt_len)
+        for n_seen, r in enumerate(self.queue):
+            if n_seen >= 16 * self.B:
+                break
+            if r.namespace is None:
+                continue
+            row = self._padded_row(r)
+            for i in range(max_share):
+                key = (r.namespace, i, row[:(i + 1) * ps].tobytes())
+                counts[key] = counts.get(key, 0) + 1
+        return counts
+
+    def _plan_join(self, req: Request, planned_paths: set,
+                   witness: Dict[Any, int]):
+        """Prefix-cache plan for one joining request: the cached page path
+        (hits), and how many of the following full pages this admission
+        will insert.  Inserts are contiguous from the hit depth, capped at
+        the deepest prefix with **recurrence evidence** — shared by another
+        pending request (queue witness) or seen in an earlier lookup (ghost
+        index) — and skip paths another join of this round already claimed
+        (its physical ids are unknown until that dispatch's sync)."""
+        if self.prefix is None or req.namespace is None:
+            return [], 0
+        row = self._padded_row(req)
+        max_share = self.prefix.max_shareable(self.prompt_len)
+        nodes = self.prefix.lookup(req.namespace, row, max_pages=max_share)
+        if req.resumed and not nodes:
+            # a resumed row (prompt + kept tokens) is left-padded otherwise
+            # than the original prompt and cannot hit the original's pages
+            self.stats.resume_prefix_misses += 1
+        seen_depth = self.prefix.note_seen(req.namespace, row,
+                                           max_pages=max_share)
+        ps = self.page_size
+        queue_depth = 0
+        for i in range(max_share):
+            key = (req.namespace, i, row[:(i + 1) * ps].tobytes())
+            if witness.get(key, 0) < 2:     # this request counts once
+                break
+            queue_depth = i + 1
+        worth = max(seen_depth, queue_depth, len(nodes))
+        inserts = 0
+        for i in range(len(nodes), min(max_share, worth)):
+            path = (req.namespace, tuple(int(t) for t in row[:(i + 1) * ps]))
+            if path in planned_paths:
+                break
+            planned_paths.add(path)
+            inserts += 1
+        return nodes, inserts
 
     def _admit(self) -> None:
         self._shed_expired()
         free = self._free_slots()
         if not free or not self.queue:
             return
-        self._admit_dense(free)
+        if not self.paged:
+            self._admit_dense(free)
+            return
+        joins: List[Dict[str, Any]] = []
+        planned_paths: set = set()
+        witness = self._queue_path_counts()
+        resident = sum(r is not None for r in self.slot_req)
+        prompt_pages = pages_for(self.prompt_len, self.page_size)
+        while free and self.queue:
+            if resident + len(joins) >= self._resident_cap:
+                break
+            req = self.queue[0]
+            nodes, inserts = self._plan_join(req, planned_paths, witness)
+            k = len(nodes)
+            if nodes:
+                # pin the hit path now: the pressure eviction below must
+                # never reclaim pages this join is about to map
+                self.prefix.acquire(nodes)
+                self.kv_pool.acquire([n.page_id for n in nodes])
+                req._prefix_nodes = list(nodes)
+            # admission by page availability, head of line: the queue head
+            # joins only when its reservation (minus cache-served pages)
+            # fits the pool and the lease; under pressure LRU cache entries
+            # are evicted back to the free stack before giving up
+            need = self._request_pages(req) - k
+            pop = prompt_pages - k
+            short = self._page_shortfall(need, pop)
+            if short:
+                self._evict_cached(short)
+                if not self._pages_available(need, pop):
+                    if nodes:
+                        self._release_prefix(req)
+                    break
+            self.kv_pool.alloc(req.rid, need)
+            if nodes:
+                self.stats.prefix_hits += 1
+                self.stats.prefill_tokens_skipped += k * self.page_size
+            self._admitted_pages_since_sync += pop
+            joins.append({"slot": free.pop(0), "req": self.queue.popleft(),
+                          "k": k, "pin": k + inserts, "pop": pop,
+                          "nodes": nodes})
+        if not joins:
+            return
+        # one dispatch per cached-prefix depth: the suffix length differs
+        by_depth: Dict[int, List[Dict[str, Any]]] = {}
+        for join in joins:
+            by_depth.setdefault(join["k"], []).append(join)
+        pending = [self._dispatch_paged(by_depth[k], k)
+                   for k in sorted(by_depth)]
+        self.stats.shared_pages = self.kv_pool.shared
+        for rec in pending:
+            self._finish_admit(rec)
 
     def _admit_dense(self, free: List[int]) -> None:
         """Dense-ring admission: one bucketed prefill, per-slot scatter."""
@@ -412,14 +689,83 @@ class ContinuousBatcher:
         self.stats.admit_scatter_bytes += int(
             self.stats.cache_bytes * nb / max(self.B, 1)
         )
-        self._finish_admit(joins, nxt)
+        self._finish_admit({"kind": "dense", "joins": joins, "fetch": nxt})
 
-    def _finish_admit(self, joins: List[Dict[str, Any]], nxt) -> None:
+    def _dispatch_paged(self, group: List[Dict[str, Any]],
+                        k: int) -> Dict[str, Any]:
+        """One paged admission dispatch for joins sharing ``k`` cached prefix
+        pages: the cold step at k == 0, the cached-suffix step otherwise.
+        Both return the written table rows, from which the planned inserts
+        learn their physical ids.  Returns the pending record for
+        :meth:`_finish_admit` (no host sync here)."""
+        n = len(group)
+        nb = min(1 << (n - 1).bit_length() if n > 1 else 1, self.B)
+        ps = self.page_size
+        S = self.prompt_len - k * ps
+        toks = np.zeros((nb, S), dtype=np.int32)
+        slots = np.zeros((nb,), dtype=np.int32)
+        budget = np.zeros((nb,), dtype=np.int32)
+        eos = np.full((nb,), -1, dtype=np.int32)
+        pin = np.zeros((nb,), dtype=np.int32)
+        pids = np.zeros((nb, max(k, 1)), dtype=np.int32)
+        rows = [self._padded_row(join["req"]) for join in group]
+        for j, join in enumerate(group):
+            req = join["req"]
+            toks[j] = rows[j][k * ps:]
+            slots[j] = join["slot"]
+            budget[j] = req.max_new - len(req.out)
+            if req.eos is not None:
+                eos[j] = req.eos
+            pin[j] = join["pin"]
+            if k:
+                pids[j] = [node.page_id for node in join["nodes"]]
+        for j in range(n, nb):        # duplicate-pad with row 0 (see above)
+            toks[j] = toks[0]
+            slots[j] = slots[0]
+            budget[j] = budget[0]
+            eos[j] = eos[0]
+            pin[j] = pin[0]
+            pids[j] = pids[0]
+        pos0 = np.full((nb,), self.prompt_len, dtype=np.int32)
+        real = np.zeros((nb,), dtype=bool)
+        real[:n] = True
+        dev = self.device
+
+        def t(a):
+            return torch.from_numpy(a).to(dev)
+
+        args = (self.params, {"tokens": t(toks)}, self.caches, self.state,
+                self.pages, t(slots), t(pos0), t(budget), t(eos), t(real))
+        if k:
+            fn = make_cached_admit_step(self.cfg, self.scfg, k)
+            nxt, self.caches, self.state, self.pages, out_rows = fn(
+                *args, t(pids), t(pin))
+        else:
+            nxt, self.caches, self.state, self.pages, out_rows = \
+                self._admit_fn(*args, t(pin))
+        self.stats.prefills += 1
+        self.stats.dispatches += 1
+        self.stats.admit_scatter_bytes += int(
+            self.stats.cache_bytes * nb * S
+            / max(self.B * self.prompt_len, 1)
+        )
+        # first tokens and written rows come back packed: one fetch
+        fetch = torch.cat([nxt[:, None], out_rows], dim=1)
+        return {"kind": "paged", "joins": group, "k": k, "fetch": fetch,
+                "rows": rows}
+
+    def _finish_admit(self, rec: Dict[str, Any]) -> None:
         """Post-dispatch half of one admission: read the first tokens (one
-        host sync), append them, complete done-at-admission requests."""
-        nxt_np = nxt.cpu().numpy()
+        host sync per record), append them, complete done-at-admission
+        requests, and run the planned prefix inserts."""
+        k = rec.get("k", 0)
+        fetched = rec["fetch"].cpu().numpy()            # ONE host sync
+        if rec["kind"] == "paged":
+            nxt_np, rows_np = fetched[:, 0], fetched[:, 1:]
+        else:
+            nxt_np, rows_np = fetched, None
         self.stats.host_syncs += 1
-        for j, join in enumerate(joins):
+        for j, join in enumerate(rec["joins"]):
             slot, req = join["slot"], join["req"]
             tok = int(nxt_np[j])
             req.out.append(tok)
@@ -428,8 +774,32 @@ class ContinuousBatcher:
             if len(req.out) >= req.max_new or hit_eos:
                 req.done = True
                 self.stats.completed += 1
+                if rec["kind"] == "paged":
+                    if self.prefix is not None:
+                        self._release_prefix(req)
+                    self.kv_pool.free(req.rid)
+                    # done at admission: the device popped no prompt pages
+                    # for it, so take it back out of the since-sync estimate
+                    self._admitted_pages_since_sync -= join["pop"]
                 continue
             self.slot_req[slot] = req
+            inserts = join.get("pin", 0) - k
+            if inserts > 0:
+                new_pids = rows_np[j, k:join["pin"]]
+                if (new_pids >= 0).all():
+                    created = self.prefix.insert(
+                        req.namespace, rec["rows"][j], new_pids,
+                        start_page=k)
+                    if len(created) != inserts:
+                        raise RuntimeError(
+                            f"prefix insert created {len(created)} pages, "
+                            f"{inserts} planned")
+                    cpids = [node.page_id for node in created]
+                    self.kv_pool.share(req.rid, req.namespace, cpids)
+                    self.kv_pool.acquire(cpids)
+                    self.prefix.acquire(created)
+                    req._prefix_nodes.extend(created)
+                    self.stats.prefix_inserts += len(created)
         self.stats.peak_resident = max(
             self.stats.peak_resident,
             sum(r is not None for r in self.slot_req))
@@ -449,13 +819,26 @@ class ContinuousBatcher:
         pending record for :meth:`_finish_chunk`."""
         T = self._pick_chunk(active)
         t0 = self._clock()
-        chunk = make_decode_chunk(self.cfg, self.scfg, T)
-        self.caches, self.state, toks, emitted, poisoned = chunk(
-            self.params, self.caches, self.state, self._gen)
+        if self.paged:
+            chunk = make_paged_decode_chunk(self.cfg, self.scfg, T,
+                                            self.page_size)
+            (self.caches, self.state, self.pages, toks, emitted, poisoned,
+             ctr) = chunk(self.params, self.caches, self.state, self.pages,
+                          self._gen)
+            # one packed int32 vector so the chunk costs one fetch: tokens,
+            # emitted, poisoned, then active, free_top and the counters
+            fetch = torch.cat([
+                toks.reshape(-1), emitted.to(torch.int32).reshape(-1),
+                poisoned.to(torch.int32), self.state.active.to(torch.int32),
+                self.pages.free_top.reshape(1), ctr])
+        else:
+            chunk = make_decode_chunk(self.cfg, self.scfg, T)
+            self.caches, self.state, toks, emitted, poisoned = chunk(
+                self.params, self.caches, self.state, self._gen)
+            fetch = torch.cat([toks.reshape(-1),
+                               emitted.to(torch.int32).reshape(-1),
+                               poisoned.to(torch.int32)])
         self.stats.steps += T
-        # one packed (2T+1, B) tensor so the chunk costs one fetch
-        fetch = torch.cat([toks, emitted.to(torch.int32),
-                           poisoned[None].to(torch.int32)])
         self.stats.chunks += 1
         self.stats.dispatches += 1
         if self._tracer.enabled:
@@ -466,8 +849,9 @@ class ContinuousBatcher:
 
     def _finish_chunk(self, pending: Dict[str, Any]) -> None:
         """Sync one dispatched chunk and run the host bookkeeping: token
-        emission, completion, poison requeues."""
+        emission, completion, poison and OOM requeues, page accounting."""
         T, active = pending["T"], pending["active"]
+        B = self.B
         t_sync0 = self._clock() if self._tracer.enabled else 0.0
         fetched = pending["fetch"].cpu().numpy()          # ONE host sync
         elapsed = self._clock() - pending["t0"]
@@ -477,9 +861,11 @@ class ContinuousBatcher:
                                   t_end - t_sync0)
             self._tracer.complete("chunk", self._track, pending["t0"],
                                   elapsed, {"T": T, "slots": len(active)})
-        toks_np, emit_np, poison_np = fetched[:T], fetched[T:2 * T], fetched[2 * T]
+        toks_np = fetched[:T * B].reshape(T, B)
+        emit_np = fetched[T * B:2 * T * B].reshape(T, B)
+        poison_np = fetched[2 * T * B:2 * T * B + B]
         self.stats.host_syncs += 1
-        self.stats.slot_total_steps += self.B * T
+        self.stats.slot_total_steps += B * T
         self.stats.slot_busy_steps += int(emit_np.sum())
         for i in active:
             req = self.slot_req[i]
@@ -490,7 +876,8 @@ class ContinuousBatcher:
                 self.stats.decode_tokens += 1
             self._maybe_complete(i, req)
         # non-finite sentinel: the device deactivated the flagged slots
-        # before selecting or emitting a token; requeue the victims
+        # before selecting or emitting a token (and, paged, recycled their
+        # pages in the same step); requeue the victims
         for i in active:
             req = self.slot_req[i]
             if req is not None and bool(poison_np[i]):
@@ -498,6 +885,37 @@ class ContinuousBatcher:
                 self._tracer.instant("poisoned_slot", self._track,
                                      args={"slot": i})
                 self._requeue_slot(i, req)
+        if self.paged:
+            rest = fetched[2 * T * B + B:]
+            active_np, free_top, ctr_np = rest[:B], int(rest[B]), rest[B + 1:]
+            self.stats.device_pages_popped += int(ctr_np[0])
+            self.stats.device_pages_pushed += int(ctr_np[1])
+            self.stats.fault_denied_slots += int(ctr_np[2])
+            self.stats.device_draft_accepted += int(ctr_np[3])
+            self._stalled = self._stalled + 1 \
+                if int(emit_np.sum()) == 0 else 0
+            # a slot that deactivated without finishing was denied a page:
+            # requeue its request at the head, keeping its tokens when
+            # prompt + output still fit the prompt bucket
+            oomed = 0
+            for i in active:
+                req = self.slot_req[i]
+                if req is not None and not bool(active_np[i]):
+                    self._tracer.instant("oom_requeue", self._track,
+                                         args={"slot": i})
+                    if self._requeue_slot(i, req):
+                        self.stats.oom_resumed += 1
+                    self.stats.oom_requeues += 1
+                    oomed += 1
+            if oomed:
+                self._resident_cap = max(
+                    1, sum(r is not None for r in self.slot_req))
+            elif self._resident_cap < self.B:
+                self._resident_cap += 1
+            self.stats.pages_in_use = self.n_pages - free_top
+            self.stats.peak_pages_in_use = max(
+                self.stats.peak_pages_in_use, self.stats.pages_in_use)
+            self._admitted_pages_since_sync = 0
 
     def _maybe_complete(self, slot: int, req: Request) -> None:
         """Retire ``slot`` if its request just hit EOS or its budget."""
@@ -506,6 +924,10 @@ class ContinuousBatcher:
             req.done = True
             self.slot_req[slot] = None
             self.stats.completed += 1
+            if self.paged:
+                if self.prefix is not None:
+                    self._release_prefix(req)
+                self.kv_pool.free(req.rid)
 
     # -- one scheduling round ---------------------------------------------
     def step(self) -> None:
@@ -527,6 +949,9 @@ class ContinuousBatcher:
             if self.stats.dispatches == before and \
                     not any(r is not None for r in self.slot_req):
                 break   # starved: queued work cannot be admitted
+            if self._stalled >= 8:
+                break   # page-fault livelock: the pool cannot fit even one
+                        # request's footprint at the current quota
         return self.stats
 
 

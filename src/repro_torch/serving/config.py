@@ -6,11 +6,11 @@ cross-field rules, checked at construction against the port's
 attention impls are ``"cuda"`` (the kernels, the default), ``"torch"`` (the
 counterpart of ``"xla"``) and ``"naive"``.
 
-The modes that are not ported yet (paged pool, prefix cache, speculative
-decode, overlap, tensor parallelism, watchdog, audit) keep their fields and
-value rules here, so a config means the same in both packages;
-``ContinuousBatcher`` raises ``NotImplementedError`` for them at
-construction, naming the ROADMAP item that ports each.
+The modes that are not ported yet (speculative decode, overlap, tensor
+parallelism, watchdog, audit) keep their fields and value rules here, so a
+config means the same in both packages; ``ContinuousBatcher`` raises
+``NotImplementedError`` for them at construction, naming the ROADMAP item
+that ports each.  The paged pool and the prefix cache run.
 
 The legacy kwargs constructor is kept as a thin deprecation shim::
 
@@ -39,10 +39,11 @@ class ServingConfig:
       attn_impl    — "cuda" | "torch" | "naive" (capability-checked per mode)
       chunk        — max decode steps fused per dispatch
 
-    The remaining fields mirror the reference's paged pool, fault guards,
-    speculative decode, overlap and tensor-parallel options (see
-    ``repro.serving.config``); their value rules are checked here, their
-    modes are not ported yet.
+    Paged pool (``paged``, ``page_size``, ``n_pages``, ``page_quota``,
+    ``reserve_pages``) and shared-prefix cache (``prefix_cache``) as in
+    ``repro.serving.config``.  The remaining fields mirror the reference's
+    fault guards, speculative decode, overlap and tensor-parallel options;
+    their value rules are checked here, their modes are not ported yet.
     """
 
     slots: int
@@ -89,6 +90,7 @@ class ServingConfig:
                 f"{self.attn_impl!r} kernels are single-device)")
         check_attn_impl(self.attn_impl, "dense")
         if self.paged:
+            check_attn_impl(self.attn_impl, "paged")
             if self.page_size < 1:
                 raise ValueError(
                     f"page_size must be >= 1, got {self.page_size}")
@@ -99,6 +101,7 @@ class ServingConfig:
             if not self.paged:
                 raise ValueError("the prefix cache rides on the paged pool; "
                                  "pass paged=True")
+            check_attn_impl(self.attn_impl, "prefix")
         if self.speculative:
             if self.draft_window < 2:
                 raise ValueError(

@@ -91,6 +91,77 @@ def test_decode_attention_kernel_matches_ref(gen, dtype, B, C, H, Hkv, dh,
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
 
 
+def _page_table(rng, B, maxp, P, cur, ps, holes):
+    """Shuffled distinct pages for logical pages 0..cur // ps of each slot,
+    later pages unmapped; ``holes`` unmaps earlier ones at random."""
+    perm = rng.permutation(P)
+    table = np.full((B, maxp), -1, np.int32)
+    for b in range(B):
+        last = int(cur[b]) // ps
+        table[b, :last + 1] = perm[b * maxp:b * maxp + last + 1]
+        table[b, :last][rng.random(last) < holes] = -1
+    return table
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,dh,ps,maxp,P,lo,hi,holes", [
+    (8, 16, 8, 128, 16, 21, 168, 256, 322, 0.0),
+    (4, 16, 1, 64, 16, 21, 96, 0, 330, 0.2),
+    (3, 8, 2, 128, 8, 6, 30, 0, 48, 0.3),
+    (3, 4, 2, 32, 4, 8, 24, 0, 32, 0.2),
+])
+def test_paged_decode_attention_kernel_matches_ref(gen, dtype, B, H, Hkv, dh,
+                                                   ps, maxp, P, lo, hi, holes):
+    """Shuffled tables with holes over a pool whose trash page is poisoned
+    to 1e4; the last slot has no mapped page at all (finite output)."""
+    from repro_torch.kernels.paged_attention import ops, ref
+
+    rng = np.random.default_rng(1)
+    cur = rng.integers(lo, hi, size=B).astype(np.int32)
+    table = _page_table(rng, B, maxp, P, cur, ps, holes)
+    table[-1] = -1
+    q = _rand(gen, (B, H, dh), dtype)
+    kp = _rand(gen, (P + 1, ps, Hkv, dh), dtype)
+    vp = _rand(gen, (P + 1, ps, Hkv, dh), dtype)
+    kp[P] = 1e4
+    vp[P] = 1e4
+    tab, cur_t = torch.from_numpy(table).cuda(), torch.from_numpy(cur).cuda()
+    before = ops.paged_decode_attention.launches
+    got = ops.paged_decode_attention(q, kp, vp, tab, cur_t)
+    want = ref.paged_decode_attention_ref(q, kp, vp, tab, cur_t)
+    torch.cuda.synchronize()
+    assert ops.paged_decode_attention.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    # relative above magnitude 1: the unmapped slot averages the trash page
+    err = ((got.float() - want.float()).abs()
+           / want.float().abs().clamp(min=1.0)).max().item()
+    assert err <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Lp,Sk,H,Hkv,dh,q_offset", [
+    (8, 64, 192, 64, 16, 8, 128, 0),
+    (3, 45, 77, 45, 16, 8, 128, 0),
+    (2, 40, 100, 70, 16, 8, 128, 30),
+    (2, 96, 64, 96, 8, 1, 64, 0),
+    (2, 50, 0, 50, 4, 2, 32, 0),
+])
+def test_prefix_flash_attention_kernel_matches_ref(gen, dtype, B, Sq, Lp, Sk,
+                                                   H, Hkv, dh, q_offset):
+    from repro_torch.kernels.prefix_attention import ops, ref
+
+    q = _rand(gen, (B, Sq, H, dh), dtype)
+    pk, pv = (_rand(gen, (B, Lp, Hkv, dh), dtype) for _ in range(2))
+    k, v = (_rand(gen, (B, Sk, Hkv, dh), dtype) for _ in range(2))
+    before = ops.prefix_flash_attention.launches
+    got = ops.prefix_flash_attention(q, pk, pv, k, v, q_offset=q_offset)
+    want = ref.prefix_flash_attention_ref(q, pk, pv, k, v, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert ops.prefix_flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
 def test_kernel_wrapper_rejects_bad_inputs(gen):
     from repro_torch.kernels.flash_attention import ops
 
@@ -130,4 +201,41 @@ def test_batcher_on_the_card_matches_the_plain_path(gen, window):
             b.submit(r)
         b.run()
         outs[impl] = [r.out for r in reqs]
+    assert outs["cuda"] == outs["torch"]
+
+
+def test_paged_prefix_batcher_on_the_card_matches_the_plain_path(gen):
+    """Reduced qwen3-0.6b at f32 on the card: a paged batcher with the
+    prefix cache through the kernels (paged decode, prefix and flash) gives
+    the plain path's tokens, and its admissions hit the cache."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.prefix_attention import ops as pfx_ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousBatcher, Request, ServingConfig
+
+    cfg = dataclasses.replace(get_reduced("qwen3-0.6b"), dtype="float32")
+    params = init_params(cfg, 0)
+    rng = np.random.default_rng(3)
+    head = rng.integers(1, cfg.vocab, size=20).astype(np.int32)
+    prompts = [np.concatenate([head, rng.integers(1, cfg.vocab, size=4)
+                               .astype(np.int32)]) for _ in range(8)]
+    outs = {}
+    for impl in ("cuda", "torch"):
+        before = (pa_ops.paged_decode_attention.launches,
+                  pfx_ops.prefix_flash_attention.launches)
+        b = ContinuousBatcher(params, cfg, ServingConfig(
+            slots=4, prompt_len=24, max_len=48, chunk=4, paged=True,
+            page_size=4, n_pages=40, prefix_cache=True, attn_impl=impl))
+        reqs = [Request(rid=i, prompt=p, max_new=6 + i % 3, namespace="s")
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            b.submit(r)
+        b.run()
+        outs[impl] = [r.out for r in reqs]
+        assert all(r.done for r in reqs) and b.stats.prefix_hits > 0
+        b.kv_pool.check()
+        ran = (pa_ops.paged_decode_attention.launches - before[0],
+               pfx_ops.prefix_flash_attention.launches - before[1])
+        assert (ran[0] > 0 and ran[1] > 0) == (impl == "cuda")
     assert outs["cuda"] == outs["torch"]

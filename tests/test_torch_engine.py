@@ -123,8 +123,8 @@ def test_admit_scatters_in_place_with_duplicate_rows(models):
     _, params = models
     _, cfg = _configs()
     scfg = ServeConfig(max_len=16)
-    caches = init_caches(cfg, 4, 16)
-    state = init_slot_state(4)
+    caches = init_caches(cfg, 4, 16, device="cpu")
+    state = init_slot_state(4, device="cpu")
     k_before = caches.kv["0"].k
     rng = np.random.default_rng(0)
     rows = torch.from_numpy(rng.integers(1, cfg.vocab, size=(4, 6)).astype(np.int32))

@@ -2,9 +2,12 @@
 JAX package's Pallas kernels in interpret mode and its plain references.
 
 Inputs are made with numpy from a seed and handed to both packages, at f32.
-Tolerance 1e-5 abs/rel: the math is the same, only the summation order
-differs.  The CUDA kernels themselves run only on a GPU
-(``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
+Tolerance 1e-5 abs/rel for the dense kernels: the math is the same, only
+the summation order differs.  The paged and prefix cases use the reference
+tests' 2e-4 (``tests/test_kernels.py``): the Pallas kernels there run their
+online softmax in interpret mode, block by block.  The CUDA kernels
+themselves run only on a GPU (``tests/test_torch_cuda.py`` and
+``chip_smoke.py``).
 """
 
 import re
@@ -19,13 +22,24 @@ from repro.kernels.decode_attention import ops as jda_ops
 from repro.kernels.decode_attention import ref as jda_ref
 from repro.kernels.flash_attention import ops as jfa_ops
 from repro.kernels.flash_attention import ref as jfa_ref
+from repro.kernels.paged_attention import ops as jpa_ops
+from repro.kernels.paged_attention import ref as jpa_ref
+from repro.kernels.prefix_attention import ops as jpfx_ops
+from repro.kernels.prefix_attention import ref as jpfx_ref
+from repro.models.attention import chunked_flash_attention as jchunked
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.paged_attention import kernel as pa_kernel
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.prefix_attention import kernel as pfx_kernel
+from repro_torch.kernels.prefix_attention import ops as pfx_ops
+from repro_torch.models.attention import chunked_flash_attention
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+PAGED_TOL = dict(rtol=2e-4, atol=2e-4)
 
 
 def _randn(rng, shape):
@@ -110,6 +124,146 @@ def test_decode_attention_matches_jax(case):
     np.testing.assert_allclose(got, np.asarray(ref), **TOL)
 
 
+# ---------------------------------------------------------------------------
+# paged decode attention: in-kernel page walk vs the materialised gather
+# ---------------------------------------------------------------------------
+
+
+def _pools(rng, P, ps, Hkv, dh):
+    """Random pools with the trash page poisoned to 1e4, so an unmapped-page
+    or beyond-cur_pos leak is a loud mismatch, not an average."""
+    kp = _randn(rng, (P + 1, ps, Hkv, dh))
+    vp = _randn(rng, (P + 1, ps, Hkv, dh))
+    kp[P] = 1e4
+    vp[P] = 1e4
+    return kp, vp
+
+
+def _paged_all(q, kp, vp, table, cur):
+    """(port, Pallas interpret, JAX ref) on the same numpy inputs."""
+    before = pa_ops.paged_decode_attention.launches
+    got = pa_ops.paged_decode_attention(*(torch.from_numpy(a) for a in
+                                          (q, kp, vp, table, cur))).numpy()
+    assert pa_ops.paged_decode_attention.launches == before   # CPU: plain
+    args = tuple(jnp.asarray(a) for a in (q, kp, vp, table, cur))
+    pallas = jpa_ops.paged_decode_attention(*args, interpret=True)
+    ref = jpa_ref.paged_decode_attention_ref(*args)
+    return got, np.asarray(pallas), np.asarray(ref)
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (8, 1), (8, 8)])
+def test_paged_decode_attention_matches_jax(H, Hkv):
+    """Unmapped holes mid-table; cur_pos mid-page, at a page boundary - 1
+    and at full capacity (tests/test_kernels.py:163)."""
+    B, dh, P, ps = 3, 32, 10, 8
+    rng = np.random.default_rng(H * 10 + Hkv)
+    q = _randn(rng, (B, H, dh))
+    kp, vp = _pools(rng, P, ps, Hkv, dh)
+    table = np.asarray([[0, 3, -1, -1], [5, -1, 7, -1], [2, 4, 6, 8]], np.int32)
+    cur = np.asarray([9, 23, 31], np.int32)
+    got, pallas, ref = _paged_all(q, kp, vp, table, cur)
+    np.testing.assert_allclose(got, pallas, **PAGED_TOL)
+    np.testing.assert_allclose(got, ref, **PAGED_TOL)
+
+
+def test_paged_decode_attention_page_boundary_sweep():
+    """cur_pos over every position of a 2-page window: the fused
+    ``pos <= cur_pos`` mask flips exactly one key per step."""
+    B, H, Hkv, dh, P, ps = 1, 4, 2, 32, 4, 8
+    rng = np.random.default_rng(7)
+    kp, vp = _pools(rng, P, ps, Hkv, dh)
+    table = np.asarray([[1, 2]], np.int32)
+    for cur in range(2 * ps):
+        q = _randn(rng, (B, H, dh))
+        got, pallas, ref = _paged_all(q, kp, vp, table,
+                                      np.asarray([cur], np.int32))
+        np.testing.assert_allclose(got, pallas, **PAGED_TOL, err_msg=f"cur={cur}")
+        np.testing.assert_allclose(got, ref, **PAGED_TOL, err_msg=f"cur={cur}")
+
+
+def test_paged_decode_attention_fully_unmapped_slot_is_finite():
+    """An inactive slot (every page -1) gives a finite output — the uniform
+    average over the gathered trash rows, as in the reference."""
+    B, H, Hkv, dh, P, ps = 2, 4, 2, 32, 4, 8
+    rng = np.random.default_rng(11)
+    q = _randn(rng, (B, H, dh))
+    kp, vp = _pools(rng, P, ps, Hkv, dh)
+    table = np.full((B, 2), -1, np.int32)
+    cur = np.zeros((B,), np.int32)
+    got, pallas, ref = _paged_all(q, kp, vp, table, cur)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, pallas, rtol=2e-4)
+    np.testing.assert_allclose(got, ref, rtol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# prefix-context flash attention: two phases vs the concat oracle
+# ---------------------------------------------------------------------------
+
+
+def _prefix_inputs(rng, B, Sq, Lp, Sk, H, Hkv, dh):
+    return (_randn(rng, (B, Sq, H, dh)), _randn(rng, (B, Lp, Hkv, dh)),
+            _randn(rng, (B, Lp, Hkv, dh)), _randn(rng, (B, Sk, Hkv, dh)),
+            _randn(rng, (B, Sk, Hkv, dh)))
+
+
+def _prefix_port(arrays, q_offset=0):
+    before = pfx_ops.prefix_flash_attention.launches
+    out = pfx_ops.prefix_flash_attention(
+        *(torch.from_numpy(a) for a in arrays), q_offset=q_offset).numpy()
+    assert pfx_ops.prefix_flash_attention.launches == before   # CPU: plain
+    return out
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (8, 1), (8, 8)])
+@pytest.mark.parametrize("Lp,Sq,qo", [(28, 4, 0), (10, 7, 3), (33, 9, 0)])
+def test_prefix_attention_matches_jax(H, Hkv, Lp, Sq, qo):
+    """Ragged Lp and Sq, q_offset > 0 (tests/test_kernels.py:226)."""
+    B, dh, Sk = 2, 32, Sq + qo
+    rng = np.random.default_rng(Lp * 100 + Sq * 10 + H + Hkv)
+    arrays = _prefix_inputs(rng, B, Sq, Lp, Sk, H, Hkv, dh)
+    got = _prefix_port(arrays, q_offset=qo)
+    jargs = tuple(jnp.asarray(a) for a in arrays)
+    pallas = jpfx_ops.prefix_flash_attention(*jargs, q_offset=qo, block_q=8,
+                                             block_k=16, interpret=True)
+    ref = jpfx_ref.prefix_flash_attention_ref(*jargs, q_offset=qo)
+    np.testing.assert_allclose(got, np.asarray(pallas), **PAGED_TOL)
+    np.testing.assert_allclose(got, np.asarray(ref), **PAGED_TOL)
+
+
+def test_prefix_attention_multi_block_both_phases():
+    """Prefix and suffix each span several of the reference's k blocks and
+    q spans several q blocks."""
+    B, H, Hkv, dh, Lp, Sq = 1, 4, 2, 32, 21, 18
+    rng = np.random.default_rng(21)
+    arrays = _prefix_inputs(rng, B, Sq, Lp, Sq, H, Hkv, dh)
+    got = _prefix_port(arrays)
+    jargs = tuple(jnp.asarray(a) for a in arrays)
+    pallas = jpfx_ops.prefix_flash_attention(*jargs, block_q=4, block_k=4,
+                                             interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), **PAGED_TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(jpfx_ref.prefix_flash_attention_ref(*jargs)),
+        **PAGED_TOL)
+
+
+def test_prefix_attention_matches_the_concat_paths():
+    """The plain version equals chunked attention over the concatenated
+    K/V with the causal offset Lp, in both packages."""
+    B, H, Hkv, dh, Lp, Sq = 2, 4, 2, 32, 16, 8
+    rng = np.random.default_rng(31)
+    q, pk, pv, k, v = _prefix_inputs(rng, B, Sq, Lp, Sq, H, Hkv, dh)
+    got = _prefix_port((q, pk, pv, k, v))
+    kc, vc = np.concatenate([pk, k], 1), np.concatenate([pv, v], 1)
+    want = chunked_flash_attention(
+        torch.from_numpy(q), torch.from_numpy(kc), torch.from_numpy(vc),
+        causal=True, q_offset=Lp).numpy()
+    jwant = jchunked(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                     causal=True, q_offset=Lp)
+    np.testing.assert_allclose(got, want, **PAGED_TOL)
+    np.testing.assert_allclose(got, np.asarray(jwant), **PAGED_TOL)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """The kernel launchers take CUDA tensors only; a CPU tensor reaches the
     plain version through ``ops``, never the kernel."""
@@ -121,6 +275,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     cur = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="cpu"):
         da_kernel.decode_attention_kernel(q[:, 0], kv, kv, pos, cur)
+    pool = torch.zeros(3, 4, 2, 64)
+    table = torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="cpu"):
+        pa_kernel.paged_decode_attention_kernel(
+            torch.zeros(1, 4, 64), pool, pool, table, cur)
+    with pytest.raises(ValueError, match="cpu"):
+        pfx_kernel.prefix_flash_attention_kernel(q, kv, kv, kv, kv)
 
 
 _C_TYPES = {"const void*": "c_void_p", "void*": "c_void_p", "int": "c_int"}
@@ -137,3 +298,29 @@ def test_ctypes_signature_matches_c_entry(name):
     want = [_C_TYPES[p] for p in params]
     got = [t.__name__ for t in _build.SIGNATURES[name]]
     assert got == want
+
+
+@pytest.mark.parametrize("src", sorted(p.name for p in Path(_build.CSRC).glob("*.cu")))
+def test_kernel_sources_include_only_local_headers_that_exist(src):
+    """Each ``#include "..."`` of a kernel source names a header in
+    ``csrc`` (the build passes no include path), and the shared attention
+    helpers are defined once, in ``attn_common.cuh``."""
+    text = (Path(_build.CSRC) / src).read_text()
+    for name in re.findall(r'#include "([^"]+)"', text):
+        assert (Path(_build.CSRC) / name).is_file(), name
+    assert '#include "attn_common.cuh"' in text
+    for helper in ("to_f32", "from_f32", "warp_sum", "max16", "sum16"):
+        assert not re.search(rf"float {helper}\(|\b{helper}<[^>]*>\(float",
+                             text), f"{src} redefines {helper}"
+
+
+def test_build_stamp_covers_headers(tmp_path, monkeypatch):
+    """Editing a header in ``csrc`` rebuilds the library, as editing a
+    source does."""
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._stamp(_build._sources())
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build._stamp(_build._sources()) != before
+    assert _build._sources() == [tmp_path / "a.cu"]

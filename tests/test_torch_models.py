@@ -245,7 +245,7 @@ def test_decode_writes_new_kv_in_cache_dtype():
     _, cfg = _configs(window=4)
     params = init_params(cfg, 0, device="cpu")
     lp = _index(params["blocks"][0], 0)["attn"]         # block 0's attention
-    cache = init_kv_cache(cfg, 2, 12, dtype="bfloat16")
+    cache = init_kv_cache(cfg, 2, 12, dtype="bfloat16", device="cpu")
     x = torch.randn(2, 1, cfg.d_model)
     cur = torch.tensor([6, 9], dtype=torch.int32)
     decode_attention(lp, x, cache, cur, cfg, impl="torch")

@@ -233,8 +233,6 @@ def test_serving_config_defaults_to_the_kernels():
 
 
 UNPORTED = {
-    "paged": dict(paged=True),
-    "prefix_cache": dict(paged=True, prefix_cache=True),
     "speculative": dict(speculative=True),
     "overlap": dict(overlap=True),
     "tp": dict(tp=2, attn_impl="torch"),
@@ -252,6 +250,24 @@ def test_unported_modes_raise_naming_roadmap(models, mode):
                           device="cpu")
 
 
+@pytest.mark.parametrize("mode", ["paged", "paged+prefix_cache"])
+def test_paged_modes_build_on_the_cpu(models, mode):
+    """The paged pool and the prefix cache are ported: the batcher builds
+    in both modes, with the pool, page state and ledger on the CPU."""
+    _, params = models
+    _, cfg = _configs()
+    kw = dict(paged=True, page_size=4)
+    if mode.endswith("prefix_cache"):
+        kw["prefix_cache"] = True
+    b = ContinuousBatcher(params, cfg, ServingConfig(**BASE, **kw),
+                          device="cpu")
+    assert b.paged and b.max_pages == 4 and b.n_pages == 16
+    assert b.caches.kv["0"].k.shape[1:3] == (17, 4)     # +1 trash page
+    assert b.pages.table.device.type == "cpu"
+    assert (b.prefix is not None) == mode.endswith("prefix_cache")
+    assert int(b.pages.free_top) == b.kv_pool.available == 16
+
+
 # ---------------------------------------------------------------------------
 # entry points run on the card unless asked for the CPU
 # ---------------------------------------------------------------------------
@@ -261,14 +277,26 @@ def test_entry_points_without_device_raise_on_a_cpu_box(models):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     from repro_torch.launch import serve
-    from repro_torch.models import init_params
+    from repro_torch.models import init_caches, init_paged_caches, init_params
+    from repro_torch.models.attention import init_kv_cache, init_paged_kv_cache
+    from repro_torch.models.layers import init_rmsnorm
+    from repro_torch.serving import init_page_state, init_slot_state
 
     _, params = models
     _, cfg = _configs()
     prompts = np.ones((1, 4), np.int32)
     calls = [
         lambda: init_params(cfg),
+        lambda: init_caches(cfg, 2, 8),
+        lambda: init_kv_cache(cfg, 2, 8),
+        lambda: init_slot_state(2),
+        lambda: init_rmsnorm(8),
+        lambda: init_paged_caches(cfg, 2, 4, 4),
+        lambda: init_paged_kv_cache(cfg, 4, 4),
+        lambda: init_page_state(2, 4, 2),
         lambda: ContinuousBatcher(params, cfg, ServingConfig(**BASE)),
+        lambda: ContinuousBatcher(params, cfg, ServingConfig(
+            **BASE, paged=True, prefix_cache=True)),
         lambda: generate(params, cfg, prompts, n_new=2),
         lambda: params_from_jax({"w": np.zeros(2, np.float32)}),
         lambda: serve.main(["--reduced", "--tenants", "1", "--requests", "1"]),
