@@ -14,7 +14,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               paths' shapes plus edge cases (windowed, q_offset, ragged,
               pos = -1, wrapped ring; paged: holes, a cur_pos sweep across
               page boundaries, a fully unmapped slot, GQA 16:1, with the
-              trash page poisoned to 1e4; prefix: ragged Lp and Sq,
+              trash page poisoned to 1e4; verify: the same, a row 0 without
+              keys, W = 2, 6 and 8, dh 32 and 64; prefix: ragged Lp and Sq,
               q_offset > 0, Lp = 0, GQA 8:1 at dh=64).  Tolerance: max abs
               error <= 1e-4 in f32 (only the summation order differs) and
               <= 2e-2 in bf16 (the output is rounded to bf16 once, about
@@ -24,7 +25,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               only).
 4. model    — full-width qwen3-0.6b cut to 2 layers, f32: prefill + 4 decode
               steps with attn_impl="cuda" against attn_impl="torch"; the
-              same decode on a shuffled paged pool (``page_table=``); and
+              same decode on a shuffled paged pool (``page_table=``); one
+              ``verify_step`` window on the pool, kernel against plain and
+              each row against the sequential decode steps; and
               ``prefix_prefill`` through the prefix kernel against a cold
               prefill.  Logits within 2e-3 max abs, greedy tokens identical.
 5. serve    — the dense main path: full qwen3-0.6b (28 layers, bf16, seeded
@@ -38,8 +41,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
               every request completes, prefixes hit, every admission went
               through the flash or the prefix kernel and every decode step
               through the paged kernel, and the page ledger balances.
-6. trace    — the first rounds of the dense and of the paged path, both
-              untraced first, then each under ``torch.profiler``: device
+5c. spec    — the speculative path: phase 5b's batcher with speculative
+              decode (windows of 4) and overlap, 16 requests whose tails
+              repeat a phrase; every request completes, every verify window
+              went through the verify kernel, the device-counted accepted
+              drafts equal the host's, admission overlapped decode, the
+              ledger balances.  Token identity with a non-speculative run
+              of the same requests is reported (bf16 sums differ in order),
+              with both runs' tokens/s and the batcher's host time per
+              verify window and per decode step.
+              A dense leg of 4 requests shows no verify kernel on rings.
+6. trace    — the first rounds of the dense, the paged and the spec path,
+              all untraced first, then each under ``torch.profiler``: device
               busy time, idle share and device time by kernel class.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
@@ -440,6 +453,113 @@ def check_prefix(gen):
                 bound_by=by, library_ms=library)
 
 
+def _verify_table(rng, B, max_pages, n_pages, cur, W, ps, *, holes=0.0):
+    """A shuffled table that maps every page a window at ``cur`` reaches
+    (positions through cur + W - 1, within the table), holes as in
+    :func:`_page_table`."""
+    last = np.minimum(np.asarray(cur) + W - 1, max_pages * ps - 1)
+    return _page_table(rng, B, max_pages, n_pages, last, ps, holes=holes)
+
+
+def check_paged_verify(gen):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import ops, ref
+
+    rng = np.random.default_rng(5)
+
+    def run_case(name, B, W, H, Hkv, dh, ps, max_pages, P, dtype, cur, *,
+                 holes=0.0, table=None):
+        q = _rand(gen, (B, W, H, dh), dtype)
+        kp = _rand(gen, (P + 1, ps, Hkv, dh), dtype)
+        vp = _rand(gen, (P + 1, ps, Hkv, dh), dtype)
+        kp[P] = 1e4                    # poisoned trash page: leaks are loud
+        vp[P] = 1e4
+        if table is None:
+            table = _verify_table(rng, B, max_pages, P, cur, W, ps, holes=holes)
+        tab = torch.from_numpy(table).cuda()
+        cur_t = torch.as_tensor(np.asarray(cur, np.int32)).cuda()
+        got = ops.paged_verify_attention(q, kp, vp, tab, cur_t)
+        want = ref.paged_verify_attention_ref(q, kp, vp, tab, cur_t)
+        torch.cuda.synchronize()
+        err = _err(got, want)
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        log(f"  verify {name:<27} max_abs_err={err:.3e} (tol {tol:g})")
+        check(bool(torch.isfinite(got).all()), f"verify {name}: non-finite output")
+        check(err <= tol, f"verify {name}: max abs error {err} > {tol}")
+        return err, (q, kp, vp, tab, cur_t)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    # the speculative main path: windows of 4 on 8 slots of up to 21 pages
+    # of 16 over 168 pages
+    B, W, H, Hkv, dh, ps, maxp, P = 8, 4, 16, 8, 128, 16, 21, 168
+    cur = rng.integers(256, 322 - W + 1, size=B)
+    err, main = run_case("main bf16", B, W, H, Hkv, dh, ps, maxp, P, bf16, cur)
+    run_case("main f32", B, W, H, Hkv, dh, ps, maxp, P, f32, cur)
+    run_case("holes f32", B, W, H, Hkv, dh, ps, maxp, P, f32, cur, holes=0.3)
+    for c in (12, 13, 14, 15, 16, 29, 31):     # windows across page boundaries
+        run_case(f"cur_pos={c} sweep f32", 2, W, H, Hkv, dh, ps, 4, 8, f32,
+                 [c, c])
+    unmapped = np.full((2, maxp), -1, np.int32)
+    unmapped[1, :3] = [5, 9, 2]
+    run_case("fully unmapped slot f32", 2, W, H, Hkv, dh, ps, maxp, 16, f32,
+             [40, 40], table=unmapped)
+    # row 0 has no key (its pages unmapped), the window's later rows do
+    late = np.full((2, 4), -1, np.int32)
+    late[:, 1] = [3, 6]
+    run_case("row 0 without keys f32", 2, W, H, Hkv, dh, ps, 4, 8, f32,
+             [14, 15], table=late)
+    run_case("gqa 16:1 W=2 dh=64 f32", 4, 2, 16, 1, 64, ps, maxp, 96, f32,
+             rng.integers(0, 330, size=4), holes=0.2)
+    run_case("W=2 bf16", B, 2, H, Hkv, dh, ps, maxp, P, bf16, cur)
+    run_case("W=8 f32", 4, 8, H, Hkv, dh, ps, maxp, 96, f32,
+             rng.integers(0, 320, size=4), holes=0.2)
+    run_case("dh=32 W=6 ps=4 f32", 3, 6, 4, 2, 32, 4, 12, 40, f32,
+             rng.integers(0, 42, size=3), holes=0.2)
+    run_case("dh=64 gqa 8:8 bf16", 3, 4, 8, 8, 64, 8, 6, 20, bf16,
+             rng.integers(0, 44, size=3))
+
+    q, kp, vp, tab, cur_t = main
+    sets = copies_over_l2([q, kp, vp, tab, cur_t])
+    kernel = device_ms(lambda *a: ops.paged_verify_attention(*a), sets)
+    plain = device_ms(lambda *a: ref.paged_verify_attention_ref(*a), sets)
+    L = maxp * ps
+    pos = torch.arange(L, device="cuda")
+    wi = torch.arange(W, device="cuda")
+
+    def library_call(qq, kk, vv, tt, cc):
+        # a torch page gather, then SDPA with the (W, L) boolean mask
+        mapped = tt >= 0
+        g = torch.where(mapped, tt, P).long()
+        kg = kk[g].reshape(B, L, Hkv, dh).transpose(1, 2)
+        vg = vv[g].reshape(B, L, Hkv, dh).transpose(1, 2)
+        valid = (mapped[:, pos // ps][:, None, :]
+                 & (pos[None, None, :] <= (cc[:, None] + wi[None, :])[:, :, None]))
+        return F.scaled_dot_product_attention(
+            qq.transpose(1, 2), kg, vg, attn_mask=valid[:, None], enable_gqa=True)
+
+    library = device_ms(library_call, sets)
+    # bytes: q, out, the K/V rows some query of the window attends (the
+    # last query's valid rows, which hold every other query's), the table
+    # and cur_pos
+    valid = ((tab >= 0)[:, pos // ps][:, None, :]
+             & (pos[None, None, :] <= (cur_t[:, None] + wi[None, :])[:, :, None]))
+    n_valid = int(valid.sum().item())          # (slot, w, key) pairs
+    n_rows = int(valid[:, -1].sum().item())    # (slot, key) rows
+    n_bytes = (2 * B * W * H * dh * 2                       # q in, out
+               + n_rows * Hkv * dh * 2 * 2                  # K and V rows
+               + B * maxp * 4 + B * 4)                      # table, cur_pos
+    flops = 4.0 * dh * H * n_valid
+    bms, by = bound_ms(n_bytes, flops)
+    log(f"  verify main: {n_bytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP")
+    return dict(name="paged_verify_attention", route="cuda",
+                source="src/repro_torch/csrc/paged_verify_attention.cu",
+                replaces="src/repro/kernels/paged_attention/kernel.py:195",
+                max_abs_err=err, ms=kernel, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=library)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the model through the kernels against the plain path
 # ---------------------------------------------------------------------------
@@ -452,7 +572,8 @@ def check_model():
     from repro_torch.kernels.paged_attention import ops as pa_ops
     from repro_torch.kernels.prefix_attention import ops as pfx_ops
     from repro_torch.models import (
-        decode_step, init_paged_caches, init_params, prefill, prefix_prefill)
+        decode_step, init_paged_caches, init_params, prefill, prefix_prefill,
+        verify_step)
     from repro_torch.models.transformer import prefill_kv
 
     cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2,
@@ -473,7 +594,7 @@ def check_model():
                                  impl=impl)
         runs[impl] = [logits, caches]
     worst = 0.0
-    dense_tokens = []
+    dense_tokens, dense_logits = [], []
     cur = torch.full((B,), S, dtype=torch.int32, device="cuda")
     for step in range(steps + 1):
         lk, lt = runs["cuda"][0], runs["torch"][0]
@@ -483,6 +604,7 @@ def check_model():
         check(err <= MODEL_TOL, f"model step {step}: logits differ by {err}")
         check(bool((tk == tt).all()), f"model step {step}: greedy tokens differ")
         dense_tokens.append(tt)
+        dense_logits.append(lt)
         if step == steps:
             break
         for impl in ("cuda", "torch"):
@@ -531,6 +653,42 @@ def check_model():
         f"of {ps}: max |logit diff| {worst:.3e} (tol {MODEL_TOL:g}), greedy "
         f"tokens identical to the dense run")
     del runs
+
+    # verify: one window of the dense run's first `steps` tokens at S on a
+    # fresh shuffled pool, through the verify kernel against the plain
+    # path; row w against the dense run's logits after w + 1 decode steps
+    window = torch.stack(dense_tokens[:steps], dim=1)          # (B, W)
+    outs = {}
+    for impl in ("cuda", "torch"):
+        caches = init_paged_caches(cfg, B, n_pages, ps, device="cuda")
+        for p, view in caches.kv.items():
+            k, v = fresh[p]
+            view.k[:, prompt_pages] = k.reshape(k.shape[0], -1, ps, *k.shape[3:])
+            view.v[:, prompt_pages] = v.reshape(v.shape[0], -1, ps, *v.shape[3:])
+        before = pa_ops.paged_verify_attention.launches
+        outs[impl], _ = verify_step(
+            params, window, caches, torch.full((B,), S, dtype=torch.int32,
+                                               device="cuda"),
+            cfg, impl=impl, page_table=table)
+        ran = pa_ops.paged_verify_attention.launches - before
+        check(ran == (cfg.n_layers if impl == "cuda" else 0),
+              f"verify_step impl={impl}: {ran} verify kernel launches")
+        del caches
+    err = (outs["cuda"] - outs["torch"]).abs().max().item()
+    check(err <= MODEL_TOL, f"verify_step: kernel and plain logits differ by {err}")
+    seq = 0.0
+    for w in range(steps):
+        d = (outs["cuda"][:, w] - dense_logits[w + 1]).abs().max().item()
+        seq = max(seq, d)
+        check(d <= MODEL_TOL, f"verify row {w}: logits differ from {w + 1} "
+              f"decode steps by {d}")
+        check(bool((greedy(outs["cuda"][:, w]) == dense_tokens[w + 1]).all()),
+              f"verify row {w}: greedy token differs from sequential decode")
+    log(f"  verify: one window of {steps} on a shuffled pool, kernel against "
+        f"the plain path: max |logit diff| {err:.3e}; rows against 1..{steps} "
+        f"sequential decode steps: {seq:.3e} (tol {MODEL_TOL:g}), greedy "
+        f"tokens identical")
+    del outs
 
     # prefix: suffix prefill against the first 3 pages' K/V, through the
     # prefix kernel, against a cold prefill of the whole prompt
@@ -805,12 +963,187 @@ def serve_paged_path(card: str, params, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 5c: the speculative path (draft-and-verify windows, overlap)
+# ---------------------------------------------------------------------------
+
+
+SPEC_CONFIG = dict(PAGED_CONFIG, speculative=True, draft_window=4, overlap=True)
+
+
+def _spec_requests(cfg, n=16, seed=0, namespace="tenant0"):
+    """``n`` prompts of 256 tokens: the 192-token system prompt of
+    :func:`_paged_requests`, then a 64-token tail that repeats one 16-token
+    phrase of its own four times (a tenant whose answers quote their input,
+    as extraction or code editing do); ``max_new`` 16-64."""
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(seed)
+    system = rng.integers(1, cfg.vocab, size=192).astype(np.int32)
+    reqs = []
+    for rid in range(n):
+        phrase = rng.integers(1, cfg.vocab, size=16).astype(np.int32)
+        reqs.append(Request(rid=rid, prompt=np.concatenate([system] + [phrase] * 4),
+                            max_new=int(rng.integers(16, 65)),
+                            namespace=namespace))
+    return reqs
+
+
+def _spec_batcher(params, cfg, reqs, config=SPEC_CONFIG, telemetry=None):
+    from repro_torch.serving import ContinuousBatcher, ServingConfig
+
+    batcher = ContinuousBatcher(params, cfg, ServingConfig(**config),
+                                telemetry=telemetry)
+    for r in reqs:
+        batcher.submit(r)
+    return batcher
+
+
+def _host_split(tracer, steps: int) -> str:
+    """The batcher's own spans, per decode step or verify window: host time
+    to enqueue the chunks (``dispatch``), host time blocked on their fetch
+    (``host_sync``), and admission planning and dispatch (``admission``)."""
+    tot = {"dispatch": 0.0, "host_sync": 0.0, "admission": 0.0}
+    for ev in tracer.events:
+        if ev["ph"] == "X" and ev["name"] in tot:
+            tot[ev["name"]] += ev["dur"]
+    return ", ".join(f"{k} {v / steps * 1e3:.1f} ms" for k, v in tot.items())
+
+
+def serve_spec_path(card: str, params, cfg):
+    import torch
+
+    from repro_torch.obs import Telemetry, Tracer
+
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.prefix_attention import ops as pfx_ops
+
+    t0 = time.perf_counter()
+    _spec_batcher(params, cfg, _spec_requests(cfg, n=8, seed=1,
+                                              namespace="warm-up")).run()
+    torch.cuda.synchronize()
+    log(f"  warm-up run (8 other requests): {time.perf_counter() - t0:.3f} s")
+
+    # the same requests without speculation, for the token comparison and
+    # the same traffic's non-speculative tokens/s
+    # both runs record the batcher's host spans (a few events a round)
+    reqs, plain_reqs = _spec_requests(cfg), _spec_requests(cfg)
+    plain_trace, spec_trace = Tracer(), Tracer()
+    t0 = time.perf_counter()
+    plain_stats = _spec_batcher(params, cfg, plain_reqs, PAGED_CONFIG,
+                                Telemetry(tracer=plain_trace)).run()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    batcher = _spec_batcher(params, cfg, reqs,
+                            telemetry=Telemetry(tracer=spec_trace))
+    torch.cuda.synchronize()
+    counters = (fa_ops.flash_attention, pfx_ops.prefix_flash_attention,
+                pa_ops.paged_verify_attention, pa_ops.paged_decode_attention,
+                da_ops.decode_attention)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    stats = batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fa_n, pfx_n, pv_n, pa_n, da_n = (c.launches for c in counters)
+
+    for r in reqs:
+        check(r.done and not r.dropped, f"spec request {r.rid} did not complete")
+        check(len(r.out) == r.max_new, f"spec request {r.rid}: {len(r.out)} "
+              f"tokens, expected {r.max_new}")
+        check(all(0 <= t < cfg.vocab for t in r.out),
+              f"spec request {r.rid}: token outside the vocab")
+    L, W = cfg.n_layers, SPEC_CONFIG["draft_window"]
+    windows = stats.steps // W            # verify passes, every slot in each
+    check(stats.prefills > 0 and windows > 0, "nothing was served")
+    check(stats.spec_windows > 0, "no speculative window committed a token")
+    check(pv_n == L * windows,
+          f"paged_verify_attention launches {pv_n} != {L} x {windows} windows")
+    check(fa_n + pfx_n == L * stats.prefills,
+          f"flash {fa_n} + prefix {pfx_n} launches != {L} x {stats.prefills} "
+          f"prefills")
+    check(pa_n == 0 and da_n == 0,
+          f"decode kernels ran on the spec path (paged {pa_n}, dense {da_n})")
+    check(stats.device_draft_accepted == stats.accepted_tokens,
+          f"device-counted accepted drafts {stats.device_draft_accepted} != "
+          f"{stats.accepted_tokens} on the host")
+    check(stats.dispatches - batcher.page_pushes == stats.prefills + stats.chunks,
+          "dispatches != prefills + chunks + page pushes")
+    check(stats.host_syncs == stats.prefills + stats.chunks,
+          "host syncs != one per admission + one per chunk")
+    check(stats.overlap_rounds >= 1, "no round overlapped admission and decode")
+    pool = batcher.kv_pool
+    pool.check()
+    free_top = int(batcher.pages.free_top)
+    check(free_top + pool.shared == batcher.n_pages,
+          f"free_top {free_top} + shared {pool.shared} != {batcher.n_pages} pages")
+    same = sum(a.out == b.out for a, b in zip(reqs, plain_reqs))
+    verify_launches = pv_n
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {stats.completed}/16 requests, {stats.tokens} tokens, "
+        f"{stats.prefills} prefills ({stats.prefix_hits} prefix hits), "
+        f"{stats.chunks} chunks of {windows} verify windows, "
+        f"{stats.spec_windows} slot-windows committed, {stats.overlap_rounds} "
+        f"overlap rounds, {batcher.page_pushes} page pushes in {wall:.3f} s "
+        f"[{card}]")
+    log(f"  tokens/s={stats.tokens / wall:.1f}, {wall / windows * 1e3:.1f} ms "
+        f"a window (the same requests without speculation: "
+        f"{plain_stats.tokens / plain_wall:.1f} tokens/s, {plain_stats.steps} "
+        f"decode steps, {plain_wall / plain_stats.steps * 1e3:.1f} ms a step) "
+        f"acceptance_rate={stats.acceptance_rate:.3f} tokens_per_window="
+        f"{stats.decode_tokens / max(stats.spec_windows, 1):.3f} "
+        f"dispatches_per_token={stats.dispatches_per_token:.4f} "
+        f"peak_memory={_gib(peak)} ({_gib(peak - base)} above the {_gib(base)} "
+        f"allocated at the start) [{card}]")
+    log(f"  host time per verify window: {_host_split(spec_trace, windows)}; "
+        f"per decode step without speculation: "
+        f"{_host_split(plain_trace, plain_stats.steps)} [{card}]")
+    log(f"  bf16 token identity with the non-speculative run (reported, not "
+        f"gated): {same}/16 requests ({same / 16:.3f})")
+    log(f"  ledger: free_top {free_top} + shared {pool.shared} = "
+        f"{batcher.n_pages} pages; launches: flash_attention={fa_n} + "
+        f"prefix_flash_attention={pfx_n} (= {L} x {stats.prefills}), "
+        f"paged_verify_attention={pv_n} (= {L} x {windows}), "
+        f"paged_decode_attention={pa_n}, decode_attention={da_n}")
+
+    # dense leg: 4 requests on dense rings; no multi-query kernel there
+    dense = dict(slots=8, prompt_len=256, max_len=322, chunk=8,
+                 speculative=True, draft_window=4, overlap=True)
+    dreqs = _spec_requests(cfg, n=4, seed=2, namespace=None)
+    for c in counters:
+        c.launches = 0
+    dstats = _spec_batcher(params, cfg, dreqs, dense).run()
+    torch.cuda.synchronize()
+    for r in dreqs:
+        check(r.done and len(r.out) == r.max_new,
+              f"dense spec request {r.rid} did not complete its budget")
+    fa_n, pfx_n, pv_n, pa_n, da_n = (c.launches for c in counters)
+    check(pv_n == 0 and pa_n == 0 and da_n == 0 and pfx_n == 0,
+          f"dense spec leg launched verify {pv_n}, paged {pa_n}, decode "
+          f"{da_n}, prefix {pfx_n}")
+    check(fa_n == L * dstats.prefills,
+          f"dense spec leg: flash launches {fa_n} != {L} x {dstats.prefills}")
+    log(f"  dense leg: 4 requests, {dstats.tokens} tokens, {dstats.spec_windows} "
+        f"slot-windows, acceptance_rate={dstats.acceptance_rate:.3f}; "
+        f"launches: flash_attention={fa_n} (= {L} x {dstats.prefills}), "
+        f"paged_verify_attention={pv_n}")
+    return {"paged_verify_attention": verify_launches}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: where the time goes (a traced window of the same requests)
 # ---------------------------------------------------------------------------
 
 
 # paged_dec_kernel before dec_kernel: the first match names the class
 _KERNEL_CLASSES = (("flash_attention", ("fa_kernel",)),
+                   ("paged_verify_attention", ("paged_verify_kernel",)),
                    ("prefix_flash_attention", ("pfx_kernel",)),
                    ("paged_decode_attention", ("paged_dec_kernel",)),
                    ("decode_attention", ("dec_kernel",)),
@@ -930,14 +1263,15 @@ def main() -> int:
     _build.load_library()
     log(f"  built {_build.LIB_NAME} in {time.perf_counter() - t0:.1f} s")
     for line in "\n".join(_build.BUILD_LOG).splitlines():
-        if "registers" in line or "spill" in line or "==" in line:
+        if ("Function properties for" in line or "registers" in line
+                or "spill" in line or "==" in line):
             log("  " + line.strip())
 
     log("phase 3: kernels against their plain versions")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = [check_flash(gen), check_decode(gen), check_paged_decode(gen),
-            check_prefix(gen)]
+            check_paged_verify(gen), check_prefix(gen)]
 
     log("phase 4: model (cuda kernels) against the plain path")
     check_model()
@@ -950,11 +1284,17 @@ def main() -> int:
         "the prefix cache")
     paged_launches = serve_paged_path(card, params, cfg)
 
+    log("phase 5c: speculative path, qwen3-0.6b behind a paged batcher with "
+        "the prefix cache, speculative decode and overlap")
+    paged_launches.update(serve_spec_path(card, params, cfg))
+
     log("phase 6: where the time goes")
     trace_main_paths(card, [
         ("dense path", lambda: _batcher(params, cfg, _requests(cfg))),
         ("paged path", lambda: _paged_batcher(params, cfg,
-                                              _paged_requests(cfg)))])
+                                              _paged_requests(cfg))),
+        ("spec path", lambda: _spec_batcher(params, cfg,
+                                            _spec_requests(cfg)))])
 
     for row in rows:
         # each kernel's launches on the path that runs it: flash on the

@@ -58,36 +58,6 @@ constexpr int NT = NW * 32;     // threads per block
 constexpr int R = 8;            // page rows held in registers at a time
 constexpr int MAX_G = 16;       // largest q-head group the kernel takes
 
-// N consecutive elements at p (aligned to N elements) as f32, one vector load
-template <int N>
-__device__ __forceinline__ void load_f32(const float* p, float* x) {
-  if constexpr (N == 4) {
-    const float4 u = *reinterpret_cast<const float4*>(p);
-    x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
-  } else if constexpr (N == 2) {
-    const float2 u = *reinterpret_cast<const float2*>(p);
-    x[0] = u.x; x[1] = u.y;
-  } else {
-    static_assert(N == 1, "dh / 32 must be 1, 2 or 4");
-    x[0] = *p;
-  }
-}
-// bf16 -> f32 is the 16 bits moved to the top of the word
-template <int N>
-__device__ __forceinline__ void load_f32(const __nv_bfloat16* p, float* x) {
-  if constexpr (N == 4) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    x[0] = __uint_as_float(u.x << 16); x[1] = __uint_as_float(u.x & 0xffff0000u);
-    x[2] = __uint_as_float(u.y << 16); x[3] = __uint_as_float(u.y & 0xffff0000u);
-  } else if constexpr (N == 2) {
-    const unsigned int u = *reinterpret_cast<const unsigned int*>(p);
-    x[0] = __uint_as_float(u << 16); x[1] = __uint_as_float(u & 0xffff0000u);
-  } else {
-    static_assert(N == 1, "dh / 32 must be 1, 2 or 4");
-    x[0] = __bfloat162float(*p);
-  }
-}
-
 template <int DH, int G>
 size_t smem_bytes() {
   // q (G x DH) and the warps' partial accumulators (NW x G x DH)

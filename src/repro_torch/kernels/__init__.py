@@ -8,7 +8,7 @@ through the ctypes library that :mod:`._build` compiles at first use, and
 device and counts launches.
 
 Ported so far: ``flash_attention`` (prefill), ``decode_attention`` (dense
-ring-buffer decode), ``paged_attention`` (decode over the paged pool,
-walking the page table in the kernel) and ``prefix_attention`` (suffix
-prefill against a cached prefix).
+ring-buffer decode), ``paged_attention`` (decode and the multi-query
+draft verify over the paged pool, walking the page table in the kernel) and
+``prefix_attention`` (suffix prefill against a cached prefix).
 """

@@ -14,10 +14,11 @@ from .transformer import (
     period_structure,
     prefill,
     prefix_prefill,
+    verify_step,
 )
 
 __all__ = [
     "Caches", "LayerSpec", "decode_step", "init_caches", "init_paged_caches",
     "init_params", "logits_fn", "n_blocks", "period_len", "period_structure",
-    "prefill", "prefix_prefill",
+    "prefill", "prefix_prefill", "verify_step",
 ]

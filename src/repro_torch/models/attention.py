@@ -15,6 +15,12 @@ runs.  Three compute paths, selected by ``impl``:
   over KV blocks), the counterpart of the reference's ``"xla"`` oracle.
 * ``"naive"`` — materialised-scores einsum.
 
+Draft verification (speculative decode) scores a window of W tokens in one
+pass: :func:`verify_decode_attention` on dense rings and
+:func:`paged_verify_attention` on the page pool.  Only the paged pool has a
+multi-query kernel, in the reference as here; on dense rings ``"cuda"``
+runs the plain multi-query path on the card, the reference's own route.
+
 Decode keeps a **ring-buffer** cache of ``min(max_len, window)`` slots for
 sliding-window archs.  The JAX functions are pure and return an updated
 cache; :func:`decode_attention` here writes the new token's K/V **in place**
@@ -38,16 +44,20 @@ from .layers import apply_rope, init_dense, init_rmsnorm, rmsnorm
 # Capability table: which attn impl is legal for which execution mode
 # ---------------------------------------------------------------------------
 #
-# Only the modes the port runs so far are listed; the others (train,
-# verify) arrive with the ROADMAP items that port them, and asking for one
-# raises as an unknown mode.  The paged and prefix rows mirror the
-# reference's (``"torch"`` stands for its ``"xla"``).
+# Only the modes the port runs so far are listed; the other (train)
+# arrives with the ROADMAP item that ports it, and asking for it raises as
+# an unknown mode.  The rows mirror the reference's (``"torch"`` stands for
+# its ``"xla"``, ``"cuda"`` for its ``"pallas"``).  verify: multi-query
+# draft verification (speculative decode); ``"cuda"`` launches the paged
+# multi-query kernel on the page pool and runs the plain multi-query path
+# on dense rings, where the reference has no kernel either.
 
 ATTN_CAPABILITIES = {
     "dense": ("cuda", "torch", "naive"),
     "paged": ("cuda", "torch"),
     "prefix": ("cuda", "torch", "naive"),
     "sliding_window": ("cuda", "torch", "naive"),
+    "verify": ("cuda", "torch"),
 }
 
 
@@ -391,15 +401,20 @@ def paged_write_target(page_table, cur_pos, page_size: int, n_pages: int):
     when that entry is unmapped or lies past the table.  JAX's gather
     fills an out-of-range index (a slot stopped at ``cur_pos == max_len``
     with ``max_len % page_size == 0``) and the fill lands on the trash
-    page; torch would raise, so the index is clamped and masked here."""
+    page; torch would raise, so the index is clamped and masked here.
+    ``cur_pos`` is (B,) for decode or (B, W) for a verify window's
+    positions; the result has its shape."""
     maxp = page_table.shape[1]
-    logical = (cur_pos // page_size).long()
+    pos = cur_pos[:, None] if cur_pos.dim() == 1 else cur_pos
+    logical = (pos // page_size).long()
     inside = logical < maxp
-    pid = torch.gather(page_table, 1,
-                       logical.clamp(max=maxp - 1)[:, None])[:, 0]
+    pid = torch.gather(page_table, 1, logical.clamp(max=maxp - 1))
     mapped = inside & (pid >= 0) & (pid < n_pages)
     dest = torch.where(mapped, pid, n_pages).long()
-    return dest, (cur_pos % page_size).long()
+    off = (pos % page_size).long()
+    if cur_pos.dim() == 1:
+        return dest[:, 0], off[:, 0]
+    return dest, off
 
 
 def paged_decode_attention(params, x, cache: PagedKVView, cur_pos, page_table,
@@ -420,8 +435,6 @@ def paged_decode_attention(params, x, cache: PagedKVView, cur_pos, page_table,
     """
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(params, x, cfg, positions=cur_pos[:, None])
-    P = cache.n_pages
-    ps = cache.page_size
     k_new = k_new.to(cache.k.dtype)
     v_new = v_new.to(cache.v.dtype)
     cur_pos = cur_pos.to(torch.int32)
@@ -435,31 +448,159 @@ def paged_decode_attention(params, x, cache: PagedKVView, cur_pos, page_table,
         out = pa_ops.paged_decode_attention(
             q[:, 0], cache.k, cache.v, page_table, cur_pos)[:, None]
     elif impl == "torch":
-        mapped = (page_table >= 0) & (page_table < P)
-        gather = torch.where(mapped, page_table, P).long()   # (B, maxp)
-        maxp = page_table.shape[1]
-        L = maxp * ps
-        kg = cache.k[gather].reshape(B, L, cfg.n_kv_heads, cfg.d_head)
-        vg = cache.v[gather].reshape(B, L, cfg.n_kv_heads, cfg.d_head)
-        pos_l = torch.arange(L, device=x.device)             # flat == absolute
-        valid = mapped[:, pos_l // ps] & (pos_l[None, :] <= cur_pos[:, None])
-        out = _paged_attn_torch(q, kg, vg, valid, cfg)
+        kg, vg, mapped, pos_l = _gather_pages(cache, page_table, cfg)
+        valid = mapped & (pos_l[None, :] <= cur_pos[:, None])
+        out = _verify_attn_torch(q, kg, vg, valid[:, None])  # a window of 1
     else:
         raise ValueError(f"unknown attn impl {impl!r} for paged decode")
     y = out.reshape(B, 1, cfg.q_dim) @ params["wo"]
     return y, cache
 
 
-def _paged_attn_torch(q, k, v, valid, cfg):
-    """Counterpart of the reference's ``_paged_attn_xla``.  q: (B,1,H,dh);
-    k/v: (B,L,Hkv,dh); valid: (B,L).  The masked-softmax math of
-    :func:`_decode_attn_torch`, validity precomputed from the page table."""
-    B, _, H, dh = q.shape
+def _gather_pages(cache: PagedKVView, page_table, cfg):
+    """The reference's XLA oracle view of the pool: each slot's pages
+    gathered into (B, maxp*ps, Hkv, dh), entries that are unmapped or
+    outside [0, n_pages) reading the trash page.  Returns (k, v, mapped
+    (B, L) per key row, absolute key positions (L,))."""
+    P, ps = cache.n_pages, cache.page_size
+    B, maxp = page_table.shape
+    L = maxp * ps
+    mapped = (page_table >= 0) & (page_table < P)
+    gather = torch.where(mapped, page_table, P).long()             # (B, maxp)
+    kg = cache.k[gather].reshape(B, L, cfg.n_kv_heads, cfg.d_head)
+    vg = cache.v[gather].reshape(B, L, cfg.n_kv_heads, cfg.d_head)
+    pos_l = torch.arange(L, device=page_table.device)              # flat == absolute
+    return kg, vg, mapped[:, pos_l // ps], pos_l
+
+
+# ---------------------------------------------------------------------------
+# Multi-query verify (speculative decode)
+# ---------------------------------------------------------------------------
+#
+# Draft-and-verify scores a whole window of W candidate tokens in one pass:
+# the window's K/V is written into the cache FIRST (positions cur_pos +
+# [0, W)), then every query attends with per-query validity ``key position
+# <= query position``, which gives within-window causality for free.
+# Rejected drafts are rolled back by overwrite-before-attend: the next
+# window's write range covers every stale position, and the position mask
+# keeps stale entries unattendable meanwhile.
+
+
+def verify_decode_attention(params, x, cache: KVCacheView, cur_pos, cfg, *,
+                            impl: str = "cuda", write_limit=None):
+    """Multi-query decode attention for draft verification on dense rings.
+
+    x: (B, W, D) hidden states of the W window tokens; cur_pos: (B,)
+    absolute position of the window's first token.  Query ``j`` attends
+    every cached position ``<= cur_pos + j``, the window's own writes at
+    positions ``< j`` included.  The window's K/V is written **in place**
+    at ring slots ``(cur_pos + j) % C``; returns (out (B, W, D), the same
+    cache views).
+
+    ``write_limit`` (B,) bounds how many of the window's writes stick:
+    entries ``j >= write_limit[b]`` keep the old ring contents and the old
+    ``pos``, so a window that overruns a slot's budget near ring capacity
+    cannot wrap onto live context.  Those positions can never be
+    committed, so their attention output is never observed.
+
+    There is no dense multi-query kernel, in the reference as here: both
+    ``"cuda"`` and ``"torch"`` run :func:`_verify_attn_torch` (on the card
+    when the tensors are there), the reference's own route for
+    ``"pallas"`` on dense caches.
+    """
+    if cfg.sliding_window:
+        raise ValueError("verify decode does not support sliding-window archs")
+    if impl not in ("cuda", "torch"):
+        raise ValueError(f"unknown attn impl {impl!r} for verify decode")
+    B, W, _ = x.shape
+    dev = x.device
+    wi = torch.arange(W, dtype=torch.int32, device=dev)
+    pos_w = cur_pos.to(torch.int32)[:, None] + wi[None, :]         # (B, W)
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions=pos_w)
+    C = cache.k.shape[1]
+    if W > C:
+        raise ValueError(f"verify window {W} exceeds the ring of {C} slots")
+    # RoPE computes in f32: cast to the cache dtype BEFORE the ring write
+    k_new = k_new.to(cache.k.dtype)
+    v_new = v_new.to(cache.v.dtype)
+
+    slot = (pos_w % C).long()                                      # (B, W)
+    bidx = torch.arange(B, device=dev)[:, None]
+    if write_limit is not None:
+        ok = wi[None, :] < write_limit[:, None]                    # (B, W)
+        k_new = torch.where(ok[..., None, None], k_new, cache.k[bidx, slot])
+        v_new = torch.where(ok[..., None, None], v_new, cache.v[bidx, slot])
+        pos_vals = torch.where(ok, pos_w, cache.pos[bidx, slot])
+    else:
+        pos_vals = pos_w
+    # W <= C: a slot's window positions hit distinct ring slots
+    cache.k.index_put_((bidx, slot), k_new)
+    cache.v.index_put_((bidx, slot), v_new)
+    cache.pos.index_put_((bidx, slot), pos_vals)
+
+    pos = cache.pos[:, None, :]
+    valid = (pos >= 0) & (pos <= pos_w[:, :, None])                # (B, W, C)
+    out = _verify_attn_torch(q, cache.k, cache.v, valid)
+    y = out.reshape(B, W, cfg.q_dim) @ params["wo"]
+    return y, cache
+
+
+def _verify_attn_torch(q, k, v, valid):
+    """Counterpart of the reference's ``_verify_attn_xla`` and
+    ``_paged_verify_attn_xla``.  q: (B,W,H,dh); k/v: (B,L,Hkv,dh); valid:
+    (B,W,L), per-query key validity (ring positions on dense caches, the
+    gathered pages' mask on the pool).  :func:`_decode_attn_torch` with a
+    query-window axis: q scaled in its dtype before the dot, f32
+    accumulation."""
+    B, W, H, dh = q.shape
     Hkv = k.shape[2]
     group = H // Hkv
-    qg = (q.reshape(B, Hkv, group, dh).float() / math.sqrt(dh)).to(q.dtype)
-    s = torch.einsum("bgid,bkgd->bgik", qg.float(), k.float())
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    qg = (q.reshape(B, W, Hkv, group, dh).float() / math.sqrt(dh)).to(q.dtype)
+    s = torch.einsum("bwgid,bkgd->bwgik", qg.float(), k.float())  # (B,W,Hkv,g,L)
+    s = torch.where(valid[:, :, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bgik,bkgd->bgid", w.to(v.dtype).float(), v.float())
-    return out.reshape(B, 1, H, dh).to(q.dtype)
+    out = torch.einsum("bwgik,bkgd->bwgid", w.to(v.dtype).float(), v.float())
+    return out.reshape(B, W, H, dh).to(q.dtype)
+
+
+def paged_verify_attention(params, x, cache: PagedKVView, cur_pos, page_table,
+                           cfg, write_target, *, impl: str = "cuda"):
+    """Multi-query decode attention for draft verification on the page pool.
+
+    x: (B, W, D); cur_pos: (B,) first window position; page_table as in
+    :func:`paged_decode_attention`.  The window's K/V is written **in
+    place** at ``write_target``, the (B, W) (page, offset) pairs of
+    :func:`paged_write_target` for the window's positions, computed once per
+    step by the caller: positions whose logical page is unmapped or past
+    the table land on the trash page (allocation is the caller's job: the
+    spec chunk faults every committable page before the verify).  Trash
+    entries are the only duplicate indices of the write, and nothing reads
+    the trash page as valid.
+
+    ``impl="cuda"`` walks the page table inside the multi-query kernel
+    (:mod:`repro_torch.kernels.paged_attention`); ``"torch"`` is the gather
+    oracle.  Returns (out (B, W, D), the same cache view).
+    """
+    B, W, _ = x.shape
+    pos_w = cur_pos.to(torch.int32)[:, None] + torch.arange(
+        W, dtype=torch.int32, device=x.device)[None, :]            # (B, W)
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions=pos_w)
+    dest, off = write_target
+    cache.k.index_put_((dest, off), k_new.to(cache.k.dtype))
+    cache.v.index_put_((dest, off), v_new.to(cache.v.dtype))
+
+    if impl == "cuda":
+        from ..kernels.paged_attention import ops as pa_ops
+
+        out = pa_ops.paged_verify_attention(q, cache.k, cache.v, page_table,
+                                            cur_pos.to(torch.int32))
+    elif impl == "torch":
+        kg, vg, mapped, pos_l = _gather_pages(cache, page_table, cfg)
+        valid = mapped[:, None, :] & (
+            pos_l[None, None, :] <= pos_w[:, :, None])             # (B, W, L)
+        out = _verify_attn_torch(q, kg, vg, valid)
+    else:
+        raise ValueError(f"unknown attn impl {impl!r} for paged verify")
+    y = out.reshape(B, W, cfg.q_dim) @ params["wo"]
+    return y, cache
+

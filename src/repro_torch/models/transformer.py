@@ -11,8 +11,9 @@ tensor (a view, no copy).
 
 Decode caches are the stacked :class:`KVCacheView` per period position, or
 the stacked :class:`PagedKVView` page pool (:func:`init_paged_caches`);
-:func:`decode_step` updates either **in place** (the reference returns new
-caches and relies on buffer donation).
+:func:`decode_step` and :func:`verify_step` (a window of draft tokens in
+one pass) update either **in place** (the reference returns new caches and
+relies on buffer donation).
 
 Other families (MoE, SSM, hybrid, VLM, audio) raise ``NotImplementedError``
 naming the ROADMAP item that ports them.
@@ -334,8 +335,71 @@ def decode_step(params, tokens, caches: Caches, cur_pos, cfg, *,
     return logits, caches
 
 
+def verify_step(params, tokens, caches: Caches, cur_pos, cfg, *,
+                impl: str = "cuda", page_table=None, write_limit=None):
+    """Score a window of W candidate tokens in one pass (draft-and-verify).
+
+    tokens: (B, W) int32, the slot's last committed token followed by W-1
+    drafted candidates, at absolute positions ``cur_pos + [0, W)``.
+    Returns (logits (B, W, Vp), caches), the caches updated in place:
+    ``logits[:, j]`` is the next-token distribution after ``tokens[:, j]``,
+    what ``decode_step`` gives having decoded the window prefix, because
+    causal attention makes query ``j`` depend only on positions ``<=
+    cur_pos + j`` (the window's K/V is written before attention reads it).
+
+    With ``page_table`` the caches are page pools: every window position
+    writes ``page_table[b, pos // page_size]``, computed once per step for
+    all layers, and a position whose page is unmapped or past the table
+    writes the trash page (clamped and masked where JAX clamps its gather
+    and fills).  Without it, ``write_limit`` (B,) caps how many window
+    writes stick in the dense ring (see
+    :func:`~repro_torch.models.attention.verify_decode_attention`).
+
+    Pure-attention, non-sliding-window text archs only: SSM state advances
+    sequentially and cannot be rolled back, and audio/vlm prompts carry
+    non-token context.
+    """
+    specs = period_structure(cfg)
+    if any(s.mixer != "attn" for s in specs):
+        raise ValueError(
+            "verify_step requires a pure-attention arch (SSM state cannot "
+            "be rolled back to the accepted prefix)")
+    if cfg.family in ("audio", "vlm"):
+        raise ValueError(
+            f"verify_step does not support the {cfg.family} family")
+    if cfg.sliding_window:
+        raise ValueError("verify_step does not support sliding-window archs")
+    x = embed(params["embed"], tokens)                 # (B, W, d)
+    target = None
+    if page_table is not None:
+        pool = next(iter(caches.kv.values())).k          # (nb, P+1, ps, ...)
+        W = tokens.shape[1]
+        pos_w = cur_pos.to(torch.int32)[:, None] + torch.arange(
+            W, dtype=torch.int32, device=tokens.device)[None, :]
+        target = attn_mod.paged_write_target(page_table, pos_w, pool.shape[2],
+                                             pool.shape[1] - 1)
+    for b in range(n_blocks(cfg)):
+        for p, spec in enumerate(specs):
+            lp = _index(params["blocks"][p], b)
+            view = _block_cache(caches.kv[str(p)], b)
+            h = rmsnorm(lp["ln1"], x, eps=cfg.norm_eps)
+            if page_table is not None:
+                y, _ = attn_mod.paged_verify_attention(
+                    lp["attn"], h, view, cur_pos, page_table, cfg, target,
+                    impl=impl)
+            else:
+                y, _ = attn_mod.verify_decode_attention(
+                    lp["attn"], h, view, cur_pos, cfg, impl=impl,
+                    write_limit=write_limit)
+            x = x + y
+            h2 = rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
+            x = x + mlp(lp["mlp"], h2, kind=cfg.mlp_kind)
+    x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
+    return logits_fn(params, x, cfg), caches
+
+
 __all__ = [
     "Caches", "LayerSpec", "decode_step", "init_caches", "init_paged_caches",
     "init_params", "logits_fn", "n_blocks", "period_len", "period_structure",
-    "prefill", "prefill_kv", "prefix_prefill", "unembed_weight",
+    "prefill", "prefill_kv", "prefix_prefill", "unembed_weight", "verify_step",
 ]

@@ -1,15 +1,17 @@
 """Serving on dense KV caches and on the paged pool with shared-prefix
-admission: engine steps, continuous batcher, config, page ledger and
-prefix cache."""
+admission, with optional speculative decode and admission/decode overlap:
+engine steps, continuous batcher, config, page ledger and prefix cache."""
 
 from .batcher import BatcherStats, ContinuousBatcher, Request
 from .config import ServingConfig, config_from_legacy_kwargs
 from .engine import (
+    DraftState,
     PageState,
     ServeConfig,
     SlotState,
     chunk_bucket,
     generate,
+    init_draft_state,
     init_page_state,
     init_slot_state,
     make_admit_step,
@@ -18,7 +20,9 @@ from .engine import (
     make_page_push,
     make_paged_admit_step,
     make_paged_decode_chunk,
+    make_paged_spec_decode_chunk,
     make_prefill_step,
+    make_spec_decode_chunk,
     select_token,
 )
 from .kv_cache import (
@@ -37,11 +41,12 @@ from .prefix_cache import PrefixCache, PrefixNode
 __all__ = [
     "BatcherStats", "ContinuousBatcher", "Request",
     "ServingConfig", "config_from_legacy_kwargs",
-    "PageState", "ServeConfig", "SlotState", "chunk_bucket", "generate",
-    "init_page_state", "init_slot_state", "make_admit_step",
-    "make_cached_admit_step", "make_decode_chunk", "make_page_push",
-    "make_paged_admit_step", "make_paged_decode_chunk", "make_prefill_step",
-    "select_token",
+    "DraftState", "PageState", "ServeConfig", "SlotState", "chunk_bucket",
+    "generate", "init_draft_state", "init_page_state", "init_slot_state",
+    "make_admit_step", "make_cached_admit_step", "make_decode_chunk",
+    "make_page_push", "make_paged_admit_step", "make_paged_decode_chunk",
+    "make_paged_spec_decode_chunk", "make_prefill_step",
+    "make_spec_decode_chunk", "select_token",
     "PagedKVPool", "PageQuotaError", "cache_len", "kv_cache_bytes",
     "page_bytes", "paged_kv_cache_bytes", "pages_for", "seed_kv_cache",
     "tree_bytes",

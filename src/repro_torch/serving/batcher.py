@@ -1,7 +1,8 @@
 """Continuous batching over fixed decode slots, on dense KV caches or on the
-paged pool with shared-prefix admission.
+paged pool with shared-prefix admission, with optional speculative decode
+and admission/decode overlap.
 
-Counterpart of the dense, paged and prefix modes of
+Counterpart of the dense, paged, prefix, speculative and overlap modes of
 ``repro.serving.batcher``.  The batcher
 multiplexes a dynamic request stream onto B fixed slots:
 
@@ -14,15 +15,22 @@ multiplexes a dynamic request stream onto B fixed slots:
   pressure (short chunks while requests wait, long chunks when the queue is
   dry) over the same power-of-two buckets;
 * the caches and slot state are updated in place by both steps;
-* slots free on EOS/max-tokens and are immediately refillable.
+* slots free on EOS/max-tokens and are immediately refillable;
+* ``speculative=True`` makes the chunk unit a draft-and-verify window of
+  ``draft_window`` tokens (an on-device n-gram drafter, one verify pass,
+  greedy acceptance), token-identical to plain greedy decode;
+* ``overlap=True`` dispatches the decode chunk first and runs admission
+  behind it, so the host plans admission while the card decodes.
 
 A "dispatch" is one call of the admission or chunk step (or of the page
 push that returns evicted prefix-cache pages), and a "host sync" one
 blocking device-to-host fetch: ``(toks, emitted, poisoned)`` — plus, paged,
 ``active``, ``free_top`` and the device counters — come back packed in one
-tensor with one ``.cpu()`` per chunk, and the first tokens (paged: with the
-written table rows) with one ``.cpu()`` per admission — the same counts the
-reference keeps.
+tensor with one fetch per chunk, and the first tokens (paged: with the
+written table rows) with one fetch per admission — the same counts the
+reference keeps.  On the card a fetch is an asynchronous copy into pinned
+host memory enqueued right behind its step, with an event recorded after
+it; the merge point waits for that event only.
 
 Invariants:
 
@@ -43,9 +51,9 @@ whose logits go NaN/inf is deactivated on the device before a poisoned token
 can be emitted, and its request is requeued with its pre-fault tokens
 intact (``stats.poisoned_slots``).
 
-The paged pool, prefix cache, speculative decode, overlap, tensor
-parallelism, watchdog and page-table audit raise ``NotImplementedError`` at
-construction until the ROADMAP items that port them land.
+Tensor parallelism, the watchdog and the page-table audit raise
+``NotImplementedError`` at construction until the ROADMAP items that port
+them land.
 """
 
 from __future__ import annotations
@@ -67,10 +75,12 @@ from ..models.transformer import (
 from ..obs import MetricsRegistry, Telemetry
 from .config import ServingConfig, config_from_legacy_kwargs
 from .engine import (
+    DraftState,
     PageState,
     ServeConfig,
     SlotState,
     chunk_bucket,
+    init_draft_state,
     init_page_state,
     init_slot_state,
     make_admit_step,
@@ -79,6 +89,8 @@ from .engine import (
     make_page_push,
     make_paged_admit_step,
     make_paged_decode_chunk,
+    make_paged_spec_decode_chunk,
+    make_spec_decode_chunk,
 )
 from .kv_cache import PagedKVPool, pages_for, tree_bytes
 from .prefix_cache import PrefixCache, PrefixNode
@@ -86,13 +98,34 @@ from .prefix_cache import PrefixCache, PrefixNode
 # ServingConfig modes this slice does not run yet, with the ROADMAP item
 # (ROADMAP.md, Queue 1) that ports each
 _UNPORTED = (
-    ("speculative", lambda c: c.speculative,
-     "item 10 (speculative decode and overlap)"),
-    ("overlap", lambda c: c.overlap, "item 10 (speculative decode and overlap)"),
     ("tp > 1", lambda c: c.tp > 1, "item 12 (tensor parallel)"),
     ("watchdog_s", lambda c: c.watchdog_s is not None, "item 11 (fault guards)"),
     ("audit", lambda c: c.audit, "item 11 (fault guards)"),
 )
+
+
+class _Fetch:
+    """One blocking device-to-host fetch of a packed result.  On the card the
+    copy into pinned host memory is enqueued at dispatch, right behind the
+    step on the same stream, with an event recorded after it: :meth:`wait`
+    (the host sync) then waits for that step and its copy only, not for
+    work enqueued later (an admission dispatched behind a chunk).  A CPU
+    tensor is already on the host."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(t.device))
+            t = host
+        self._host = t
+
+    def wait(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
 
 
 @dataclasses.dataclass
@@ -320,6 +353,13 @@ class ContinuousBatcher:
                 "prefix caching requires a pure-attention, non-sliding-window "
                 "arch (SSM state is not positional; audio/vlm prompts shift "
                 "positions)")
+        if config.speculative and (
+                any(s.mixer != "attn" for s in period_structure(cfg))
+                or cfg.family in ("audio", "vlm") or cfg.sliding_window):
+            raise ValueError(
+                "speculative decode requires a pure-attention, "
+                "non-sliding-window text arch (SSM state cannot be rolled "
+                "back to the accepted prefix)")
         self.paged = bool(config.paged)
         self._clock = clock if clock is not None else time.monotonic
         self._has_deadlines = False
@@ -357,6 +397,16 @@ class ContinuousBatcher:
             self.caches = init_caches(cfg, slots, config.max_len,
                                       device=self.device)
             self._admit_fn = make_admit_step(cfg, self.scfg)
+        # speculative decode: the chunk unit becomes a draft-and-verify
+        # window; the drafter history is device state beside the caches
+        self._spec = bool(config.speculative)
+        self._draft_window = config.draft_window
+        self._draft_ngram = config.draft_ngram
+        self._draft_hist = config.draft_hist
+        self.draft: Optional[DraftState] = (
+            init_draft_state(slots, config.draft_hist, device=self.device)
+            if self._spec else None)
+        self._overlap = bool(config.overlap)
         self.telemetry = telemetry if telemetry is not None else Telemetry()
         self._tracer = self.telemetry.tracer
         self._track = self.telemetry.track
@@ -593,14 +643,19 @@ class ContinuousBatcher:
             inserts += 1
         return nodes, inserts
 
-    def _admit(self) -> None:
+    def _admit(self, *, defer: bool = False) -> List[Dict[str, Any]]:
+        """Admission planning and prefill dispatch.  With ``defer=False`` the
+        post-dispatch host work (first tokens, done-at-admission requests,
+        prefix inserts, draft seeding) runs inline and ``[]`` is returned;
+        with ``defer=True`` each dispatch comes back as a pending record for
+        :meth:`_finish_admit`: the overlap path dispatches admission behind
+        the in-flight chunk and merges both at one point per round."""
         self._shed_expired()
         free = self._free_slots()
         if not free or not self.queue:
-            return
+            return []
         if not self.paged:
-            self._admit_dense(free)
-            return
+            return self._admit_dense(free, defer=defer)
         joins: List[Dict[str, Any]] = []
         planned_paths: set = set()
         witness = self._queue_path_counts()
@@ -640,7 +695,7 @@ class ContinuousBatcher:
                           "k": k, "pin": k + inserts, "pop": pop,
                           "nodes": nodes})
         if not joins:
-            return
+            return []
         # one dispatch per cached-prefix depth: the suffix length differs
         by_depth: Dict[int, List[Dict[str, Any]]] = {}
         for join in joins:
@@ -648,10 +703,14 @@ class ContinuousBatcher:
         pending = [self._dispatch_paged(by_depth[k], k)
                    for k in sorted(by_depth)]
         self.stats.shared_pages = self.kv_pool.shared
+        if defer:
+            return pending
         for rec in pending:
             self._finish_admit(rec)
+        return []
 
-    def _admit_dense(self, free: List[int]) -> None:
+    def _admit_dense(self, free: List[int], *,
+                     defer: bool = False) -> List[Dict[str, Any]]:
         """Dense-ring admission: one bucketed prefill, per-slot scatter."""
         joins = []
         while free and self.queue:
@@ -689,7 +748,11 @@ class ContinuousBatcher:
         self.stats.admit_scatter_bytes += int(
             self.stats.cache_bytes * nb / max(self.B, 1)
         )
-        self._finish_admit({"kind": "dense", "joins": joins, "fetch": nxt})
+        rec = {"kind": "dense", "joins": joins, "fetch": _Fetch(nxt)}
+        if defer:
+            return [rec]
+        self._finish_admit(rec)
+        return []
 
     def _dispatch_paged(self, group: List[Dict[str, Any]],
                         k: int) -> Dict[str, Any]:
@@ -750,21 +813,23 @@ class ContinuousBatcher:
             / max(self.B * self.prompt_len, 1)
         )
         # first tokens and written rows come back packed: one fetch
-        fetch = torch.cat([nxt[:, None], out_rows], dim=1)
+        fetch = _Fetch(torch.cat([nxt[:, None], out_rows], dim=1))
         return {"kind": "paged", "joins": group, "k": k, "fetch": fetch,
                 "rows": rows}
 
     def _finish_admit(self, rec: Dict[str, Any]) -> None:
         """Post-dispatch half of one admission: read the first tokens (one
         host sync per record), append them, complete done-at-admission
-        requests, and run the planned prefix inserts."""
+        requests, run the planned prefix inserts, and seed the drafter
+        history of the slots that stay resident."""
         k = rec.get("k", 0)
-        fetched = rec["fetch"].cpu().numpy()            # ONE host sync
+        fetched = rec["fetch"].wait()                   # ONE host sync
         if rec["kind"] == "paged":
             nxt_np, rows_np = fetched[:, 0], fetched[:, 1:]
         else:
             nxt_np, rows_np = fetched, None
         self.stats.host_syncs += 1
+        seeds: List[Tuple[int, Request]] = []
         for j, join in enumerate(rec["joins"]):
             slot, req = join["slot"], join["req"]
             tok = int(nxt_np[j])
@@ -783,6 +848,7 @@ class ContinuousBatcher:
                     self._admitted_pages_since_sync -= join["pop"]
                 continue
             self.slot_req[slot] = req
+            seeds.append((slot, req))
             inserts = join.get("pin", 0) - k
             if inserts > 0:
                 new_pids = rows_np[j, k:join["pin"]]
@@ -800,9 +866,35 @@ class ContinuousBatcher:
                     self.prefix.acquire(created)
                     req._prefix_nodes.extend(created)
                     self.stats.prefix_inserts += len(created)
+        if self._spec and seeds:
+            self._seed_draft(seeds)
         self.stats.peak_resident = max(
             self.stats.peak_resident,
             sum(r is not None for r in self.slot_req))
+
+    def _seed_draft(self, seeds: List[Tuple[int, Request]]) -> None:
+        """Seed the drafter history of freshly admitted slots from the
+        host-known token stream (prompt + emitted tokens, newest last): one
+        scatter per admission record, no sync.  Resumed requests re-seed
+        with their kept output, so the n-gram index warms up again at
+        once after a requeue."""
+        N = self._draft_hist
+        rows = np.full((len(seeds), N), -1, dtype=np.int32)
+        ns = np.zeros((len(seeds),), dtype=np.int32)
+        slots = np.array([s for s, _ in seeds], dtype=np.int64)
+        for j, (_, req) in enumerate(seeds):
+            toks = np.asarray(req.prompt, dtype=np.int32)
+            if req.out:
+                toks = np.concatenate(
+                    [toks, np.asarray(req.out, dtype=np.int32)])
+            tail = toks[-N:]
+            rows[j, N - len(tail):] = tail
+            ns[j] = len(tail)
+        dev = self.device
+        idx = torch.from_numpy(slots).to(dev)
+        self.draft = DraftState(
+            hist=self.draft.hist.index_put((idx,), torch.from_numpy(rows).to(dev)),
+            n=self.draft.n.index_put((idx,), torch.from_numpy(ns).to(dev)))
 
     # -- chunk sizing: adaptive to queue pressure ------------------------
     def _pick_chunk(self, active: List[int]) -> int:
@@ -815,45 +907,70 @@ class ContinuousBatcher:
         return chunk_bucket(max(1, min(horizon, self.chunk)))
 
     def _dispatch_chunk(self, active: List[int]) -> Dict[str, Any]:
-        """Dispatch one decode chunk of T steps without syncing; returns the
-        pending record for :meth:`_finish_chunk`."""
+        """Dispatch one decode chunk (speculative: T draft-and-verify
+        windows; otherwise T decode steps) without syncing; returns the
+        pending record for :meth:`_finish_chunk`.
+
+        The chunk's results are packed and their fetch enqueued here, before
+        anything that overlap admission dispatches behind the chunk: on one
+        stream the packed copy then holds this chunk's ``active`` and
+        ``free_top``, which the admission updates in place afterwards (the
+        reference copies them for the same reason, as the admission step
+        there donates them)."""
         T = self._pick_chunk(active)
         t0 = self._clock()
-        if self.paged:
+        W = self._draft_window if self._spec else 1
+        ctr = None
+        if self._spec and self.paged:
+            chunk = make_paged_spec_decode_chunk(
+                self.cfg, self.scfg, T, W, self._draft_ngram, self.page_size)
+            (self.caches, self.state, self.pages, self.draft, toks, emitted,
+             poisoned, ctr) = chunk(self.params, self.caches, self.state,
+                                    self.pages, self.draft)
+        elif self._spec:
+            chunk = make_spec_decode_chunk(self.cfg, self.scfg, T, W,
+                                           self._draft_ngram)
+            (self.caches, self.state, self.draft, toks, emitted,
+             poisoned) = chunk(self.params, self.caches, self.state,
+                               self.draft)
+        elif self.paged:
             chunk = make_paged_decode_chunk(self.cfg, self.scfg, T,
                                             self.page_size)
             (self.caches, self.state, self.pages, toks, emitted, poisoned,
              ctr) = chunk(self.params, self.caches, self.state, self.pages,
                           self._gen)
-            # one packed int32 vector so the chunk costs one fetch: tokens,
-            # emitted, poisoned, then active, free_top and the counters
-            fetch = torch.cat([
-                toks.reshape(-1), emitted.to(torch.int32).reshape(-1),
-                poisoned.to(torch.int32), self.state.active.to(torch.int32),
-                self.pages.free_top.reshape(1), ctr])
         else:
             chunk = make_decode_chunk(self.cfg, self.scfg, T)
             self.caches, self.state, toks, emitted, poisoned = chunk(
                 self.params, self.caches, self.state, self._gen)
-            fetch = torch.cat([toks.reshape(-1),
-                               emitted.to(torch.int32).reshape(-1),
-                               poisoned.to(torch.int32)])
-        self.stats.steps += T
+        # one packed int32 vector so the chunk costs one fetch: tokens,
+        # emitted, poisoned, then (paged) active, free_top and the counters
+        parts = [toks.reshape(-1), emitted.to(torch.int32).reshape(-1),
+                 poisoned.to(torch.int32)]
+        if self.paged:
+            parts += [self.state.active.to(torch.int32),
+                      self.pages.free_top.reshape(1), ctr]
+        fetch = _Fetch(torch.cat(parts))
+        self.stats.steps += T * W
         self.stats.chunks += 1
         self.stats.dispatches += 1
         if self._tracer.enabled:
             self._tracer.complete("dispatch", self._track, t0,
                                   self._clock() - t0,
                                   {"T": T, "active": len(active)})
-        return {"fetch": fetch, "t0": t0, "T": T, "active": active}
+        return {"fetch": fetch, "t0": t0, "T": T, "W": W, "active": active}
 
-    def _finish_chunk(self, pending: Dict[str, Any]) -> None:
+    def _finish_chunk(self, pending: Dict[str, Any], *,
+                      keep_admitted_pages: int = 0) -> None:
         """Sync one dispatched chunk and run the host bookkeeping: token
-        emission, completion, poison and OOM requeues, page accounting."""
-        T, active = pending["T"], pending["active"]
+        emission, completion, poison and OOM requeues, page accounting.
+        ``keep_admitted_pages`` is the number of pages that admission
+        dispatched *behind* this chunk has popped: the fetched ``free_top``
+        predates those pops, so they survive the estimate's reset."""
+        T, W, active = pending["T"], pending["W"], pending["active"]
         B = self.B
         t_sync0 = self._clock() if self._tracer.enabled else 0.0
-        fetched = pending["fetch"].cpu().numpy()          # ONE host sync
+        fetched = pending["fetch"].wait()                 # ONE host sync
         elapsed = self._clock() - pending["t0"]
         if self._tracer.enabled:
             t_end = pending["t0"] + elapsed
@@ -861,19 +978,28 @@ class ContinuousBatcher:
                                   t_end - t_sync0)
             self._tracer.complete("chunk", self._track, pending["t0"],
                                   elapsed, {"T": T, "slots": len(active)})
-        toks_np = fetched[:T * B].reshape(T, B)
-        emit_np = fetched[T * B:2 * T * B].reshape(T, B)
-        poison_np = fetched[2 * T * B:2 * T * B + B]
+        n = T * B * W
+        toks_np = fetched[:n].reshape(T, B, W)
+        emit_np = fetched[n:2 * n].reshape(T, B, W)
+        poison_np = fetched[2 * n:2 * n + B]
         self.stats.host_syncs += 1
-        self.stats.slot_total_steps += B * T
+        # busy/total count query positions: speculative occupancy then
+        # shows rejected drafts as idle device work
+        self.stats.slot_total_steps += B * T * W
         self.stats.slot_busy_steps += int(emit_np.sum())
         for i in active:
             req = self.slot_req[i]
             for t in range(T):
-                if not emit_np[t, i]:
-                    break
-                req.out.append(int(toks_np[t, i]))
-                self.stats.decode_tokens += 1
+                # emitted is a per-window prefix mask (W = 1 without spec)
+                c = int(emit_np[t, i].sum())
+                if c == 0:
+                    break       # deactivated (EOS, budget, OOM, poison)
+                req.out.extend(int(x) for x in toks_np[t, i, :c])
+                self.stats.decode_tokens += c
+                if self._spec:
+                    self.stats.spec_windows += 1
+                    self.stats.drafted_tokens += W - 1
+                    self.stats.accepted_tokens += c - 1
             self._maybe_complete(i, req)
         # non-finite sentinel: the device deactivated the flagged slots
         # before selecting or emitting a token (and, paged, recycled their
@@ -886,7 +1012,7 @@ class ContinuousBatcher:
                                      args={"slot": i})
                 self._requeue_slot(i, req)
         if self.paged:
-            rest = fetched[2 * T * B + B:]
+            rest = fetched[2 * n + B:]
             active_np, free_top, ctr_np = rest[:B], int(rest[B]), rest[B + 1:]
             self.stats.device_pages_popped += int(ctr_np[0])
             self.stats.device_pages_pushed += int(ctr_np[1])
@@ -915,7 +1041,7 @@ class ContinuousBatcher:
             self.stats.pages_in_use = self.n_pages - free_top
             self.stats.peak_pages_in_use = max(
                 self.stats.peak_pages_in_use, self.stats.pages_in_use)
-            self._admitted_pages_since_sync = 0
+            self._admitted_pages_since_sync = keep_admitted_pages
 
     def _maybe_complete(self, slot: int, req: Request) -> None:
         """Retire ``slot`` if its request just hit EOS or its budget."""
@@ -931,15 +1057,46 @@ class ContinuousBatcher:
 
     # -- one scheduling round ---------------------------------------------
     def step(self) -> None:
-        """One scheduling round: admit, then decode one chunk — two
-        dispatches, two syncs, strictly ordered."""
+        """One scheduling round.
+
+        Serial (default): admit, then decode one chunk — two dispatches, two
+        syncs, strictly ordered.
+
+        Overlap (``overlap=True``): dispatch the decode chunk first (no
+        sync), then run admission **behind it**: its host-side planning
+        (queue scan, prefix lookups, row packing) and its prefill dispatch
+        happen while the card is still decoding, and the one stream orders
+        the admission's in-place writes after the chunk.  One merge point
+        per round: the chunk's sync, then each admission's.  The chunk ran
+        against pre-admission state, so its fetched ``active``/``free_top``
+        never see the new slots; this round's admission pops are carried
+        across the estimate's reset."""
+        if not self._overlap:
+            with self._tracer.span("round", self._track):
+                with self._tracer.span("admission", self._track):
+                    self._admit()
+                active = [i for i, r in enumerate(self.slot_req)
+                          if r is not None]
+                if not active:
+                    return
+                self._finish_chunk(self._dispatch_chunk(active))
+            return
         with self._tracer.span("round", self._track):
+            active = [i for i, r in enumerate(self.slot_req)
+                      if r is not None]
+            pending = self._dispatch_chunk(active) if active else None
+            pops_before = self._admitted_pages_since_sync
             with self._tracer.span("admission", self._track):
-                self._admit()
-            active = [i for i, r in enumerate(self.slot_req) if r is not None]
-            if not active:
-                return
-            self._finish_chunk(self._dispatch_chunk(active))
+                admits = self._admit(defer=True)
+            round_pops = self._admitted_pages_since_sync - pops_before
+            if pending is not None and admits:
+                self.stats.overlap_rounds += 1
+                self._tracer.instant("overlap_merge", self._track,
+                                     args={"admits": len(admits)})
+            if pending is not None:
+                self._finish_chunk(pending, keep_admitted_pages=round_pops)
+            for rec in admits:
+                self._finish_admit(rec)
 
     def run(self, *, max_steps: int = 10_000) -> BatcherStats:
         while (self.queue or any(r is not None for r in self.slot_req)) and \

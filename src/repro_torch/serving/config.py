@@ -6,11 +6,11 @@ cross-field rules, checked at construction against the port's
 attention impls are ``"cuda"`` (the kernels, the default), ``"torch"`` (the
 counterpart of ``"xla"``) and ``"naive"``.
 
-The modes that are not ported yet (speculative decode, overlap, tensor
-parallelism, watchdog, audit) keep their fields and value rules here, so a
-config means the same in both packages; ``ContinuousBatcher`` raises
-``NotImplementedError`` for them at construction, naming the ROADMAP item
-that ports each.  The paged pool and the prefix cache run.
+The modes that are not ported yet (tensor parallelism, watchdog, audit)
+keep their fields and value rules here, so a config means the same in both
+packages; ``ContinuousBatcher`` raises ``NotImplementedError`` for them at
+construction, naming the ROADMAP item that ports each.  The paged pool, the
+prefix cache, speculative decode and overlap run.
 
 The legacy kwargs constructor is kept as a thin deprecation shim::
 
@@ -40,10 +40,12 @@ class ServingConfig:
       chunk        — max decode steps fused per dispatch
 
     Paged pool (``paged``, ``page_size``, ``n_pages``, ``page_quota``,
-    ``reserve_pages``) and shared-prefix cache (``prefix_cache``) as in
+    ``reserve_pages``), shared-prefix cache (``prefix_cache``), speculative
+    decode (``speculative``, ``draft_window``, ``draft_ngram``,
+    ``draft_hist``) and admission/decode overlap (``overlap``) as in
     ``repro.serving.config``.  The remaining fields mirror the reference's
-    fault guards, speculative decode, overlap and tensor-parallel options;
-    their value rules are checked here, their modes are not ported yet.
+    fault guards and tensor-parallel options; their value rules are checked
+    here, their modes are not ported yet.
     """
 
     slots: int
@@ -103,6 +105,7 @@ class ServingConfig:
                                  "pass paged=True")
             check_attn_impl(self.attn_impl, "prefix")
         if self.speculative:
+            check_attn_impl(self.attn_impl, "verify")
             if self.draft_window < 2:
                 raise ValueError(
                     f"draft_window must be >= 2 (one committed token plus "

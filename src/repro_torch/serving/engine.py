@@ -1,7 +1,9 @@
-"""Inference engine: prefill, chunked decode and admission steps, and a host
-``generate`` loop, on dense KV caches and on the paged pool.
+"""Inference engine: prefill, chunked decode, speculative (draft-and-verify)
+decode and admission steps, and a host ``generate`` loop, on dense KV
+caches and on the paged pool.
 
-Counterpart of the dense and paged parts of ``repro.serving.engine``.  The contract is
+Counterpart of the dense, paged and speculative parts of
+``repro.serving.engine``.  The contract is
 the reference's: :func:`make_decode_chunk` runs ``n_steps`` decode
 iterations with the slot bookkeeping (:class:`SlotState`: active mask,
 positions, EOS and budget detection) on the device, so a batcher issues one
@@ -41,7 +43,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models import decode_step, prefill, prefix_prefill
+from ..models import decode_step, prefill, prefix_prefill, verify_step
 from ..models.attention import check_attn_impl
 from ..models.transformer import Caches, prefill_kv
 from .kv_cache import pages_for
@@ -610,6 +612,300 @@ def make_page_push():
             free_top=pages.free_top + valid.sum(dtype=torch.int32))
 
     return push
+
+
+# ---------------------------------------------------------------------------
+# Speculative decode: on-device n-gram drafting + batched verify
+# ---------------------------------------------------------------------------
+#
+# Each window proposes W-1 draft tokens per slot from an on-device n-gram
+# index over the slot's committed history, scores [last token, drafts] in
+# ONE verify pass (``models.verify_step``) and commits the longest prefix
+# the model agrees with plus one bonus token.  Greedy acceptance compares
+# argmax tokens, so the committed stream is token-identical to plain greedy
+# decode.  Rejected drafts are rolled back by overwrite-before-attend (the
+# next window rewrites every stale position before a query can attend to
+# it); paged, pages mapped for the overshoot are kept as the next window's
+# pages and recycled by ``_free_finished_pages`` when the slot finishes.
+
+
+class DraftState(NamedTuple):
+    """On-device n-gram drafter history, beside the caches.
+
+    hist: (B, N) int32, the last ``N`` committed tokens per slot, newest at
+          index ``N - 1``, front-padded with -1 (never a valid token, so
+          padding cannot match).
+    n:    (B,) int32, the count of valid entries (<= N).
+    """
+
+    hist: torch.Tensor
+    n: torch.Tensor
+
+
+def init_draft_state(batch: int, hist_len: int, *, device="cuda") -> DraftState:
+    device = resolve_device(device)
+    return DraftState(
+        hist=torch.full((batch, hist_len), -1, dtype=torch.int32, device=device),
+        n=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def _propose_drafts(draft: DraftState, last, n_draft: int, ngram: int):
+    """(B, n_draft) draft tokens: find the most recent earlier occurrence of
+    the trailing ``ngram`` committed tokens and propose its continuation;
+    slots with no match repeat the last token (the window runs at fixed
+    width W regardless).  The continuation's indices are clipped to the
+    history, as the reference clips them: a gather past it would raise on
+    the card where JAX clamps."""
+    hist, n = draft.hist, draft.n
+    B, N = hist.shape
+    dev = hist.device
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    m = torch.ones((B, N), dtype=torch.bool, device=dev)
+    for g in range(ngram):
+        # shifted[:, i] = hist[:, i - g] (-1 beyond the front): the candidate
+        # n-gram ending at i matches the trailing n-gram ending at N-1
+        shifted = hist if g == 0 else torch.cat(
+            [torch.full((B, g), -1, dtype=hist.dtype, device=dev),
+             hist[:, :N - g]], dim=1)
+        m = m & (shifted == hist[:, N - 1 - g][:, None])
+    # the candidate ends strictly before the trailing n-gram and spans only
+    # valid history: i - ngram + 1 >= N - n
+    m = m & (idx[None, :] < N - 1) & (idx[None, :] >= (N - n + ngram - 1)[:, None])
+    match_idx = torch.where(m, idx[None, :], -1).amax(dim=1)          # (B,)
+    found = (match_idx >= 0) & (n >= ngram + 1)
+    cont = (match_idx[:, None] + 1 + torch.arange(
+        n_draft, dtype=torch.int32, device=dev)[None, :]).clamp(0, N - 1)
+    proposed = torch.gather(hist, 1, cont.long())
+    fallback = last[:, None].expand(B, n_draft)
+    return torch.where(found[:, None], proposed, fallback).to(torch.int32)
+
+
+def _advance_draft(draft: DraftState, toks, c) -> DraftState:
+    """Shift ``c[b]`` committed tokens (``toks[b, :c[b]]``) into each slot's
+    history.  Gather indices never reach past position ``N - 1 + c[b]`` of
+    the concatenation, so uncommitted window tokens are never read."""
+    hist, n = draft.hist, draft.n
+    N = hist.shape[1]
+    ext = torch.cat([hist, toks.to(torch.int32)], dim=1)
+    idx = torch.arange(N, device=hist.device)[None, :] + c.long()[:, None]
+    return DraftState(hist=torch.gather(ext, 1, idx),
+                      n=torch.clamp(n + c, max=N).to(torch.int32))
+
+
+def _spec_accept(q_toks, g, st: SlotState, active):
+    """The acceptance algebra of the dense and paged spec chunks.
+
+    ``g[b, w]`` is the greedy token given the prefix through
+    ``q_toks[b, w]``: a sequential-greedy output iff drafts ``1..w`` all
+    matched, which the cumulative-product scan checks, so wrong-context
+    positions after the first mismatch can never be committed.  Returns
+    (c, nxt, done, emitted):
+
+      c       (B,) int32, tokens committed this window: the accepted draft
+              prefix + 1 bonus token, cut at the first EOS and at the
+              remaining budget; >= 1 for active slots.
+      nxt     (B,) int32, the last committed token (the next window's root).
+      done    (B,) bool, EOS committed or budget exhausted.
+      emitted (B, W) bool, the prefix mask ``w < c``.
+
+    ``torch.argmax`` refuses bool tensors on the card, so the EOS mask is
+    cast first; like ``jnp.argmax`` it returns the first maximum.  The
+    gather of the last committed token clips its index as the reference
+    does.
+    """
+    W = g.shape[1]
+    wi = torch.arange(W, dtype=torch.int32, device=g.device)
+    acc = _i32(q_toks[:, 1:] == g[:, :-1])                         # (B, W-1)
+    e = 1 + torch.cumprod(acc, dim=1).sum(dim=1)                    # in [1, W]
+    is_eos = (st.eos[:, None] >= 0) & (g == st.eos[:, None])
+    fe = torch.where(is_eos.any(dim=1), torch.argmax(_i32(is_eos), dim=1), W)
+    # an EOS beyond the accepted prefix (fe >= e) is a wrong-context token
+    # and is ignored: c = min(e, ...) cuts before it
+    c = torch.minimum(torch.minimum(e, fe + 1), st.remaining.long())
+    c = _i32(torch.where(active, c, 0))
+    hit_eos = fe < c               # the EOS is the last committed token
+    done = active & (hit_eos | (st.remaining - c <= 0))
+    nxt = torch.gather(g, 1, (c - 1).clamp(0, W - 1).long()[:, None])[:, 0]
+    nxt = torch.where(active, nxt, st.tokens)
+    emitted = active[:, None] & (wi[None, :] < c[:, None])
+    return c, nxt, done, emitted
+
+
+def _spec_window_bad(logits, st: SlotState, active):
+    """The NaN sentinel of a verify window: an active slot whose logits are
+    non-finite at a committable position (``w < remaining``).  Past the
+    budget the dense ring write was masked and the query may read stale
+    slots, so garbage there is expected and never emitted.
+
+    The check runs on the raw logits, before the additive vocab mask puts
+    -inf on the padding, as the decode chunks check.  (The reference's spec
+    chunks check after the mask, so with ``vocab_padded > vocab`` every
+    active slot is flagged on every window; see ROADMAP.md Queue 3.)"""
+    finite = torch.isfinite(logits).all(dim=-1)                     # (B, W)
+    wi = torch.arange(logits.shape[1], dtype=torch.int32,
+                      device=logits.device)
+    committable = wi[None, :] < st.remaining[:, None]
+    return active & ~(finite | ~committable).all(dim=1)
+
+
+def make_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
+                           window: int, ngram: int):
+    """spec_chunk(params, caches, state, draft) ->
+    (caches, state, draft, tokens (Tw, B, W), emitted (Tw, B, W),
+    poisoned (B,)).
+
+    The speculative twin of :func:`make_decode_chunk`: ``n_windows``
+    draft-and-verify windows of width ``window`` per dispatch, greedy only
+    (acceptance compares argmax tokens).  ``emitted`` is a per-window
+    prefix mask (the committed tokens are ``tokens[t, b, :c]``); the NaN
+    sentinel discards the whole window for a slot whose committable logits
+    come back non-finite.  The dense ring writes are masked at the
+    remaining budget (``write_limit``) so overshoot writes can never wrap
+    the ring onto live context.  The caches are updated in place; the
+    slot state and the draft come back as new tensors.
+    """
+    if not scfg.greedy:
+        raise ValueError("speculative decode requires greedy selection")
+    W = int(window)
+
+    def spec_chunk(params, caches: Caches, state: SlotState,
+                   draft: DraftState):
+        mask = scfg.logit_mask(cfg, state.tokens.device)
+        st, dr = state, draft
+        poisoned = torch.zeros_like(state.active)
+        toks, emitted = [], []
+        for _ in range(n_windows):
+            drafts = _propose_drafts(dr, st.tokens, W - 1, ngram)
+            q_toks = torch.cat([st.tokens[:, None], drafts], dim=1)
+            logits, caches = verify_step(params, q_toks, caches, st.cur_pos,
+                                         cfg, impl=scfg.attn_impl,
+                                         write_limit=st.remaining)
+            bad = _spec_window_bad(logits, st, st.active)
+            if mask is not None:
+                logits = logits + mask.to(logits.dtype)
+            g = torch.argmax(logits, dim=-1).to(torch.int32)        # (B, W)
+            active = st.active & ~bad
+            c, nxt, done, emit = _spec_accept(q_toks, g, st, active)
+            dr = _advance_draft(dr, g, c)
+            st = SlotState(tokens=nxt, cur_pos=st.cur_pos + c,
+                           active=active & ~done, remaining=st.remaining - c,
+                           eos=st.eos)
+            poisoned = poisoned | bad
+            toks.append(g)
+            emitted.append(emit)
+        return (caches, st, dr, torch.stack(toks), torch.stack(emitted),
+                poisoned)
+
+    return spec_chunk
+
+
+def make_paged_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
+                                 window: int, ngram: int, page_size: int):
+    """spec_chunk(params, caches, state, pages, draft) ->
+    (caches, state, pages, draft, tokens (Tw, B, W), emitted, poisoned,
+    ctr (4,) int32).
+
+    ``ctr`` = (pages popped, pages pushed, fault-denied slots, draft tokens
+    accepted), the device-counter vector of :func:`make_paged_decode_chunk`
+    with the accept count in the last entry, so the batcher learns
+    per-window acceptance from the chunk's one fetch.
+
+    The page fault before each verify maps **every logical page the
+    window's committable span touches** (up to ``(W - 2) // page_size + 2``
+    pages), all or nothing per slot: a slot that cannot map its whole span
+    is denied and requeued like a single-page OOM, so a half-mapped window
+    never commits tokens whose K/V landed on the trash page.  Needs are
+    cumsum-ranked across slots, so denials cut a suffix and pops stay
+    contiguous at the top of the stack.  The table is written once per span
+    entry, in order, as in the reference: span entries past the table are
+    clipped onto its last column, and a later entry's write there wins
+    (ROADMAP.md Queue 3 logs what that leaks).  Overshoot pages are kept
+    (they are the next window's) and recycled by
+    :func:`_free_finished_pages` when the slot finishes.  The caches are
+    updated in place; slot, page and draft state come back as new tensors.
+    """
+    if not scfg.greedy:
+        raise ValueError("speculative decode requires greedy selection")
+    W = int(window)
+    ps = int(page_size)
+    # logical pages [cur, cur + W - 1] can span: the first may be entered
+    # mid-page, every later one is full
+    max_span = (W - 2) // ps + 2
+
+    def spec_chunk(params, caches: Caches, state: SlotState,
+                   pages: PageState, draft: DraftState):
+        dev = state.tokens.device
+        mask = scfg.logit_mask(cfg, dev)
+        n_pages = pages.free.shape[0] - 1
+        B = state.tokens.shape[0]
+        maxp = pages.table.shape[1]
+        bidx = torch.arange(B, device=dev)
+        span_off = torch.arange(max_span, dtype=torch.int32, device=dev)
+        st, pg, dr = state, pages, draft
+        poisoned = torch.zeros_like(state.active)
+        ctr = torch.zeros((4,), dtype=torch.int32, device=dev)
+        toks, emitted = [], []
+        for _ in range(n_windows):
+            # -- multi-page fault over the window's committable span ------
+            weff = torch.clamp(st.remaining, max=W)  # positions that can
+            l0 = st.cur_pos // ps                     # ever be committed
+            l1 = (st.cur_pos + torch.clamp(weff, min=1) - 1) // ps
+            span = l0[:, None] + span_off[None, :]
+            in_span = span <= l1[:, None]
+            col = span.clamp(0, maxp - 1).long()
+            cur = torch.gather(pg.table, 1, col)      # (B, max_span)
+            need = st.active[:, None] & in_span & (cur < 0)
+            need_cnt = need.sum(dim=1, dtype=torch.int32)
+            base = _cumsum(need_cnt) - need_cnt
+            allocated = n_pages - pg.free_top
+            fits = ((base + need_cnt <= pg.free_top)
+                    & (allocated + base + need_cnt <= pg.quota))
+            got = (need_cnt > 0) & fits
+            oom = st.active & (need_cnt > 0) & ~fits
+            rank_in = torch.cumsum(_i32(need), 1, dtype=torch.int32) - _i32(need)
+            flat_rank = base[:, None] + rank_in
+            pop = need & got[:, None]
+            pid = pg.free[(pg.free_top - 1 - flat_rank).clamp(0, n_pages).long()]
+            # one write per span entry, in order (see the docstring)
+            table = pg.table.clone()
+            for sp in range(max_span):
+                table[bidx, col[:, sp]] = torch.where(pop[:, sp], pid[:, sp],
+                                                      cur[:, sp])
+            popped = pop.sum(dtype=torch.int32)
+            free_top = pg.free_top - popped
+            active = st.active & ~oom
+            # -- draft + batched verify against the (updated) table -------
+            drafts = _propose_drafts(dr, st.tokens, W - 1, ngram)
+            q_toks = torch.cat([st.tokens[:, None], drafts], dim=1)
+            logits, caches = verify_step(params, q_toks, caches, st.cur_pos,
+                                         cfg, impl=scfg.attn_impl,
+                                         page_table=table)
+            bad = _spec_window_bad(logits, st, active)
+            if mask is not None:
+                logits = logits + mask.to(logits.dtype)
+            g = torch.argmax(logits, dim=-1).to(torch.int32)
+            active = active & ~bad
+            c, nxt, done, emit = _spec_accept(q_toks, g, st, active)
+            dr = _advance_draft(dr, g, c)
+            # -- recycle pages of finished / denied / poisoned slots ------
+            table, free, pushed_top, pinned = _free_finished_pages(
+                table, pg.free, free_top, done | oom | bad, pg.pinned)
+            ctr = ctr + torch.stack([
+                popped, pushed_top - free_top, oom.sum(dtype=torch.int32),
+                torch.clamp(c - 1, min=0).sum(dtype=torch.int32)])
+            st = SlotState(tokens=nxt, cur_pos=st.cur_pos + c,
+                           active=active & ~done, remaining=st.remaining - c,
+                           eos=st.eos)
+            pg = PageState(table=table, free=free, free_top=pushed_top,
+                           quota=pg.quota, pinned=pinned)
+            poisoned = poisoned | bad
+            toks.append(g)
+            emitted.append(emit)
+        return (caches, st, pg, dr, torch.stack(toks), torch.stack(emitted),
+                poisoned, ctr)
+
+    return spec_chunk
 
 
 # ---------------------------------------------------------------------------

@@ -139,6 +139,55 @@ def test_paged_decode_attention_kernel_matches_ref(gen, dtype, B, H, Hkv, dh,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,H,Hkv,dh,ps,maxp,P,lo,hi,holes", [
+    (8, 4, 16, 8, 128, 16, 21, 168, 256, 319, 0.0),
+    (4, 2, 16, 1, 64, 16, 21, 96, 0, 330, 0.2),
+    (3, 8, 8, 2, 128, 8, 6, 30, 0, 40, 0.3),
+    (3, 6, 4, 2, 32, 4, 8, 24, 0, 26, 0.2),
+    (3, 4, 8, 8, 64, 8, 6, 20, 0, 44, 0.0),
+])
+def test_paged_verify_attention_kernel_matches_ref(gen, dtype, B, W, H, Hkv,
+                                                   dh, ps, maxp, P, lo, hi,
+                                                   holes):
+    """Windows of W over shuffled tables with holes and a poisoned trash
+    page; the last slot has no mapped page at all (finite output)."""
+    from repro_torch.kernels.paged_attention import ops, ref
+
+    rng = np.random.default_rng(2)
+    cur = rng.integers(lo, hi, size=B).astype(np.int32)
+    table = _page_table(rng, B, maxp, P,
+                        np.minimum(cur + W - 1, maxp * ps - 1), ps, holes)
+    table[-1] = -1
+    q = _rand(gen, (B, W, H, dh), dtype)
+    kp = _rand(gen, (P + 1, ps, Hkv, dh), dtype)
+    vp = _rand(gen, (P + 1, ps, Hkv, dh), dtype)
+    kp[P] = 1e4
+    vp[P] = 1e4
+    tab, cur_t = torch.from_numpy(table).cuda(), torch.from_numpy(cur).cuda()
+    before = ops.paged_verify_attention.launches
+    got = ops.paged_verify_attention(q, kp, vp, tab, cur_t)
+    want = ref.paged_verify_attention_ref(q, kp, vp, tab, cur_t)
+    torch.cuda.synchronize()
+    assert ops.paged_verify_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    err = ((got.float() - want.float()).abs()
+           / want.float().abs().clamp(min=1.0)).max().item()
+    assert err <= TOL[dtype]
+
+
+def test_paged_verify_attention_kernel_refuses_too_many_rows(gen):
+    from repro_torch.kernels.paged_attention import ops
+
+    q = _rand(gen, (1, 4, 16, 64), torch.float32)       # 4 * 16 rows > 32
+    pool = _rand(gen, (3, 4, 1, 64), torch.float32)
+    tab = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    cur = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="at most 32"):
+        ops.paged_verify_attention(q, pool, pool, tab, cur)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,Sq,Lp,Sk,H,Hkv,dh,q_offset", [
     (8, 64, 192, 64, 16, 8, 128, 0),
     (3, 45, 77, 45, 16, 8, 128, 0),
@@ -239,3 +288,46 @@ def test_paged_prefix_batcher_on_the_card_matches_the_plain_path(gen):
                pfx_ops.prefix_flash_attention.launches - before[1])
         assert (ran[0] > 0 and ran[1] > 0) == (impl == "cuda")
     assert outs["cuda"] == outs["torch"]
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_spec_overlap_batcher_on_the_card_matches_the_plain_path(gen, paged):
+    """Reduced qwen3-0.6b at f32 on the card: speculative decode with
+    overlap through the kernels gives the plain path's tokens, which equal
+    plain greedy decode; paged, every verify window launched the verify
+    kernel, dense, none did."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousBatcher, Request, ServingConfig
+
+    cfg = dataclasses.replace(get_reduced("qwen3-0.6b"), dtype="float32")
+    params = init_params(cfg, 0)
+    rng = np.random.default_rng(5)
+    head = rng.integers(1, cfg.vocab, size=8).astype(np.int32)
+    prompts = [np.concatenate([head, rng.integers(1, cfg.vocab, size=4)
+                               .astype(np.int32)]) for _ in range(6)]
+    kw = dict(slots=4, prompt_len=12, max_len=48, chunk=4)
+    if paged:
+        kw.update(paged=True, page_size=4, n_pages=48, prefix_cache=True)
+    outs = {}
+    for name, extra in (("plain", dict(attn_impl="torch")),
+                        ("torch", dict(attn_impl="torch", speculative=True,
+                                       overlap=True)),
+                        ("cuda", dict(attn_impl="cuda", speculative=True,
+                                      overlap=True))):
+        before = pa_ops.paged_verify_attention.launches
+        b = ContinuousBatcher(params, cfg, ServingConfig(**kw, **extra))
+        reqs = [Request(rid=i, prompt=p, max_new=12 + i % 3, namespace="s")
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            b.submit(r)
+        b.run()
+        outs[name] = [r.out for r in reqs]
+        assert all(r.done for r in reqs)
+        ran = pa_ops.paged_verify_attention.launches - before
+        if name == "cuda" and paged:
+            assert ran == cfg.n_layers * b.stats.steps // 4
+        else:
+            assert ran == 0
+    assert outs["cuda"] == outs["torch"] == outs["plain"]

@@ -281,6 +281,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         pa_kernel.paged_decode_attention_kernel(
             torch.zeros(1, 4, 64), pool, pool, table, cur)
     with pytest.raises(ValueError, match="cpu"):
+        pa_kernel.paged_verify_attention_kernel(
+            torch.zeros(1, 3, 4, 64), pool, pool, table, cur)
+    with pytest.raises(ValueError, match="cpu"):
         pfx_kernel.prefix_flash_attention_kernel(q, kv, kv, kv, kv)
 
 
