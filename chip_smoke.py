@@ -16,20 +16,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
               page boundaries, a fully unmapped slot, GQA 16:1, with the
               trash page poisoned to 1e4; verify: the same, a row 0 without
               keys, W = 2, 6 and 8, dh 32 and 64; prefix: ragged Lp and Sq,
-              q_offset > 0, Lp = 0, GQA 8:1 at dh=64).  Tolerance: max abs
-              error <= 1e-4 in f32 (only the summation order differs) and
-              <= 2e-2 in bf16 (the output is rounded to bf16 once, about
-              2^-8 of its magnitude).  Times the kernel, the plain version
-              and one PyTorch library call (``scaled_dot_product_attention``,
-              after a torch page gather for the paged kernel; a yardstick
-              only).
+              q_offset > 0, Lp = 0, GQA 8:1 at dh=64; SSD scan: the
+              admission shape, S not a multiple of the chunk, S < chunk, a
+              single chunk, G = 2, large dt where exp(cum) underflows,
+              slow decay (dt ~ 1e-3, the carried state matters) at the
+              admission shape and at chunk 32, and every (hd, N) it
+              takes).  Tolerance: max abs error <= 1e-4 in
+              f32 (only the summation order differs) and <= 2e-2 in bf16
+              (the output is rounded to bf16 once, about 2^-8 of its
+              magnitude); the SSD scan's errors are relative to the plain
+              version's largest magnitude (see ``check_ssd``).  Times the
+              kernel, the plain version and one PyTorch library call
+              (``scaled_dot_product_attention``, after a torch page gather
+              for the paged kernel; a yardstick only; no PyTorch call
+              computes the SSD scan).
 4. model    — full-width qwen3-0.6b cut to 2 layers, f32: prefill + 4 decode
               steps with attn_impl="cuda" against attn_impl="torch"; the
               same decode on a shuffled paged pool (``page_table=``); one
               ``verify_step`` window on the pool, kernel against plain and
               each row against the sequential decode steps; and
               ``prefix_prefill`` through the prefix kernel against a cold
-              prefill.  Logits within 2e-3 max abs, greedy tokens identical.
+              prefill.  Full-width mamba2-370m cut to 2 layers, f32:
+              with Mamba-2's dt and A init: prefill (SSD kernel) + 4
+              decode steps against the plain path, and decode of token
+              S + 1 against a prefill over S + 1.
+              Logits within 2e-3 max abs, greedy tokens identical.
 5. serve    — the dense main path: full qwen3-0.6b (28 layers, bf16, seeded
               random weights) behind ``ContinuousBatcher`` in dense mode, 16
               requests after a short warm-up; every request completes and
@@ -51,7 +62,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
               with both runs' tokens/s and the batcher's host time per
               verify window and per decode step.
               A dense leg of 4 requests shows no verify kernel on rings.
-6. trace    — the first rounds of the dense, the paged and the spec path,
+5d. mamba2  — the Mamba-2 path: full mamba2-370m (48 layers, bf16, seeded
+              random weights) behind ``ContinuousBatcher`` in dense mode,
+              16 prompts of 300-1024 tokens left-padded to 1024; every
+              request completes, every admission scanned through the SSD
+              kernel (48 launches each), no attention kernel ran, one
+              dispatch and one host sync per admission and per chunk.
+6. trace    — the first rounds of the dense, the paged, the spec and the
+              Mamba-2 path,
               all untraced first, then each under ``torch.profiler``: device
               busy time, idle share and device time by kernel class.
 
@@ -64,6 +82,14 @@ runs phase 1 and only the memory probe of phase 5 (device memory of one
 dense admission prefill at the main path's shape), against the
 ``src/repro_torch`` beside the script: a copy of the script placed in
 another checkout measures that checkout.
+
+    python3 chip_smoke.py --ssd-faults
+
+runs phase 1 and then checks the SSD checks themselves: it builds copies of
+the SSD kernel with planted faults (``SSD_FAULTS``: the carried state
+dropped, carried without its decay, far key tiles skipped) and exits
+non-zero unless each fails a slow-decay case of phase 3; it also reports
+whether phase 4's Mamba-2 check fails each.
 """
 
 from __future__ import annotations
@@ -560,6 +586,277 @@ def check_paged_verify(gen):
                 bound_by=by, library_ms=library)
 
 
+def _rel_err(got, want) -> float:
+    """Max abs error relative to the plain version's largest magnitude."""
+    scale = want.float().abs().max().clamp(min=1e-30)
+    return ((got.float() - want.float()).abs().max() / scale).item()
+
+
+# The SSD scan's cases, as (name, shape, dtype, dt).  dt is a scale of
+# softplus(randn) (about 0.8 a row: the chunk's decay exp(cum_L) is e^-20
+# or less, so the carried state barely reaches the next chunk) or a
+# (low, high) range dt is drawn from log-uniformly; the "slow decay" ranges
+# put exp(cum_L) near 0.5, as Mamba-2's slow heads have it, so that y of
+# every chunk after the first depends on the carried state and on the
+# far-off key tiles of its own chunk.
+SSD_MAIN = dict(B=8, S=1024, nh=32, hd=64, G=1, N=128, chunk=256)
+SSD_REDUCED = dict(B=4, S=96, nh=8, hd=32, G=1, N=16, chunk=32)
+SSD_SLOW = {256: (1e-4, 1e-2), 32: (1e-3, 1e-1)}    # chunk -> dt range
+
+
+def _ssd_cases():
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def shape(B, S, nh, hd, G, N, chunk):
+        return dict(B=B, S=S, nh=nh, hd=hd, G=G, N=N, chunk=chunk)
+
+    return [
+        # every admission of the Mamba-2 path: 8 prompts of 1024 in 4 chunks
+        ("main bf16", SSD_MAIN, bf16, 1.0),
+        ("main f32", SSD_MAIN, f32, 1.0),
+        ("main slow decay bf16", SSD_MAIN, bf16, SSD_SLOW[256]),
+        ("main slow decay f32", SSD_MAIN, f32, SSD_SLOW[256]),
+        ("S=700 ragged tail f32", shape(2, 700, 8, 64, 1, 128, 256), f32, 1.0),
+        ("S=100 < chunk f32", shape(2, 100, 8, 64, 1, 128, 256), f32, 1.0),
+        ("single chunk S=256 bf16", shape(2, 256, 8, 64, 1, 128, 256), bf16,
+         1.0),
+        ("G=2 rep 4 f32", shape(2, 512, 8, 64, 2, 128, 128), f32, 1.0),
+        ("large dt, exp(cum) underflows f32",
+         shape(2, 512, 8, 64, 1, 128, 256), f32, 40.0),
+        ("reduced hd=32 N=16 chunk=32 f32", SSD_REDUCED, f32, 1.0),
+        ("reduced hd=32 N=16 chunk=32 bf16", SSD_REDUCED, bf16, 1.0),
+        ("reduced slow decay f32", SSD_REDUCED, f32, SSD_SLOW[32]),
+        ("reduced slow decay bf16", SSD_REDUCED, bf16, SSD_SLOW[32]),
+        ("hd=32 N=128 chunk=64 f32", shape(2, 160, 4, 32, 2, 128, 64), f32,
+         1.0),
+        ("hd=64 N=16 chunk=48 f32", shape(2, 144, 4, 64, 1, 16, 48), f32, 1.0),
+    ]
+
+
+def _ssd_inputs(gen, B, S, nh, hd, G, N, dtype, dt):
+    import torch
+    import torch.nn.functional as F
+
+    x = (_rand(gen, (B, S, nh, hd), torch.float32) * 0.5).to(dtype)
+    if isinstance(dt, tuple):
+        lo, hi = dt
+        u = torch.rand((B, S, nh), generator=gen, device="cuda")
+        dts = lo * (hi / lo) ** u
+    else:
+        dts = F.softplus(_rand(gen, (B, S, nh), torch.float32)) * dt
+    A = -torch.exp(_rand(gen, (nh,), torch.float32) * 0.5)
+    Bm = (_rand(gen, (B, S, G, N), torch.float32) * 0.3).to(dtype)
+    Cm = (_rand(gen, (B, S, G, N), torch.float32) * 0.3).to(dtype)
+    return x, dts, A, Bm, Cm
+
+
+def _chunk_decay(dt, A, L):
+    """exp(cum_L), the decay of the carried state over each whole chunk:
+    its 10th, 50th and 90th percentiles."""
+    import torch
+
+    B, S, nh = dt.shape
+    n = S // L * L
+    total = (dt[:, :n] * A).reshape(B, -1, L, nh).sum(2)
+    q = torch.tensor([0.1, 0.5, 0.9], device=dt.device)
+    return torch.quantile(torch.exp(total).flatten(), q).tolist()
+
+
+def _ssd_case(gen, shape, dtype, dt):
+    """One case of the SSD scan (``ops.ssd``, the model-layout wrapper the
+    SSM prefill calls) against ``ssd_chunked``, its plain version, on the
+    same inputs: the errors of y and of the final state relative to the
+    plain version's largest magnitude, and whether each is finite."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.models.ssm import ssd_chunked
+
+    chunk = shape["chunk"]
+    args = _ssd_inputs(gen, *(shape[k] for k in ("B", "S", "nh", "hd", "G",
+                                                 "N")), dtype, dt)
+    before = ops.ssd.launches
+    y, st = ops.ssd(*args, chunk=chunk, return_state=True)
+    want_y, want_st = ssd_chunked(*args, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    return dict(
+        args=args, launched=ops.ssd.launches - before,
+        shape_ok=y.shape == args[0].shape and y.dtype == dtype,
+        finite=bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
+        err_y=_rel_err(y, want_y), err_st=_rel_err(st, want_st),
+        abs_y=(y.float() - want_y.float()).abs().max().item(),
+        max_y=want_y.float().abs().max().item(),
+        tol_y=BF16_TOL if dtype == torch.bfloat16 else F32_TOL,
+        decay=_chunk_decay(args[1], args[2], min(chunk, shape["S"])))
+
+
+def _ssd_passes(r) -> bool:
+    return (r["finite"] and r["err_y"] <= r["tol_y"]
+            and r["err_st"] <= F32_TOL)
+
+
+def check_ssd(gen):
+    """The SSD scan against its plain version over :func:`_ssd_cases`: y
+    and the final state.  Errors are relative to the plain version's
+    largest magnitude: 1e-4 in f32 (only the summation order differs); in
+    bf16 2e-2 for y, because the plain version rounds C.B^T, the scores and
+    both halves of y to bf16 where the kernel keeps f32 and rounds y once
+    (a few 2^-9 roundings of terms near |y|), and 1e-4 for the state, which
+    both build in f32 from the same bf16 inputs.  The slow-decay cases must
+    keep the chunk's median decay within [0.1, 0.9], or they would no
+    longer test the carry."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.models.ssm import ssd_chunked
+
+    for name, shape, dtype, dt in _ssd_cases():
+        r = _ssd_case(gen, shape, dtype, dt)
+        log(f"  ssd {name:<34} y rel err={r['err_y']:.3e} (tol "
+            f"{r['tol_y']:g}, abs {r['abs_y']:.3e} of max {r['max_y']:.3g}) "
+            f"state rel err={r['err_st']:.3e} (tol {F32_TOL:g}); chunk decay "
+            f"p10/p50/p90 {r['decay'][0]:.2g}/{r['decay'][1]:.2g}/"
+            f"{r['decay'][2]:.2g}")
+        check(r["launched"] == 1, f"ssd {name}: no kernel launch")
+        check(r["shape_ok"], f"ssd {name}: wrong shape or dtype of y")
+        check(r["finite"], f"ssd {name}: non-finite output")
+        check(r["err_y"] <= r["tol_y"],
+              f"ssd {name}: y error {r['err_y']} > {r['tol_y']}")
+        check(r["err_st"] <= F32_TOL,
+              f"ssd {name}: state error {r['err_st']} > {F32_TOL}")
+        if isinstance(dt, tuple):
+            check(0.1 <= r["decay"][1] <= 0.9,
+                  f"ssd {name}: median chunk decay {r['decay'][1]} outside "
+                  f"[0.1, 0.9]")
+        if name == "main bf16":
+            err, args = r["abs_y"], r["args"]
+
+    B, S, nh, hd, G, N, L = (SSD_MAIN[k] for k in ("B", "S", "nh", "hd", "G",
+                                                   "N", "chunk"))
+    sets = copies_over_l2(list(args))
+    kernel = device_ms(lambda *a: ops.ssd(*a, chunk=L, return_state=True), sets)
+    plain = device_ms(lambda *a: ssd_chunked(*a, chunk=L, return_state=True),
+                      sets)
+    # bytes: x, dt, A, B, C read once (bf16 x, B, C; f32 dt, A), y written
+    # once (bf16), the f32 final state written once
+    n_bytes = (2 * B * S * nh * hd * 2 + B * S * nh * 4 + nh * 4
+               + 2 * B * S * G * N * 2 + B * nh * hd * N * 4)
+    # operations: the causal (row, col) pairs of each chunk: C.B^T once per
+    # group, its product with x per head; the state read and update per head
+    nc, pairs = S // L, L * (L + 1) // 2
+    flops = 2.0 * B * nc * (G * pairs * N
+                            + nh * (pairs * hd + 2 * L * N * hd))
+    bms, by = bound_ms(n_bytes, flops)
+    log(f"  ssd main: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP")
+    return dict(name="ssd_scan", route="cuda",
+                source="src/repro_torch/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan/kernel.py:85",
+                max_abs_err=err, ms=kernel, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
+# Faults planted in a copy of ssd_scan.cu, as (name, original, fault): y
+# without the inter-chunk term, a state update that drops the carried
+# state (keeping only this chunk's sum), one that keeps it without its
+# decay, and query tiles that skip every key tile more than one below the
+# diagonal.
+SSD_FAULTS = (
+    ("reads no carried state",
+     "const float e = (i < L) ? expf(s.cum[i]) : 0.f;",
+     "const float e = 0.f;"),
+    ("drops the carried state",
+     "*e = et * *e + sacc[a][c];", "*e = sacc[a][c];"),
+    ("carries the state undecayed",
+     "*e = et * *e + sacc[a][c];", "*e = *e + sacc[a][c];"),
+    ("skips the far key tiles",
+     "for (int k0 = 0; k0 < k_end; k0 += TK) {",
+     "for (int k0 = max(0, q0 - TK); k0 < k_end; k0 += TK) {"),
+)
+
+
+def _build_fault(name, original, fault, out_dir):
+    """Compile csrc/ssd_scan.cu with ``original`` replaced by ``fault`` into
+    its own shared library under ``out_dir``; returns the started nvcc and
+    the library's path."""
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "ssd_scan.cu").read_text()
+    check(src.count(original) == 1, f"fault {name!r}: the line to replace "
+          f"is not in ssd_scan.cu once")
+    tag = name.replace(" ", "_")
+    cu = out_dir / f"ssd_scan_{tag}.cu"
+    cu.write_text(src.replace(original, fault))
+    lib = out_dir / f"libssd_{tag}.so"
+    cmd = [_build._nvcc(), *_build.ARCH_FLAGS, *_build.CFLAGS, "-shared",
+           f"-I{_build.CSRC}", str(cu), "-o", str(lib)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), lib
+
+
+def ssd_fault_check() -> int:
+    """The kernel, then each fault of :data:`SSD_FAULTS` in its own build,
+    run through the phase-3 SSD cases and phase 4's Mamba-2 check: the run
+    fails unless the kernel passes them all and every fault fails some
+    slow-decay case of phase 3.  Prints, for each fault and case, the
+    errors against their tolerances, and phase 4's verdict."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+
+    out_dir = ROOT / "build" / "ssd_faults"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    builds = [(f[0], *_build_fault(*f, out_dir)) for f in SSD_FAULTS]
+    libs = {"no fault": _build.load_library()}   # the kernel as it is
+    for name, proc, path in builds:
+        out, _ = proc.communicate()
+        check(proc.returncode == 0, f"fault {name!r} did not build:\n{out}")
+        lib = ctypes.CDLL(str(path))
+        lib.repro_ssd_scan.argtypes = _build.SIGNATURES["repro_ssd_scan"]
+        lib.repro_ssd_scan.restype = ctypes.c_int
+        libs[name] = lib
+    log(f"  built the kernels and {len(SSD_FAULTS)} faulty copies in "
+        f"{time.perf_counter() - t0:.1f} s")
+    results, all_caught = {}, True
+    real = ssd_kernel.load_library
+    try:
+        for name, lib in libs.items():
+            ssd_kernel.load_library = lambda lib=lib: lib
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(0)
+            fails, slow_fails = [], []
+            for case, shape, dtype, dt in _ssd_cases():
+                r = _ssd_case(gen, shape, dtype, dt)
+                ok = _ssd_passes(r)
+                log(f"  fault {name!r:<29} {case:<34} y rel err="
+                    f"{r['err_y']:.3e} (tol {r['tol_y']:g}) state rel err="
+                    f"{r['err_st']:.3e} -> {'passes' if ok else 'FAILS'}")
+                if not ok:
+                    fails.append(case)
+                    if isinstance(dt, tuple):
+                        slow_fails.append(case)
+            try:
+                check_mamba_model()
+                model = "passes"
+            except AssertionError as e:
+                model = f"FAILS ({e})"
+            log(f"  fault {name!r}: phase 4 Mamba-2 check {model}")
+            caught = bool(slow_fails)
+            if name == "no fault":           # the kernel must pass it all
+                all_caught &= not fails and model == "passes"
+            else:
+                all_caught &= caught
+            results[name] = dict(failed_cases=fails, phase4=model,
+                                 caught=caught)
+    finally:
+        ssd_kernel.load_library = real
+    print(json.dumps({"ssd_faults": results}))
+    return 0 if all_caught else 1
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the model through the kernels against the plain path
 # ---------------------------------------------------------------------------
@@ -707,6 +1004,97 @@ def check_model():
     log(f"  prefix: suffix {S - Lp} rows over a cached {Lp}: max |logit diff| "
         f"{err:.3e} against a cold prefill (tol {MODEL_TOL:g}), next token "
         f"identical")
+    del params
+
+
+def mamba2_dt_init(params, seed: int) -> None:
+    """Set each SSM layer's ``dt_bias`` and ``A_log`` in place as Mamba-2
+    initialises them: dt log-uniform over [1e-3, 1e-1] (``dt_bias`` its
+    inverse softplus) and A uniform over [1, 16].  The port's init, like
+    the reference's, has A = -1 and dt_bias = 0, so every head forgets its
+    state within a few rows and a check could not see the carried state;
+    the slow heads here keep it across a chunk of 256."""
+    import math
+
+    import torch
+
+    rng = np.random.default_rng(seed)
+    for block in params["blocks"]:
+        ssm = block["ssm"]
+        shape = tuple(ssm["dt_bias"].shape)
+        dt = np.exp(rng.uniform(math.log(1e-3), math.log(1e-1), size=shape))
+        ssm["dt_bias"].copy_(torch.from_numpy(dt + np.log(-np.expm1(-dt))))
+        ssm["A_log"].copy_(torch.from_numpy(np.log(rng.uniform(1, 16,
+                                                               size=shape))))
+
+
+def check_mamba_model():
+    """Full-width mamba2-370m cut to 2 layers, f32, with Mamba-2's own dt
+    and A init (:func:`mamba2_dt_init`): prefill over a ragged S = 1000
+    (four chunks of 256, the last padded; a state carried wrongly shows
+    from the third) and 4 decode steps with impl="cuda" (the SSD kernel)
+    against impl="torch"; then decode of token S + 1 after a prefill over
+    S against a prefill over S + 1."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = dataclasses.replace(get_config("mamba2-370m"), n_layers=2,
+                              dtype="float32")
+    params = init_params(cfg, 0, device="cuda")
+    mamba2_dt_init(params, 1)
+    B, S, steps = 4, 1000, 4
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(
+        rng.integers(1, cfg.vocab, size=(B, S + 1)).astype(np.int32)).cuda()
+
+    def greedy(logits):
+        return torch.argmax(logits[:, :cfg.vocab], -1).to(torch.int32)
+
+    runs = {}
+    for impl in ("cuda", "torch"):
+        before = ssd_ops.ssd.launches
+        runs[impl] = list(prefill(params, toks[:, :S], cfg,
+                                  max_len=S + steps + 1, impl=impl))
+        ran = ssd_ops.ssd.launches - before
+        check(ran == (cfg.n_layers if impl == "cuda" else 0),
+              f"mamba prefill impl={impl}: {ran} ssd kernel launches")
+    worst = 0.0
+    cur = torch.full((B,), S, dtype=torch.int32, device=toks.device)
+    for step in range(steps + 1):
+        lk, lt = runs["cuda"][0], runs["torch"][0]
+        err = (lk - lt).abs().max().item()
+        worst = max(worst, err)
+        tt = greedy(lt)
+        check(err <= MODEL_TOL, f"mamba step {step}: logits differ by {err}")
+        check(bool((greedy(lk) == tt).all()),
+              f"mamba step {step}: greedy tokens differ")
+        if step == steps:
+            break
+        for impl in ("cuda", "torch"):
+            runs[impl][0], runs[impl][1] = decode_step(
+                params, tt, runs[impl][1], cur, cfg, impl=impl)
+        cur = cur + 1
+    log(f"  mamba2: prefill S={S} + {steps} decode steps, 2 layers f32: max "
+        f"|logit diff| {worst:.3e} (tol {MODEL_TOL:g}), greedy tokens "
+        f"identical")
+    del runs
+
+    full, _ = prefill(params, toks, cfg, max_len=S + 2)
+    _, caches = prefill(params, toks[:, :S], cfg, max_len=S + 2)
+    step_logits, _ = decode_step(params, toks[:, S], caches,
+                                 torch.full((B,), S, dtype=torch.int32,
+                                            device=toks.device), cfg)
+    err = (step_logits - full).abs().max().item()
+    check(err <= MODEL_TOL, f"mamba decode after prefill: logits differ from "
+          f"a prefill over S + 1 by {err}")
+    check(bool((greedy(step_logits) == greedy(full)).all()),
+          "mamba decode after prefill: next token differs")
+    log(f"  mamba2: decode of token {S + 1} after a prefill over {S} against "
+        f"a prefill over {S + 1}: max |logit diff| {err:.3e} (tol "
+        f"{MODEL_TOL:g}), next token identical")
     del params
 
 
@@ -1137,12 +1525,116 @@ def serve_spec_path(card: str, params, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 5d: the Mamba-2 path (mamba2-370m, dense mode)
+# ---------------------------------------------------------------------------
+
+
+MAMBA_CONFIG = dict(slots=8, prompt_len=1024, max_len=1088, chunk=8)
+
+
+def _mamba_requests(cfg, n=16, seed=0):
+    """``n`` prompts of 300-1024 tokens (left-padded to 1024, so every
+    admission scans 4 chunks of 256) with ``max_new`` 16-64."""
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for rid in range(n):
+        plen = int(rng.integers(300, 1025))
+        max_new = int(rng.integers(16, 65))
+        prompt = rng.integers(1, cfg.vocab, size=plen).astype(np.int32)
+        reqs.append(Request(rid=rid, prompt=prompt, max_new=max_new))
+    return reqs
+
+
+def _mamba_batcher(params, cfg, reqs):
+    from repro_torch.serving import ContinuousBatcher, ServingConfig
+
+    batcher = ContinuousBatcher(params, cfg, ServingConfig(**MAMBA_CONFIG))
+    for r in reqs:
+        batcher.submit(r)
+    return batcher
+
+
+def serve_mamba_path(card: str):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.prefix_attention import ops as pfx_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import init_params
+
+    cfg = get_config("mamba2-370m")
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  params {_gib(_param_bytes(params))}; allocated "
+        f"{_gib(torch.cuda.memory_allocated())}")
+    t0 = time.perf_counter()
+    _mamba_batcher(params, cfg, _mamba_requests(cfg, n=8, seed=1)).run()
+    torch.cuda.synchronize()
+    log(f"  warm-up run (8 other requests): {time.perf_counter() - t0:.3f} s")
+
+    reqs = _mamba_requests(cfg)
+    torch.cuda.synchronize()
+    # the reset precedes the batcher, whose SSM state then counts in the
+    # peak above the start
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    batcher = _mamba_batcher(params, cfg, reqs)
+    torch.cuda.synchronize()
+    attn = (fa_ops.flash_attention, da_ops.decode_attention,
+            pa_ops.paged_decode_attention, pa_ops.paged_verify_attention,
+            pfx_ops.prefix_flash_attention)
+    for c in (ssd_ops.ssd,) + attn:
+        c.launches = 0
+    t0 = time.perf_counter()
+    stats = batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ssd_n = ssd_ops.ssd.launches
+    attn_n = {c.__name__: c.launches for c in attn}
+
+    for r in reqs:
+        check(r.done and not r.dropped, f"mamba request {r.rid} did not complete")
+        check(len(r.out) == r.max_new, f"mamba request {r.rid}: {len(r.out)} "
+              f"tokens, expected {r.max_new}")
+        check(all(0 <= t < cfg.vocab for t in r.out),
+              f"mamba request {r.rid}: token outside the vocab")
+    L = cfg.n_layers
+    check(stats.prefills > 0 and stats.steps > 0, "nothing was served")
+    check(ssd_n == L * stats.prefills,
+          f"ssd launches {ssd_n} != {L} x {stats.prefills} admissions")
+    check(not any(attn_n.values()),
+          f"attention kernels ran on the Mamba-2 path: {attn_n}")
+    check(stats.dispatches == stats.prefills + stats.chunks,
+          "dispatches != prefills + chunks")
+    check(stats.host_syncs == stats.prefills + stats.chunks,
+          "host syncs != one per admission + one per chunk")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {stats.completed}/16 requests, {stats.tokens} tokens, "
+        f"{stats.prefills} prefills, {stats.chunks} chunks, {stats.steps} "
+        f"decode steps in {wall:.3f} s [{card}]")
+    log(f"  tokens/s={stats.tokens / wall:.1f} dispatches_per_token="
+        f"{stats.dispatches_per_token:.4f} peak_memory={_gib(peak)} "
+        f"({_gib(peak - base)} above the {_gib(base)} allocated at the start, "
+        f"params {_gib(_param_bytes(params))}, decode state "
+        f"{_gib(stats.cache_bytes)}) [{card}]")
+    log(f"  launches: ssd_scan={ssd_n} (= {L} x {stats.prefills}), attention "
+        f"kernels {attn_n}")
+    return {"ssd_scan": ssd_n}, (params, cfg)
+
+
+# ---------------------------------------------------------------------------
 # phase 6: where the time goes (a traced window of the same requests)
 # ---------------------------------------------------------------------------
 
 
 # paged_dec_kernel before dec_kernel: the first match names the class
 _KERNEL_CLASSES = (("flash_attention", ("fa_kernel",)),
+                   ("ssd_scan", ("ssd_kernel",)),
                    ("paged_verify_attention", ("paged_verify_kernel",)),
                    ("prefix_flash_attention", ("pfx_kernel",)),
                    ("paged_decode_attention", ("paged_dec_kernel",)),
@@ -1254,6 +1746,9 @@ def main() -> int:
         cfg = get_config("qwen3-0.6b")
         admission_memory(init_params(cfg, 0, device="cuda"), cfg, card)
         return 0
+    if "--ssd-faults" in sys.argv[1:]:
+        log("SSD scan with planted faults against phases 3 and 4")
+        return ssd_fault_check()
 
     log("phase 2: build")
     from repro_torch.kernels import _build
@@ -1271,10 +1766,12 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = [check_flash(gen), check_decode(gen), check_paged_decode(gen),
-            check_paged_verify(gen), check_prefix(gen)]
+            check_paged_verify(gen), check_prefix(gen), check_ssd(gen)]
+    torch.cuda.empty_cache()
 
     log("phase 4: model (cuda kernels) against the plain path")
     check_model()
+    check_mamba_model()
     torch.cuda.empty_cache()
 
     log("phase 5: main path, qwen3-0.6b behind ContinuousBatcher")
@@ -1282,11 +1779,15 @@ def main() -> int:
 
     log("phase 5b: paged main path, qwen3-0.6b behind a paged batcher with "
         "the prefix cache")
-    paged_launches = serve_paged_path(card, params, cfg)
+    path_launches = serve_paged_path(card, params, cfg)
 
     log("phase 5c: speculative path, qwen3-0.6b behind a paged batcher with "
         "the prefix cache, speculative decode and overlap")
-    paged_launches.update(serve_spec_path(card, params, cfg))
+    path_launches.update(serve_spec_path(card, params, cfg))
+
+    log("phase 5d: Mamba-2 path, mamba2-370m behind ContinuousBatcher")
+    mamba_launches, (mparams, mcfg) = serve_mamba_path(card)
+    path_launches.update(mamba_launches)
 
     log("phase 6: where the time goes")
     trace_main_paths(card, [
@@ -1294,17 +1795,20 @@ def main() -> int:
         ("paged path", lambda: _paged_batcher(params, cfg,
                                               _paged_requests(cfg))),
         ("spec path", lambda: _spec_batcher(params, cfg,
-                                            _spec_requests(cfg)))])
+                                            _spec_requests(cfg))),
+        ("mamba2 path", lambda: _mamba_batcher(mparams, mcfg,
+                                               _mamba_requests(mcfg)))])
 
     for row in rows:
         # each kernel's launches on the path that runs it: flash on the
         # dense path (it runs on both), the others on their own path
         row["launches"] = (launches[row["name"]] if row["name"] in launches
-                           else paged_launches[row["name"]])
+                           else path_launches[row["name"]])
+        library = ("none" if row["library_ms"] is None
+                   else f"{row['library_ms'] * 1e3:.1f} us")
         log(f"  {row['name']}: {row['ms'] * 1e3:.1f} us kernel, "
-            f"{row['plain_ms'] * 1e3:.1f} us plain, {row['library_ms'] * 1e3:.1f}"
-            f" us library, bound {row['bound_ms'] * 1e3:.2f} us "
-            f"({row['bound_by']}) [{card}]")
+            f"{row['plain_ms'] * 1e3:.1f} us plain, {library} library, bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}) [{card}]")
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

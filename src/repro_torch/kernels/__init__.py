@@ -9,6 +9,7 @@ device and counts launches.
 
 Ported so far: ``flash_attention`` (prefill), ``decode_attention`` (dense
 ring-buffer decode), ``paged_attention`` (decode and the multi-query
-draft verify over the paged pool, walking the page table in the kernel) and
-``prefix_attention`` (suffix prefill against a cached prefix).
+draft verify over the paged pool, walking the page table in the kernel),
+``prefix_attention`` (suffix prefill against a cached prefix) and
+``ssd_scan`` (the Mamba-2 SSD chunked scan of every SSM prefill).
 """

@@ -47,6 +47,9 @@ SIGNATURES = {
     # q, pk, pv, k, v, out, B, Sq, Lp, Sk, H, Hkv, dh, q_offset, is_bf16,
     # stream
     "repro_prefix_flash_attention": [_P] * 6 + [_I] * 9 + [_P],
+    # x, dt, dA, Bm, Cm, y, state, B, nh, S, hd, G, N, chunk, is_bf16,
+    # stream
+    "repro_ssd_scan": [_P] * 7 + [_I] * 8 + [_P],
 }
 
 # what the last build printed (registers, shared memory, spills per kernel)

@@ -1,0 +1,5 @@
+from . import ops, ref
+from .kernel import ssd_scan_kernel
+from .ops import ssd
+
+__all__ = ["ops", "ref", "ssd", "ssd_scan_kernel"]

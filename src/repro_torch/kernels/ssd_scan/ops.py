@@ -1,0 +1,44 @@
+"""Public wrapper for the SSD scan in the model layout.
+
+``ssd`` is what ``models.ssm.ssm_forward`` calls when ``impl == "cuda"``.
+It takes ``L = min(chunk, S)`` and pads a ragged tail with ``dt = 0``
+(``models.ssm.pad_to_chunks``), as ``ssd_chunked`` does, where the
+reference's Pallas route asserts ``S % chunk == 0`` (ROADMAP.md Queue 3);
+the padded rows are cut off y.  For the kernel it moves the head axis
+ahead of the sequence and forms ``dA = dt · A``, as
+``repro.kernels.ssd_scan.ops`` does.  The route follows the tensor's
+device: a CPU tensor takes the plain version (``models.ssm.ssd_chunked``
+on the padded input), a CUDA tensor launches the kernel or raises.  There
+is no fallback between the two.  ``ssd.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+from ...models.ssm import pad_to_chunks, ssd_chunked
+from .kernel import ssd_scan_kernel
+
+
+def ssd(x, dt, A, Bm, Cm, *, chunk: int, return_state: bool = False):
+    """Model layout: x (B, S, nh, hd); dt (B, S, nh); A (nh,); Bm/Cm
+    (B, S, G, N).  Returns y (B, S, nh, hd) [, final state (B, nh, hd, N)
+    f32]."""
+    S = x.shape[1]
+    x, dt, Bm, Cm, L = pad_to_chunks(x, dt, Bm, Cm, chunk)
+    if x.device.type == "cpu":
+        y, state = ssd_chunked(x, dt, A, Bm, Cm, chunk=L, return_state=True)
+    else:
+        xt = x.movedim(2, 1).contiguous()                # (B, nh, S, hd)
+        dtt = dt.movedim(2, 1).float().contiguous()      # (B, nh, S)
+        dAt = dtt * A[None, :, None]
+        Bt = Bm.movedim(2, 1).contiguous()               # (B, G, S, N)
+        Ct = Cm.movedim(2, 1).contiguous()
+        y, state = ssd_scan_kernel(xt, dtt, dAt, Bt, Ct, chunk=L)
+        ssd.launches += 1
+        y = y.movedim(1, 2)
+    y = y[:, :S]
+    if return_state:
+        return y, state
+    return y
+
+
+ssd.launches = 0

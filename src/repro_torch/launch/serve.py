@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --reduced --tenants 2 --requests 16
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+        --reduced --device cpu
 
 The same flags as ``repro.launch.serve``, plus ``--device`` (default
 ``cuda``; pass ``--device cpu`` to run on the CPU).  Each tenant runs a

@@ -59,6 +59,13 @@ def rmsnorm(params, x, *, eps: float = 1e-6):
     return (y * params["scale"].float()).to(x.dtype)
 
 
+def gated_rmsnorm(params, x, gate, *, eps: float = 1e-6):
+    """Mamba-2 output norm: RMSNorm(x * silu(gate)), with the gate's SiLU in
+    f32 and rounded to x's dtype before the product, as the reference
+    rounds it."""
+    return rmsnorm(params, x * F.silu(gate.float()).to(x.dtype), eps=eps)
+
+
 # ---------------------------------------------------------------------------
 # MLP: SwiGLU (fused gate+up) or plain 2-matrix GELU
 # ---------------------------------------------------------------------------

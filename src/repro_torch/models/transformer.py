@@ -1,4 +1,5 @@
-"""Model assembly for the pure-attention, dense-MLP families.
+"""Model assembly for the pure-attention dense-MLP families and the
+attention-free SSM (Mamba-2) family.
 
 Counterpart of ``repro.models.transformer``.  The parameter tree has the
 same nested-dict layout as the reference: layers are grouped into periods
@@ -9,13 +10,14 @@ mapping.  Where the reference runs the stacked blocks under ``lax.scan``,
 the port loops over them in Python, indexing block ``b`` of every stacked
 tensor (a view, no copy).
 
-Decode caches are the stacked :class:`KVCacheView` per period position, or
-the stacked :class:`PagedKVView` page pool (:func:`init_paged_caches`);
-:func:`decode_step` and :func:`verify_step` (a window of draft tokens in
-one pass) update either **in place** (the reference returns new caches and
-relies on buffer donation).
+Decode caches are the stacked :class:`KVCacheView` per attention period
+position, or the stacked :class:`PagedKVView` page pool
+(:func:`init_paged_caches`), and the stacked :class:`SSMState` per SSM
+position; :func:`decode_step` and :func:`verify_step` (a window of draft
+tokens in one pass) update them **in place** (the reference returns new
+caches and relies on buffer donation).
 
-Other families (MoE, SSM, hybrid, VLM, audio) raise ``NotImplementedError``
+Other families (MoE, hybrid, VLM, audio) raise ``NotImplementedError``
 naming the ROADMAP item that ports them.
 """
 
@@ -28,12 +30,15 @@ import torch
 
 from ..device import resolve_device
 from . import attention as attn_mod
-from .attention import KVCacheView, PagedKVView
+from . import ssm as ssm_mod
+from .attention import KVCacheView
 from .layers import embed, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm
+from .ssm import SSMState
 
 _OTHER_FAMILIES = (
-    "only the pure-attention dense-MLP families are ported; the {family} "
-    "family waits for ROADMAP.md Queue 1 item 13 (other model families)")
+    "only the pure-attention dense-MLP and the SSM (Mamba-2) families are "
+    "ported; the {family} family waits for ROADMAP.md Queue 1 item 13 "
+    "(other model families)")
 
 
 # ---------------------------------------------------------------------------
@@ -43,12 +48,15 @@ _OTHER_FAMILIES = (
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    mixer: str           # "attn" ("ssm" arrives with the SSM family)
-    mlp: Optional[str]   # "mlp" ("moe" arrives with the MoE family)
+    mixer: str           # "attn" | "ssm"
+    mlp: Optional[str]   # "mlp" | None (SSM blocks carry their own gating;
+                         # "moe" arrives with the MoE family)
 
 
 def _check_family(cfg) -> None:
-    if cfg.family != "dense" or cfg.moe is not None or cfg.ssm is not None:
+    ported = ((cfg.family == "dense" and cfg.ssm is None)
+              or cfg.family == "ssm")
+    if not ported or cfg.moe is not None:
         raise NotImplementedError(_OTHER_FAMILIES.format(family=cfg.family))
 
 
@@ -59,7 +67,9 @@ def period_len(cfg) -> int:
 
 def period_structure(cfg) -> List[LayerSpec]:
     """Layer specs for positions 0..P-1 of one period."""
-    return [LayerSpec(mixer="attn", mlp="mlp") for _ in range(period_len(cfg))]
+    return [LayerSpec(mixer="attn" if cfg.is_attn_layer(i) else "ssm",
+                      mlp=None if cfg.family == "ssm" else "mlp")
+            for i in range(period_len(cfg))]
 
 
 def n_blocks(cfg) -> int:
@@ -73,10 +83,14 @@ def n_blocks(cfg) -> int:
 
 def _init_one_layer(gen, cfg, spec: LayerSpec, device):
     p: Dict[str, Any] = {"ln1": init_rmsnorm(cfg.d_model, cfg.dtype, device=device)}
-    p["attn"] = attn_mod.init_attention(gen, cfg, device=device)
-    p["ln2"] = init_rmsnorm(cfg.d_model, cfg.dtype, device=device)
-    p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype,
-                        kind=cfg.mlp_kind, device=device)
+    if spec.mixer == "attn":
+        p["attn"] = attn_mod.init_attention(gen, cfg, device=device)
+    else:
+        p["ssm"] = ssm_mod.init_ssm(gen, cfg, device=device)
+    if spec.mlp is not None:
+        p["ln2"] = init_rmsnorm(cfg.d_model, cfg.dtype, device=device)
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype,
+                            kind=cfg.mlp_kind, device=device)
     return p
 
 
@@ -129,34 +143,46 @@ def init_params(cfg, seed: int = 0, *, device="cuda") -> Dict[str, Any]:
 
 def _apply_layer_train(lp, spec: LayerSpec, x, cfg, *, positions, impl,
                        causal: bool = True, prefix_kv=None):
-    """One layer, full-sequence (prefill shape).  Returns (x, (k, v))."""
+    """One layer, full-sequence (prefill shape).  Returns (x, state): the
+    layer's (k, v) for an attention layer, its :class:`SSMState` after the
+    last token for an SSM layer."""
     h = rmsnorm(lp["ln1"], x, eps=cfg.norm_eps)
-    y, kv = attn_mod.self_attention(lp["attn"], h, cfg, positions=positions,
-                                    causal=causal, impl=impl,
-                                    prefix_kv=prefix_kv)
+    if spec.mixer == "attn":
+        y, state = attn_mod.self_attention(
+            lp["attn"], h, cfg, positions=positions, causal=causal, impl=impl,
+            prefix_kv=prefix_kv)
+    else:
+        y, state = ssm_mod.ssm_forward(lp["ssm"], h, cfg, impl=impl,
+                                       return_state=True)
     x = x + y
-    h2 = rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
-    x = x + mlp(lp["mlp"], h2, kind=cfg.mlp_kind)
-    return x, kv
+    if spec.mlp is not None:
+        h2 = rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
+        x = x + mlp(lp["mlp"], h2, kind=cfg.mlp_kind)
+    return x, state
 
 
-def _apply_layer_decode(lp, spec: LayerSpec, x, cfg, *, cur_pos, kv_cache,
+def _apply_layer_decode(lp, spec: LayerSpec, x, cfg, *, cur_pos, cache,
                         impl, page_table, write_target):
-    """One layer, single-token decode.  Returns (x, kv_cache) with the cache
-    views updated in place; with ``page_table`` the cache is a page pool
-    and ``write_target`` the step's (page, offset) of the new token."""
+    """One layer, single-token decode.  ``cache`` is the layer's KV view
+    (attention) or :class:`SSMState` (SSM); returns (x, cache) with the
+    cache updated in place.  With ``page_table`` an attention cache is a
+    page pool and ``write_target`` the step's (page, offset) of the new
+    token."""
     h = rmsnorm(lp["ln1"], x, eps=cfg.norm_eps)
-    if page_table is not None:
-        y, kv_cache = attn_mod.paged_decode_attention(
-            lp["attn"], h, kv_cache, cur_pos, page_table, cfg, write_target,
+    if spec.mixer == "ssm":
+        y, cache = ssm_mod.ssm_decode(lp["ssm"], h, cache, cfg)
+    elif page_table is not None:
+        y, cache = attn_mod.paged_decode_attention(
+            lp["attn"], h, cache, cur_pos, page_table, cfg, write_target,
             impl=impl)
     else:
-        y, kv_cache = attn_mod.decode_attention(lp["attn"], h, kv_cache,
-                                                cur_pos, cfg, impl=impl)
+        y, cache = attn_mod.decode_attention(lp["attn"], h, cache, cur_pos,
+                                             cfg, impl=impl)
     x = x + y
-    h2 = rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
-    x = x + mlp(lp["mlp"], h2, kind=cfg.mlp_kind)
-    return x, kv_cache
+    if spec.mlp is not None:
+        h2 = rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
+        x = x + mlp(lp["mlp"], h2, kind=cfg.mlp_kind)
+    return x, cache
 
 
 # ---------------------------------------------------------------------------
@@ -181,25 +207,36 @@ class Caches(NamedTuple):
     """Decode-time state, aligned with the period structure.
 
     kv:    {str(p): KVCacheView or PagedKVView stacked over blocks}
-    ssm:   {} until the SSM family is ported
+           (attention positions)
+    ssm:   {str(p): SSMState stacked over blocks} (SSM positions)
     cross: None until the audio family is ported
     """
 
     kv: Dict[str, KVCacheView]
-    ssm: Dict[str, Any]
+    ssm: Dict[str, SSMState]
     cross: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
+
+
+def _stacked(one, nb: int):
+    """``nb`` copies of a per-layer cache NamedTuple, stacked on axis 0."""
+    return type(one)(*(t[None].expand((nb,) + t.shape).clone() for t in one))
+
+
+def _init_ssm_caches(cfg, specs, batch: int, device):
+    nb = n_blocks(cfg)
+    return {str(p): _stacked(ssm_mod.init_ssm_state(cfg, batch, device=device),
+                             nb)
+            for p, spec in enumerate(specs) if spec.mixer == "ssm"}
 
 
 def init_caches(cfg, batch: int, max_len: int, *, device="cuda") -> Caches:
     device = resolve_device(device)
     specs = period_structure(cfg)
     nb = n_blocks(cfg)
-    kv = {}
-    for p, _ in enumerate(specs):
-        one = attn_mod.init_kv_cache(cfg, batch, max_len, device=device)
-        kv[str(p)] = KVCacheView(
-            *(t[None].expand((nb,) + t.shape).clone() for t in one))
-    return Caches(kv=kv, ssm={})
+    kv = {str(p): _stacked(attn_mod.init_kv_cache(cfg, batch, max_len,
+                                                  device=device), nb)
+          for p, spec in enumerate(specs) if spec.mixer == "attn"}
+    return Caches(kv=kv, ssm=_init_ssm_caches(cfg, specs, batch, device))
 
 
 def init_paged_caches(cfg, batch: int, n_pages: int, page_size: int, *,
@@ -208,17 +245,15 @@ def init_paged_caches(cfg, batch: int, n_pages: int, page_size: int, *,
     pool (:class:`~repro_torch.models.attention.PagedKVView`, stacked over
     blocks) instead of per-slot dense buffers.  The per-slot page *table*
     lives with the slot bookkeeping (``serving.engine.PageState``), not in
-    the cache tree; ``batch`` is kept for the reference's signature."""
+    the cache tree.  SSM states stay dense per slot (``batch`` of them):
+    they are fixed-size per sequence, so there is nothing to page."""
     device = resolve_device(device)
     specs = period_structure(cfg)
     nb = n_blocks(cfg)
-    kv = {}
-    for p, _ in enumerate(specs):
-        one = attn_mod.init_paged_kv_cache(cfg, n_pages, page_size,
-                                           device=device)
-        kv[str(p)] = PagedKVView(
-            *(t[None].expand((nb,) + t.shape).clone() for t in one))
-    return Caches(kv=kv, ssm={})
+    kv = {str(p): _stacked(attn_mod.init_paged_kv_cache(
+              cfg, n_pages, page_size, device=device), nb)
+          for p, spec in enumerate(specs) if spec.mixer == "attn"}
+    return Caches(kv=kv, ssm=_init_ssm_caches(cfg, specs, batch, device))
 
 
 def _block_cache(view, b: int):
@@ -226,28 +261,61 @@ def _block_cache(view, b: int):
     return type(view)(*(t[b] for t in view))
 
 
-def prefill_kv(params, tokens, cfg, *, positions=None, impl: str = "cuda"):
-    """Run the full prompt, returning (last-token logits, {str(p): (k, v)})
-    with k/v (nb, B, S, Hkv, dh) in absolute-position order — what
-    :func:`prefill` seeds a ring cache from, and what paged admission packs
-    into pool pages directly (the reference seeds a prompt-sized dense
-    cache and reads it back, an identity placement)."""
+def _prefill_layers(params, tokens, cfg, *, positions, impl):
+    """Run the full prompt through every layer.  Returns (last-token
+    logits, {str(p): (k, v)} with k/v (nb, B, S, Hkv, dh) in absolute-
+    position order for the attention positions, {str(p): SSMState stacked
+    over blocks} for the SSM positions).  Each layer's SSM state is copied
+    into the stacked tensors as soon as it is made, so no layer's conv
+    input stays alive through the rest of the prompt."""
     specs = period_structure(cfg)
+    nb = n_blocks(cfg)
     x = embed(params["embed"], tokens)
-    B, S, _ = x.shape
-    if positions is None:
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
-    ys: Dict[str, List] = {str(p): [] for p in range(len(specs))}
-    for b in range(n_blocks(cfg)):
+    ys: Dict[str, List] = {str(p): [] for p, spec in enumerate(specs)
+                           if spec.mixer == "attn"}
+    ssm: Dict[str, SSMState] = {}
+    for b in range(nb):
         for p, spec in enumerate(specs):
-            x, kv = _apply_layer_train(
+            x, state = _apply_layer_train(
                 _index(params["blocks"][p], b), spec, x, cfg,
                 positions=positions, impl=impl)
-            ys[str(p)].append(kv)
+            if spec.mixer == "attn":
+                ys[str(p)].append(state)
+                continue
+            if str(p) not in ssm:
+                ssm[str(p)] = SSMState(*(
+                    torch.empty((nb,) + t.shape, dtype=t.dtype, device=t.device)
+                    for t in state))
+            for dst, src in zip(ssm[str(p)], state):
+                dst[b].copy_(src)
     x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
     logits = logits_fn(params, x[:, -1:, :], cfg)[:, 0]
-    return logits, {p: (torch.stack([k for k, _ in ys[p]]),
-                        torch.stack([v for _, v in ys[p]])) for p in ys}
+    kv = {p: (torch.stack([k for k, _ in ys[p]]),
+              torch.stack([v for _, v in ys[p]])) for p in ys}
+    return logits, kv, ssm
+
+
+def _positions(tokens, positions):
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)[None, :]
+    return positions
+
+
+def prefill_kv(params, tokens, cfg, *, positions=None, impl: str = "cuda"):
+    """Run the full prompt, returning (last-token logits, {str(p): (k, v)})
+    with k/v (nb, B, S, Hkv, dh) in absolute-position order — what paged
+    admission packs into pool pages directly (the reference seeds a
+    prompt-sized dense cache and reads it back, an identity placement).
+    Attention-only archs: an SSM layer's state is not K/V (paged mode
+    refuses a model without attention; :func:`prefill` seeds SSM state)."""
+    if any(s.mixer != "attn" for s in period_structure(cfg)):
+        raise ValueError("prefill_kv returns attention K/V only; use prefill "
+                         "for an arch with SSM layers")
+    logits, kv, _ = _prefill_layers(params, tokens, cfg,
+                                    positions=_positions(tokens, positions),
+                                    impl=impl)
+    return logits, kv
 
 
 def prefill(params, tokens, cfg, *, max_len: int, positions=None,
@@ -256,17 +324,18 @@ def prefill(params, tokens, cfg, *, max_len: int, positions=None,
 
     The KV buffers are sized ``min(max_len, window)``; prompt K/V are
     scattered in ring-buffer order (see serving.kv_cache.seed_kv_cache).
+    SSM layers hand over their state after the last prompt token
+    (serving.kv_cache.seed_ssm_state).
     """
-    from ..serving.kv_cache import seed_kv_cache
+    from ..serving.kv_cache import seed_kv_cache, seed_ssm_state
 
-    if positions is None:
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=tokens.device)[None, :]
-    logits, ys = prefill_kv(params, tokens, cfg, positions=positions,
-                            impl=impl)
+    positions = _positions(tokens, positions)
+    logits, ys, ssm = _prefill_layers(params, tokens, cfg,
+                                      positions=positions, impl=impl)
     kv = {p: seed_kv_cache(cfg, k, v, max_len=max_len, seq_positions=positions)
           for p, (k, v) in ys.items()}
-    return logits, Caches(kv=kv, ssm={})
+    return logits, Caches(kv=kv, ssm={p: seed_ssm_state(st)
+                                      for p, st in ssm.items()})
 
 
 def prefix_prefill(params, tokens, prefix_kv, cfg, *, prefix_len: int,
@@ -285,8 +354,15 @@ def prefix_prefill(params, tokens, prefix_kv, cfg, *, prefix_len: int,
     independent of whether the prefix was recomputed or read back, so this
     reproduces the cold :func:`prefill`'s suffix (exactly when the cache
     dtype is the compute dtype).
+
+    Pure-attention archs only: an SSM layer's state after the prompt
+    depends on every prompt token, so there is no per-page prefix to reuse.
     """
     specs = period_structure(cfg)
+    if any(s.mixer != "attn" for s in specs):
+        raise ValueError(
+            "prefix_prefill requires a pure-attention arch (SSM state is "
+            "not positional — there is no per-page prefix to reuse)")
     x = embed(params["embed"], tokens)
     B, S, _ = x.shape
     positions = prefix_len + torch.arange(S, dtype=torch.int32,
@@ -310,7 +386,7 @@ def decode_step(params, tokens, caches: Caches, cur_pos, cfg, *,
                 impl: str = "cuda", page_table=None):
     """One decode step.  tokens: (B,) int32; cur_pos: (B,) int32 absolute
     position.  Returns (logits (B, Vp), caches) — the same Caches object,
-    its KV tensors updated in place.
+    its KV and SSM tensors updated in place.
 
     With ``page_table`` (B, max_pages) the attention caches are page pools
     (:func:`init_paged_caches`); the table is read-only here — page
@@ -326,9 +402,10 @@ def decode_step(params, tokens, caches: Caches, cur_pos, cfg, *,
             pool.shape[1] - 1)
     for b in range(n_blocks(cfg)):
         for p, spec in enumerate(specs):
+            stacked = (caches.kv if spec.mixer == "attn" else caches.ssm)[str(p)]
             x, _ = _apply_layer_decode(
                 _index(params["blocks"][p], b), spec, x, cfg, cur_pos=cur_pos,
-                kv_cache=_block_cache(caches.kv[str(p)], b), impl=impl,
+                cache=_block_cache(stacked, b), impl=impl,
                 page_table=page_table, write_target=target)
     x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
     logits = logits_fn(params, x, cfg)[:, 0]

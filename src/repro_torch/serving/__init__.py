@@ -34,6 +34,7 @@ from .kv_cache import (
     paged_kv_cache_bytes,
     pages_for,
     seed_kv_cache,
+    seed_ssm_state,
     tree_bytes,
 )
 from .prefix_cache import PrefixCache, PrefixNode
@@ -49,6 +50,6 @@ __all__ = [
     "make_spec_decode_chunk", "select_token",
     "PagedKVPool", "PageQuotaError", "cache_len", "kv_cache_bytes",
     "page_bytes", "paged_kv_cache_bytes", "pages_for", "seed_kv_cache",
-    "tree_bytes",
+    "seed_ssm_state", "tree_bytes",
     "PrefixCache", "PrefixNode",
 ]

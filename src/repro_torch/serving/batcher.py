@@ -22,6 +22,12 @@ multiplexes a dynamic request stream onto B fixed slots:
 * ``overlap=True`` dispatches the decode chunk first and runs admission
   behind it, so the host plans admission while the card decodes.
 
+The model is a pure-attention family or the attention-free SSM (Mamba-2)
+family, whose per-slot state (conv window and f32 SSM state) rides in
+``caches.ssm`` and is scattered at admission like the rings.  As in the
+reference, paged mode needs an attention layer, and the prefix cache and
+speculative decode need a pure-attention arch.
+
 A "dispatch" is one call of the admission or chunk step (or of the page
 push that returns evicted prefix-cache pages), and a "host sync" one
 blocking device-to-host fetch: ``(toks, emitted, poisoned)`` — plus, paged,
@@ -388,6 +394,8 @@ class ContinuousBatcher:
             self.kv_pool = PagedKVPool(self.n_pages, self.page_size)
             self.caches: Caches = init_paged_caches(
                 cfg, slots, self.n_pages, self.page_size, device=self.device)
+            if not self.caches.kv:
+                raise ValueError("paged mode needs at least one attn layer")
             self.pages = init_page_state(slots, self.n_pages, self.max_pages,
                                          quota=self._page_limit,
                                          device=self.device)

@@ -196,8 +196,8 @@ def make_admit_step(cfg, scfg: ServeConfig):
 
     Right-sized admission: ``batch["tokens"]`` is (n, S) for the *bucketed*
     number of joining requests — prefill runs over n rows, not the full slot
-    count — and the fresh caches are scattered into the resident tree per
-    slot.  The resident caches and slot state are updated **in place**
+    count — and the fresh caches (KV rings and SSM states) are scattered
+    into the resident tree per slot.  The resident caches and slot state are updated **in place**
     (``index_put_``; the reference donates them instead) and returned.
 
     Duplicate entries in ``slots`` are allowed only when they carry
@@ -215,10 +215,11 @@ def make_admit_step(cfg, scfg: ServeConfig):
             logits = logits + mask.to(logits.dtype)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         idx = slots.long()
-        for p, old in caches.kv.items():
-            new = fresh.kv[p]
-            for o, n in zip(old, new):
-                o[:, idx] = n.to(o.dtype)
+        for resident, new_tree in ((caches.kv, fresh.kv),
+                                   (caches.ssm, fresh.ssm)):
+            for p, old in resident.items():
+                for o, n in zip(old, new_tree[p]):
+                    o[:, idx] = n.to(o.dtype)
         # the admission token already counts toward the budget; a slot with
         # nothing left (or an immediate EOS) never activates
         remaining = budget - 1

@@ -1,8 +1,9 @@
 """KV-cache lifecycle for serving: ring-buffer seeding from prefill outputs
 and the byte accounting used for admission control.
 
-Counterpart of ``repro.serving.kv_cache`` for the pure-attention families:
-the dense ring-buffer seeding, and the paged pool's host-side ledger
+Counterpart of ``repro.serving.kv_cache`` for the pure-attention and SSM
+families: the dense ring-buffer seeding, the SSM state hand-over, and the
+paged pool's host-side ledger
 (:class:`PagedKVPool`, copied from the reference; it deals in page counts
 and shared-page refcounts, never in tensors) with its byte accounting.
 """
@@ -15,6 +16,7 @@ import torch
 
 from ..device import torch_dtype
 from ..models.attention import KVCacheView
+from ..models.ssm import SSMState, ssm_dims
 
 
 def cache_len(cfg, max_len: int) -> int:
@@ -42,6 +44,12 @@ def seed_kv_cache(cfg, k, v, *, max_len: int, seq_positions=None) -> KVCacheView
     cv[:, :, slots] = v[:, :, S - keep:]
     cpos[:, :, slots] = pos.to(torch.int32)
     return KVCacheView(k=ck, v=cv, pos=cpos)
+
+
+def seed_ssm_state(state: SSMState) -> SSMState:
+    """Prefill already produces the exact decode state; pass it through
+    (the hook where a quantized-state server would intercept)."""
+    return state
 
 
 def tree_bytes(tree) -> int:
@@ -303,4 +311,9 @@ def kv_cache_bytes(cfg, batch: int, max_len: int) -> int:
         if spec.mixer == "attn":
             total += nb * batch * C * cfg.n_kv_heads * cfg.d_head * 2 * dt
             total += nb * batch * C * 4                     # pos int32
+        else:
+            s = cfg.ssm
+            d_in, nh, d_bc = ssm_dims(cfg)
+            total += nb * batch * (s.d_conv - 1) * (d_in + d_bc) * dt
+            total += nb * batch * nh * s.head_dim * s.d_state * 4   # f32
     return total

@@ -331,3 +331,153 @@ def test_spec_overlap_batcher_on_the_card_matches_the_plain_path(gen, paged):
         else:
             assert ran == 0
     assert outs["cuda"] == outs["torch"] == outs["plain"]
+
+
+def _rel(a, b):
+    """Max abs error relative to ``b``'s largest magnitude."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def _ssd_inputs(gen, B, S, nh, hd, G, N, dtype, dt_scale=1.0,
+                dt_range=None):
+    x = (_rand(gen, (B, S, nh, hd), torch.float32) * 0.5).to(dtype)
+    if dt_range is None:
+        dt = torch.nn.functional.softplus(
+            _rand(gen, (B, S, nh), torch.float32)) * dt_scale
+    else:                                   # log-uniform over the range
+        lo, hi = dt_range
+        dt = lo * (hi / lo) ** torch.rand((B, S, nh), generator=gen,
+                                          device="cuda")
+    A = -torch.exp(_rand(gen, (nh,), torch.float32) * 0.5)
+    Bm = (_rand(gen, (B, S, G, N), torch.float32) * 0.3).to(dtype)
+    Cm = (_rand(gen, (B, S, G, N), torch.float32) * 0.3).to(dtype)
+    return x, dt, A, Bm, Cm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,nh,hd,G,N,chunk,dt_scale", [
+    (8, 1024, 32, 64, 1, 128, 256, 1.0),     # every mamba2-370m admission
+    (2, 700, 8, 64, 1, 128, 256, 1.0),       # S not a multiple of the chunk
+    (2, 100, 8, 64, 1, 128, 256, 1.0),       # S < chunk
+    (2, 512, 8, 64, 2, 128, 128, 1.0),       # G = 2, rep 4
+    (2, 512, 8, 64, 1, 128, 256, 40.0),      # exp(cum) underflows
+    (4, 96, 8, 32, 1, 16, 32, 1.0),          # the reduced config
+    (2, 160, 4, 32, 2, 128, 64, 1.0),
+    (2, 144, 4, 64, 1, 16, 48, 1.0),
+])
+def test_ssd_scan_kernel_matches_plain(gen, dtype, B, S, nh, hd, G, N, chunk,
+                                       dt_scale):
+    """y and the final state against ``ssd_chunked``, errors relative to
+    its largest magnitude: 1e-4 in f32; in bf16 2e-2 for y (the plain
+    version rounds C.B^T, the scores and both halves of y to bf16, the
+    kernel rounds y once) and 1e-4 for the state (f32 in both)."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.models.ssm import ssd_chunked
+
+    args = _ssd_inputs(gen, B, S, nh, hd, G, N, dtype, dt_scale)
+    before = ops.ssd.launches
+    y, st = ops.ssd(*args, chunk=chunk, return_state=True)
+    want_y, want_st = ssd_chunked(*args, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert ops.ssd.launches == before + 1
+    assert y.shape == args[0].shape and y.dtype == dtype
+    assert bool(torch.isfinite(y).all() and torch.isfinite(st).all())
+    assert _rel(y, want_y) <= TOL[dtype]
+    assert _rel(st, want_st) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,nh,hd,G,N,chunk,dt_range", [
+    (8, 1024, 32, 64, 1, 128, 256, (1e-4, 1e-2)),   # the admission shape
+    (2, 700, 8, 64, 1, 128, 256, (1e-4, 1e-2)),     # ragged tail
+    (4, 96, 8, 32, 1, 16, 32, (1e-3, 1e-1)),        # the reduced config
+])
+def test_ssd_scan_kernel_carries_the_state(gen, dtype, B, S, nh, hd, G, N,
+                                           chunk, dt_range):
+    """Slow decay: dt small enough that the state decays by exp(cum_L)
+    of 0.1-0.9 over a whole chunk (checked), so y of every chunk after the
+    first depends on the carried state and on the key tiles far below the
+    diagonal.  With dt ~ 0.8 (the cases above) both vanish below the
+    tolerance.  Tolerances as in ``test_ssd_scan_kernel_matches_plain``."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.models.ssm import ssd_chunked
+
+    args = _ssd_inputs(gen, B, S, nh, hd, G, N, dtype, dt_range=dt_range)
+    x, dt, A = args[:3]
+    n = S // chunk * chunk
+    total = (dt[:, :n] * A).reshape(B, -1, chunk, nh).sum(2)
+    assert 0.1 <= torch.exp(total).median().item() <= 0.9
+    y, st = ops.ssd(*args, chunk=chunk, return_state=True)
+    want_y, want_st = ssd_chunked(*args, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all() and torch.isfinite(st).all())
+    assert _rel(y, want_y) <= TOL[dtype]
+    assert _rel(st, want_st) <= TOL[torch.float32]
+
+
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(gen):
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+
+    def args(hd=32, N=16, S=64, dtype=torch.float32):
+        x = _rand(gen, (1, 4, S, hd), dtype)
+        dt = torch.ones((1, 4, S), device="cuda")
+        bc = _rand(gen, (1, 1, S, N), dtype)
+        return x, dt, dt.clone(), bc, bc.clone()
+
+    with pytest.raises(ValueError, match="hd=48"):
+        ssd_scan_kernel(*args(hd=48), chunk=32)
+    with pytest.raises(ValueError, match="N=64"):
+        ssd_scan_kernel(*args(N=64), chunk=32)
+    with pytest.raises(ValueError, match="chunk=512"):
+        ssd_scan_kernel(*args(S=512), chunk=512)
+    with pytest.raises(ValueError, match="divide"):
+        ssd_scan_kernel(*args(S=48), chunk=32)
+    with pytest.raises(ValueError, match="dtype"):
+        ssd_scan_kernel(*args(dtype=torch.float16), chunk=32)
+
+
+def _mamba2_dt_init(params, seed):
+    """dt_bias and A_log as Mamba-2 initialises them (dt log-uniform over
+    [1e-3, 1e-1], A uniform over [1, 16]), so some heads keep their state
+    across a chunk; the port's init (A = -1, dt_bias = 0) forgets it."""
+    rng = np.random.default_rng(seed)
+    for block in params["blocks"]:
+        ssm = block["ssm"]
+        shape = tuple(ssm["dt_bias"].shape)
+        dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), size=shape))
+        ssm["dt_bias"].copy_(torch.from_numpy(dt + np.log(-np.expm1(-dt))))
+        ssm["A_log"].copy_(torch.from_numpy(
+            np.log(rng.uniform(1, 16, size=shape))))
+
+
+def test_mamba2_batcher_on_the_card_matches_the_plain_path(gen):
+    """Reduced mamba2-370m at f32 on the card, with Mamba-2's dt and A
+    init: the batcher through the SSD kernel (the default impl and device)
+    gives the plain path's tokens, and every admission launched the kernel
+    once a layer."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousBatcher, Request, ServingConfig
+
+    cfg = dataclasses.replace(get_reduced("mamba2-370m"), dtype="float32")
+    params = init_params(cfg, 0)
+    _mamba2_dt_init(params, 1)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, cfg.vocab, size=3 + 5 * i).astype(np.int32)
+               for i in range(6)]
+    outs = {}
+    for impl in ("cuda", "torch"):
+        before = ops.ssd.launches
+        b = ContinuousBatcher(params, cfg, ServingConfig(
+            slots=4, prompt_len=40, max_len=60, chunk=4, attn_impl=impl))
+        reqs = [Request(rid=i, prompt=p, max_new=8 + i % 3)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            b.submit(r)
+        b.run()
+        outs[impl] = [r.out for r in reqs]
+        assert all(r.done for r in reqs)
+        ran = ops.ssd.launches - before
+        assert ran == (cfg.n_layers * b.stats.prefills if impl == "cuda" else 0)
+    assert outs["cuda"] == outs["torch"]

@@ -154,8 +154,8 @@ def test_init_params_seeded():
     assert not torch.equal(a["blocks"][0]["attn"]["wq"], c["blocks"][0]["attn"]["wq"])
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "mixtral-8x22b", "whisper-base",
-                                  "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "mixtral-8x22b",
+                                  "whisper-base", "qwen2-vl-72b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_params(get_reduced(arch), 0, device="cpu")
