@@ -21,15 +21,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
               single chunk, G = 2, large dt where exp(cum) underflows,
               slow decay (dt ~ 1e-3, the carried state matters) at the
               admission shape and at chunk 32, and every (hd, N) it
-              takes).  Tolerance: max abs error <= 1e-4 in
+              takes; rmsnorm: the qwen3-0.6b admission (2048, 1024),
+              decode (8, 1024) and q/k-norm (32768, 128) rows, d = 5120
+              and d = 130, f32 and bf16, a bf16 x with an f32 scale;
+              matmul: (2048, 1024) @ (1024, 3072), (2048, 3072) @
+              (3072, 1024), (8, 1024) @ (1024, 3072) and a ragged
+              (100, 300) @ (300, 72), bf16 -> bf16, bf16 -> f32 and
+              f32 -> f32).  Tolerance: max abs error <= 1e-4 in
               f32 (only the summation order differs) and <= 2e-2 in bf16
               (the output is rounded to bf16 once, about 2^-8 of its
-              magnitude); the SSD scan's errors are relative to the plain
-              version's largest magnitude (see ``check_ssd``).  Times the
-              kernel, the plain version and one PyTorch library call
-              (``scaled_dot_product_attention``, after a torch page gather
-              for the paged kernel; a yardstick only; no PyTorch call
-              computes the SSD scan).
+              magnitude); rmsnorm's error is relative where the output
+              exceeds 1; the SSD scan's and matmul's errors are relative
+              to the plain version's largest magnitude (see ``check_ssd``
+              and ``check_matmul``: matmul <= 1e-5 at f32 output, <= 8e-3
+              at bf16).  Times the kernel, the plain version and one
+              PyTorch library call (``scaled_dot_product_attention``,
+              after a torch page gather for the paged kernel;
+              ``F.rms_norm``; ``torch.matmul``; a yardstick only; no
+              PyTorch call computes the SSD scan).
 4. model    — full-width qwen3-0.6b cut to 2 layers, f32: prefill + 4 decode
               steps with attn_impl="cuda" against attn_impl="torch"; the
               same decode on a shuffled paged pool (``page_table=``); one
@@ -68,6 +77,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
               request completes, every admission scanned through the SSD
               kernel (48 launches each), no attention kernel ran, one
               dispatch and one host sync per admission and per chunk.
+5e. tenancy — two qwen3-0.6b tenants on one card through the hypervisor
+              (``VirtualAcceleratorPool`` of 16 logical cores over cuda:0
+              with 256 kv pages, ``make_serving_hypervisor(policy=
+              "priority")``): the static stage warms the tenant program
+              ``matmul(rmsnorm(x, s), w)`` (x (2048, 1024), w (1024, 3072),
+              bf16) for lease sizes 12 and 16; alice (12 cores, the
+              program) and bob (4 cores) each serve 16 requests on a paged
+              batcher; bob drains and departs, and alice's regrow to 16
+              cores lands between two of her chunks and migrates her live
+              state.  Every request completes, alice's tokens equal an
+              uninterrupted run's, the regrow hits the program cache, every
+              kv lease change reaches ``set_page_limit`` and no batcher
+              outgrows its lease, the pool's isolation and bandwidth
+              invariants hold, rmsnorm and matmul launch in the static
+              stage and after the regrow, and the program's output agrees
+              with its plain version.  Prints the static stage's seconds
+              per lease size beside the regrow's ``t_context``.
 6. trace    — the first rounds of the dense, the paged, the spec and the
               Mamba-2 path,
               all untraced first, then each under ``torch.profiler``: device
@@ -753,6 +779,130 @@ def check_ssd(gen):
                 replaces="src/repro/kernels/ssd_scan/kernel.py:85",
                 max_abs_err=err, ms=kernel, plain_ms=plain, bound_ms=bms,
                 bound_by=by, library_ms=None)
+
+
+def check_rmsnorm(gen):
+    """RMSNorm against its plain version at the qwen3-0.6b shapes (an
+    admission's 2048 rows of d_model 1024, a decode step's 8, the q/k norm's
+    32768 rows of d_head 128) and at d = 5120 (a block-wide row) and
+    d = 130 (scalar head and tail around the vectors).  The error is
+    ``_err``: absolute where the plain output is below 1, relative above,
+    within ``F32_TOL`` / ``BF16_TOL``: both round the same f32 value to
+    bf16 once, but their sums of squares differ in order, which can move
+    an output across a rounding boundary, one bf16 step (2^-8 of its
+    magnitude; outputs reach ~15 with a random scale)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import ops, ref
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [("main (2048, 1024)", (2048, 1024), bf16, bf16),
+             ("main (2048, 1024)", (2048, 1024), f32, f32),
+             ("decode (8, 1024)", (8, 1024), bf16, bf16),
+             ("decode (8, 1024)", (8, 1024), f32, f32),
+             ("qk-norm (32768, 128)", (32768, 128), bf16, bf16),
+             ("qk-norm (32768, 128)", (32768, 128), f32, f32),
+             ("d=5120 (7, 5120)", (7, 5120), bf16, bf16),
+             ("d=5120 (7, 5120)", (7, 5120), f32, f32),
+             ("d=130 (33, 130)", (33, 130), bf16, bf16),
+             ("d=130 (33, 130)", (33, 130), f32, f32),
+             ("bf16 x, f32 scale (2048, 1024)", (2048, 1024), bf16, f32),
+             ("bf16 x, f32 scale (3, 130)", (3, 130), bf16, f32)]
+    before = ops.rmsnorm.launches
+    for name, shape, xdt, sdt in cases:
+        x = _rand(gen, shape, xdt)
+        s = _rand(gen, (shape[-1],), sdt)
+        got = ops.rmsnorm(x, s)
+        want = ref.rmsnorm_ref(x, s)
+        torch.cuda.synchronize()
+        err = _err(got, want)
+        tol = BF16_TOL if xdt == bf16 else F32_TOL
+        log(f"  rmsnorm {name:<31} x {str(xdt)[6:]:<8} scale "
+            f"{str(sdt)[6:]:<8} err={err:.3e} (tol {tol:g})")
+        check(got.shape == x.shape and got.dtype == x.dtype,
+              f"rmsnorm {name}: wrong shape or dtype")
+        check(bool(torch.isfinite(got).all()), f"rmsnorm {name}: non-finite")
+        check(err <= tol, f"rmsnorm {name}: error {err} > {tol}")
+        if name.startswith("main") and xdt == bf16:
+            main_err, args = (got.float() - want.float()).abs().max().item(), (x, s)
+    check(ops.rmsnorm.launches - before == len(cases),
+          "rmsnorm: a case did not launch the kernel")
+
+    T, d = args[0].shape
+    sets = copies_over_l2(list(args))
+    kernel = device_ms(lambda x, s: ops.rmsnorm(x, s), sets)
+    plain = device_ms(lambda x, s: ref.rmsnorm_ref(x, s), sets)
+    library = device_ms(lambda x, s: F.rms_norm(x, (d,), s, eps=1e-6), sets)
+    n_bytes = 2 * T * d * 2 + d * 2          # x read, y written, scale read
+    flops = 4.0 * T * d                      # square, sum, two products
+    bms, by = bound_ms(n_bytes, flops)
+    return dict(name="rmsnorm", route="cuda",
+                source="src/repro_torch/csrc/rmsnorm.cu",
+                replaces="src/repro/kernels/rmsnorm/kernel.py:36",
+                max_abs_err=main_err, ms=kernel, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=library)
+
+
+def check_matmul(gen):
+    """The tiled matmul against its plain version (``a.float() @ b.float()``,
+    TF32 off) at the qwen3-0.6b admission's MLP shapes (2048 rows, d_model
+    1024, d_ff 3072, both ways), a decode step's 8 rows, and a ragged
+    (100, 300) @ (300, 72); bf16 -> bf16, bf16 -> f32 and f32 -> f32.  The
+    error is relative to the plain version's largest magnitude: with K =
+    3072 outputs reach ~50 and bf16's rounding of them alone exceeds the
+    absolute ``BF16_TOL``.  Limits: 1e-5 at f32 output (only the summation
+    order differs), 8e-3 at bf16 output (one rounding, 2^-9 of an output,
+    and a flip across a rounding boundary)."""
+    import torch
+
+    from repro_torch.kernels.matmul import ops, ref
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = [("admission up", 2048, 1024, 3072),
+              ("admission down", 2048, 3072, 1024),
+              ("decode", 8, 1024, 3072),
+              ("ragged", 100, 300, 72)]
+    kinds = [(bf16, bf16), (bf16, f32), (f32, f32)]
+    before = ops.matmul.launches
+    for name, M, K, N in shapes:
+        for in_dt, out_dt in kinds:
+            a = _rand(gen, (M, K), in_dt)
+            b = _rand(gen, (K, N), in_dt)
+            got = ops.matmul(a, b, out_dtype=out_dt)
+            want = ref.matmul_ref(a, b, out_dtype=out_dt)
+            torch.cuda.synchronize()
+            err = _rel_err(got, want)
+            tol = 8e-3 if out_dt == bf16 else 1e-5
+            log(f"  matmul {name:<14} ({M}, {K}) @ ({K}, {N}) "
+                f"{str(in_dt)[6:]:>8} -> {str(out_dt)[6:]:<8} rel err="
+                f"{err:.3e} (tol {tol:g}) of max "
+                f"{want.float().abs().max().item():.3g}")
+            check(got.shape == (M, N) and got.dtype == out_dt,
+                  f"matmul {name}: wrong shape or dtype")
+            check(bool(torch.isfinite(got).all()), f"matmul {name}: non-finite")
+            check(err <= tol, f"matmul {name}: relative error {err} > {tol}")
+            if name == "admission up" and in_dt == out_dt == bf16:
+                main_err = (got.float() - want.float()).abs().max().item()
+                args = (a, b)
+    check(ops.matmul.launches - before == len(shapes) * len(kinds),
+          "matmul: a case did not launch the kernel")
+
+    (M, K), N = args[0].shape, args[1].shape[1]
+    sets = copies_over_l2(list(args))
+    kernel = device_ms(lambda a, b: ops.matmul(a, b), sets, iters=20)
+    plain = device_ms(lambda a, b: ref.matmul_ref(a, b), sets, iters=20)
+    library = device_ms(lambda a, b: torch.matmul(a, b), sets, iters=20)
+    n_bytes = (M * K + K * N + M * N) * 2     # a, b read, c written (bf16)
+    flops = 2.0 * M * N * K
+    bms, by = bound_ms(n_bytes, flops)
+    log(f"  matmul main: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP; "
+        f"kernel {kernel / library:.1f}x torch.matmul's time")
+    return dict(name="matmul", route="cuda",
+                source="src/repro_torch/csrc/matmul.cu",
+                replaces="src/repro/kernels/matmul/kernel.py:50",
+                max_abs_err=main_err, ms=kernel, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=library)
 
 
 # Faults planted in a copy of ssd_scan.cu, as (name, original, fault): y
@@ -1628,6 +1778,249 @@ def serve_mamba_path(card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 5e: tenancy (two tenants served through the hypervisor)
+# ---------------------------------------------------------------------------
+
+
+TENANT_CONFIG = {k: v for k, v in PAGED_CONFIG.items() if k != "prefix_cache"}
+TENANT_KV_PAGES = 128        # leased between the two tenants' batchers
+NORM_PROJ_SHAPES = dict(x=(2048, 1024), s=(1024,), w=(1024, 3072))
+
+
+def norm_proj(x, s, w):
+    """The tenant program the static stage compiles: an admission's MLP
+    input projection, ``matmul(rmsnorm(x, s), w)``, through the kernels."""
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+
+    return mm_ops.matmul(rms_ops.rmsnorm(x, s), w)
+
+
+def _tenant_requests(cfg, n=16):
+    """``2n`` requests from one ``default_rng(0)`` (phase 5's shapes:
+    prompts of 32-256 tokens, ``max_new`` 16-64): alice's n, then bob's."""
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(0)
+    reqs = []
+    for rid in range(2 * n):
+        plen = int(rng.integers(32, 257))
+        max_new = int(rng.integers(16, 65))
+        reqs.append(Request(rid=rid, prompt=rng.integers(
+            1, cfg.vocab, size=plen).astype(np.int32), max_new=max_new))
+    return reqs[:n], reqs[n:]
+
+
+def _tenant_batcher(params, cfg, reqs):
+    from repro_torch.serving import ContinuousBatcher, ServingConfig
+
+    batcher = ContinuousBatcher(params, cfg, ServingConfig(**TENANT_CONFIG))
+    for r in reqs:
+        batcher.submit(r)
+    return batcher
+
+
+def _replay(params, cfg, reqs, limits):
+    """The same requests through the same batcher configuration with no
+    hypervisor and no migration: each ``(rounds, pages)`` of ``limits``
+    sets the page limit after that many rounds, as alice's leases did."""
+    batcher = _tenant_batcher(params, cfg, reqs)
+    rounds = 0
+    for at, pages in limits:
+        while rounds < at:
+            batcher.step()
+            rounds += 1
+        batcher.set_page_limit(pages)
+    return batcher.run()
+
+
+def serve_tenancy_path(card: str, params, cfg, build_s: float):
+    """Two tenants on one card through the hypervisor, as
+    ``examples/serve_multitenant.py`` wires them: a pool of 16 logical
+    cores over the card, the ``priority`` policy; the static stage warms
+    the ``norm_proj`` program for lease sizes 12 and 16; alice (12 cores,
+    priority 2, the program) and bob (4 cores) each serve 16 requests on a
+    paged batcher of 128 pages, the most a lease can give it, while the
+    pool leases 128 pages between them, so neither may fill its batcher
+    while both are resident.  Bob drains and departs, alice's lease grows
+    back, and her regrow to 16 cores lands between two of her chunks and
+    migrates her live state.  Returns the rmsnorm and matmul launches of
+    the run."""
+    import torch
+
+    from repro_torch.core import TenantSpec
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.matmul import ops as mm_ops
+    from repro_torch.kernels.matmul import ref as mm_ref
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    from repro_torch.serving import (
+        TensorSpec, VirtualAcceleratorPool, make_serving_hypervisor,
+    )
+    from repro_torch.serving.tenancy import HBM_BYTES_PER_DEVICE
+
+    dev = resolve_device("cuda")
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(HBM_BYTES_PER_DEVICE <= total, f"HBM_BYTES_PER_DEVICE "
+          f"{HBM_BYTES_PER_DEVICE} > the card's {total}")
+    log(f"  HBM_BYTES_PER_DEVICE {HBM_BYTES_PER_DEVICE / 1e9:.1f} GB <= "
+        f"the card's {total / 1e9:.2f} GB")
+    pool = VirtualAcceleratorPool(devices=[dev] * 16,
+                                  kv_pages=TENANT_KV_PAGES)
+    hv, ex = make_serving_hypervisor(pool, policy="priority")
+    alice_reqs, bob_reqs = _tenant_requests(cfg)
+    alice = _tenant_batcher(params, cfg, alice_reqs)
+    bob = _tenant_batcher(params, cfg, bob_reqs)
+    n_pages = TENANT_CONFIG["n_pages"]
+    alice_rounds = 0
+    limits = {"alice": [], "bob": []}      # (alice's rounds so far, pages)
+
+    def kv_sink(name, batcher):
+        def set_limit(n):
+            limits[name].append((alice_rounds, n))
+            batcher.set_page_limit(n)
+        return set_limit
+
+    ex.register_kv_limit("alice", kv_sink("alice", alice))
+    ex.register_kv_limit("bob", kv_sink("bob", bob))
+    ex.register_state("alice", alice.live_state, on_migrate=alice.adopt_state)
+
+    counters = (rms_ops.rmsnorm, mm_ops.matmul, fa_ops.flash_attention,
+                pa_ops.paged_decode_attention)
+    for c in counters:
+        c.launches = 0
+    bf16 = torch.bfloat16
+    specs = tuple(TensorSpec(NORM_PROJ_SHAPES[k], bf16) for k in "xsw")
+    progs = ex.compiler.static_compile("norm_proj", norm_proj, specs,
+                                       lease_sizes=[12, 16])
+    static_launches = (rms_ops.rmsnorm.launches, mm_ops.matmul.launches)
+    check(static_launches == (2, 2),
+          f"static stage launched rmsnorm/matmul {static_launches} times, "
+          f"expected (2, 2)")
+    check(hv.admit(TenantSpec("alice", 12, priority=2.0, artifact="norm_proj",
+                              requested_kv_pages=n_pages, min_kv_pages=32)),
+          "alice was not admitted")
+    check(hv.admit(TenantSpec("bob", 4, priority=1.0, artifact=None,
+                              requested_kv_pages=n_pages, min_kv_pages=32)),
+          "bob was not admitted")
+    check(hv.allocation() == {"alice": 12, "bob": 4},
+          f"allocation {hv.allocation()}")
+    shared = hv.kv_allocation()
+    check(shared["alice"] < n_pages and shared["bob"] < n_pages and
+          sum(shared.values()) == TENANT_KV_PAGES,
+          f"kv leases {shared} while both are resident: each should be "
+          f"below the batcher's {n_pages} pages")
+    check(ex.program_of("alice") is progs[12], "alice's program is not the "
+          "static stage's lease-12 program")
+    t0 = time.perf_counter()
+    for _ in range(3):
+        alice.step()                          # alice's chunks in flight
+        alice_rounds += 1
+    bob_stats = bob.run()                     # bob drains
+    shared_peak = {"alice": alice.stats.peak_pages_in_use,
+                   "bob": bob_stats.peak_pages_in_use}
+    shared_resident = alice.stats.peak_resident
+    hv.depart("bob")
+    hv.resize_request("alice", 16)            # between two of alice's chunks
+    alice_stats = alice.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gen = torch.Generator()
+    gen.manual_seed(7)
+    x, s, w = (torch.randn(NORM_PROJ_SHAPES[k], generator=gen).to(dev, bf16)
+               for k in "xsw")
+    y = ex.program_of("alice").executable(x, s, w)
+    torch.cuda.synchronize()
+    launches = {c.__name__: c.launches for c in counters}
+
+    for name, reqs in (("alice", alice_reqs), ("bob", bob_reqs)):
+        for r in reqs:
+            check(r.done and not r.dropped and len(r.out) == r.max_new,
+                  f"{name}'s request {r.rid} did not complete")
+    ref_reqs = _tenant_requests(cfg)[0]
+    _replay(params, cfg, ref_reqs, limits["alice"])   # uninterrupted
+    same = sum(a.out == b.out for a, b in zip(alice_reqs, ref_reqs))
+    check(same == len(alice_reqs), f"alice's tokens differ from an "
+          f"uninterrupted run in {len(alice_reqs) - same} requests")
+    regrow = [e for e in ex.reconfig_log
+              if e.get("tenant") == "alice" and e.get("n_cores") == 16]
+    check(len(regrow) == 1 and "t_migrate" in regrow[0],
+          f"alice's regrow is not in reconfig_log: {ex.reconfig_log}")
+    check(hv.allocation() == {"alice": 16}, f"allocation {hv.allocation()}")
+    check(ex.program_of("alice") is progs[16],
+          "the regrow did not hit the lease-16 program")
+    alone = hv.kv_allocation()["alice"]
+    for name in ("alice", "bob"):
+        logged = [e["kv_pages"] for e in ex.reconfig_log
+                  if e.get("tenant") == name and "kv_pages" in e]
+        check(logged == [n for _, n in limits[name]] and logged,
+              f"{name}'s kv leases {logged} != set_page_limit calls "
+              f"{limits[name]}")
+        # while both were resident each batcher stayed within its shrunk
+        # lease, which is below the pages the batcher holds
+        check(shared_peak[name] <= shared[name],
+              f"{name}'s peak pages {shared_peak[name]} while both were "
+              f"resident > lease {shared[name]}")
+    check(alone == n_pages, f"alice's lease alone is {alone}, not {n_pages}")
+    # the shrunk lease held alice back: she kept more requests resident
+    # once her lease grew back
+    check(shared_resident < alice_stats.peak_resident,
+          f"alice kept {shared_resident} requests resident under her "
+          f"shrunk lease and at most {alice_stats.peak_resident} after")
+    for batcher, st in ((alice, alice_stats), (bob, bob_stats)):
+        check(st.peak_pages_in_use <= n_pages, "peak pages above the pool")
+        batcher.kv_pool.check()
+    pool.pool.check_isolation()
+    pool.pool.check_bandwidth()
+    check(launches["rmsnorm"] == 3 and launches["matmul"] == 3,
+          f"rmsnorm/matmul launches {launches}: expected 2 in the static "
+          f"stage and 1 after the regrow")
+    L = cfg.n_layers
+    prefills = alice_stats.prefills + bob_stats.prefills
+    steps = alice_stats.steps + bob_stats.steps
+    check(launches["flash_attention"] == L * prefills,
+          f"flash launches {launches['flash_attention']} != {L} x {prefills}")
+    check(launches["paged_decode_attention"] == L * steps,
+          f"paged decode launches {launches['paged_decode_attention']} != "
+          f"{L} x {steps}")
+    want = mm_ref.matmul_ref(rms_ref.rmsnorm_ref(x, s), w)
+    err = _rel_err(y, want)
+    check(y.shape == want.shape and y.dtype == bf16, "norm_proj: wrong shape")
+    check(err <= 8e-3, f"norm_proj: relative error {err} > 8e-3")
+
+    timing = regrow[0]
+    log(f"  static stage: " + ", ".join(
+        f"lease {n}: {p.lowered_seconds * 1e3:.3f} ms tensors + "
+        f"{p.compile_seconds * 1e3:.3f} ms first call" for n, p in
+        progs.items()) + f" (after phase 2's {build_s:.1f} s kernel build) "
+        f"[{card}]")
+    log(f"  regrow 12 -> 16 cores: t_context {timing['t_context'] * 1e3:.3f} "
+        f"ms (lookup {timing['t_lookup'] * 1e3:.3f} ms, migrate "
+        f"{timing['t_migrate'] * 1e3:.3f} ms) [{card}]")
+    log(f"  alice: {alice_stats.completed}/16 requests, {alice_stats.tokens} "
+        f"tokens, {alice_stats.prefills} prefills, {alice_stats.chunks} "
+        f"chunks, peak pages {alice_stats.peak_pages_in_use}; bob: "
+        f"{bob_stats.completed}/16, {bob_stats.tokens} tokens, peak pages "
+        f"{bob_stats.peak_pages_in_use}; {wall:.3f} s in all [{card}]")
+    log(f"  kv leases of {TENANT_KV_PAGES} pages over two batchers of "
+        f"{n_pages}: alice {[n for _, n in limits['alice']]}, bob "
+        f"{[n for _, n in limits['bob']]}; peak pages while both were "
+        f"resident: alice {shared_peak['alice']}, bob {shared_peak['bob']}; "
+        f"alice's peak residents {shared_resident} under the shrunk lease, "
+        f"{alice_stats.peak_resident} in all; tokens equal to an "
+        f"uninterrupted run: {same}/{len(alice_reqs)}; norm_proj rel err "
+        f"{err:.3e}")
+    log(f"  launches: rmsnorm={launches['rmsnorm']} matmul="
+        f"{launches['matmul']} (2 static + 1 after the regrow), "
+        f"flash_attention={launches['flash_attention']} (= {L} x {prefills}),"
+        f" paged_decode_attention={launches['paged_decode_attention']} "
+        f"(= {L} x {steps})")
+    return {"rmsnorm": launches["rmsnorm"], "matmul": launches["matmul"]}
+
+
+# ---------------------------------------------------------------------------
 # phase 6: where the time goes (a traced window of the same requests)
 # ---------------------------------------------------------------------------
 
@@ -1756,7 +2149,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build(force=True)
     _build.load_library()
-    log(f"  built {_build.LIB_NAME} in {time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
+    log(f"  built {_build.LIB_NAME} in {build_s:.1f} s")
     for line in "\n".join(_build.BUILD_LOG).splitlines():
         if ("Function properties for" in line or "registers" in line
                 or "spill" in line or "==" in line):
@@ -1766,7 +2160,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = [check_flash(gen), check_decode(gen), check_paged_decode(gen),
-            check_paged_verify(gen), check_prefix(gen), check_ssd(gen)]
+            check_paged_verify(gen), check_prefix(gen), check_ssd(gen),
+            check_rmsnorm(gen), check_matmul(gen)]
     torch.cuda.empty_cache()
 
     log("phase 4: model (cuda kernels) against the plain path")
@@ -1788,6 +2183,10 @@ def main() -> int:
     log("phase 5d: Mamba-2 path, mamba2-370m behind ContinuousBatcher")
     mamba_launches, (mparams, mcfg) = serve_mamba_path(card)
     path_launches.update(mamba_launches)
+
+    log("phase 5e: tenancy, qwen3-0.6b tenants served through the "
+        "hypervisor (leases, static stage, regrow between chunks)")
+    path_launches.update(serve_tenancy_path(card, params, cfg, build_s))
 
     log("phase 6: where the time goes")
     trace_main_paths(card, [

@@ -7,6 +7,8 @@ instead of carrying on quietly on the CPU.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 # the config files name dtypes as strings (``ModelConfig.dtype``)
@@ -38,3 +40,22 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port on the CPU")
     return dev
+
+
+def tree_to_device(tree, device):
+    """``tree`` with every tensor moved to ``device`` (``Tensor.to``: a
+    tensor already there is returned as it is), through dicts, lists,
+    tuples, NamedTuples and dataclasses; other leaves pass through."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: tree_to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_to_device(v, device) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_device(v, device) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: tree_to_device(getattr(tree, f.name), device)
+            for f in dataclasses.fields(tree) if f.init})
+    return tree

@@ -28,8 +28,9 @@ LIB_NAME = "librepro_torch_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry points: pointers and the stream as c_void_p, ints as c_int; each
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: pointers and the stream as c_void_p, ints as c_int,
+# floats as c_float; each
 # returns cudaGetLastError() right after its launch
 SIGNATURES = {
     # q, k, v, out, B, Sq, Sk, H, Hkv, dh, causal, has_window, window,
@@ -50,6 +51,10 @@ SIGNATURES = {
     # x, dt, dA, Bm, Cm, y, state, B, nh, S, hd, G, N, chunk, is_bf16,
     # stream
     "repro_ssd_scan": [_P] * 7 + [_I] * 8 + [_P],
+    # x, scale, y, T, d, eps, x_is_bf16, scale_is_bf16, stream
+    "repro_rmsnorm": [_P] * 3 + [_I] * 2 + [_F] + [_I] * 2 + [_P],
+    # a, b, c, M, N, K, in_is_bf16, out_is_bf16, stream
+    "repro_matmul": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 # what the last build printed (registers, shared memory, spills per kernel)

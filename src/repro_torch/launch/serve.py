@@ -6,12 +6,12 @@
         --reduced --device cpu
 
 The same flags as ``repro.launch.serve``, plus ``--device`` (default
-``cuda``; pass ``--device cpu`` to run on the CPU).  Each tenant runs a
-``ContinuousBatcher`` on the dense chunked hot path (one dispatch and one
-host sync per ``--chunk`` tokens).  The reference leases each tenant a
-disjoint core set from a ``VirtualAcceleratorPool``; that lease arrives
-with the tenancy slice (ROADMAP.md Queue 1 item 8), so here every tenant
-shares the one card.
+``cuda``; pass ``--device cpu`` to run on the CPU).  Each tenant leases a
+disjoint set of ``pool.n_cores // tenants`` logical cores from a
+``VirtualAcceleratorPool`` of ``max(16, tenants)`` cores over the one
+device (the paper's isolation model), and runs a ``ContinuousBatcher`` on
+the dense chunked hot path (one dispatch and one host sync per ``--chunk``
+tokens).
 """
 
 from __future__ import annotations
@@ -40,17 +40,23 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config, get_reduced
     from repro_torch.device import resolve_device
     from repro_torch.models import init_params
-    from repro_torch.serving import ContinuousBatcher, Request, ServingConfig
+    from repro_torch.serving import (
+        ContinuousBatcher, Request, ServingConfig, VirtualAcceleratorPool,
+    )
 
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     params = init_params(cfg, args.seed, device=device)
+    pool = VirtualAcceleratorPool(devices=[device] * max(16, args.tenants),
+                                  devices_per_core=1)
     rng = np.random.default_rng(args.seed)
 
-    print(f"[serve] arch={cfg.name} tenants={args.tenants} device={device}")
+    print(f"[serve] arch={cfg.name} tenants={args.tenants} device={device} "
+          f"pool={pool.n_cores} cores")
     total_toks = 0
     t0 = time.time()
     for t in range(args.tenants):
+        lease = pool.lease(f"tenant{t}", pool.n_cores // args.tenants)
         batcher = ContinuousBatcher(
             params, cfg,
             ServingConfig(slots=args.slots, prompt_len=args.prompt_len,
@@ -65,7 +71,7 @@ def main(argv=None) -> int:
                 max_new=args.max_new,
             ))
         stats = batcher.run()
-        print(f"  tenant{t}: completed={stats.completed}/{args.requests}, "
+        print(f"  tenant{t}: lease={list(lease.cores)[:4]}..., completed={stats.completed}/{args.requests}, "
               f"decode steps={stats.steps} in {stats.chunks} chunks "
               f"({stats.dispatches} dispatches, {stats.host_syncs} syncs, "
               f"{stats.dispatches_per_token:.3f} disp/token), "

@@ -1,6 +1,8 @@
 """Serving on dense KV caches and on the paged pool with shared-prefix
 admission, with optional speculative decode and admission/decode overlap:
-engine steps, continuous batcher, config, page ledger and prefix cache."""
+engine steps, continuous batcher, config, page ledger and prefix cache;
+and tenancy, the hypervisor's serving adapter (leased logical cores, the
+two-stage compiler, live-state migration between chunks)."""
 
 from .batcher import BatcherStats, ContinuousBatcher, Request
 from .config import ServingConfig, config_from_legacy_kwargs
@@ -38,6 +40,13 @@ from .kv_cache import (
     tree_bytes,
 )
 from .prefix_cache import PrefixCache, PrefixNode
+from .tenancy import (
+    TensorSpec,
+    TwoStageCompiler,
+    ServingExecutor,
+    VirtualAcceleratorPool,
+    make_serving_hypervisor,
+)
 
 __all__ = [
     "BatcherStats", "ContinuousBatcher", "Request",
@@ -52,4 +61,6 @@ __all__ = [
     "page_bytes", "paged_kv_cache_bytes", "pages_for", "seed_kv_cache",
     "seed_ssm_state", "tree_bytes",
     "PrefixCache", "PrefixNode",
+    "TensorSpec", "TwoStageCompiler", "ServingExecutor",
+    "VirtualAcceleratorPool", "make_serving_hypervisor",
 ]

@@ -73,7 +73,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, tree_to_device
 from ..models.attention import check_attn_impl
 from ..models.transformer import (
     Caches, init_caches, init_paged_caches, period_structure,
@@ -338,7 +338,7 @@ class ContinuousBatcher:
                     f"ServingConfig {name} is not ported yet: ROADMAP.md "
                     f"Queue 1 {item}")
         self.device = resolve_device(device)
-        self.params = _to_device(params, self.device)
+        self.params = tree_to_device(params, self.device)
         self.cfg = cfg
         self.config = config
         slots = config.slots
@@ -488,6 +488,48 @@ class ContinuousBatcher:
             est = self.stats.pages_in_use + self._admitted_pages_since_sync
             if est > self._page_limit:
                 self._evict_cached(est - self._page_limit)
+
+    # -- mid-run migration (Hypervisor resize between chunks) -----------
+    def live_state(self) -> Dict[str, Any]:
+        """Current device state, for ``TwoStageCompiler.reconfigure``
+        migration: caches and slot state, plus the page tables and free
+        stack when paged and the draft state when speculative.  Register
+        this *method* (not its result) with ``ServingExecutor.register_state``:
+        the steps replace these objects.  The steps also update the caches
+        in place and return before the card has run them, so this first
+        waits for everything queued on the stream (an in-flight chunk, its
+        packed fetch, an admission or page push behind it): a resize that
+        lands between chunks never reads or moves a tensor a queued kernel
+        still writes."""
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
+        out = {"caches": self.caches, "slots": self.state}
+        if self.paged:
+            out["pages"] = self.pages
+        if self._spec:
+            out["draft"] = self.draft
+        return out
+
+    def adopt_state(self, state: Dict[str, Any]) -> None:
+        """Adopt a migrated state tree; decode resumes at the same token.
+        The params and the sampling generator stay where they are, so the
+        tree must lie on the batcher's device (on one card every logical
+        core is that device)."""
+        dev, here = state["slots"].active.device, self.state.active.device
+        if dev != here:
+            raise ValueError(
+                f"migrated state lies on {dev}, the batcher's params on "
+                f"{here}; moving a live batcher to another device "
+                f"needs remesh, which is not ported yet (ROADMAP.md Queue 1 "
+                f"item 12)")
+        self.caches = state["caches"]
+        self.state = state["slots"]
+        if self.paged:
+            self.pages = state["pages"]
+        if self._spec:
+            self.draft = state["draft"]
 
     def _evict_cached(self, n: int) -> int:
         """Reclaim up to ``n`` pages from the prefix cache (LRU, refcount-0
@@ -1119,10 +1161,3 @@ class ContinuousBatcher:
                         # request's footprint at the current quota
         return self.stats
 
-
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_device(v, device) for v in tree)
-    return tree.to(device)

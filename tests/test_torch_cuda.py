@@ -481,3 +481,172 @@ def test_mamba2_batcher_on_the_card_matches_the_plain_path(gen):
         ran = ops.ssd.launches - before
         assert ran == (cfg.n_layers * b.stats.prefills if impl == "cuda" else 0)
     assert outs["cuda"] == outs["torch"]
+
+
+def _err(got, want):
+    """Max abs error, relative where the plain output exceeds 1 (one bf16
+    rounding step of a large output is 2^-8 of it)."""
+    return ((got.float() - want.float()).abs()
+            / want.float().abs().clamp(min=1.0)).max().item()
+
+
+@pytest.mark.parametrize("x_dtype,s_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("shape", [(2048, 1024), (8, 1024), (4, 32, 128),
+                                   (7, 5120), (33, 130), (3, 12288)])
+def test_rmsnorm_kernel_matches_plain(gen, x_dtype, s_dtype, shape):
+    from repro_torch.kernels.rmsnorm import ops, ref
+
+    x = _rand(gen, shape, x_dtype)
+    s = _rand(gen, (shape[-1],), s_dtype)
+    before = ops.rmsnorm.launches
+    got = ops.rmsnorm(x, s)
+    want = ref.rmsnorm_ref(x, s)
+    torch.cuda.synchronize()
+    assert ops.rmsnorm.launches == before + 1
+    assert got.shape == x.shape and got.dtype == x.dtype
+    assert bool(torch.isfinite(got).all())
+    assert _err(got, want) <= TOL[x_dtype]
+
+
+def test_rmsnorm_kernel_takes_a_misaligned_view(gen):
+    """A row view whose start is off the 16-byte boundary (a storage offset
+    of one element) goes through the scalar head of the kernel."""
+    from repro_torch.kernels.rmsnorm import kernel, ref
+
+    base = _rand(gen, (1 + 64 * 256,), torch.bfloat16)
+    x = base[1:].view(64, 256)
+    s = _rand(gen, (256,), torch.bfloat16)
+    got = kernel.rmsnorm_kernel(x, s)
+    torch.cuda.synchronize()
+    assert _err(got, ref.rmsnorm_ref(x, s)) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("in_dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("sa,sb", [((2048, 1024), (1024, 3072)),
+                                   ((8, 1024), (1024, 3072)),
+                                   ((100, 300), (300, 72)),
+                                   ((2, 50, 300), (300, 72)),
+                                   ((1, 1), (1, 1))])
+def test_matmul_kernel_matches_plain(gen, in_dtype, out_dtype, sa, sb):
+    """Errors relative to the plain version's largest magnitude: 1e-5 at
+    f32 output (summation order only), 8e-3 at bf16 output (one rounding,
+    and a flip across a rounding boundary)."""
+    from repro_torch.kernels.matmul import ops, ref
+
+    a = _rand(gen, sa, in_dtype)
+    b = _rand(gen, sb, in_dtype)
+    before = ops.matmul.launches
+    got = ops.matmul(a, b, out_dtype=out_dtype)
+    want = ref.matmul_ref(a.reshape(-1, sa[-1]), b,
+                          out_dtype=out_dtype).reshape(*sa[:-1], sb[-1])
+    torch.cuda.synchronize()
+    assert ops.matmul.launches == before + 1
+    assert got.shape == want.shape and got.dtype == out_dtype
+    scale = want.float().abs().max().clamp(min=1e-30)
+    err = ((got.float() - want.float()).abs().max() / scale).item()
+    assert err <= (1e-5 if out_dtype == torch.float32 else 8e-3)
+
+
+def test_rmsnorm_and_matmul_refuse_what_they_do_not_take(gen):
+    from repro_torch.kernels.matmul import ops as mm
+    from repro_torch.kernels.rmsnorm import ops as rms
+
+    x = _rand(gen, (4, 8), torch.float16)
+    with pytest.raises(ValueError, match="dtype"):
+        rms.rmsnorm(x, _rand(gen, (8,), torch.float32))
+    with pytest.raises(ValueError, match="d="):
+        rms.rmsnorm(_rand(gen, (1, 12289), torch.float32),
+                    _rand(gen, (12289,), torch.float32))
+    a = _rand(gen, (4, 8), torch.float32)
+    with pytest.raises(ValueError, match="dtypes"):
+        mm.matmul(a, _rand(gen, (8, 3), torch.bfloat16))
+    with pytest.raises(ValueError, match="out_dtype"):
+        mm.matmul(a, _rand(gen, (8, 3), torch.float32),
+                  out_dtype=torch.float16)
+
+
+def test_tenant_program_runs_through_the_hypervisor_on_the_card(gen):
+    """The static stage warms a program that reaches both kernels on
+    cuda:0 for every lease size; a regrow between calls hits the cache and
+    the program keeps launching the kernels."""
+    from repro_torch.core import TenantSpec
+    from repro_torch.kernels.matmul import ops as mm
+    from repro_torch.kernels.rmsnorm import ops as rms
+    from repro_torch.serving import (
+        TensorSpec, VirtualAcceleratorPool, make_serving_hypervisor,
+    )
+
+    def program(x, s, w):
+        return mm.matmul(rms.rmsnorm(x, s), w)
+
+    pool = VirtualAcceleratorPool(devices=[torch.device("cuda", 0)] * 4)
+    hv, ex = make_serving_hypervisor(pool, policy="priority")
+    before = (rms.rmsnorm.launches, mm.matmul.launches)
+    specs = (TensorSpec((64, 128), torch.bfloat16),
+             TensorSpec((128,), torch.bfloat16),
+             TensorSpec((128, 96), torch.bfloat16))
+    ex.compiler.static_compile("p", program, specs, lease_sizes=[2, 4])
+    assert (rms.rmsnorm.launches, mm.matmul.launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert hv.admit(TenantSpec("t", 2, artifact="p"))
+    hv.resize_request("t", 4)
+    assert ex.program_of("t").n_cores == 4
+    x, s, w = (_rand(gen, sp.shape, sp.dtype) for sp in specs)
+    got = ex.program_of("t").executable(x, s, w)
+    torch.cuda.synchronize()
+    from repro_torch.kernels.matmul import ref as mm_ref
+    from repro_torch.kernels.rmsnorm import ref as rms_ref
+    want = mm_ref.matmul_ref(rms_ref.rmsnorm_ref(x, s), w)
+    assert ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item() <= 8e-3
+
+
+def test_paged_batcher_resize_between_chunks_on_the_card(gen):
+    """A hypervisor regrow between chunks migrates a paged batcher's live
+    state on cuda:0 (``live_state`` waits for the queued chunk first) and
+    the tokens equal an uninterrupted run."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import TenantSpec
+    from repro_torch.models import init_params
+    from repro_torch.serving import (
+        ContinuousBatcher, Request, ServingConfig, TensorSpec,
+        VirtualAcceleratorPool, make_serving_hypervisor,
+    )
+
+    cfg = dataclasses.replace(get_reduced("qwen3-0.6b"), dtype="float32")
+    params = init_params(cfg, 0, device="cuda")
+    sc = ServingConfig(slots=4, prompt_len=8, max_len=64, chunk=4,
+                       paged=True, page_size=8, overlap=True)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab, size=4 + i).astype(np.int32)
+               for i in range(5)]
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new=5 + 2 * i)
+                for i, p in enumerate(prompts)]
+
+    ref = ContinuousBatcher(params, cfg, sc)
+    ref_reqs = reqs()
+    for r in ref_reqs:
+        ref.submit(r)
+    ref.run()
+    pool = VirtualAcceleratorPool(devices=[torch.device("cuda", 0)] * 4)
+    hv, ex = make_serving_hypervisor(pool, policy="no_realloc")
+    ex.compiler.static_compile("k", lambda x: x,
+                               (TensorSpec((4,), torch.float32),),
+                               lease_sizes=[1, 2])
+    assert hv.admit(TenantSpec("t", 1, artifact="k"))
+    b = ContinuousBatcher(params, cfg, sc)
+    ex.register_state("t", b.live_state, on_migrate=b.adopt_state)
+    got = reqs()
+    for r in got:
+        b.submit(r)
+    b.step()
+    hv.resize_request("t", 2)
+    assert "t_migrate" in ex.reconfig_log[-1]
+    b.run()
+    assert [r.out for r in got] == [r.out for r in ref_reqs]

@@ -22,20 +22,28 @@ from repro.kernels.decode_attention import ops as jda_ops
 from repro.kernels.decode_attention import ref as jda_ref
 from repro.kernels.flash_attention import ops as jfa_ops
 from repro.kernels.flash_attention import ref as jfa_ref
+from repro.kernels.matmul import ops as jmm_ops
+from repro.kernels.matmul import ref as jmm_ref
 from repro.kernels.paged_attention import ops as jpa_ops
 from repro.kernels.paged_attention import ref as jpa_ref
 from repro.kernels.prefix_attention import ops as jpfx_ops
 from repro.kernels.prefix_attention import ref as jpfx_ref
+from repro.kernels.rmsnorm import ops as jrms_ops
+from repro.kernels.rmsnorm import ref as jrms_ref
 from repro.models.attention import chunked_flash_attention as jchunked
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.decode_attention import ops as da_ops
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.matmul import kernel as mm_kernel
+from repro_torch.kernels.matmul import ops as mm_ops
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.prefix_attention import kernel as pfx_kernel
 from repro_torch.kernels.prefix_attention import ops as pfx_ops
+from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.models.attention import chunked_flash_attention
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -285,9 +293,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros(1, 3, 4, 64), pool, pool, table, cur)
     with pytest.raises(ValueError, match="cpu"):
         pfx_kernel.prefix_flash_attention_kernel(q, kv, kv, kv, kv)
+    with pytest.raises(ValueError, match="cpu"):
+        rms_kernel.rmsnorm_kernel(torch.zeros(2, 8), torch.zeros(8))
+    with pytest.raises(ValueError, match="cpu"):
+        mm_kernel.matmul_kernel(torch.zeros(2, 8), torch.zeros(8, 3))
 
 
-_C_TYPES = {"const void*": "c_void_p", "void*": "c_void_p", "int": "c_int"}
+_C_TYPES = {"const void*": "c_void_p", "void*": "c_void_p", "int": "c_int",
+            "float": "c_float"}
 
 
 @pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
@@ -327,3 +340,150 @@ def test_build_stamp_covers_headers(tmp_path, monkeypatch):
     (tmp_path / "h.cuh").write_text("// two\n")
     assert _build._stamp(_build._sources()) != before
     assert _build._sources() == [tmp_path / "a.cu"]
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm and matmul: the plain versions against the reference's Pallas
+# kernels in interpret mode and its plain references
+# ---------------------------------------------------------------------------
+
+BF16_TOL = dict(rtol=2e-2, atol=2e-2)       # tests/test_kernels.py's tol()
+F32_MM_TOL = dict(rtol=5e-4, atol=5e-4)
+
+
+def _bf16_pair(a):
+    """The same bf16 values for both packages (numpy holds the f32 ones)."""
+    t = torch.from_numpy(a).to(torch.bfloat16)
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      jnp.asarray(x, jnp.float32))
+
+
+RMS_SHAPES = [(4, 128, 256), (2, 64, 1024), (1, 8, 512), (7, 5120), (3, 130)]
+
+
+@pytest.mark.parametrize("shape", RMS_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "bf16 x f32 scale"])
+def test_rmsnorm_matches_jax(shape, dtype):
+    """``ops.rmsnorm`` on the CPU (the plain version) against JAX's Pallas
+    kernel in interpret mode and its ``ref.rmsnorm_ref``: f32 max abs 1e-5,
+    bf16 within the reference test's 2e-2 (both round one f32 value to
+    bf16; their sums of squares differ in order)."""
+    rng = np.random.default_rng(len(shape) * 1000 + shape[-1])
+    x = _randn(rng, shape)
+    s = _randn(rng, (shape[-1],))
+    if dtype == "float32":
+        tx, jx, ts, js = torch.from_numpy(x), jnp.asarray(x), \
+            torch.from_numpy(s), jnp.asarray(s)
+    else:
+        tx, jx = _bf16_pair(x)
+        ts, js = (_bf16_pair(s) if dtype == "bfloat16"
+                  else (torch.from_numpy(s), jnp.asarray(s)))
+    got = rms_ops.rmsnorm(tx, ts)
+    assert got.shape == tx.shape and got.dtype == tx.dtype
+    for want in (jrms_ops.rmsnorm(jx, js, interpret=True),
+                 jrms_ref.rmsnorm_ref(jx, js)):
+        if dtype == "float32":
+            assert np.abs(_f32(got) - _f32(want)).max() <= 1e-5
+        else:
+            np.testing.assert_allclose(_f32(got), _f32(want), **BF16_TOL)
+
+
+MM_CASES = {
+    "128x128x128": ((128, 128), (128, 128)),
+    "256x512x384": ((256, 512), (512, 384)),
+    "512x256x128": ((512, 256), (256, 128)),
+    "64x1024x256": ((64, 1024), (1024, 256)),
+    "ragged 100x300x72": ((100, 300), (300, 72)),
+    "leading dims (2, 50, 300)": ((2, 50, 300), (300, 72)),
+}
+
+
+@pytest.mark.parametrize("case", list(MM_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "bf16 -> f32"])
+def test_matmul_matches_jax(case, dtype):
+    """``ops.matmul`` on the CPU against JAX's Pallas kernel in interpret
+    mode (blocks of 128, ragged shapes padded there) and its
+    ``ref.matmul_ref``, with the reference test's tolerances: f32 5e-4,
+    bf16 2e-2."""
+    sa, sb = MM_CASES[case]
+    rng = np.random.default_rng(sa[-1] + sb[-1])
+    a, b = _randn(rng, sa), _randn(rng, sb)
+    out_dtype = None
+    if dtype == "float32":
+        ta, ja, tb, jb = torch.from_numpy(a), jnp.asarray(a), \
+            torch.from_numpy(b), jnp.asarray(b)
+    else:
+        (ta, ja), (tb, jb) = _bf16_pair(a), _bf16_pair(b)
+    if dtype == "bf16 -> f32":
+        out_dtype = (torch.float32, jnp.float32)
+    got = mm_ops.matmul(ta, tb, out_dtype=out_dtype and out_dtype[0])
+    want_dtype = out_dtype[0] if out_dtype else ta.dtype
+    assert got.shape == (*sa[:-1], sb[-1]) and got.dtype == want_dtype
+    jout = out_dtype and out_dtype[1]
+    wants = [jmm_ops.matmul(ja, jb, block_m=128, block_n=128, block_k=128,
+                            out_dtype=jout, interpret=True)]
+    if len(sa) == 2:
+        wants.append(jmm_ref.matmul_ref(ja, jb, out_dtype=jout))
+    tol = F32_MM_TOL if want_dtype == torch.float32 else BF16_TOL
+    for want in wants:
+        np.testing.assert_allclose(_f32(got), _f32(want), **tol)
+
+
+def test_rmsnorm_and_matmul_wrappers_count_only_card_launches():
+    """On the CPU the wrappers take the plain versions and leave their
+    launch counters alone."""
+    before = (rms_ops.rmsnorm.launches, mm_ops.matmul.launches)
+    rms_ops.rmsnorm(torch.ones(2, 8), torch.ones(8))
+    mm_ops.matmul(torch.ones(2, 8), torch.ones(8, 3))
+    assert (rms_ops.rmsnorm.launches, mm_ops.matmul.launches) == before
+
+
+def test_rmsnorm_and_matmul_kernels_refuse_what_they_do_not_take():
+    """The launchers' checks run before any build: dtypes, shapes and the
+    widest row (``MAX_D``) are refused with a ValueError."""
+    meta = torch.device("meta")
+
+    def fake_cuda(t):
+        # a tensor the checks take for a card tensor: only .device differs
+        class T:
+            def __init__(self, t):
+                self._t = t
+
+            def __getattr__(self, k):
+                return getattr(self._t, k)
+
+            @property
+            def device(self):
+                return torch.device("cuda", 0)
+
+        return T(t)
+
+    x = fake_cuda(torch.zeros(2, 8, device=meta))
+    with pytest.raises(ValueError, match="dtype"):
+        rms_kernel.check_inputs(fake_cuda(torch.zeros(2, 8, dtype=torch.float16,
+                                                      device=meta)),
+                                fake_cuda(torch.zeros(8, device=meta)))
+    with pytest.raises(ValueError, match="scale"):
+        rms_kernel.check_inputs(x, fake_cuda(torch.zeros(7, device=meta)))
+    wide = rms_kernel.MAX_D + 1
+    with pytest.raises(ValueError, match="d="):
+        rms_kernel.check_inputs(fake_cuda(torch.zeros(1, wide, device=meta)),
+                                fake_cuda(torch.zeros(wide, device=meta)))
+    rms_kernel.check_inputs(x, fake_cuda(torch.zeros(8, dtype=torch.bfloat16,
+                                                     device=meta)))
+    b = fake_cuda(torch.zeros(8, 3, device=meta))
+    with pytest.raises(ValueError, match="dtypes"):
+        mm_kernel.check_inputs(x, fake_cuda(torch.zeros(8, 3,
+                                                        dtype=torch.bfloat16,
+                                                        device=meta)),
+                               torch.float32)
+    with pytest.raises(ValueError, match="shapes"):
+        mm_kernel.check_inputs(x, fake_cuda(torch.zeros(7, 3, device=meta)),
+                               torch.float32)
+    with pytest.raises(ValueError, match="out_dtype"):
+        mm_kernel.check_inputs(x, b, torch.float16)
+    mm_kernel.check_inputs(x, b, torch.bfloat16)
