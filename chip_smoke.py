@@ -11,8 +11,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and ``torch.backends.cudnn.allow_tf32`` both False).
 2. build    — builds the CUDA kernels from ``src/repro_torch/csrc``.
 3. kernels  — each kernel against its plain PyTorch version at the serving
-              paths' shapes plus edge cases (windowed, q_offset, ragged,
-              pos = -1, wrapped ring; paged: holes, a cur_pos sweep across
+              paths' shapes plus edge cases (flash: windowed, q_offset,
+              ragged, GQA 8:1 at dh=64, dh=32, each in f32 and bf16, the
+              two dtypes taking different kernels; dense decode: pos = -1,
+              wrapped ring, and the split pass and merge with C not a
+              multiple of the split, C below one split, a split whose
+              slots are all masked, a row with no valid slot, a window
+              ring wrapping across a split boundary and GQA 16:1, in f32
+              and bf16; paged: holes, a cur_pos sweep across
               page boundaries, a fully unmapped slot, GQA 16:1, with the
               trash page poisoned to 1e4; verify: the same, a row 0 without
               keys, W = 2, 6 and 8, dh 32 and 64; prefix: ragged Lp and Sq,
@@ -97,7 +103,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 6. trace    — the first rounds of the dense, the paged, the spec and the
               Mamba-2 path,
               all untraced first, then each under ``torch.profiler``: device
-              busy time, idle share and device time by kernel class.
+              busy time, idle share and device time by kernel class; the
+              dense path must run the tensor-core flash kernel and the
+              decode split and merge kernels, the paged path the former.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -108,6 +116,15 @@ runs phase 1 and only the memory probe of phase 5 (device memory of one
 dense admission prefill at the main path's shape), against the
 ``src/repro_torch`` beside the script: a copy of the script placed in
 another checkout measures that checkout.
+
+    python3 chip_smoke.py --kernel-times
+
+runs phase 1 and times the flash and dense decode kernels, their plain
+versions and SDPA at the main paths' bf16 shapes (phase 3's timings
+without its correctness cases), against the ``src/repro_torch`` beside
+the script: a copy in another checkout times that checkout's kernels, so
+two trees compare in turns in one chip call.  Prints one JSON line
+``{"kernel_times": ...}``.
 
     python3 chip_smoke.py --ssd-faults
 
@@ -198,7 +215,6 @@ def _rand(gen, shape, dtype):
 
 def check_flash(gen):
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
 
@@ -224,15 +240,29 @@ def check_flash(gen):
     main = dict(B=8, Sq=256, Sk=256, H=16, Hkv=8, dh=128)
     err, (q, k, v) = run_case("main bf16", dtype=bf16, **main)
     run_case("main f32", dtype=f32, **main)
-    run_case("window=64 f32", dtype=f32, window=64, **main)
-    run_case("q_offset=200 f32", 2, 100, 300, 16, 8, 128, f32, q_offset=200)
-    run_case("ragged Sq=Sk=77 f32", 3, 77, 77, 16, 8, 128, f32)
-    run_case("ragged+window+offset f32", 2, 130, 200, 16, 8, 128, f32,
-             q_offset=70, window=50)
-    run_case("gqa 8:1 dh=64 bf16", 2, 96, 96, 8, 1, 64, bf16)
+    # every mask case in both dtypes: bf16 takes the tensor-core kernel,
+    # f32 the CUDA-core one
+    for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
+        run_case(f"window=64 {tag}", dtype=dtype, window=64, **main)
+        run_case(f"q_offset=200 {tag}", 2, 100, 300, 16, 8, 128, dtype,
+                 q_offset=200)
+        run_case(f"ragged Sq=Sk=77 {tag}", 3, 77, 77, 16, 8, 128, dtype)
+        run_case(f"ragged+window+offset {tag}", 2, 130, 200, 16, 8, 128,
+                 dtype, q_offset=70, window=50)
+        run_case(f"gqa 8:1 dh=64 {tag}", 2, 96, 96, 8, 1, 64, dtype)
+        run_case(f"dh=32 {tag}", 2, 100, 100, 4, 2, 32, dtype)
+    return dict(time_flash(q, k, v), max_abs_err=err)
 
-    # timings at the serving path's prefill shape (B=8 rows of 256, bf16)
-    B, S, H, Hkv, dh = 8, 256, 16, 8, 128
+
+def time_flash(q, k, v):
+    """Kernel, plain and SDPA times (and the bound) at the serving path's
+    prefill shape (B=8 rows of 256, bf16), from ``q, k, v`` there."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    B, S, H, dh = q.shape
+    Hkv = k.shape[2]
     sets = copies_over_l2([q, k, v])
     kernel = device_ms(lambda a, b, c: ops.flash_attention(a, b, c), sets)
     plain = device_ms(
@@ -249,8 +279,8 @@ def check_flash(gen):
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:99",
-                max_abs_err=err, ms=kernel, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=library)
+                ms=kernel, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=library)
 
 
 def _ring_pos(rng, B, C, cur, *, holes: float = 0.0):
@@ -267,18 +297,20 @@ def _ring_pos(rng, B, C, cur, *, holes: float = 0.0):
 
 def check_decode(gen):
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.kernels.decode_attention import kernel, ops, ref
 
     rng = np.random.default_rng(0)
 
     def run_case(name, B, C, H, Hkv, dh, dtype, cur, *, window=None,
-                 holes=0.0):
+                 holes=0.0, edit=None):
         q = _rand(gen, (B, H, dh), dtype)
         k = _rand(gen, (B, C, Hkv, dh), dtype)
         v = _rand(gen, (B, C, Hkv, dh), dtype)
-        pos = torch.from_numpy(_ring_pos(rng, B, C, cur, holes=holes)).cuda()
+        pos_np = _ring_pos(rng, B, C, cur, holes=holes)
+        if edit is not None:
+            edit(pos_np, kernel.plan_splits(B, C, Hkv)[1])
+        pos = torch.from_numpy(pos_np).cuda()
         cur_t = torch.as_tensor(np.asarray(cur, np.int32)).cuda()
         got = ops.decode_attention(q, k, v, pos, cur_t, window=window)
         want = ref.decode_attention_ref(q, k, v, pos, cur_t, window=window)
@@ -289,6 +321,12 @@ def check_decode(gen):
         check(bool(torch.isfinite(got).all()), f"decode {name}: non-finite output")
         check(err <= tol, f"decode {name}: max abs error {err} > {tol}")
         return err, (q, k, v, pos, cur_t)
+
+    def empty_split_1(pos, split_len):         # a split whose slots are masked
+        pos[:, split_len:2 * split_len] = -1
+
+    def empty_row_0(pos, split_len):           # a row with no valid slot
+        pos[0] = -1
 
     f32, bf16 = torch.float32, torch.bfloat16
     B, C, H, Hkv, dh = 8, 322, 16, 8, 128
@@ -302,7 +340,31 @@ def check_decode(gen):
              rng.integers(150, 400, size=4))
     run_case("gqa 16:1 dh=64 bf16", 4, 130, 16, 1, 64, bf16,
              rng.integers(0, 129, size=4), holes=0.2)
+    # the split pass and the merge (kernel.plan_splits picks split_len)
+    for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
+        run_case(f"split: C=100 ragged {tag}", 2, 100, H, Hkv, dh, dtype,
+                 [99, 150])
+        run_case(f"split: C=20 < one {tag}", 2, 20, H, Hkv, dh, dtype, [7, 19])
+        run_case(f"split: all masked {tag}", B, C, H, Hkv, dh, dtype, cur,
+                 edit=empty_split_1)
+        run_case(f"split: no valid slot {tag}", 3, 70, H, Hkv, dh, dtype,
+                 [100, 69, 30], edit=empty_row_0)
+        run_case(f"split: window wraps {tag}", 4, 48, H, Hkv, dh, dtype,
+                 [70, 90, 100, 119], window=40)
+        run_case(f"split: gqa 16:1 {tag}", 4, 130, 16, 1, 64, dtype,
+                 [129, 60, 200, 5])
+    return dict(time_decode(q, k, v, pos, cur_t), max_abs_err=err)
 
+
+def time_decode(q, k, v, pos, cur_t):
+    """Kernel, plain and SDPA + mask times (and the bound) at the dense
+    serving path's decode shape (B=8, C=322, bf16), from its inputs."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    B, H, dh = q.shape
+    C, Hkv = k.shape[1], k.shape[2]
     sets = copies_over_l2([q, k, v, pos, cur_t])
     kernel = device_ms(lambda *a: ops.decode_attention(*a), sets)
     plain = device_ms(lambda *a: ref.decode_attention_ref(*a), sets)
@@ -327,8 +389,40 @@ def check_decode(gen):
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention/kernel.py:76",
-                max_abs_err=err, ms=kernel, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=library)
+                ms=kernel, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=library)
+
+
+def kernel_times(card: str) -> int:
+    """``--kernel-times``: the flash and dense decode kernels, their plain
+    versions and SDPA at the main paths' bf16 shapes, timed against the
+    ``src/repro_torch`` beside this script, without the correctness
+    cases: a copy of the script placed in another checkout (e.g. the
+    parent commit unpacked with ``git archive``) times that checkout's
+    kernels, so two trees compare in turns within one chip call."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rng = np.random.default_rng(0)
+    bf16 = torch.bfloat16
+    B, S, H, Hkv, dh, C = 8, 256, 16, 8, 128, 322
+    flash = time_flash(_rand(gen, (B, S, H, dh), bf16),
+                       _rand(gen, (B, S, Hkv, dh), bf16),
+                       _rand(gen, (B, S, Hkv, dh), bf16))
+    cur = rng.integers(256, 320, size=B)
+    decode = time_decode(
+        _rand(gen, (B, H, dh), bf16), _rand(gen, (B, C, Hkv, dh), bf16),
+        _rand(gen, (B, C, Hkv, dh), bf16),
+        torch.from_numpy(_ring_pos(rng, B, C, cur)).cuda(),
+        torch.as_tensor(np.asarray(cur, np.int32)).cuda())
+    for row in (flash, decode):
+        log(f"  {row['name']}: {row['ms'] * 1e3:.2f} us kernel, "
+            f"{row['plain_ms'] * 1e3:.2f} us plain, "
+            f"{row['library_ms'] * 1e3:.2f} us library [{card}]")
+    print(json.dumps({"kernel_times": {"root": str(ROOT), "card": card,
+                                       "rows": [flash, decode]}}), flush=True)
+    return 0
 
 
 def _err(got, want) -> float:
@@ -2025,13 +2119,15 @@ def serve_tenancy_path(card: str, params, cfg, build_s: float):
 # ---------------------------------------------------------------------------
 
 
-# paged_dec_kernel before dec_kernel: the first match names the class
-_KERNEL_CLASSES = (("flash_attention", ("fa_kernel",)),
+# the first match names the class; the dense decode kernels are
+# dec_split_kernel and dec_merge_kernel, the paged one paged_dec_kernel
+_KERNEL_CLASSES = (("flash_attention", ("fa_kernel", "fa_mma_kernel")),
                    ("ssd_scan", ("ssd_kernel",)),
                    ("paged_verify_attention", ("paged_verify_kernel",)),
                    ("prefix_flash_attention", ("pfx_kernel",)),
                    ("paged_decode_attention", ("paged_dec_kernel",)),
-                   ("decode_attention", ("dec_kernel",)),
+                   ("decode_attention", ("dec_split_kernel",
+                                         "dec_merge_kernel")),
                    # cuBLASLt's Hopper GEMMs are named nvjet_*
                    ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas",
                                         "nvjet")))
@@ -2054,16 +2150,17 @@ def _rounds(make_batcher, n_rounds: int) -> float:
 
 def trace_main_paths(card: str, paths, n_rounds: int = 3):
     """The first rounds of each main path in ``paths`` ((label,
-    make_batcher) pairs), first all untraced, then each under
+    make_batcher, must_run) triples), first all untraced, then each under
     ``torch.profiler`` (device activity only), so no untraced window runs
     after a profiler session: device busy time (union of kernel
     intervals), the idle share against the untraced window's wall time, and
-    device time by kernel class."""
+    device time by kernel class.  Fails unless a kernel whose name holds
+    each of ``must_run`` ran in the path's traced window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    clean = {label: _rounds(make, n_rounds) for label, make in paths}
-    for label, make in paths:
+    clean = {label: _rounds(make, n_rounds) for label, make, _ in paths}
+    for label, make, must_run in paths:
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             traced = _rounds(make, n_rounds)
@@ -2110,6 +2207,12 @@ def trace_main_paths(card: str, paths, n_rounds: int = 3):
         log("  top kernels by device time:")
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log(f"    {us * 1e-3:9.2f} ms  {us / total:6.1%}  {name[:90]}")
+        for key in must_run:
+            names = [n for n in by_name if key in n]
+            check(bool(names), f"{label}: no {key} ran in the traced window")
+            log(f"  {label} ran {key}: "
+                f"{sum(by_name[n] for n in names) * 1e-3:.2f} ms "
+                f"({names[0][:70]})")
 
 
 def main() -> int:
@@ -2142,6 +2245,9 @@ def main() -> int:
     if "--ssd-faults" in sys.argv[1:]:
         log("SSD scan with planted faults against phases 3 and 4")
         return ssd_fault_check()
+    if "--kernel-times" in sys.argv[1:]:
+        log("flash and dense decode kernels timed at the main paths' shapes")
+        return kernel_times(card)
 
     log("phase 2: build")
     from repro_torch.kernels import _build
@@ -2189,14 +2295,17 @@ def main() -> int:
     path_launches.update(serve_tenancy_path(card, params, cfg, build_s))
 
     log("phase 6: where the time goes")
+    # the bf16 dense path's prefill and decode take the redesigned kernels
     trace_main_paths(card, [
-        ("dense path", lambda: _batcher(params, cfg, _requests(cfg))),
+        ("dense path", lambda: _batcher(params, cfg, _requests(cfg)),
+         ("fa_mma_kernel", "dec_split_kernel", "dec_merge_kernel")),
         ("paged path", lambda: _paged_batcher(params, cfg,
-                                              _paged_requests(cfg))),
+                                              _paged_requests(cfg)),
+         ("fa_mma_kernel",)),
         ("spec path", lambda: _spec_batcher(params, cfg,
-                                            _spec_requests(cfg))),
+                                            _spec_requests(cfg)), ()),
         ("mamba2 path", lambda: _mamba_batcher(mparams, mcfg,
-                                               _mamba_requests(mcfg)))])
+                                               _mamba_requests(mcfg)), ())])
 
     for row in rows:
         # each kernel's launches on the path that runs it: flash on the

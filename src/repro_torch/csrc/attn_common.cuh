@@ -1,7 +1,8 @@
 // Device helpers shared by the attention kernels of this directory, and the
-// tiled online-softmax step of the two prefill-shaped kernels
-// (flash_attention.cu, prefix_flash_attention.cu), which differ only in
-// their masks and in which K/V operands their k-tile loops walk.
+// tiled f32 online-softmax step of the prefill-shaped kernels (the f32 route
+// of flash_attention.cu, prefix_flash_attention.cu), which differ only in
+// their masks and in which K/V operands their k-tile loops walk.  The bf16
+// tensor-core tile is attn_mma.cuh's.
 //
 // Every function here is inline, so each kernel source still compiles on
 // its own; _build.py rebuilds the library when this header changes.
@@ -52,6 +53,28 @@ __device__ __forceinline__ void load_f32(const __nv_bfloat16* p, float* x) {
     static_assert(N == 1, "dh / 32 must be 1, 2 or 4");
     x[0] = __bfloat162float(*p);
   }
+}
+
+// 16- and 4-byte asynchronous copies global -> shared (cp.async, sm_80+).
+// With `pred` false nothing is read and the bytes are zero-filled, so a tile
+// past a ragged edge stages as zeros.  `gmem` must stay a valid address.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool pred) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(gmem), "r"(pred ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // reductions over the 32 lanes of a warp

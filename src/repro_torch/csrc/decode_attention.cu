@@ -1,4 +1,5 @@
-// Dense ring-buffer decode attention for Hopper, sm_90a.
+// Dense ring-buffer decode attention for Hopper, sm_90a: split-KV
+// (flash-decoding) in two passes.
 //
 // Replaces the TPU kernel repro/kernels/decode_attention/kernel.py:
 // decode_attention_kernel (body _dec_kernel): one new query token per slot
@@ -10,20 +11,46 @@
 // What bounds it on the H100: bytes.  Every cached K/V byte is read once per
 // token and each is used for only `group` (2 on qwen3-0.6b) multiply-adds:
 // at the serving path's shapes (B=8, C=322, Hkv=8, dh=128, bf16) one call
-// reads ~10.5 MB of K/V, ~3.1 us at 3.35 TB/s, against ~5 MFLOP.
+// reads ~9.2 MB of valid K/V, ~2.7 us at 3.35 TB/s, against ~5 MFLOP.
 //
 // Design:
 // * The TPU grid (B, Hkv, nC) carries (m, l, acc) across its sequential nC
-//   axis.  Here one block owns one (kv head, batch) cell and loops over C in
-//   tiles of 64 slots, keeping the same f32 online softmax.
-// * The block's `group` query rows reuse every K/V tile staged in shared
-//   memory, which is the GQA reuse the TPU kernel gets from VMEM.
-// * Layout stays the model's: q (B, H, dh), k/v (B, C, Hkv, dh), pos (B, C),
-//   cur (B,); the kernel computes its own offsets.
-// * Shortfall, left for a later version: the grid has only B * Hkv blocks
-//   (64 on the serving path, on 132 SMs) and no load pipelining, so it cannot
-//   reach the bandwidth bound.  Splitting C across blocks with a second
-//   merge pass (flash-decoding) is the fix.
+//   axis.  A grid of only B * Hkv blocks (64 on the serving path) leaves
+//   half of the 132 SMs idle, so the cache axis is split across blocks:
+//   pass 1 runs a grid (n_split, Hkv, B); each block owns one contiguous
+//   range of split_len slots of one (kv head, batch row) and computes the
+//   unnormalised (m, l, acc) of all `group` q heads there, so each K/V
+//   byte is read once.  The wrapper picks n_split (kernel.py:plan_splits)
+//   so the grid reaches ~2 x 132 blocks and every split holds a real slot.
+// * Pass 2 (dec_merge_kernel), one block per (q head, batch row):
+//   m* = max_s m_s, out = sum_s e^(m_s - m*) acc_s / max(sum_s e^(m_s - m*)
+//   l_s, 1e-30), cast to q's dtype.  The partials live in f32 scratch the
+//   wrapper allocates: acc (B, H, n_split, dh) and (m, l) (B, H, n_split, 2).
+//   It is launched as a programmatic dependent launch (cudaLaunchKernelEx),
+//   so its launch overlaps the split pass's tail.
+// * K/V tiles of BC = 32 slots are staged in shared memory in their own
+//   dtype (bf16 stays bf16) with 16-byte cp.async, double-buffered so tile
+//   t + 1 loads while tile t computes: ~34 KB of shared memory a block at
+//   bf16, dh=128, group 2, so several blocks share an SM.  Of the variants
+//   timed on the card at the serving shape (4 or 8 warps a block, splits
+//   of 32, 64 or 128 slots), 8 warps and splits of 64 were the fastest:
+//   more, smaller blocks cost more than they hide at C = 322.
+// * Scores: four lanes per (q head, slot) dot product, each reading 16-byte
+//   chunks of the K row (odd rows rotated by four chunks, so the eight
+//   lanes of one 128-byte shared-memory phase hit distinct banks), reduced
+//   with two shuffles.  Softmax: one warp per q head, one lane per slot.
+//   P V: each thread owns (q head, dim pair) accumulators in registers.
+//
+// Why the merge reproduces ref.py in every case: masked slots score
+// NEG_INF = -1e30 (as on the TPU) and take part in the softmax; slots past
+// the split's end or past C (pad) take no part at all.
+// * A row with a valid slot: its max m* is a real score, so a split whose
+//   slots are all masked (m_s = -1e30) is weighted e^(-1e30 - m*) = 0, and
+//   inside a split the masked slots' e^(-1e30 - m) = 0 too.
+// * A row with no valid slot (ROADMAP.md Queue 3): every split has
+//   m_s = -1e30 = m*, l_s = its count of slots and acc_s = the sum of their
+//   V rows, so the merge gives the mean of V over exactly the C slots, as
+//   ref.py's softmax over C columns of -1e30 does.
 
 #include <math_constants.h>
 
@@ -33,102 +60,166 @@ namespace {
 
 using namespace attn;
 
-constexpr int BC = 64;          // cache slots per tile
-constexpr int NT = 128;         // threads per block (4 warps)
+constexpr int BC = 32;          // cache slots per tile; split_len is a multiple
+constexpr int NT = 256;         // threads per block of the split pass (8 warps)
+constexpr int SUB = 4;          // lanes per q.k dot product
 constexpr int MAX_GROUP = 16;   // q heads per kv head the kernel takes
 
-template <int DH>
-size_t dec_smem_bytes(int group) {
-  return sizeof(float) * (size_t)(group * DH + BC * (DH + 1) + BC * DH + group * BC + 3 * group)
-       + sizeof(int) * BC;
+// 16 bytes of K/V (8 bf16 or 4 f32) as f32
+__device__ __forceinline__ void chunk_to_f32(const __nv_bfloat16* p, float* x) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void chunk_to_f32(const float* p, float* x) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
 }
 
-// slot flags in shared memory
-constexpr int SLOT_MASKED = 0, SLOT_VALID = 1, SLOT_PAD = 2;
+// two consecutive elements as f32
+__device__ __forceinline__ float2 pair_to_f32(const __nv_bfloat16* p) {
+  const unsigned u = *reinterpret_cast<const unsigned*>(p);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+__device__ __forceinline__ float2 pair_to_f32(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(NT) dec_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ pos, const int* __restrict__ cur, T* __restrict__ o,
-    int C, int H, int Hkv, int has_window, int window) {
-  constexpr int LD = DH + 1;                      // padded K row stride
-  constexpr int MAXR = MAX_GROUP * DH / NT;       // acc entries per thread
-  const int group = H / Hkv;
-  extern __shared__ float smem[];
-  float* Qs = smem;                   // group x DH
-  float* Ks = Qs + group * DH;        // BC x LD
-  float* Vs = Ks + BC * LD;           // BC x DH
-  float* Ss = Vs + BC * DH;           // group x BC (scores, then p)
-  float* Ms = Ss + group * BC;        // running max per q head
-  float* Ls = Ms + group;             // running sum per q head
-  float* Sc = Ls + group;             // this tile's rescale per q head
-  int* flag = reinterpret_cast<int*>(Sc + group);   // BC slot flags
+constexpr size_t split_smem_bytes(int group) {
+  // K and V (2 buffers x BC x DH each), Qs (group x DH), Ss (group x BC),
+  // Ms, Ls, Sc (group each), slot positions (2 x BC)
+  return sizeof(T) * (size_t)(4 * BC * DH)
+       + sizeof(float) * (size_t)(group * DH + group * BC + 3 * group)
+       + sizeof(int) * (size_t)(2 * BC);
+}
 
-  const int hk = blockIdx.x, b = blockIdx.y;
+template <typename T, int DH>
+__global__ void __launch_bounds__(NT) dec_split_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const int* __restrict__ pos, const int* __restrict__ cur,
+    float* __restrict__ part_acc, float* __restrict__ part_ml, int C, int H,
+    int Hkv, int split_len, int has_window, int window) {
+  constexpr int VEC = 16 / sizeof(T);             // elements per 16-byte chunk
+  constexpr int CHUNKS = DH / VEC;                // chunks per K/V row
+  constexpr int NP = DH / 2;                      // dim pairs per q head
+  constexpr int MAXR = MAX_GROUP * NP / NT;       // accumulator pairs per thread
+  static_assert(CHUNKS % SUB == 0, "a K row must split over SUB lanes");
+  const int group = H / Hkv;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);         // [2][BC][DH]
+  T* Vs = Ks + 2 * BC * DH;                       // [2][BC][DH]
+  float* Qs = reinterpret_cast<float*>(Vs + 2 * BC * DH);   // [group][DH]
+  float* Ss = Qs + group * DH;                    // [group][BC] scores, then p
+  float* Ms = Ss + group * BC;                    // running max per q head
+  float* Ls = Ms + group;                         // running sum per q head
+  float* Sc = Ls + group;                         // this tile's rescale
+  int* Pos = reinterpret_cast<int*>(Sc + group);  // [2][BC] slot positions
+
+  // the merge pass may be scheduled now; it waits for this grid's end
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int n_split = gridDim.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c_begin = split * split_len;
+  const int c_end = min(C, c_begin + split_len);
+  const int n_tiles = (c_end - c_begin + BC - 1) / BC;
   const int cur_b = cur[b];
   const float sm = sqrtf((float)DH);
-  const int n_out = group * DH;
+  const long long slot_stride = (long long)Hkv * DH;
+  const T* kb = k + ((long long)b * C * Hkv + hk) * DH;
+  const T* vb = v + ((long long)b * C * Hkv + hk) * DH;
+  const int* posb = pos + (long long)b * C;
 
+  // stage tile t of this split into buffer buf by cp.async: K/V rows and
+  // slot positions, those past c_end zero-filled (and never read as slots)
+  const auto stage = [&](int t, int buf) {
+    const int c0 = c_begin + t * BC;
+    for (int idx = tid; idx < BC * CHUNKS; idx += NT) {
+      const int r = idx / CHUNKS, ch = idx % CHUNKS, c = c0 + r;
+      const bool in = c < c_end;
+      const long long off = (in ? c : c_begin) * slot_stride + ch * VEC;
+      const int dst = (buf * BC + r) * DH + ch * VEC;
+      cp_async16(Ks + dst, kb + off, in);
+      cp_async16(Vs + dst, vb + off, in);
+    }
+    if (tid < BC) {
+      const bool in = c0 + tid < c_end;
+      cp_async4(Pos + buf * BC + tid, posb + (in ? c0 + tid : c_begin), in);
+    }
+    cp_async_commit();
+  };
+
+  stage(0, 0);
   const T* qb = q + ((long long)b * H + (long long)hk * group) * DH;
-  for (int idx = tid; idx < n_out; idx += NT) Qs[idx] = to_f32(qb[idx]);
+  for (int idx = tid; idx < group * DH; idx += NT) Qs[idx] = to_f32(qb[idx]);
   for (int g = tid; g < group; g += NT) {
     Ms[g] = NEG_INF;
     Ls[g] = 0.f;
   }
-  float acc[MAXR];
+  float2 acc[MAXR];
 #pragma unroll
-  for (int r = 0; r < MAXR; ++r) acc[r] = 0.f;
+  for (int r = 0; r < MAXR; ++r) acc[r] = make_float2(0.f, 0.f);
 
-  for (int c0 = 0; c0 < C; c0 += BC) {
-    __syncthreads();                  // the previous tile's readers are done
-    for (int idx = tid; idx < BC * DH; idx += NT) {
-      const int r = idx / DH, d = idx % DH, c = c0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (c < C) {
-        const long long off = (((long long)b * C + c) * Hkv + hk) * DH + d;
-        kv = to_f32(k[off]);
-        vv = to_f32(v[off]);
-      }
-      Ks[r * LD + d] = kv;
-      Vs[r * DH + d] = vv;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < n_tiles) {
+      stage(t + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    for (int r = tid; r < BC; r += NT) {
-      const int c = c0 + r;
-      int f = SLOT_PAD;
-      if (c < C) {
-        const int p = pos[(long long)b * C + c];
-        bool ok = p >= 0 && p <= cur_b;
-        if (has_window) ok = ok && p > cur_b - window;
-        f = ok ? SLOT_VALID : SLOT_MASKED;
-      }
-      flag[r] = f;
-    }
-    __syncthreads();
+    __syncthreads();                  // tile t (and Qs) visible
+    const T* Kt = Ks + buf * BC * DH;
+    const T* Vt = Vs + buf * BC * DH;
+    const int* pt = Pos + buf * BC;
+    const int n_in = c_end - (c_begin + t * BC);   // real slots of the tile
 
-    // scores: one (q head, slot) dot product per thread and pass
-    for (int idx = tid; idx < group * BC; idx += NT) {
-      const int g = idx / BC, c = idx % BC;
+    // scores: SUB lanes per (q head, slot).  Every lane runs every pass (the
+    // pass count is rounded up to whole passes), so the shuffles are uniform
+    const int sub = tid % SUB;
+    const int n_pairs = group * BC;
+    const int pass_end = (n_pairs + NT / SUB - 1) / (NT / SUB) * (NT / SUB);
+    for (int pair = tid / SUB; pair < pass_end; pair += NT / SUB) {
+      const int g = min(pair, n_pairs - 1) / BC, c = pair % BC;
+      const T* krow = Kt + c * DH;
+      const float* qrow = Qs + g * DH;
       float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < DH; ++d) dot = fmaf(Qs[g * DH + d], Ks[c * LD + d], dot);
-      Ss[idx] = flag[c] == SLOT_VALID ? dot / sm : NEG_INF;
+#pragma unroll
+      for (int j = 0; j < CHUNKS / SUB; ++j) {   // independent chunk sums
+        const int ch = (j * SUB + sub + (c & 1) * SUB) % CHUNKS;
+        float kx[VEC];
+        chunk_to_f32(krow + ch * VEC, kx);
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) part = fmaf(qrow[ch * VEC + e], kx[e], part);
+        dot += part;
+      }
+#pragma unroll
+      for (int off = 1; off < SUB; off <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (sub == 0 && pair < n_pairs) {
+        const int p = pt[c];
+        bool ok = c < n_in && p >= 0 && p <= cur_b;
+        if (has_window) ok = ok && p > cur_b - window;
+        Ss[pair] = ok ? dot / sm : NEG_INF;
+      }
     }
     __syncthreads();
 
-    // online softmax: one warp per q head row, two slots per lane
+    // online softmax: one warp per q head, one lane per slot (BC == 32);
+    // every tile holds a real slot, so the max is at least NEG_INF
     for (int g = warp; g < group; g += NT / 32) {
-      float s0 = Ss[g * BC + lane], s1 = Ss[g * BC + lane + 32];
-      const bool pad0 = flag[lane] == SLOT_PAD, pad1 = flag[lane + 32] == SLOT_PAD;
-      float mx = fmaxf(pad0 ? -CUDART_INF_F : s0, pad1 ? -CUDART_INF_F : s1);
+      const float s = Ss[g * BC + lane];
+      const bool pad = lane >= n_in;
       const float m_prev = Ms[g];
-      const float m_new = fmaxf(m_prev, warp_max(mx));
-      const float p0 = pad0 ? 0.f : expf(s0 - m_new);
-      const float p1 = pad1 ? 0.f : expf(s1 - m_new);
-      const float sum = warp_sum(p0 + p1);
-      Ss[g * BC + lane] = p0;
-      Ss[g * BC + lane + 32] = p1;
-      __syncwarp();
+      const float m_new = fmaxf(m_prev, warp_max(pad ? -CUDART_INF_F : s));
+      const float p = pad ? 0.f : expf(s - m_new);
+      const float sum = warp_sum(p);
+      Ss[g * BC + lane] = p;
       if (lane == 0) {
         const float scale = expf(m_prev - m_new);
         Ls[g] = Ls[g] * scale + sum;
@@ -138,67 +229,148 @@ __global__ void __launch_bounds__(NT) dec_kernel(
     }
     __syncthreads();
 
-    // acc = acc * scale + P @ V; thread owns (q head, dim) pairs tid + NT * r
+    // acc = acc * scale + P V; thread owns (q head, dim pair) tid + NT * r;
+    // pad rows of V are zeros and their p is 0
 #pragma unroll
     for (int r = 0; r < MAXR; ++r) {
       const int idx = tid + NT * r;
-      if (idx < n_out) {
-        const int g = idx / DH, d = idx % DH;
-        float a = acc[r] * Sc[g];
+      if (idx < group * NP) {
+        const int g = idx / NP, d = 2 * (idx % NP);
+        const float scale = Sc[g];
+        float2 a[2] = {make_float2(acc[r].x * scale, acc[r].y * scale),
+                       make_float2(0.f, 0.f)};    // even and odd slots
 #pragma unroll 8
-        for (int c = 0; c < BC; ++c) a = fmaf(Ss[g * BC + c], Vs[c * DH + d], a);
-        acc[r] = a;
+        for (int c = 0; c < BC; ++c) {
+          const float p = Ss[g * BC + c];
+          const float2 vv = pair_to_f32(Vt + c * DH + d);
+          a[c & 1].x = fmaf(p, vv.x, a[c & 1].x);
+          a[c & 1].y = fmaf(p, vv.y, a[c & 1].y);
+        }
+        acc[r] = make_float2(a[0].x + a[1].x, a[0].y + a[1].y);
       }
     }
+    __syncthreads();                  // readers done before the buffer refills
   }
 
-  T* ob = o + ((long long)b * H + (long long)hk * group) * DH;
+  // unnormalised partials of this split: acc (B, H, n_split, DH), (m, l)
+  const long long row0 = ((long long)b * H + (long long)hk * group) * n_split + split;
 #pragma unroll
   for (int r = 0; r < MAXR; ++r) {
     const int idx = tid + NT * r;
-    if (idx < n_out) ob[idx] = from_f32<T>(acc[r] / fmaxf(Ls[idx / DH], 1e-30f));
+    if (idx < group * NP) {
+      const int g = idx / NP, d = 2 * (idx % NP);
+      *reinterpret_cast<float2*>(part_acc + (row0 + (long long)g * n_split) * DH + d) = acc[r];
+    }
   }
+  for (int g = tid; g < group; g += NT) {
+    part_ml[(row0 + (long long)g * n_split) * 2] = Ms[g];
+    part_ml[(row0 + (long long)g * n_split) * 2 + 1] = Ls[g];
+  }
+}
+
+// pass 2: one block of dh threads per (q head, batch row), one dim each.
+// Warp 0 turns the splits' (m, l) into weights e^(m_s - m*) and the
+// denominator in shared memory; then every thread sums its dim.  Launched
+// as a programmatic dependent of the split pass: its blocks may start while
+// the split pass drains, and griddepcontrol.wait holds them until the
+// split pass's partials are complete and visible.
+template <typename T>
+__global__ void dec_merge_kernel(const float* __restrict__ part_acc,
+                                 const float* __restrict__ part_ml,
+                                 T* __restrict__ o, int H, int DH, int n_split) {
+  extern __shared__ float w[];        // n_split weights, then the denominator
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const long long row0 = ((long long)b * H + h) * n_split;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (d < 32) {
+    float m_star = -CUDART_INF_F;
+    for (int s = d; s < n_split; s += 32) m_star = fmaxf(m_star, part_ml[(row0 + s) * 2]);
+    m_star = warp_max(m_star);
+    float den = 0.f;
+    for (int s = d; s < n_split; s += 32) {
+      const float ws = expf(part_ml[(row0 + s) * 2] - m_star);
+      w[s] = ws;
+      den = fmaf(ws, part_ml[(row0 + s) * 2 + 1], den);
+    }
+    den = warp_sum(den);
+    if (d == 0) w[n_split] = den;
+  }
+  __syncthreads();
+  float num = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < n_split; ++s) num = fmaf(w[s], part_acc[(row0 + s) * DH + d], num);
+  o[((long long)b * H + h) * DH + d] = from_f32<T>(num / fmaxf(w[n_split], 1e-30f));
 }
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const void* pos,
-           const void* cur, void* o, int B, int C, int H, int Hkv,
-           int has_window, int window, cudaStream_t stream) {
-  const size_t smem = dec_smem_bytes<DH>(H / Hkv);
-  cudaError_t err = cudaFuncSetAttribute(
-      dec_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(Hkv, B);
-  dec_kernel<T, DH><<<grid, NT, smem, stream>>>(
+           const void* cur, void* part_acc, void* part_ml, void* o, int B,
+           int C, int H, int Hkv, int n_split, int split_len, int has_window,
+           int window, cudaStream_t stream) {
+  // once per instantiation (the port drives one card): room for MAX_GROUP
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      dec_split_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)split_smem_bytes<T, DH>(MAX_GROUP));
+  if (attr != cudaSuccess) return (int)attr;
+  dec_split_kernel<T, DH><<<dim3(n_split, Hkv, B), NT,
+                            split_smem_bytes<T, DH>(H / Hkv), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(pos), static_cast<const int*>(cur), static_cast<T*>(o),
-      C, H, Hkv, has_window, window);
+      static_cast<const int*>(pos), static_cast<const int*>(cur),
+      static_cast<float*>(part_acc), static_cast<float*>(part_ml), C, H, Hkv,
+      split_len, has_window, window);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(H, B);
+  cfg.blockDim = dim3(DH);
+  cfg.dynamicSmemBytes = sizeof(float) * (size_t)(n_split + 1);
+  cfg.stream = stream;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, dec_merge_kernel<T>,
+                           static_cast<const float*>(part_acc),
+                           static_cast<const float*>(part_ml), static_cast<T*>(o),
+                           H, (int)DH, n_split);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_dh(const void* q, const void* k, const void* v, const void* pos,
-              const void* cur, void* o, int B, int C, int H, int Hkv, int dh,
+              const void* cur, void* part_acc, void* part_ml, void* o, int B,
+              int C, int H, int Hkv, int dh, int n_split, int split_len,
               int has_window, int window, cudaStream_t stream) {
   switch (dh) {
-    case 32: return launch<T, 32>(q, k, v, pos, cur, o, B, C, H, Hkv, has_window, window, stream);
-    case 64: return launch<T, 64>(q, k, v, pos, cur, o, B, C, H, Hkv, has_window, window, stream);
-    case 128: return launch<T, 128>(q, k, v, pos, cur, o, B, C, H, Hkv, has_window, window, stream);
+    case 32: return launch<T, 32>(q, k, v, pos, cur, part_acc, part_ml, o, B, C, H, Hkv, n_split, split_len, has_window, window, stream);
+    case 64: return launch<T, 64>(q, k, v, pos, cur, part_acc, part_ml, o, B, C, H, Hkv, n_split, split_len, has_window, window, stream);
+    case 128: return launch<T, 128>(q, k, v, pos, cur, part_acc, part_ml, o, B, C, H, Hkv, n_split, split_len, has_window, window, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// part_acc: f32 (B, H, n_split, dh) and part_ml: f32 (B, H, n_split, 2),
+// scratch the caller allocates; splits of split_len slots (a multiple of
+// BC), each holding at least one of the C slots
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* pos, const void* cur,
-    void* o, int B, int C, int H, int Hkv, int dh, int has_window, int window,
+    void* part_acc, void* part_ml, void* o, int B, int C, int H, int Hkv,
+    int dh, int n_split, int split_len, int has_window, int window,
     int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H % Hkv != 0 || H / Hkv > MAX_GROUP) return (int)cudaErrorInvalidValue;
+  if (C < 1 || split_len < BC || split_len % BC != 0 || n_split < 1
+      || (long long)(n_split - 1) * split_len >= C
+      || (long long)n_split * split_len < C)
+    return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    return launch_dh<__nv_bfloat16>(q, k, v, pos, cur, o, B, C, H, Hkv, dh,
+    return launch_dh<__nv_bfloat16>(q, k, v, pos, cur, part_acc, part_ml, o, B,
+                                    C, H, Hkv, dh, n_split, split_len,
                                     has_window, window, s);
-  return launch_dh<float>(q, k, v, pos, cur, o, B, C, H, Hkv, dh, has_window,
-                          window, s);
+  return launch_dh<float>(q, k, v, pos, cur, part_acc, part_ml, o, B, C, H,
+                          Hkv, dh, n_split, split_len, has_window, window, s);
 }

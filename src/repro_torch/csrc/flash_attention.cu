@@ -9,38 +9,49 @@
 // (B=8, S=256, H=16, Hkv=8, dh=128, bf16) the call moves ~25 MB (q, k, v
 // read once, out written once: ~7.5 us at 3.35 TB/s) and does ~2.2 GFLOP of
 // causal QK^T and PV (~2.2 us at the 989 TFLOP/s bf16 tensor-core peak), so
-// the bound is bytes.  This first version runs its products as f32 FMAs on
-// the CUDA cores (67 TFLOP/s peak), which makes it compute-bound in
-// practice; mma/wgmma and TMA staging are later work.
+// the bound is bytes, as long as the products run on the tensor cores.
 //
-// Design:
-// * The TPU grid (B, H, nQ, nK) runs its nK axis in order and carries
-//   (m, l, acc) in VMEM scratch.  Here one thread block owns one
-//   (q-tile, head, batch) cell and loops over the k-tiles itself; (m, l,
-//   acc) stay in f32 registers for the whole loop.
-// * Inputs stay in the model layout (B, S, H, dh) / (B, S, Hkv, dh): the
-//   kernel computes its own offsets, so the wrapper makes no transposes.
-//   The kv head of q head h is h / (H / Hkv).
-// * The tile, staging and online-softmax step are attn_common.cuh's, shared
-//   with the prefix kernel: 256 threads as a 16 x 16 grid over a 64-row q
-//   tile and 64-key k-tiles, Q, K, V and P staged in shared memory as f32,
-//   (m, l, acc) in registers.
-// * Ragged Sq and Sk are masked in the kernel (rows >= Sq are never written,
-//   cols >= Sk are masked), so unlike the TPU kernel no multiple of the
-//   tile is required.  Masked scores take -1e30 as on the TPU, so the
-//   result matches the reference's masking arithmetic.
+// Two routes, chosen by dtype (a bf16 tensor never reaches the f32 one):
+// * bf16, the serving path: fa_mma_kernel, attn_mma.cuh's FlashAttention-2
+//   tile (mma.sync m16n8k16 bf16 -> f32).  4 warps own a 64-row q tile, Q
+//   stays in registers as A fragments, K/V tiles of 64 keys are staged in
+//   shared memory as bf16 by 16-byte cp.async, double-buffered so tile
+//   k + 1 loads while tile k computes, and the online softmax runs on the f32
+//   score fragments.  P is rounded to bf16 in registers as the A operand of
+//   P V.  The TPU kernel keeps p in f32 there (its `p.astype(v.dtype)`,
+//   kernel.py:90, casts to f32, since v was cast at :69); the rounding adds
+//   ~2^-9 relative to each weight, well inside the bf16 tolerance (2e-2),
+//   and the row sum l stays the f32 sum of the unrounded p.  The q tiles
+//   with the most k-tiles launch first (grid z walks them in reverse), so
+//   the causal tail does not straggle.
+// * f32: fa_kernel, attn_common.cuh's CUDA-core tile in full f32 (256
+//   threads as a 16 x 16 grid, Q, K, V and P staged as f32), so f32
+//   callers keep full f32 products (no TF32).
+//
+// Both: the TPU grid (B, H, nQ, nK) runs its nK axis in order and carries
+// (m, l, acc) in VMEM scratch; here one block owns one (q-tile, head,
+// batch) cell and loops over the k-tiles itself, skipping fully masked ones
+// by the TPU kernel's test, with (m, l, acc) in f32 registers.  Inputs stay
+// in the model layout (B, S, H, dh) / (B, S, Hkv, dh) and the kv head of q
+// head h is h / (H / Hkv).  Ragged Sq and Sk are masked in the kernel (rows
+// >= Sq are never written, cols >= Sk are masked), so unlike the TPU kernel
+// no multiple of the tile is required.  Masked scores take -1e30 as on the
+// TPU, so the result matches the reference's masking arithmetic.
 
 #include "attn_common.cuh"
+#include "attn_mma.cuh"
 
 namespace {
 
 using namespace attn;
 
-template <typename T, int DH>
+using bf16 = __nv_bfloat16;
+
+template <int DH>
 __global__ void __launch_bounds__(TILE_NT) fa_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int Sq, int Sk, int H, int Hkv, int causal,
-    int has_window, int window, int q_offset) {
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk, int H,
+    int Hkv, int causal, int has_window, int window, int q_offset) {
   extern __shared__ float smem[];
   const Tiles<DH> t(smem);
 
@@ -51,7 +62,7 @@ __global__ void __launch_bounds__(TILE_NT) fa_kernel(
   const int q_lo = row0 + q_offset;       // its absolute position
   const float sm = sqrtf((float)DH);
 
-  load_q_tile<T, DH>(q, b, Sq, H, h, row0, t.Qs, tid);
+  load_q_tile<float, DH>(q, b, Sq, H, h, row0, t.Qs, tid);
   RowState<DH> st;
   // row and col are absolute positions
   const auto attend = [=](int row, int col) {
@@ -69,38 +80,109 @@ __global__ void __launch_bounds__(TILE_NT) fa_kernel(
     if (has_window && k_lo + BK - 1 <= q_lo - window) continue;
 
     __syncthreads();              // the previous tile's readers are done
-    stage_kv<T, DH>(k, v, b, Sk, Hkv, hk, k_lo, t.Ks, t.Vs, tid);
+    stage_kv<float, DH>(k, v, b, Sk, Hkv, hk, k_lo, t.Ks, t.Vs, tid);
     __syncthreads();
     online_tile<DH>(t, tx, ty, k_lo, q_lo, sm, attend, st);
   }
-  store_rows<T, DH>(o, b, Sq, H, h, row0, tx, ty, st);
+  store_rows<float, DH>(o, b, Sq, H, h, row0, tx, ty, st);
 }
 
-template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Sk, int H, int Hkv, int causal, int has_window, int window,
-           int q_offset, cudaStream_t stream) {
+template <int DH>
+__global__ void __launch_bounds__(MMA_NT) fa_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Sk, int H,
+    int Hkv, int causal, int has_window, int window, int q_offset) {
+  constexpr int LD = mma_ld<DH>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // MMA_BQ x LD, then O
+  bf16* Ks = Qs + MMA_BQ * LD;                    // [2][MMA_BK][LD]
+  bf16* Vs = Ks + 2 * MMA_BK * LD;                // [2][MMA_BK][LD]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;      // most k-tiles first
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = qt * MMA_BQ;                   // first query row of the tile
+  const int q_lo = row0 + q_offset;               // its absolute position
+  const float scale_log2 = 1.4426950408889634f / sqrtf((float)DH);
+  const auto attend = [=](int row, int col) {
+    bool ok = col < Sk;
+    if (causal) ok = ok && col <= row;
+    if (has_window) ok = ok && col > row - window;
+    return ok;
+  };
+
+  // the k-tiles the TPU kernel's skip test keeps: causal drops those with
+  // k_lo > q_lo + BQ - 1, the window those with k_lo + BK - 1 <= q_lo - window
+  int kt_begin = 0, kt_end = (Sk + MMA_BK - 1) / MMA_BK;
+  if (causal) {
+    const int last = q_lo + MMA_BQ - 1;
+    kt_end = min(kt_end, last >= 0 ? last / MMA_BK + 1 : 0);
+  }
+  if (has_window) {
+    const int first = q_lo - window + 1;
+    kt_begin = first > 0 ? first / MMA_BK : 0;
+  }
+
+  mma_stage_rows<DH, MMA_BQ>(Qs, q, b, Sq, H, h, row0, tid);
+  const auto stage_kv_tile = [&](int kt, int buf) {
+    mma_stage_rows<DH, MMA_BK>(Ks + buf * MMA_BK * LD, k, b, Sk, Hkv, hk, kt * MMA_BK, tid);
+    mma_stage_rows<DH, MMA_BK>(Vs + buf * MMA_BK * LD, v, b, Sk, Hkv, hk, kt * MMA_BK, tid);
+  };
+  if (kt_begin < kt_end) stage_kv_tile(kt_begin, 0);
+  cp_async_commit();
+
+  MmaRows<DH> st;
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) {
+      stage_kv_tile(kt + 1, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                  // tile kt (and at first Q) visible
+    if (kt == kt_begin) st.load_q(Qs, warp, lane);
+    st.step(Ks + buf * MMA_BK * LD, Vs + buf * MMA_BK * LD, kt * MMA_BK,
+            q_lo + warp * 16 + (lane >> 2), scale_log2, attend, lane);
+    __syncthreads();                  // readers done before the buffer refills
+  }
+  cp_async_wait<0>();                 // Q still in flight when no tile ran
+  __syncthreads();
+  st.store(Qs, o, b, Sq, H, h, row0, warp, lane);
+}
+
+template <int DH>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
+               int Sq, int Sk, int H, int Hkv, int causal, int has_window,
+               int window, int q_offset, cudaStream_t stream) {
   constexpr size_t smem = tile_smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fa_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  fa_kernel<T, DH><<<grid, TILE_NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, Hkv, causal, has_window, window, q_offset);
+  fa_kernel<DH><<<grid, TILE_NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, Hkv,
+      causal, has_window, window, q_offset);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dh(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-              int Sk, int H, int Hkv, int dh, int causal, int has_window,
-              int window, int q_offset, cudaStream_t stream) {
-  switch (dh) {
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <int DH>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                int Sq, int Sk, int H, int Hkv, int causal, int has_window,
+                int window, int q_offset, cudaStream_t stream) {
+  constexpr size_t smem = mma_smem_bytes<DH>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fa_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid(H, B, (Sq + MMA_BQ - 1) / MMA_BQ);
+  fa_mma_kernel<DH><<<grid, MMA_NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, Hkv,
+      causal, has_window, window, q_offset);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -110,9 +192,18 @@ extern "C" int repro_flash_attention(
     int H, int Hkv, int dh, int causal, int has_window, int window, int q_offset,
     int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_dh<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, Hkv, dh, causal,
-                                    has_window, window, q_offset, s);
-  return launch_dh<float>(q, k, v, o, B, Sq, Sk, H, Hkv, dh, causal, has_window,
-                          window, q_offset, s);
+  if (is_bf16) {
+    switch (dh) {
+      case 32: return launch_bf16<32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
+      case 64: return launch_bf16<64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
+      case 128: return launch_bf16<128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
+  switch (dh) {
+    case 32: return launch_f32<32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
+    case 64: return launch_f32<64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
+    case 128: return launch_f32<128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -36,9 +36,9 @@ SIGNATURES = {
     # q, k, v, out, B, Sq, Sk, H, Hkv, dh, causal, has_window, window,
     # q_offset, is_bf16, stream
     "repro_flash_attention": [_P, _P, _P, _P] + [_I] * 11 + [_P],
-    # q, k, v, pos, cur, out, B, C, H, Hkv, dh, has_window, window,
-    # is_bf16, stream
-    "repro_decode_attention": [_P, _P, _P, _P, _P, _P] + [_I] * 8 + [_P],
+    # q, k, v, pos, cur, part_acc, part_ml, out, B, C, H, Hkv, dh,
+    # n_split, split_len, has_window, window, is_bf16, stream
+    "repro_decode_attention": [_P] * 8 + [_I] * 10 + [_P],
     # q, k_pool, v_pool, table, cur, out, B, H, Hkv, dh, n_pages,
     # page_size, max_pages, is_bf16, stream
     "repro_paged_decode_attention": [_P] * 6 + [_I] * 8 + [_P],

@@ -3,21 +3,37 @@
 ``repro.kernels.decode_attention.kernel.decode_attention_kernel``.
 
 The kernel reads the model layout (q (B, H, dh), k/v (B, C, Hkv, dh))
-directly.  This module builds nothing when imported: the library is built
-at the first launch.
+directly.  It splits the cache axis across blocks (flash-decoding): the
+split pass writes unnormalised partials to f32 scratch this wrapper
+allocates, and a merge pass combines them; :func:`plan_splits` picks the
+split in plain Python.  This module builds nothing when imported: the
+library is built at the first launch.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from .._build import check, load_library
+from ..common import cdiv
 
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GROUP = 16          # q heads per kv head (MAX_GROUP in the source)
+SPLIT_TILE = 32         # cache slots per tile (BC in the source)
+MIN_BLOCKS = 2 * 132    # the split pass's grid fills the H100's 132 SMs twice
+
+
+def plan_splits(B: int, C: int, Hkv: int) -> Tuple[int, int]:
+    """``(n_split, split_len)`` for a cache of ``C`` slots: ``split_len`` a
+    multiple of ``SPLIT_TILE``, cut down so the grid ``n_split * Hkv * B``
+    reaches ``MIN_BLOCKS`` where ``C`` allows, and ``n_split = ceil(C /
+    split_len)`` so every split holds at least one real slot."""
+    want = cdiv(MIN_BLOCKS, B * Hkv)
+    split_len = max(SPLIT_TILE, cdiv(C, want) // SPLIT_TILE * SPLIT_TILE)
+    return cdiv(C, split_len), split_len
 
 
 def check_inputs(q, k, v, pos, cur_pos) -> None:
@@ -48,6 +64,10 @@ def check_inputs(q, k, v, pos, cur_pos) -> None:
                          f"a group H/Hkv <= {MAX_GROUP}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"decode_attention kernel: dh={dh} not in {HEAD_DIMS}")
+    for name, t, align in (("k", k, 16), ("v", v, 16), ("pos", pos, 4)):
+        if t.data_ptr() % align:
+            raise ValueError(f"decode_attention kernel: {name} is not aligned "
+                             f"for its cp.async copies")
 
 
 def decode_attention_kernel(q, k, v, pos, cur_pos, *,
@@ -58,13 +78,19 @@ def decode_attention_kernel(q, k, v, pos, cur_pos, *,
     check_inputs(q, k, v, pos, cur_pos)
     B, H, dh = q.shape
     C, Hkv = k.shape[1], k.shape[2]
+    n_split, split_len = plan_splits(B, C, Hkv)
     out = torch.empty_like(q)
+    part_acc = torch.empty((B, H, n_split, dh), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B, H, n_split, 2), dtype=torch.float32,
+                          device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = lib.repro_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-            cur_pos.data_ptr(), out.data_ptr(), B, C, H, Hkv, dh,
+            cur_pos.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            out.data_ptr(), B, C, H, Hkv, dh, n_split, split_len,
             int(window is not None), int(window or 0),
             int(q.dtype == torch.bfloat16), stream)
     check(status, "repro_decode_attention")

@@ -1,5 +1,7 @@
 """Plain PyTorch version of the decode-attention kernel (ring-buffer KV),
-line for line after ``repro.kernels.decode_attention.ref``."""
+line for line after ``repro.kernels.decode_attention.ref``, and the CUDA
+kernel's split-and-merge arithmetic (:func:`decode_attention_split_ref`),
+which only the tests use."""
 
 from __future__ import annotations
 
@@ -25,4 +27,36 @@ def decode_attention_ref(q, k, v, pos, cur_pos, *, window: Optional[int] = None)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bgik,bkgd->bgid", w, v.float())
+    return out.reshape(B, H, dh).to(q.dtype)
+
+
+def decode_attention_split_ref(q, k, v, pos, cur_pos, *, split_len: int,
+                               window: Optional[int] = None):
+    """The CUDA kernel's two passes in plain torch, for the tests: per split
+    of ``split_len`` slots the unnormalised ``(m, l, acc)`` of its slots
+    (masked slots score NEG_INF and take part, as in the kernel), then the
+    merge ``sum_s e^(m_s - m*) acc_s / max(sum_s e^(m_s - m*) l_s, 1e-30)``.
+    Equal to :func:`decode_attention_ref` in every case, a row with no valid
+    slot included (both average V over the C slots)."""
+    B, H, dh = q.shape
+    C, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    qg = q.reshape(B, Hkv, group, dh).float()
+    s = torch.einsum("bgid,bkgd->bgik", qg, k.float()) / math.sqrt(dh)
+    valid = (pos >= 0) & (pos <= cur_pos[:, None])
+    if window is not None:
+        valid &= pos > (cur_pos[:, None] - window)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    ms, ls, accs = [], [], []
+    for c0 in range(0, C, split_len):
+        s_i = s[..., c0:c0 + split_len]
+        m_i = s_i.amax(dim=-1, keepdim=True)
+        p_i = torch.exp(s_i - m_i)
+        ms.append(m_i)
+        ls.append(p_i.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bgik,bkgd->bgid", p_i,
+                                 v[:, c0:c0 + split_len].float()))
+    m = torch.stack(ms)
+    w = torch.exp(m - m.amax(dim=0))
+    out = (w * torch.stack(accs)).sum(0) / (w * torch.stack(ls)).sum(0).clamp_min(1e-30)
     return out.reshape(B, H, dh).to(q.dtype)

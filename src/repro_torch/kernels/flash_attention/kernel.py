@@ -3,8 +3,11 @@
 ``repro.kernels.flash_attention.kernel.flash_attention_kernel``.
 
 The kernel reads the model layout (B, S, H, dh) directly, so no transposes
-are made around it, and it masks ragged Sq and Sk itself.  This module
-builds nothing when imported: the library is built at the first launch.
+are made around it, and it masks ragged Sq and Sk itself.  bf16 inputs run
+on the tensor cores (``csrc/attn_mma.cuh``), f32 inputs in full f32 on the
+CUDA cores (``csrc/attn_common.cuh``): a dispatch on dtype inside the one
+C entry point.  This module builds nothing when imported: the library is
+built at the first launch.
 """
 
 from __future__ import annotations
@@ -43,6 +46,10 @@ def check_inputs(q, k, v) -> None:
                          f"of Hkv={k.shape[2]}")
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: dh={dh} not in {HEAD_DIMS}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention kernel: {name} is not 16-byte "
+                             f"aligned for its cp.async copies")
 
 
 def flash_attention_kernel(

@@ -20,8 +20,9 @@ Port of ``repro.serving.tenancy``.  The paper's stack maps onto one card so:
   layer-level ctx switch    → caches and slot state moved to the lease's
                               first device (``Tensor.to``); decode resumes
                               at the same token
-  DDR-port budget check     → per-lease device-memory admission via
-                              ``kv_cache_bytes``
+  DDR-port budget check     → per-device memory admission via
+                              ``kv_cache_bytes``: the lease's distinct
+                              devices, co-resident tenants summed
 
 Where the reference builds a ``jax.sharding.Mesh``, the port returns a numpy
 object array of ``torch.device`` of the same shape; nothing here uses
@@ -86,6 +87,8 @@ class VirtualAcceleratorPool:
             ddr_port_bits=cores_per_group * 128, core_port_bits=128,
             n_kv_pages=kv_pages,
         )
+        # bytes each admitted tenant holds, spread over its lease's devices
+        self._admitted_bytes: Dict[str, int] = {}
 
     @property
     def n_cores(self) -> int:
@@ -99,6 +102,7 @@ class VirtualAcceleratorPool:
 
     def release(self, tenant: str) -> None:
         self.pool.release(tenant)
+        self._admitted_bytes.pop(tenant, None)
 
     def mesh_for(self, lease: Lease) -> np.ndarray:
         """The leased cores' devices, ``(n_cores, devices_per_core)``."""
@@ -111,34 +115,56 @@ class VirtualAcceleratorPool:
         devs = [d for c in lease.cores for d in self.core_devices[c]]
         return _device_array(devs, (len(devs),))
 
+    def lease_devices(self, lease: Lease) -> List[torch.device]:
+        """The distinct devices under ``lease``'s cores, in core order."""
+        devs: List[torch.device] = []
+        for c in lease.cores:
+            devs.extend(d for d in self.core_devices[c] if d not in devs)
+        return devs
+
+    def _admit(self, lease: Lease, need: int, what: str) -> None:
+        """Charge ``need`` bytes, spread evenly over the lease's distinct
+        devices, on top of what every other admitted tenant still holding a
+        lease keeps on each of them; raise if a device would exceed its
+        memory, else record the tenant's bytes until :meth:`release`.
+
+        Deviation from the reference (ROADMAP.md Queue 3): it divides by
+        ``len(lease.cores) * devices_per_core`` and ignores co-resident
+        tenants, so on a card whose logical cores all repeat one device an
+        n-core lease would be credited n devices' memory."""
+        devs = self.lease_devices(lease)
+        share = need / len(devs)
+        others = [(self.lease_devices(other), self._admitted_bytes[t])
+                  for t, other in self.pool.leases.items()
+                  if t != lease.tenant and t in self._admitted_bytes]
+        for dev in devs:
+            held = sum(n / len(odevs) for odevs, n in others if dev in odevs)
+            if held + share > HBM_BYTES_PER_DEVICE:
+                raise HRPError(
+                    f"lease of {len(devs)} device(s) cannot hold "
+                    f"{share/2**30:.1f} GiB/device ({what}) beside "
+                    f"{held/2**30:.1f} GiB of other tenants on {dev}")
+        self._admitted_bytes[lease.tenant] = need
+
     def check_hbm(self, cfg, lease: Lease, *, batch: int, max_len: int) -> None:
         """Admission control: model + KV bytes must fit the lease's device
-        memory (the paper's DDR-port-budget rule, §4.2.2)."""
-        n_dev = len(lease.cores) * self.devices_per_core
+        memory beside the tenants already admitted there (the paper's
+        DDR-port-budget rule, §4.2.2)."""
         param_bytes = cfg.param_count() * 2            # bf16
         kv = kv_cache_bytes(cfg, batch, max_len)
-        need = (param_bytes + kv) / n_dev
-        if need > HBM_BYTES_PER_DEVICE:
-            raise HRPError(
-                f"lease of {n_dev} devices cannot hold {need/2**30:.1f} GiB/device "
-                f"(params {param_bytes/2**30:.1f} + kv {kv/2**30:.1f} GiB)"
-            )
+        self._admit(lease, param_bytes + kv,
+                    f"params {param_bytes/2**30:.1f} + kv {kv/2**30:.1f} GiB")
 
     def check_hbm_paged(self, cfg, lease: Lease, *, n_pages: int,
                         page_size: int) -> None:
         """Paged variant of :meth:`check_hbm`: model + page-pool bytes must
         fit the lease — the pool is sized by *pages*, not slots x max_len,
         which is exactly how paging over-subscribes nominal capacity."""
-        n_dev = len(lease.cores) * self.devices_per_core
         param_bytes = cfg.param_count() * 2
         kv = paged_kv_cache_bytes(cfg, n_pages, page_size)
-        need = (param_bytes + kv) / n_dev
-        if need > HBM_BYTES_PER_DEVICE:
-            raise HRPError(
-                f"lease of {n_dev} devices cannot hold {need/2**30:.1f} "
-                f"GiB/device (params {param_bytes/2**30:.1f} + paged kv "
-                f"{kv/2**30:.1f} GiB)"
-            )
+        self._admit(lease, param_bytes + kv,
+                    f"params {param_bytes/2**30:.1f} + paged kv "
+                    f"{kv/2**30:.1f} GiB")
 
 
 @dataclasses.dataclass(frozen=True)

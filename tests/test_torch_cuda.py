@@ -43,6 +43,9 @@ def _rand(gen, shape, dtype):
     (2, 77, 77, 16, 8, 128, None, 0),
     (2, 130, 200, 4, 2, 64, 50, 70),
     (1, 40, 72, 8, 1, 32, 16, 32),
+    (8, 256, 256, 16, 8, 128, 64, 0),
+    (2, 100, 300, 16, 8, 128, None, 200),
+    (2, 96, 96, 8, 1, 64, None, 0),
 ])
 def test_flash_attention_kernel_matches_ref(gen, dtype, B, Sq, Sk, H, Hkv, dh,
                                             window, q_offset):
@@ -89,6 +92,61 @@ def test_decode_attention_kernel_matches_ref(gen, dtype, B, C, H, Hkv, dh,
     torch.cuda.synchronize()
     assert ops.decode_attention.launches == before + 1
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,H,Hkv,dh,window,cur,edit", [
+    (2, 100, 16, 8, 128, None, [99, 150], None),          # C not a multiple
+    (2, 20, 16, 8, 128, None, [7, 19], None),             # C below one split
+    (8, 322, 16, 8, 128, None, [300, 257, 319, 290, 260, 311, 280, 299],
+     "empty-split-1"),                                    # a split all masked
+    (3, 70, 16, 8, 128, None, [100, 69, 30], "empty-row-0"),   # no valid slot
+    (4, 48, 16, 8, 128, 40, [70, 90, 100, 119], None),    # window wraps a split
+    (4, 130, 16, 1, 64, None, [129, 60, 200, 5], None),   # GQA 16:1
+])
+def test_decode_attention_split_cases_match_ref(gen, dtype, B, C, H, Hkv, dh,
+                                                window, cur, edit):
+    """The split pass and the merge on the splits ``plan_splits`` picks:
+    masked splits weigh nothing, and a row with no valid slot averages V
+    over the C slots, as ``ref.py`` does."""
+    from repro_torch.kernels.decode_attention import kernel, ops, ref
+
+    cur = np.asarray(cur, np.int32)
+    c = np.arange(C)[None, :]
+    pos = cur[:, None] - ((cur[:, None] - c) % C)
+    pos = np.where(pos >= 0, pos, -1).astype(np.int32)
+    split_len = kernel.plan_splits(B, C, Hkv)[1]
+    if edit == "empty-split-1":
+        pos[:, split_len:2 * split_len] = -1
+    if edit == "empty-row-0":
+        pos[0] = -1
+    q = _rand(gen, (B, H, dh), dtype)
+    k = _rand(gen, (B, C, Hkv, dh), dtype)
+    v = _rand(gen, (B, C, Hkv, dh), dtype)
+    pos_t = torch.from_numpy(pos).cuda()
+    cur_t = torch.from_numpy(cur).cuda()
+    before = ops.decode_attention.launches
+    got = ops.decode_attention(q, k, v, pos_t, cur_t, window=window)
+    want = ref.decode_attention_ref(q, k, v, pos_t, cur_t, window=window)
+    torch.cuda.synchronize()
+    assert ops.decode_attention.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_decode_attention_kernel_refuses_a_misaligned_cache(gen):
+    """The split pass copies K/V rows with 16-byte cp.async: a view that
+    starts off the 16-byte boundary is refused, not read wrong."""
+    from repro_torch.kernels.decode_attention import kernel
+
+    q = _rand(gen, (2, 4, 32), torch.bfloat16)
+    flat = _rand(gen, (2 * 20 * 2 * 32 + 1,), torch.bfloat16)
+    k = flat[1:].view(2, 20, 2, 32)
+    v = _rand(gen, (2, 20, 2, 32), torch.bfloat16)
+    pos = torch.zeros(2, 20, dtype=torch.int32, device="cuda")
+    cur = torch.zeros(2, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="aligned"):
+        kernel.decode_attention_kernel(q, k, v, pos, cur)
 
 
 def _page_table(rng, B, maxp, P, cur, ps, holes):

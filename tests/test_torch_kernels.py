@@ -34,8 +34,10 @@ from repro.models.attention import chunked_flash_attention as jchunked
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import kernel as da_kernel
 from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.matmul import kernel as mm_kernel
 from repro_torch.kernels.matmul import ops as mm_ops
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
@@ -342,6 +344,17 @@ def test_build_stamp_covers_headers(tmp_path, monkeypatch):
     assert _build._sources() == [tmp_path / "a.cu"]
 
 
+def test_build_stamp_covers_every_included_header():
+    """Every header a kernel source or header includes is a ``*.cuh`` in
+    ``csrc``, which the stamp hashes: the tensor-core tile header too."""
+    csrc = Path(_build.CSRC)
+    included = set()
+    for path in [*csrc.glob("*.cu"), *csrc.glob("*.cuh")]:
+        included |= set(re.findall(r'#include "([^"]+)"', path.read_text()))
+    assert "attn_mma.cuh" in included
+    assert included <= {p.name for p in csrc.glob("*.cuh")}
+
+
 # ---------------------------------------------------------------------------
 # rmsnorm and matmul: the plain versions against the reference's Pallas
 # kernels in interpret mode and its plain references
@@ -487,3 +500,111 @@ def test_rmsnorm_and_matmul_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError, match="out_dtype"):
         mm_kernel.check_inputs(x, b, torch.float16)
     mm_kernel.check_inputs(x, b, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' arithmetic in plain torch: dense decode split across the
+# cache and merged, and the bf16 flash route's P rounded before P V
+# ---------------------------------------------------------------------------
+
+# (B, C, H, Hkv, dh, window, cur per row, split_len (None: the planner's),
+#  pos edit)
+SPLIT_CASES = {
+    "C-not-a-multiple": (3, 100, 8, 2, 32, None, [120, 150, 99], 32, None),
+    "C-below-one-split": (2, 20, 4, 2, 32, None, [7, 19], 32, None),
+    "masked-split": (2, 96, 4, 2, 32, None, [95, 80], 32, "empty-split-1"),
+    "no-valid-slot": (3, 70, 4, 2, 32, None, [100, 69, 30], 32, "empty-row-0"),
+    "window-wraps-split": (4, 48, 8, 2, 32, 40, [70, 90, 100, 119], 32, None),
+    "gqa16:1": (2, 70, 16, 1, 64, None, [69, 40], 32, None),
+    "planner-main-path-C": (2, 322, 4, 2, 32, None, [300, 257], None, None),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_decode_split_merge_matches_the_references(case):
+    """Partials per split of the cache, then the merge, equal the one-pass
+    softmax: a split whose slots are all masked weighs 0, and a row with no
+    valid slot averages V over the C slots as the plain references do (the
+    Pallas kernel averages over its padded block there, ROADMAP.md Queue 3,
+    so that row is held against the plain references only)."""
+    B, C, H, Hkv, dh, window, cur, split_len, edit = SPLIT_CASES[case]
+    if split_len is None:
+        _, split_len = da_kernel.plan_splits(8, C, 8)
+    rng = np.random.default_rng(len(case) + 300)
+    q = _randn(rng, (B, H, dh))
+    k = _randn(rng, (B, C, Hkv, dh))
+    v = _randn(rng, (B, C, Hkv, dh))
+    cur = np.asarray(cur, np.int32)
+    pos = _ring_pos(rng, cur, C)
+    if edit == "empty-split-1":
+        pos[:, split_len:2 * split_len] = -1
+    if edit == "empty-row-0":
+        pos[0] = -1
+    valid = (pos >= 0) & (pos <= cur[:, None])
+    if window is not None:
+        valid &= pos > cur[:, None] - window
+        # the window's ring wraps past slot 0 and crosses a split boundary
+        assert (valid[:, 0] & valid[:, -1] & valid[:, split_len - 1]
+                & valid[:, split_len]).any()
+    if edit == "empty-split-1":
+        assert valid.any(axis=1).all()
+        assert not valid[:, split_len:2 * split_len].any()
+    targs = tuple(torch.from_numpy(a) for a in (q, k, v, pos, cur))
+    got = da_ref.decode_attention_split_ref(*targs, split_len=split_len,
+                                            window=window).numpy()
+    one_pass = da_ref.decode_attention_ref(*targs, window=window).numpy()
+    args = tuple(jnp.asarray(a) for a in (q, k, v, pos, cur))
+    jref = np.asarray(jda_ref.decode_attention_ref(*args, window=window))
+    np.testing.assert_allclose(got, one_pass, **TOL)
+    np.testing.assert_allclose(got, jref, **TOL)
+    rows = valid.any(axis=1)
+    if edit == "empty-row-0":
+        assert not rows[0]
+        np.testing.assert_allclose(got[0], v[0].mean(axis=0).repeat(H // Hkv, 0),
+                                   **TOL)
+    pallas = np.asarray(jda_ops.decode_attention(*args, window=window,
+                                                 interpret=True))
+    np.testing.assert_allclose(got[rows], pallas[rows], **TOL)
+
+
+@pytest.mark.parametrize("B,C,Hkv", [
+    (8, 322, 8), (8, 1088, 8), (1, 4096, 8), (4, 20, 1), (1, 33, 1),
+    (32, 64, 16), (2, 100_000, 1), (64, 322, 8), (1, 1, 1),
+])
+def test_decode_split_plan_gives_every_split_a_slot(B, C, Hkv):
+    n_split, split_len = da_kernel.plan_splits(B, C, Hkv)
+    assert split_len % da_kernel.SPLIT_TILE == 0 and split_len > 0
+    assert (n_split - 1) * split_len < C <= n_split * split_len
+    # as many blocks as MIN_BLOCKS asks where the cache has the slots
+    blocks = n_split * Hkv * B
+    assert (blocks >= da_kernel.MIN_BLOCKS
+            or split_len == da_kernel.SPLIT_TILE)
+
+
+def test_decode_split_plan_fills_the_card_on_the_main_path():
+    """qwen3-0.6b dense serving: B=8 slots, C=322, 8 kv heads -> at least
+    2 x 132 blocks in the split pass."""
+    n_split, split_len = da_kernel.plan_splits(8, 322, 8)
+    assert n_split * 8 * 8 >= 264
+    assert (n_split, split_len) == (6, 64)
+
+
+@pytest.mark.parametrize("window,q_offset", [(None, 0), (64, 0), (None, 32)])
+def test_flash_bf16_p_rounding_stays_within_bf16_tol(window, q_offset):
+    """The bf16 CUDA route rounds P to bf16 before P V; in plain torch on
+    bf16 inputs at the serving prefill shape cut to 2 heads (B=8, S=256,
+    dh=128) that stays within the bf16 tolerance of the f32-P reference."""
+    B, S, H, Hkv, dh = 8, 256, 2, 1, 128
+    rng = np.random.default_rng(7 + (window or 0) + q_offset)
+    q, k, v = (torch.from_numpy(_randn(rng, shape)).to(torch.bfloat16)
+               for shape in ((B, H, S, dh), (B, Hkv, S + q_offset, dh),
+                             (B, Hkv, S + q_offset, dh)))
+    got = fa_ref.flash_attention_mma_ref(q, k, v, window=window,
+                                         q_offset=q_offset)
+    want = fa_ref.flash_attention_ref(q, k, v, window=window,
+                                      q_offset=q_offset)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               **BF16_TOL)
+    # and the rounding is really there: in f32 the two differ
+    assert (got.float() - want.float()).abs().max().item() > 0

@@ -393,6 +393,57 @@ class TestTenancy:
         # qwen3-0.6b at full width: 1.2 GB of bf16 params fit one H100
         pool.check_hbm(get_config("qwen3-0.6b"), lease, batch=8, max_len=322)
 
+    @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+    def test_hbm_counts_distinct_devices(self, paged):
+        """A 16-core lease over one repeated device holds one device's
+        memory: ~208 GB of command-r-plus-104b bf16 params are refused,
+        where the reference credits 16 devices (its logged deviation,
+        ROADMAP.md Queue 3) and admits them."""
+        from repro.serving.tenancy import VirtualAcceleratorPool as JaxPool
+        from repro_torch.core.hrp import HRPError
+
+        big = get_config("command-r-plus-104b")
+        jpool = JaxPool(devices=[jax.devices("cpu")[0]] * 16)
+        jlease = jpool.lease("t", 16)
+        pool = _vpool(16)
+        lease = pool.lease("t", 16)
+        assert pool.lease_devices(lease) == [CPU]
+        if paged:
+            jpool.check_hbm_paged(big, jlease, n_pages=512,
+                                  page_size=16)
+            with pytest.raises(HRPError, match="1 device"):
+                pool.check_hbm_paged(big, lease, n_pages=512, page_size=16)
+        else:
+            jpool.check_hbm(big, jlease, batch=8, max_len=1024)
+            with pytest.raises(HRPError, match="1 device"):
+                pool.check_hbm(big, lease, batch=8, max_len=1024)
+
+    def test_hbm_sums_co_resident_tenants(self):
+        """Two 8-core tenants of qwen3-32b (~66 GB of params and KV each)
+        on one device: each fits alone, the second is refused beside the
+        first (the reference admits both), and admitted after the first's
+        release."""
+        from repro.serving.tenancy import VirtualAcceleratorPool as JaxPool
+        from repro_torch.core.hrp import HRPError
+
+        mid = get_config("qwen3-32b")
+        jpool = JaxPool(devices=[jax.devices("cpu")[0]] * 16)
+        for name in ("a", "b"):
+            jpool.check_hbm(mid, jpool.lease(name, 8), batch=8, max_len=1024)
+        pool = _vpool(16)
+        la, lb = pool.lease("a", 8), pool.lease("b", 8)
+        pool.check_hbm(mid, lb, batch=8, max_len=1024)      # b fits alone
+        pool.release("b")
+        lb = pool.lease("b", 8)
+        pool.check_hbm(mid, la, batch=8, max_len=1024)
+        pool.check_hbm(mid, la, batch=8, max_len=1024)      # a re-checks: no double count
+        with pytest.raises(HRPError, match="beside"):
+            pool.check_hbm(mid, lb, batch=8, max_len=1024)
+        with pytest.raises(HRPError, match="beside"):
+            pool.check_hbm_paged(mid, lb, n_pages=64, page_size=16)
+        pool.release("a")
+        pool.check_hbm(mid, lb, batch=8, max_len=1024)
+
     def test_two_stage_reconfigure_uses_cache(self):
         """Online reconfigure must never re-run the static stage: it resizes
         the lease and swaps in the warmed program (~ms)."""
