@@ -21,8 +21,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and bf16; paged: holes, a cur_pos sweep across
               page boundaries, a fully unmapped slot, GQA 16:1, with the
               trash page poisoned to 1e4; verify: the same, a row 0 without
-              keys, W = 2, 6 and 8, dh 32 and 64; prefix: ragged Lp and Sq,
-              q_offset > 0, Lp = 0, GQA 8:1 at dh=64; SSD scan: the
+              keys, W = 2, 6 and 8, dh 32 and 64, and the page split
+              (windows across split boundaries, more splits than mapped
+              pages, 32 rows a kv head), in f32 and bf16; prefix: ragged
+              Lp and Sq, q_offset > 0, Lp = 0, GQA 8:1 at dh=64, in f32
+              and bf16, the two dtypes taking different kernels; SSD scan: the
               admission shape, S not a multiple of the chunk, S < chunk, a
               single chunk, G = 2, large dt where exp(cum) underflows,
               slow decay (dt ~ 1e-3, the carried state matters) at the
@@ -105,7 +108,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               all untraced first, then each under ``torch.profiler``: device
               busy time, idle share and device time by kernel class; the
               dense path must run the tensor-core flash kernel and the
-              decode split and merge kernels, the paged path the former.
+              decode split and merge kernels, the paged path the former
+              and the tensor-core prefix kernel, the spec path the verify
+              split (tensor-core) and merge kernels and the prefix kernel.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -119,12 +124,12 @@ another checkout measures that checkout.
 
     python3 chip_smoke.py --kernel-times
 
-runs phase 1 and times the flash and dense decode kernels, their plain
-versions and SDPA at the main paths' bf16 shapes (phase 3's timings
-without its correctness cases), against the ``src/repro_torch`` beside
-the script: a copy in another checkout times that checkout's kernels, so
-two trees compare in turns in one chip call.  Prints one JSON line
-``{"kernel_times": ...}``.
+runs phase 1 and times the flash, dense decode, prefix and paged verify
+kernels, their plain versions and their PyTorch calls at the main paths'
+bf16 shapes (phase 3's timings without its correctness cases), against
+the ``src/repro_torch`` beside the script: a copy in another checkout
+times that checkout's kernels, so two trees compare in turns in one chip
+call.  Prints one JSON line ``{"kernel_times": ...}``.
 
     python3 chip_smoke.py --ssd-faults
 
@@ -394,12 +399,14 @@ def time_decode(q, k, v, pos, cur_t):
 
 
 def kernel_times(card: str) -> int:
-    """``--kernel-times``: the flash and dense decode kernels, their plain
-    versions and SDPA at the main paths' bf16 shapes, timed against the
-    ``src/repro_torch`` beside this script, without the correctness
-    cases: a copy of the script placed in another checkout (e.g. the
-    parent commit unpacked with ``git archive``) times that checkout's
-    kernels, so two trees compare in turns within one chip call."""
+    """``--kernel-times``: the flash, dense decode, prefix and paged verify
+    kernels, their plain versions and their PyTorch calls at the main
+    paths' bf16 shapes, timed against the ``src/repro_torch`` beside this
+    script, without the correctness cases: a copy of the script placed in
+    another checkout (e.g. the parent commit unpacked with ``git
+    archive``) times that checkout's kernels, so two trees compare in turns
+    within one chip call.  It calls only the ``ops`` and ``ref`` functions
+    every tree since the verify kernel's port has."""
     import torch
 
     gen = torch.Generator(device="cuda")
@@ -416,12 +423,27 @@ def kernel_times(card: str) -> int:
         _rand(gen, (B, C, Hkv, dh), bf16),
         torch.from_numpy(_ring_pos(rng, B, C, cur)).cuda(),
         torch.as_tensor(np.asarray(cur, np.int32)).cuda())
-    for row in (flash, decode):
+    Sq, Lp = 64, 192                           # a cached admission
+    prefix = time_prefix(*(_rand(gen, shape, bf16) for shape in (
+        (B, Sq, H, dh), (B, Lp, Hkv, dh), (B, Lp, Hkv, dh), (B, Sq, Hkv, dh),
+        (B, Sq, Hkv, dh))))
+    W, ps, maxp, P = 4, 16, 21, 168            # a verify window
+    kp = _rand(gen, (P + 1, ps, Hkv, dh), bf16)
+    vp = _rand(gen, (P + 1, ps, Hkv, dh), bf16)
+    kp[P] = 1e4
+    vp[P] = 1e4
+    cur = rng.integers(256, 322 - W + 1, size=B)
+    verify = time_verify(
+        _rand(gen, (B, W, H, dh), bf16), kp, vp,
+        torch.from_numpy(_verify_table(rng, B, maxp, P, cur, W, ps)).cuda(),
+        torch.as_tensor(np.asarray(cur, np.int32)).cuda())
+    rows = [flash, decode, prefix, verify]
+    for row in rows:
         log(f"  {row['name']}: {row['ms'] * 1e3:.2f} us kernel, "
             f"{row['plain_ms'] * 1e3:.2f} us plain, "
             f"{row['library_ms'] * 1e3:.2f} us library [{card}]")
     print(json.dumps({"kernel_times": {"root": str(ROOT), "card": card,
-                                       "rows": [flash, decode]}}), flush=True)
+                                       "rows": rows}}), flush=True)
     return 0
 
 
@@ -538,7 +560,6 @@ def check_paged_decode(gen):
 
 def check_prefix(gen):
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.prefix_attention import ops, ref
 
@@ -570,8 +591,29 @@ def check_prefix(gen):
     run_case("no prefix Lp=0 f32", 2, 50, 0, 50, H, Hkv, dh, f32)
     run_case("gqa 8:1 dh=64 bf16", 2, 96, 64, 96, 8, 1, 64, bf16)
     run_case("gqa 8:1 dh=64 ragged f32", 2, 33, 21, 33, 8, 1, 64, f32)
+    # the bf16 route (tensor cores) on the f32 route's edge cases
+    run_case("ragged Lp=77 Sq=45 bf16", 3, 45, 77, 45, H, Hkv, dh, bf16)
+    run_case("q_offset=30 bf16", 2, 40, 100, 70, H, Hkv, dh, bf16, q_offset=30)
+    run_case("no prefix Lp=0 bf16", 2, 50, 0, 50, H, Hkv, dh, bf16)
+    run_case("gqa 8:1 dh=64 ragged bf16", 2, 33, 21, 33, 8, 1, 64, bf16)
+    run_case("dh=32 Lp=130 q_offset=7 bf16", 2, 70, 130, 77, 4, 2, 32, bf16,
+             q_offset=7)
+    return dict(time_prefix(*main), max_abs_err=err)
 
-    sets = copies_over_l2(list(main))
+
+def time_prefix(q, pk, pv, k, v):
+    """Kernel, plain and SDPA times (and the bound) at the paged path's
+    cached-admission shape (B=8, 64 suffix rows over Lp=192, bf16), from its
+    inputs; only the ``ops`` API, so a copy of this script times another
+    checkout's kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.prefix_attention import ops, ref
+
+    B, Sq, H, dh = q.shape
+    Lp, Hkv = pk.shape[1], pk.shape[2]
+    sets = copies_over_l2([q, pk, pv, k, v])
     kernel = device_ms(lambda *a: ops.prefix_flash_attention(*a), sets)
     plain = device_ms(lambda *a: ref.prefix_flash_attention_ref(*a), sets)
     rows = torch.arange(Sq, device="cuda")
@@ -595,8 +637,8 @@ def check_prefix(gen):
     return dict(name="prefix_flash_attention", route="cuda",
                 source="src/repro_torch/csrc/prefix_flash_attention.cu",
                 replaces="src/repro/kernels/prefix_attention/kernel.py:94",
-                max_abs_err=err, ms=kernel, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=library)
+                ms=kernel, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=library)
 
 
 def _verify_table(rng, B, max_pages, n_pages, cur, W, ps, *, holes=0.0):
@@ -609,9 +651,8 @@ def _verify_table(rng, B, max_pages, n_pages, cur, W, ps, *, holes=0.0):
 
 def check_paged_verify(gen):
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch.kernels.paged_attention import ops, ref
+    from repro_torch.kernels.paged_attention import kernel, ops, ref
 
     rng = np.random.default_rng(5)
 
@@ -665,8 +706,48 @@ def check_paged_verify(gen):
              rng.integers(0, 42, size=3), holes=0.2)
     run_case("dh=64 gqa 8:8 bf16", 3, 4, 8, 8, 64, 8, 6, 20, bf16,
              rng.integers(0, 44, size=3))
+    # the bf16 route (tensor cores) on the f32 route's edge cases, and the
+    # split: kernel.plan_verify_splits gives the main shape 6 splits of 4
+    # pages (64 positions), so these windows straddle split boundaries
+    n_split, pps = kernel.plan_verify_splits(B, Hkv, maxp)
+    log(f"  verify main: {n_split} splits of {pps} pages")
+    edges = np.asarray([62, 63, 64, 126, 127, 128, 190, 318])
+    check(bool(((edges // (pps * ps)) != ((edges + W - 1) // (pps * ps)))
+               .any()), "no window straddles a split boundary")
+    run_case("holes bf16", B, W, H, Hkv, dh, ps, maxp, P, bf16, cur, holes=0.3)
+    for c in (12, 13, 14, 15, 16, 29, 31):
+        run_case(f"cur_pos={c} sweep bf16", 2, W, H, Hkv, dh, ps, 4, 8, bf16,
+                 [c, c])
+    run_case("fully unmapped slot bf16", 2, W, H, Hkv, dh, ps, maxp, 16, bf16,
+             [40, 40], table=unmapped)
+    run_case("row 0 without keys bf16", 2, W, H, Hkv, dh, ps, 4, 8, bf16,
+             [14, 15], table=late)
+    for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
+        run_case(f"split boundaries {tag}", B, W, H, Hkv, dh, ps, maxp, P,
+                 dtype, edges, holes=0.2)
+        # most splits' pages are unmapped or past the window: skipped
+        run_case(f"splits > mapped pages {tag}", B, W, H, Hkv, dh, ps, maxp,
+                 P, dtype, rng.integers(0, 40, size=B))
+        run_case(f"gqa 16:1 W=2 dh=128 {tag}", 4, 2, 16, 1, 128, ps, maxp, 96,
+                 dtype, rng.integers(0, 330, size=4), holes=0.2)
+        run_case(f"W=8 gqa 4:1 32 rows ps=8 {tag}", 4, 8, 16, 4, dh, 8, 40,
+                 160, dtype, rng.integers(0, 310, size=4), holes=0.2)
+    return dict(time_verify(*main), max_abs_err=err)
 
-    q, kp, vp, tab, cur_t = main
+
+def time_verify(q, kp, vp, tab, cur_t):
+    """Kernel, plain and page gather + SDPA times (and the bound) at the
+    speculative path's verify shape (B=8, W=4 over 21 pages of 16, bf16),
+    from its inputs; only the ``ops`` API, so a copy of this script times
+    another checkout's kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import ops, ref
+
+    B, W, H, dh = q.shape
+    P, ps, Hkv = kp.shape[0] - 1, kp.shape[1], kp.shape[2]
+    maxp = tab.shape[1]
     sets = copies_over_l2([q, kp, vp, tab, cur_t])
     kernel = device_ms(lambda *a: ops.paged_verify_attention(*a), sets)
     plain = device_ms(lambda *a: ref.paged_verify_attention_ref(*a), sets)
@@ -702,8 +783,8 @@ def check_paged_verify(gen):
     return dict(name="paged_verify_attention", route="cuda",
                 source="src/repro_torch/csrc/paged_verify_attention.cu",
                 replaces="src/repro/kernels/paged_attention/kernel.py:195",
-                max_abs_err=err, ms=kernel, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=library)
+                ms=kernel, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=library)
 
 
 def _rel_err(got, want) -> float:
@@ -2120,11 +2201,16 @@ def serve_tenancy_path(card: str, params, cfg, build_s: float):
 
 
 # the first match names the class; the dense decode kernels are
-# dec_split_kernel and dec_merge_kernel, the paged one paged_dec_kernel
+# dec_split_kernel and dec_merge_kernel, the paged one paged_dec_kernel, the
+# verify kernels paged_verify_{mma,f32}_kernel and paged_verify_merge_kernel
+# (paged_verify_kernel before the split)
 _KERNEL_CLASSES = (("flash_attention", ("fa_kernel", "fa_mma_kernel")),
                    ("ssd_scan", ("ssd_kernel",)),
-                   ("paged_verify_attention", ("paged_verify_kernel",)),
-                   ("prefix_flash_attention", ("pfx_kernel",)),
+                   ("paged_verify_attention", ("paged_verify_kernel",
+                                               "paged_verify_mma_kernel",
+                                               "paged_verify_f32_kernel",
+                                               "paged_verify_merge_kernel")),
+                   ("prefix_flash_attention", ("pfx_kernel", "pfx_mma_kernel")),
                    ("paged_decode_attention", ("paged_dec_kernel",)),
                    ("decode_attention", ("dec_split_kernel",
                                          "dec_merge_kernel")),
@@ -2246,7 +2332,8 @@ def main() -> int:
         log("SSD scan with planted faults against phases 3 and 4")
         return ssd_fault_check()
     if "--kernel-times" in sys.argv[1:]:
-        log("flash and dense decode kernels timed at the main paths' shapes")
+        log("flash, dense decode, prefix and verify kernels timed at the "
+            "main paths' shapes")
         return kernel_times(card)
 
     log("phase 2: build")
@@ -2295,15 +2382,18 @@ def main() -> int:
     path_launches.update(serve_tenancy_path(card, params, cfg, build_s))
 
     log("phase 6: where the time goes")
-    # the bf16 dense path's prefill and decode take the redesigned kernels
+    # the bf16 paths' prefill, prefix, decode and verify take the
+    # redesigned kernels
     trace_main_paths(card, [
         ("dense path", lambda: _batcher(params, cfg, _requests(cfg)),
          ("fa_mma_kernel", "dec_split_kernel", "dec_merge_kernel")),
         ("paged path", lambda: _paged_batcher(params, cfg,
                                               _paged_requests(cfg)),
-         ("fa_mma_kernel",)),
+         ("fa_mma_kernel", "pfx_mma_kernel")),
         ("spec path", lambda: _spec_batcher(params, cfg,
-                                            _spec_requests(cfg)), ()),
+                                            _spec_requests(cfg)),
+         ("paged_verify_mma_kernel", "paged_verify_merge_kernel",
+          "pfx_mma_kernel")),
         ("mamba2 path", lambda: _mamba_batcher(mparams, mcfg,
                                                _mamba_requests(mcfg)), ())])
 

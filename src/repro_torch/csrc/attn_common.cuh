@@ -11,6 +11,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math_constants.h>
 
 namespace attn {
 
@@ -87,6 +88,39 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// The merge pass of the split-KV kernels (decode_attention.cu,
+// paged_verify_attention.cu), called by every thread of a block of DH
+// threads that owns one output row: the row's n_split partials hold acc at
+// part_acc[(row0 + s) * DH ..] and (m, l) at part_ml[(row0 + s) * 2 ..].
+// Warp 0 turns the (m, l) into weights e^(m_s - m*) (0 for a split that saw
+// no key, m_s = -inf) and the denominator in `w` (n_split + 1 floats of
+// shared memory); then each thread returns its dim d of
+// sum_s e^(m_s - m*) acc_s / max(sum_s e^(m_s - m*) l_s, 1e-30).
+__device__ __forceinline__ float merge_splits(const float* __restrict__ part_acc,
+                                              const float* __restrict__ part_ml,
+                                              long long row0, int n_split, int DH,
+                                              int d, float* w) {
+  if (d < 32) {
+    float m_star = -CUDART_INF_F;
+    for (int s = d; s < n_split; s += 32) m_star = fmaxf(m_star, part_ml[(row0 + s) * 2]);
+    m_star = warp_max(m_star);
+    float den = 0.f;
+    for (int s = d; s < n_split; s += 32) {
+      const float ms = part_ml[(row0 + s) * 2];
+      const float ws = ms == -CUDART_INF_F ? 0.f : expf(ms - m_star);
+      w[s] = ws;
+      den = fmaf(ws, part_ml[(row0 + s) * 2 + 1], den);
+    }
+    den = warp_sum(den);
+    if (d == 0) w[n_split] = den;
+  }
+  __syncthreads();
+  float num = 0.f;
+#pragma unroll 4
+  for (int s = 0; s < n_split; ++s) num = fmaf(w[s], part_acc[(row0 + s) * DH + d], num);
+  return num / fmaxf(w[n_split], 1e-30f);
 }
 
 // reductions over the 16 lanes that share one ty (lanes 0-15 or 16-31)

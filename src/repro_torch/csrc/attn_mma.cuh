@@ -1,16 +1,18 @@
-// Tensor-core tile code of the prefill-shaped attention kernels for bf16
-// inputs: mma.sync.aligned.m16n8k16 (bf16 x bf16 -> f32) fed by ldmatrix
-// from shared-memory tiles staged with cp.async, in the FlashAttention-2
-// shape.  flash_attention.cu takes it for bf16; the prefix kernel's two
-// k-tile loops (cached prefix, then causal suffix) can take it the same way,
-// since a step only sees the staged K/V tile and a mask.
+// Tensor-core tile code of the attention kernels for bf16 inputs:
+// mma.sync.aligned.m16n8k16 (bf16 x bf16 -> f32) fed by ldmatrix from
+// shared-memory tiles staged with cp.async, in the FlashAttention-2 shape.
+// flash_attention.cu and prefix_flash_attention.cu take it for bf16 with
+// 64-key tiles; paged_verify_attention.cu takes it with 16-key tiles (one
+// page of 16 a warp), since a step only sees the staged K/V tile and a
+// score functor.
 //
 // A block of MMA_NT = 128 threads (4 warps) owns MMA_BQ = 64 query rows of
 // one head; warp w owns rows 16 w .. 16 w + 15 and keeps, in registers,
 // * its Q rows as mma A fragments (ldmatrix once, then for the whole loop);
 // * the f32 online-softmax state: O (16 x DH) as mma accumulators, and the
 //   row max m and sum l of its two rows per lane (g = lane / 4 and g + 8).
-// A k-tile holds MMA_BK = 64 keys.  S = Q K^T accumulates in f32 fragments;
+// A k-tile holds BK keys (MMA_BK = 64 unless the kernel picks another
+// multiple of 16).  S = Q K^T accumulates in f32 fragments;
 // the mask and the online softmax work on those fragments (row max and sum
 // across the 4 lanes of a quad); P is rounded to bf16 in registers and used
 // as the A operand of P V, with no round trip through shared memory.  V is
@@ -82,13 +84,14 @@ __device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const unsigned*>(&v);
 }
 
-// One warp's 16 query rows through the k-tiles.  Fragment layouts are the
-// PTX ISA's for m16n8k16: lane = 4 g + t holds, of an f32 accumulator tile,
-// rows g and g + 8 at cols 2 t and 2 t + 1.
-template <int DH>
+// One warp's 16 query rows through the k-tiles of BK keys.  Fragment
+// layouts are the PTX ISA's for m16n8k16: lane = 4 g + t holds, of an f32
+// accumulator tile, rows g and g + 8 at cols 2 t and 2 t + 1.
+template <int DH, int BK = MMA_BK>
 struct MmaRows {
+  static_assert(BK % 16 == 0, "a k-tile is whole 16-key mma steps");
   static constexpr int LD = mma_ld<DH>();
-  static constexpr int NS = MMA_BK / 8;       // score n-tiles per k-tile
+  static constexpr int NS = BK / 8;           // score n-tiles per k-tile
   static constexpr int NO = DH / 8;           // output n-tiles
   unsigned qf[DH / 16][4];                    // Q A-fragments per 16 dims
   float o[NO][4];
@@ -108,18 +111,22 @@ struct MmaRows {
     for (int kk = 0; kk < DH / 16; ++kk) ldsm_x4(qf[kk], Qs + r * LD + kk * 16 + 8 * (lane >> 4));
   }
 
-  // one staged k-tile (keys k_lo .. k_lo + MMA_BK - 1): S = Q K^T, NEG_INF
-  // where attend(row, col) is false (row = `row_g` for this lane's first
-  // row, row_g + 8 for its second), online softmax of S / sqrt(DH), O += P V.
-  // m holds the unscaled row max and p = 2^(s * c - m * c), c = `scale_log2`
-  // = log2e / sqrt(DH).  Both products are rounded (__fmul_rn, never fused
-  // into an FMA), so s == m gives exactly 2^0: a masked score stays NEG_INF,
-  // and a row with no valid key yet gives p = 1 for it, as the TPU kernel's
-  // scaled -1e30 does.
-  template <typename Attend>
+  // one staged k-tile (keys k_lo .. k_lo + BK - 1): S = Q K^T, each score
+  // replaced by score(row, col, s) (row = `row_g` for this lane's first
+  // row, row_g + 8 for its second): s where the key is attended, NEG_INF
+  // where it is masked, -inf for a key that takes no part at all (weight 0
+  // even in a row with no valid key); then the online softmax of
+  // S / sqrt(DH) and O += P V.  m holds the unscaled row max (it starts at
+  // NEG_INF, so a tile of keys that take no part leaves the state as it
+  // was) and p = 2^(s * c - m * c), c = `scale_log2` = log2e / sqrt(DH).
+  // Both products are rounded (__fmul_rn, never fused into an FMA), so
+  // s == m gives exactly 2^0: a masked score stays NEG_INF, and a row with
+  // no valid key yet gives p = 1 for it, as the TPU kernel's scaled -1e30
+  // does.
+  template <typename Score>
   __device__ __forceinline__ void step(const __nv_bfloat16* Ks, const __nv_bfloat16* Vs,
                                        int k_lo, int row_g, float scale_log2,
-                                       Attend attend, int lane) {
+                                       Score score, int lane) {
     float s[NS][4];
 #pragma unroll
     for (int j = 0; j < NS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
@@ -145,7 +152,7 @@ struct MmaRows {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float& x = s[j][2 * i + e];
-          x = attend(row, col0 + 8 * j + e) ? x : NEG_INF;
+          x = score(row, col0 + 8 * j + e, x);
           mx = fmaxf(mx, x);
         }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -176,7 +183,7 @@ struct MmaRows {
     // P (bf16, in registers: score n-tiles 2c and 2c + 1 are the A fragment
     // of keys 16 c .. 16 c + 15) times V
 #pragma unroll
-    for (int c = 0; c < MMA_BK / 16; ++c) {
+    for (int c = 0; c < BK / 16; ++c) {
       const unsigned pa[4] = {pack_bf16x2(s[2 * c][0], s[2 * c][1]),
                               pack_bf16x2(s[2 * c][2], s[2 * c][3]),
                               pack_bf16x2(s[2 * c + 1][0], s[2 * c + 1][1]),

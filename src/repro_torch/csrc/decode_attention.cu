@@ -268,38 +268,21 @@ __global__ void __launch_bounds__(NT) dec_split_kernel(
   }
 }
 
-// pass 2: one block of dh threads per (q head, batch row), one dim each.
-// Warp 0 turns the splits' (m, l) into weights e^(m_s - m*) and the
-// denominator in shared memory; then every thread sums its dim.  Launched
-// as a programmatic dependent of the split pass: its blocks may start while
-// the split pass drains, and griddepcontrol.wait holds them until the
-// split pass's partials are complete and visible.
+// pass 2: one block of dh threads per (q head, batch row), one dim each,
+// merging the splits (attn_common.cuh's merge_splits).  Launched as a
+// programmatic dependent of the split pass: its blocks may start while the
+// split pass drains, and griddepcontrol.wait holds them until the split
+// pass's partials are complete and visible.
 template <typename T>
 __global__ void dec_merge_kernel(const float* __restrict__ part_acc,
                                  const float* __restrict__ part_ml,
                                  T* __restrict__ o, int H, int DH, int n_split) {
   extern __shared__ float w[];        // n_split weights, then the denominator
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const long long row0 = ((long long)b * H + h) * n_split;
+  const long long row = (long long)b * H + h;
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  if (d < 32) {
-    float m_star = -CUDART_INF_F;
-    for (int s = d; s < n_split; s += 32) m_star = fmaxf(m_star, part_ml[(row0 + s) * 2]);
-    m_star = warp_max(m_star);
-    float den = 0.f;
-    for (int s = d; s < n_split; s += 32) {
-      const float ws = expf(part_ml[(row0 + s) * 2] - m_star);
-      w[s] = ws;
-      den = fmaf(ws, part_ml[(row0 + s) * 2 + 1], den);
-    }
-    den = warp_sum(den);
-    if (d == 0) w[n_split] = den;
-  }
-  __syncthreads();
-  float num = 0.f;
-#pragma unroll 4
-  for (int s = 0; s < n_split; ++s) num = fmaf(w[s], part_acc[(row0 + s) * DH + d], num);
-  o[((long long)b * H + h) * DH + d] = from_f32<T>(num / fmaxf(w[n_split], 1e-30f));
+  o[row * DH + d] = from_f32<T>(
+      merge_splits(part_acc, part_ml, row * n_split, n_split, DH, d, w));
 }
 
 template <typename T, int DH>

@@ -105,11 +105,11 @@ __global__ void __launch_bounds__(MMA_NT) fa_mma_kernel(
   const int row0 = qt * MMA_BQ;                   // first query row of the tile
   const int q_lo = row0 + q_offset;               // its absolute position
   const float scale_log2 = 1.4426950408889634f / sqrtf((float)DH);
-  const auto attend = [=](int row, int col) {
+  const auto score = [=](int row, int col, float s) {
     bool ok = col < Sk;
     if (causal) ok = ok && col <= row;
     if (has_window) ok = ok && col > row - window;
-    return ok;
+    return ok ? s : NEG_INF;
   };
 
   // the k-tiles the TPU kernel's skip test keeps: causal drops those with
@@ -145,7 +145,7 @@ __global__ void __launch_bounds__(MMA_NT) fa_mma_kernel(
     __syncthreads();                  // tile kt (and at first Q) visible
     if (kt == kt_begin) st.load_q(Qs, warp, lane);
     st.step(Ks + buf * MMA_BK * LD, Vs + buf * MMA_BK * LD, kt * MMA_BK,
-            q_lo + warp * 16 + (lane >> 2), scale_log2, attend, lane);
+            q_lo + warp * 16 + (lane >> 2), scale_log2, score, lane);
     __syncthreads();                  // readers done before the buffer refills
   }
   cp_async_wait<0>();                 // Q still in flight when no tile ran

@@ -42,9 +42,10 @@ SIGNATURES = {
     # q, k_pool, v_pool, table, cur, out, B, H, Hkv, dh, n_pages,
     # page_size, max_pages, is_bf16, stream
     "repro_paged_decode_attention": [_P] * 6 + [_I] * 8 + [_P],
-    # q, k_pool, v_pool, table, cur, out, B, W, H, Hkv, dh, n_pages,
-    # page_size, max_pages, is_bf16, stream
-    "repro_paged_verify_attention": [_P] * 6 + [_I] * 9 + [_P],
+    # q, k_pool, v_pool, table, cur, part_acc, part_ml, out, B, W, H, Hkv,
+    # dh, n_pages, page_size, max_pages, n_split, pages_per_split, is_bf16,
+    # stream
+    "repro_paged_verify_attention": [_P] * 8 + [_I] * 11 + [_P],
     # q, pk, pv, k, v, out, B, Sq, Lp, Sk, H, Hkv, dh, q_offset, is_bf16,
     # stream
     "repro_prefix_flash_attention": [_P] * 6 + [_I] * 9 + [_P],

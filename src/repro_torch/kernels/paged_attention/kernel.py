@@ -6,20 +6,41 @@ verify (``repro_torch/csrc/paged_verify_attention.cu``), the ports of
 
 Both kernels walk the page table themselves: they read ``page_table[b, j]``
 and load only that page's rows for the block's kv head; the (B, max_pages *
-page_size, Hkv, dh) gather is never made.  This module builds nothing when
-imported: the library is built at the first launch.
+page_size, Hkv, dh) gather is never made.  The verify kernel splits the
+table's pages across blocks (flash-decoding): its split pass writes
+unnormalised partials to f32 scratch this wrapper allocates, and a merge
+pass combines them; :func:`plan_verify_splits` picks the split in plain
+Python.  This module builds nothing when imported: the library is built at
+the first launch.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from .._build import check, load_library
+from ..common import cdiv
 
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_GROUP = 16          # q heads per kv head (the largest G bucket in the source)
 MAX_VERIFY_ROWS = 32    # W * group, the largest row bucket of the verify kernel
+MIN_BLOCKS = 2 * 132    # the verify split pass fills the H100's 132 SMs twice
+
+
+def plan_verify_splits(B: int, Hkv: int, max_pages: int) -> Tuple[int, int]:
+    """``(n_split, pages_per_split)`` for a table of ``max_pages`` pages:
+    contiguous runs of ``pages_per_split`` pages, cut down so the grid
+    ``n_split * Hkv * B`` reaches ``MIN_BLOCKS`` where the table has the
+    pages, and ``n_split = ceil(max_pages / pages_per_split)`` so every
+    split holds at least one page of the table.  On the speculative path
+    (B=8, Hkv=8, 21 pages) that is (6, 4): four pages of 16 are one
+    staging round of the bf16 kernel's four warps."""
+    want = min(max_pages, cdiv(MIN_BLOCKS, B * Hkv))
+    pages_per_split = max_pages // want
+    return cdiv(max_pages, pages_per_split), pages_per_split
 
 
 def check_pool_inputs(kernel: str, q, k_pool, v_pool, page_table,
@@ -90,7 +111,8 @@ def paged_verify_attention_kernel(q, k_pool, v_pool, page_table, cur_pos):
     :func:`paged_decode_attention_kernel`, all on the card → (B, W, H, dh)
     in q's dtype, launched on the current stream without synchronising.
     The window-major row order of the reference (``row = w * group + h``)
-    is the kernel's indexing of q and out; nothing is transposed."""
+    is the kernel's indexing of q and out; nothing is transposed.  Two
+    kernels run (the split pass, then the merge); it is one call."""
     if q.dim() != 4:
         raise ValueError("paged_verify_attention kernel: q must be "
                          "(B, W, H, dh)")
@@ -98,18 +120,30 @@ def paged_verify_attention_kernel(q, k_pool, v_pool, page_table, cur_pos):
                       page_table, cur_pos)
     B, W, H, dh = q.shape
     P1, ps, Hkv, _ = k_pool.shape
-    if W * (H // Hkv) > MAX_VERIFY_ROWS:
+    rows = W * (H // Hkv)
+    if rows > MAX_VERIFY_ROWS:
         raise ValueError(
             f"paged_verify_attention kernel: W * group = {W} * {H // Hkv} "
             f"query rows per kv head; at most {MAX_VERIFY_ROWS}")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged_verify_attention kernel: {name} is not "
+                             f"16-byte aligned for its cp.async copies")
+    max_pages = page_table.shape[1]
+    n_split, pages_per_split = plan_verify_splits(B, Hkv, max_pages)
     out = torch.empty_like(q)
+    part_acc = torch.empty((B, Hkv, rows, n_split, dh), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B, Hkv, rows, n_split, 2), dtype=torch.float32,
+                          device=q.device)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = lib.repro_paged_verify_attention(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            page_table.data_ptr(), cur_pos.data_ptr(), out.data_ptr(),
-            B, W, H, Hkv, dh, P1 - 1, ps, page_table.shape[1],
+            page_table.data_ptr(), cur_pos.data_ptr(), part_acc.data_ptr(),
+            part_ml.data_ptr(), out.data_ptr(), B, W, H, Hkv, dh, P1 - 1, ps,
+            max_pages, n_split, pages_per_split,
             int(q.dtype == torch.bfloat16), stream)
     check(status, "repro_paged_verify_attention")
     return out

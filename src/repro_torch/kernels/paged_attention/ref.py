@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the paged decode- and verify-attention
 kernels: the materialised-gather oracles, line for line after
 ``repro.kernels.paged_attention.ref.paged_decode_attention_ref`` and
-``paged_verify_attention_ref``."""
+``paged_verify_attention_ref``, and the CUDA verify kernel's
+split-and-merge arithmetic (:func:`paged_verify_attention_split_ref`),
+which only the tests use."""
 
 from __future__ import annotations
 
@@ -75,4 +77,65 @@ def paged_verify_attention_ref(q, k_pool, v_pool, page_table, cur_pos):
     s = torch.where(valid[:, :, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bwgik,bkgd->bwgid", w.to(vg.dtype).float(), vg.float())
+    return out.reshape(B, W, H, dh).to(q.dtype)
+
+
+def paged_verify_attention_split_ref(q, k_pool, v_pool, page_table, cur_pos,
+                                     *, pages_per_split: int,
+                                     round_p: bool = False):
+    """The CUDA verify kernel's two passes in plain torch, for the tests.
+
+    Scores over the gathered pages as in :func:`paged_verify_attention_ref`
+    (masked keys at NEG_INF).  When row 0 has a valid key, the pages that
+    no row of the window attends take no part (the kernel skips them);
+    otherwise every page takes part.  Per split of ``pages_per_split``
+    pages: the unnormalised ``(m, l, acc)`` of its keys that take part
+    (``m = -inf``, ``l = 0``, ``acc = 0`` for a split with none); then the
+    merge ``sum_s e^(m_s - m*) acc_s / max(sum_s e^(m_s - m*) l_s, 1e-30)``,
+    a split with ``m_s = -inf`` weighing 0.  ``round_p`` rounds p to bf16
+    before P V, as the bf16 route does (relative to the split's max, where
+    the kernel's warps use their running max over 16-key tiles; l adds the
+    unrounded p).  Returns (B, W, H, dh) in q's dtype."""
+    B, W, H, dh = q.shape
+    n_pages = k_pool.shape[0] - 1
+    ps = k_pool.shape[1]
+    Hkv = k_pool.shape[2]
+    group = H // Hkv
+    maxp = page_table.shape[1]
+    L = maxp * ps
+
+    mapped = (page_table >= 0) & (page_table < n_pages)
+    gather = torch.where(mapped, page_table, n_pages).long()
+    kg = k_pool[gather].reshape(B, L, Hkv, dh).float()
+    vg = v_pool[gather].reshape(B, L, Hkv, dh).float()
+    pos = torch.arange(L, device=q.device)
+    cur = cur_pos.long()
+    q_pos = cur[:, None] + torch.arange(W, device=q.device)[None, :]
+    valid = (mapped[:, pos // ps][:, None, :]
+             & (pos[None, None, :] <= q_pos[:, :, None]))          # (B, W, L)
+    qg = q.reshape(B, W, Hkv, group, dh).float()
+    s = torch.einsum("bwgid,bkgd->bwgik", qg, kg) / math.sqrt(dh)
+    s = torch.where(valid[:, :, None, None, :], s, NEG_INF)
+
+    first = torch.arange(maxp, device=q.device)[None, :] * ps      # (1, maxp)
+    has_valid = (mapped & (first <= cur[:, None])).any(dim=1)      # (B,)
+    kept = ~has_valid[:, None] | (mapped & (first <= (cur + W - 1)[:, None]))
+    s = torch.where(kept[:, pos // ps][:, None, None, None, :], s,
+                    float("-inf"))
+
+    ms, ls, accs = [], [], []
+    for p0 in range(0, maxp, pages_per_split):
+        ks = slice(p0 * ps, min(maxp, p0 + pages_per_split) * ps)
+        s_i = s[..., ks]
+        m_i = s_i.amax(dim=-1, keepdim=True)
+        p_i = torch.exp(s_i - torch.where(m_i == float("-inf"), 0.0, m_i))
+        p_v = p_i.to(torch.bfloat16).float() if round_p else p_i
+        ms.append(m_i)
+        ls.append(p_i.sum(dim=-1, keepdim=True))
+        accs.append(torch.einsum("bwgik,bkgd->bwgid", p_v, vg[:, ks]))
+    m = torch.stack(ms)
+    m_star = m.amax(dim=0)
+    w = torch.where(m == float("-inf"), 0.0, torch.exp(m - m_star))
+    out = ((w * torch.stack(accs)).sum(0)
+           / (w * torch.stack(ls)).sum(0).clamp_min(1e-30))
     return out.reshape(B, W, H, dh).to(q.dtype)

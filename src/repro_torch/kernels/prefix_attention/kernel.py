@@ -4,8 +4,11 @@
 
 The kernel reads the cached prefix and the fresh suffix as two operands in
 the model layout (B, S, Hkv, dh), so no concat, transpose or padding is
-made around it; ragged Sq, Lp and Sk are masked in the kernel.  This module
-builds nothing when imported: the library is built at the first launch.
+made around it; ragged Sq, Lp and Sk are masked in the kernel.  bf16 inputs
+run on the tensor cores (``csrc/attn_mma.cuh``), f32 inputs in full f32 on
+the CUDA cores (``csrc/attn_common.cuh``): a dispatch on dtype inside the
+one C entry point.  This module builds nothing when imported: the library
+is built at the first launch.
 """
 
 from __future__ import annotations
@@ -51,6 +54,10 @@ def check_inputs(q, pk, pv, k, v) -> None:
     if dh not in HEAD_DIMS:
         raise ValueError(f"prefix_flash_attention kernel: dh={dh} not in "
                          f"{HEAD_DIMS}")
+    for name, t in (("q", q), ("pk", pk), ("pv", pv), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"prefix_flash_attention kernel: {name} is not "
+                             f"16-byte aligned for its cp.async copies")
 
 
 def prefix_flash_attention_kernel(q, pk, pv, k, v, *, q_offset: int = 0):

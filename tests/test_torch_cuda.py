@@ -149,6 +149,27 @@ def test_decode_attention_kernel_refuses_a_misaligned_cache(gen):
         kernel.decode_attention_kernel(q, k, v, pos, cur)
 
 
+def test_prefix_and_verify_kernels_refuse_misaligned_inputs(gen):
+    """Both kernels copy rows with 16-byte cp.async: a view that starts off
+    the 16-byte boundary is refused, not read wrong."""
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.prefix_attention import kernel as pfx_kernel
+
+    bf16 = torch.bfloat16
+    q = _rand(gen, (1, 8, 4, 32), bf16)
+    kv = _rand(gen, (1, 8, 2, 32), bf16)
+    shifted = _rand(gen, (8 * 2 * 32 + 1,), bf16)[1:].view(1, 8, 2, 32)
+    with pytest.raises(ValueError, match="aligned"):
+        pfx_kernel.prefix_flash_attention_kernel(q, shifted, kv, kv, kv)
+    pool = _rand(gen, (3, 4, 2, 32), bf16)
+    shifted_pool = _rand(gen, (3 * 4 * 2 * 32 + 1,), bf16)[1:].view(3, 4, 2, 32)
+    tab = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    cur = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="aligned"):
+        pa_kernel.paged_verify_attention_kernel(
+            _rand(gen, (1, 2, 4, 32), bf16), shifted_pool, pool, tab, cur)
+
+
 def _page_table(rng, B, maxp, P, cur, ps, holes):
     """Shuffled distinct pages for logical pages 0..cur // ps of each slot,
     later pages unmapped; ``holes`` unmaps earlier ones at random."""
@@ -203,6 +224,9 @@ def test_paged_decode_attention_kernel_matches_ref(gen, dtype, B, H, Hkv, dh,
     (3, 8, 8, 2, 128, 8, 6, 30, 0, 40, 0.3),
     (3, 6, 4, 2, 32, 4, 8, 24, 0, 26, 0.2),
     (3, 4, 8, 8, 64, 8, 6, 20, 0, 44, 0.0),
+    (8, 4, 16, 8, 128, 16, 21, 168, 0, 40, 0.0),     # splits > mapped pages
+    (4, 2, 16, 1, 128, 16, 21, 96, 0, 330, 0.2),     # GQA 16:1, 32 rows
+    (4, 8, 16, 4, 128, 8, 40, 160, 0, 310, 0.2),     # W=8, 32 rows
 ])
 def test_paged_verify_attention_kernel_matches_ref(gen, dtype, B, W, H, Hkv,
                                                    dh, ps, maxp, P, lo, hi,
@@ -216,6 +240,57 @@ def test_paged_verify_attention_kernel_matches_ref(gen, dtype, B, W, H, Hkv,
     table = _page_table(rng, B, maxp, P,
                         np.minimum(cur + W - 1, maxp * ps - 1), ps, holes)
     table[-1] = -1
+    q = _rand(gen, (B, W, H, dh), dtype)
+    kp = _rand(gen, (P + 1, ps, Hkv, dh), dtype)
+    vp = _rand(gen, (P + 1, ps, Hkv, dh), dtype)
+    kp[P] = 1e4
+    vp[P] = 1e4
+    tab, cur_t = torch.from_numpy(table).cuda(), torch.from_numpy(cur).cuda()
+    before = ops.paged_verify_attention.launches
+    got = ops.paged_verify_attention(q, kp, vp, tab, cur_t)
+    want = ref.paged_verify_attention_ref(q, kp, vp, tab, cur_t)
+    torch.cuda.synchronize()
+    assert ops.paged_verify_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    err = ((got.float() - want.float()).abs()
+           / want.float().abs().clamp(min=1.0)).max().item()
+    assert err <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["split-boundaries", "row-0-without-keys",
+                                  "fully-unmapped", "sweep", "split-skipped"])
+def test_paged_verify_attention_split_cases_match_ref(gen, dtype, case):
+    """The split pass and the merge on the splits ``plan_verify_splits``
+    picks (6 of 4 pages at the speculative path's shape): windows that
+    straddle split boundaries, a row 0 without keys (every page walked), a
+    slot with no mapped page, cur_pos swept across page boundaries, and a
+    window whose later splits are all skipped; one launch counted per
+    call, the trash page poisoned to 1e4."""
+    from repro_torch.kernels.paged_attention import kernel, ops, ref
+
+    rng = np.random.default_rng(3)
+    B, W, H, Hkv, dh, ps, maxp, P = 8, 4, 16, 8, 128, 16, 21, 168
+    n_split, pps = kernel.plan_verify_splits(B, Hkv, maxp)
+    assert (n_split, pps) == (6, 4)
+    if case == "split-boundaries":
+        cur = np.asarray([62, 63, 64, 126, 127, 128, 190, 318], np.int32)
+    elif case == "sweep":
+        cur = np.asarray([12, 13, 14, 15, 16, 29, 31, 61], np.int32)
+    else:
+        cur = rng.integers(0, 300, size=B).astype(np.int32)
+    table = _page_table(rng, B, maxp, P, np.minimum(cur + W - 1, maxp * ps - 1),
+                        ps, 0.2 if case == "split-boundaries" else 0.0)
+    if case == "row-0-without-keys":
+        cur[:2] = [14, 15]
+        table[:2] = -1
+        table[:2, 1] = [P - 1, P - 2]
+    if case == "fully-unmapped":
+        table[::2] = -1
+    if case == "split-skipped":
+        cur[:] = 20
+        table = _page_table(rng, B, maxp, P, cur + W - 1, ps, 0.0)
     q = _rand(gen, (B, W, H, dh), dtype)
     kp = _rand(gen, (P + 1, ps, Hkv, dh), dtype)
     vp = _rand(gen, (P + 1, ps, Hkv, dh), dtype)
@@ -252,6 +327,8 @@ def test_paged_verify_attention_kernel_refuses_too_many_rows(gen):
     (2, 40, 100, 70, 16, 8, 128, 30),
     (2, 96, 64, 96, 8, 1, 64, 0),
     (2, 50, 0, 50, 4, 2, 32, 0),
+    (2, 70, 130, 77, 4, 2, 32, 7),          # Lp not a multiple of 64, offset
+    (3, 130, 65, 150, 16, 8, 128, 20),      # 3 q tiles over both phases
 ])
 def test_prefix_flash_attention_kernel_matches_ref(gen, dtype, B, Sq, Lp, Sk,
                                                    H, Hkv, dh, q_offset):

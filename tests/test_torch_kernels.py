@@ -42,8 +42,10 @@ from repro_torch.kernels.matmul import kernel as mm_kernel
 from repro_torch.kernels.matmul import ops as mm_ops
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention import ref as pa_ref
 from repro_torch.kernels.prefix_attention import kernel as pfx_kernel
 from repro_torch.kernels.prefix_attention import ops as pfx_ops
+from repro_torch.kernels.prefix_attention import ref as pfx_ref
 from repro_torch.kernels.rmsnorm import kernel as rms_kernel
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.models.attention import chunked_flash_attention
@@ -608,3 +610,198 @@ def test_flash_bf16_p_rounding_stays_within_bf16_tol(window, q_offset):
                                **BF16_TOL)
     # and the rounding is really there: in f32 the two differ
     assert (got.float() - want.float()).abs().max().item() > 0
+
+
+# ---------------------------------------------------------------------------
+# the verify kernel's pages split across blocks and merged, and the bf16
+# routes of the verify and prefix kernels (P rounded before P V)
+# ---------------------------------------------------------------------------
+
+# (B, W, H, Hkv, dh, ps, table rows, cur per row, pages_per_split)
+VERIFY_SPLIT_CASES = {
+    # mid-table holes; windows across page and split boundaries, one at
+    # the table's end
+    "holes": (3, 4, 4, 2, 32, 8, [[0, 3, 9, -1], [5, -1, 7, -1],
+                                  [2, 4, 6, 8]], [6, 14, 28], 2),
+    # every entry -1: every row averages the trash page
+    "fully-unmapped-slot": (2, 2, 4, 2, 32, 8, [[-1, -1, -1], [1, 2, -1]],
+                            [0, 9], 1),
+    # row 0 has no key (its pages unmapped), later rows of the window do:
+    # every page is walked and row 0 averages all gathered rows
+    "row0-without-keys": (2, 4, 4, 2, 32, 16, [[-1, 3, -1, -1],
+                                               [-1, 6, -1, -1]], [14, 15], 2),
+    # the window ends before the second split's pages: all skipped
+    "split-all-skipped": (2, 4, 4, 2, 32, 8, [[1, 2, 5, 6, 7, 8],
+                                              [3, 4, -1, -1, -1, -1]],
+                          [9, 4], 3),
+    # six one-page splits over a table with two mapped pages
+    "more-splits-than-mapped-pages": (2, 2, 4, 2, 32, 8,
+                                      [[4, 7, -1, -1, -1, -1],
+                                       [9, -1, -1, -1, -1, -1]], [10, 3], 1),
+    # 32 query rows per kv head: GQA 16:1 with W=2, and W=8 at group 4
+    "gqa16:1-W2": (2, 2, 16, 1, 32, 8, [[0, 1, 2, -1], [3, 5, 4, 6]],
+                   [17, 24], 2),
+    "W8-32-rows": (2, 8, 8, 2, 32, 4, [[0, 1, 2, 3, 4, 5, -1, -1],
+                                       [6, 7, -1, 8, 9, -1, -1, -1]],
+                   [13, 7], 3),
+    # the planner's split of the speculative path's 21 pages of 16
+    "planner-main-path": (2, 4, 4, 2, 32, 16,
+                          [list(range(21)), list(range(21, 38)) + [-1] * 4],
+                          [300, 260], None),
+}
+
+
+def _verify_split_all(case):
+    """(split ref, one-pass port ref, JAX ref, Pallas interpret) of one
+    VERIFY_SPLIT_CASES entry, on numpy inputs made from a seed."""
+    B, W, H, Hkv, dh, ps, table, cur, pps = VERIFY_SPLIT_CASES[case]
+    table = np.asarray(table, np.int32)
+    if pps is None:
+        _, pps = pa_kernel.plan_verify_splits(8, 8, table.shape[1])
+    P = int(table.max()) + 1
+    rng = np.random.default_rng(len(case) + 400)
+    q = _randn(rng, (B, W, H, dh))
+    kp, vp = _pools(rng, P, ps, Hkv, dh)
+    cur = np.asarray(cur, np.int32)
+    targs = tuple(torch.from_numpy(a) for a in (q, kp, vp, table, cur))
+    got = pa_ref.paged_verify_attention_split_ref(
+        *targs, pages_per_split=pps).numpy()
+    one_pass = pa_ref.paged_verify_attention_ref(*targs).numpy()
+    args = tuple(jnp.asarray(a) for a in (q, kp, vp, table, cur))
+    jref = np.asarray(jpa_ref.paged_verify_attention_ref(*args))
+    pallas = np.asarray(jpa_ops.paged_verify_attention(*args, interpret=True))
+    return got, one_pass, jref, pallas, (table, cur, ps, W, pps)
+
+
+@pytest.mark.parametrize("case", list(VERIFY_SPLIT_CASES))
+def test_verify_split_merge_matches_the_references(case):
+    """Partials per split of the table's pages (pages no row attends
+    skipped when row 0 has a key), then the merge, equal the one-pass
+    softmax of both packages' references and the Pallas kernel: a split
+    whose pages were all skipped weighs 0, and a row with no valid key
+    averages V over every gathered row.  Tolerance 2e-4 (the reference
+    kernel tests'), relative where the poisoned trash page (1e4) is
+    averaged."""
+    got, one_pass, jref, pallas, (table, cur, ps, W, pps) = _verify_split_all(case)
+    mapped = (table >= 0)
+    first = np.arange(table.shape[1])[None, :] * ps
+    row0 = (mapped & (first <= cur[:, None])).any(axis=1)
+    if case in ("fully-unmapped-slot", "row0-without-keys"):
+        assert not row0.all()
+    if case == "split-all-skipped":
+        last = cur + W - 1
+        assert row0.all() and (first[0, pps:2 * pps] > last[0]).all()
+    if case == "more-splits-than-mapped-pages":
+        assert table.shape[1] // pps > mapped.sum(axis=1).max()
+    np.testing.assert_allclose(got, one_pass, **PAGED_TOL)
+    np.testing.assert_allclose(got, jref, **PAGED_TOL)
+    np.testing.assert_allclose(got, pallas, **PAGED_TOL)
+
+
+@pytest.mark.parametrize("cur", [12, 13, 14, 15, 16, 17, 29, 30, 31])
+def test_verify_split_merge_page_boundary_sweep(cur):
+    """cur_pos swept across page and split boundaries (pages of 8, splits
+    of 2 pages): each step moves one key into or out of a window row."""
+    B, W, H, Hkv, dh, ps, pps = 1, 4, 4, 2, 32, 8, 2
+    rng = np.random.default_rng(cur)
+    q = _randn(rng, (B, W, H, dh))
+    kp, vp = _pools(rng, 6, ps, Hkv, dh)
+    table = np.asarray([[2, 0, 5, 1, 3]], np.int32)
+    cur_a = np.asarray([cur], np.int32)
+    targs = tuple(torch.from_numpy(a) for a in (q, kp, vp, table, cur_a))
+    got = pa_ref.paged_verify_attention_split_ref(
+        *targs, pages_per_split=pps).numpy()
+    args = tuple(jnp.asarray(a) for a in (q, kp, vp, table, cur_a))
+    np.testing.assert_allclose(
+        got, pa_ref.paged_verify_attention_ref(*targs).numpy(), **PAGED_TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(jpa_ref.paged_verify_attention_ref(*args)), **PAGED_TOL)
+    np.testing.assert_allclose(
+        got, np.asarray(jpa_ops.paged_verify_attention(*args, interpret=True)),
+        **PAGED_TOL)
+
+
+@pytest.mark.parametrize("B,Hkv,max_pages", [
+    (8, 8, 21), (8, 8, 6), (1, 1, 1), (64, 8, 100), (4, 1, 21), (2, 8, 4),
+    (1, 1, 1000), (3, 2, 8), (16, 8, 65), (1, 8, 7),
+])
+def test_verify_split_plan_gives_every_split_a_page(B, Hkv, max_pages):
+    n_split, pps = pa_kernel.plan_verify_splits(B, Hkv, max_pages)
+    assert pps >= 1
+    assert (n_split - 1) * pps < max_pages <= n_split * pps
+    # as many blocks as MIN_BLOCKS asks where the table has the pages
+    assert n_split * Hkv * B >= pa_kernel.MIN_BLOCKS or pps == 1
+
+
+def test_verify_split_plan_fills_the_card_on_the_spec_path():
+    """qwen3-0.6b speculative serving: B=8 slots, 8 kv heads, 21 pages of
+    16 a slot -> at least 2 x 132 blocks, each split one staging round (4
+    pages) of the bf16 kernel."""
+    n_split, pps = pa_kernel.plan_verify_splits(8, 8, 21)
+    assert n_split * 8 * 8 >= 264
+    assert (n_split, pps) == (6, 4)
+
+
+def test_verify_bf16_p_rounding_stays_within_bf16_tol():
+    """The bf16 verify route rounds P to bf16 before P V; on bf16 inputs at
+    the speculative path's shape cut to one kv head (B=8, W=4, group 2,
+    dh=128, 21 pages of 16, the planner's split) that stays within the bf16
+    tolerance of the f32-P references of both packages."""
+    B, W, H, Hkv, dh, ps, maxp = 8, 4, 2, 1, 128, 16, 21
+    rng = np.random.default_rng(17)
+    P = B * maxp
+    q, kp, vp = (torch.from_numpy(_randn(rng, shape)).to(torch.bfloat16)
+                 for shape in ((B, W, H, dh), (P + 1, ps, Hkv, dh),
+                               (P + 1, ps, Hkv, dh)))
+    cur = rng.integers(256, 322 - W + 1, size=B).astype(np.int32)
+    table = np.arange(P, dtype=np.int32).reshape(B, maxp)
+    table[(np.arange(maxp)[None, :] * ps) > (cur[:, None] + W - 1)] = -1
+    table[0, 3] = -1                            # a hole
+    _, pps = pa_kernel.plan_verify_splits(B, 8, maxp)
+    targs = (q, kp, vp, torch.from_numpy(table), torch.from_numpy(cur))
+    got = pa_ref.paged_verify_attention_split_ref(
+        *targs, pages_per_split=pps, round_p=True)
+    want = pa_ref.paged_verify_attention_ref(*targs)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               **BF16_TOL)
+    jwant = jpa_ref.paged_verify_attention_ref(
+        *(jnp.asarray(t.float().numpy()) for t in (q, kp, vp)),
+        jnp.asarray(table), jnp.asarray(cur))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(jwant),
+                               **BF16_TOL)
+    # and the rounding is really there: in f32 the two differ
+    exact = pa_ref.paged_verify_attention_split_ref(*targs, pages_per_split=pps)
+    assert (got.float() - exact.float()).abs().max().item() > 0
+
+
+@pytest.mark.parametrize("Lp,q_offset", [(192, 0), (130, 7), (100, 30), (33, 64)])
+def test_prefix_bf16_p_rounding_stays_within_bf16_tol(Lp, q_offset):
+    """The bf16 prefix route rounds P to bf16 before P V over 64-key tiles,
+    prefix then suffix; on bf16 inputs at the cached-admission shape cut to
+    one kv head (B=2, 64 suffix rows, group 2, dh=128), with Lp not a
+    multiple of 64 and q_offset > 0 among the cases, that stays within the
+    bf16 tolerance of the f32-P references and of the Pallas kernel in
+    interpret mode."""
+    B, Sq, H, Hkv, dh = 2, 64, 2, 1, 128
+    Sk = Sq + q_offset
+    rng = np.random.default_rng(Lp + q_offset)
+    arrays = _prefix_inputs(rng, B, Sq, Lp, Sk, H, Hkv, dh)
+    q, pk, pv, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+    got = pfx_ref.prefix_flash_attention_mma_ref(q, pk, pv, k, v,
+                                                 q_offset=q_offset)
+    want = pfx_ref.prefix_flash_attention_ref(q, pk, pv, k, v,
+                                              q_offset=q_offset)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               **BF16_TOL)
+    jargs = tuple(jnp.asarray(t.float().numpy()) for t in (q, pk, pv, k, v))
+    pallas = jpfx_ops.prefix_flash_attention(*jargs, q_offset=q_offset,
+                                             block_q=64, block_k=64,
+                                             interpret=True)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(pallas),
+                               **BF16_TOL)
+    # in f32 the emulation without the rounding is the plain version
+    exact = pfx_ref.prefix_flash_attention_mma_ref(
+        *(t.float() for t in (q, pk, pv, k, v)), q_offset=q_offset)
+    assert (got.float() - exact).abs().max().item() > 0
