@@ -25,8 +25,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (windows across split boundaries, more splits than mapped
               pages, 32 rows a kv head), in f32 and bf16; prefix: ragged
               Lp and Sq, q_offset > 0, Lp = 0, GQA 8:1 at dh=64, in f32
-              and bf16, the two dtypes taking different kernels; SSD scan: the
-              admission shape, S not a multiple of the chunk, S < chunk, a
+              and bf16, the two dtypes taking different kernels; SSD scan
+              (bf16 through its five passes, f32 through its f32 kernel,
+              each case's route logged and checked): the
+              admission shape (also as views of one xBC tensor, as the SSM
+              block passes them), S not a multiple of the chunk, S < chunk, a
               single chunk, G = 2, large dt where exp(cum) underflows,
               slow decay (dt ~ 1e-3, the carried state matters) at the
               admission shape and at chunk 32, and every (hd, N) it
@@ -36,7 +39,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
               matmul: (2048, 1024) @ (1024, 3072), (2048, 3072) @
               (3072, 1024), (8, 1024) @ (1024, 3072) and a ragged
               (100, 300) @ (300, 72), bf16 -> bf16, bf16 -> f32 and
-              f32 -> f32).  Tolerance: max abs error <= 1e-4 in
+              f32 -> f32; each case's route logged and checked: bf16
+              through wgmma + TMA except the ragged case, which TMA
+              cannot describe, and f32 on the CUDA cores; the host time
+              of a launch on each route).  Tolerance: max abs error <= 1e-4 in
               f32 (only the summation order differs) and <= 2e-2 in bf16
               (the output is rounded to bf16 once, about 2^-8 of its
               magnitude); rmsnorm's error is relative where the output
@@ -84,7 +90,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               random weights) behind ``ContinuousBatcher`` in dense mode,
               16 prompts of 300-1024 tokens left-padded to 1024; every
               request completes, every admission scanned through the SSD
-              kernel (48 launches each), no attention kernel ran, one
+              kernel's bf16 passes (48 calls each, five kernels a call),
+              no attention kernel ran, one
               dispatch and one host sync per admission and per chunk.
 5e. tenancy — two qwen3-0.6b tenants on one card through the hypervisor
               (``VirtualAcceleratorPool`` of 16 logical cores over cuda:0
@@ -100,7 +107,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               kv lease change reaches ``set_page_limit`` and no batcher
               outgrows its lease, the pool's isolation and bandwidth
               invariants hold, rmsnorm and matmul launch in the static
-              stage and after the regrow, and the program's output agrees
+              stage and after the regrow (the matmul on its wgmma route),
+              and the program's output agrees
               with its plain version.  Prints the static stage's seconds
               per lease size beside the regrow's ``t_context``.
 6. trace    — the first rounds of the dense, the paged, the spec and the
@@ -110,7 +118,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               dense path must run the tensor-core flash kernel and the
               decode split and merge kernels, the paged path the former
               and the tensor-core prefix kernel, the spec path the verify
-              split (tensor-core) and merge kernels and the prefix kernel.
+              split (tensor-core) and merge kernels and the prefix kernel,
+              the Mamba-2 path the SSD's five bf16 passes.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -124,9 +133,11 @@ another checkout measures that checkout.
 
     python3 chip_smoke.py --kernel-times
 
-runs phase 1 and times the flash, dense decode, prefix and paged verify
-kernels, their plain versions and their PyTorch calls at the main paths'
-bf16 shapes (phase 3's timings without its correctness cases), against
+runs phase 1 and times the flash, dense decode, prefix, paged verify,
+SSD scan (on views of one xBC tensor) and matmul (the tenant program's
+shape and a decode-shaped one) kernels, their plain versions and their
+PyTorch calls at the main paths' bf16 shapes (phase 3's timings without
+its correctness cases), against
 the ``src/repro_torch`` beside the script: a copy in another checkout
 times that checkout's kernels, so two trees compare in turns in one chip
 call.  Prints one JSON line ``{"kernel_times": ...}``.
@@ -134,10 +145,12 @@ call.  Prints one JSON line ``{"kernel_times": ...}``.
     python3 chip_smoke.py --ssd-faults
 
 runs phase 1 and then checks the SSD checks themselves: it builds copies of
-the SSD kernel with planted faults (``SSD_FAULTS``: the carried state
-dropped, carried without its decay, far key tiles skipped) and exits
-non-zero unless each fails a slow-decay case of phase 3; it also reports
-whether phase 4's Mamba-2 check fails each.
+the SSD kernel with planted faults (``SSD_FAULTS``, in the bf16 passes and
+in the f32 kernel: the inter-chunk term dropped, the carried state
+dropped, carried without its decay, far key tiles skipped, and in the
+passes a chunk's own state not passed on) and exits non-zero unless each
+fails a slow-decay case of phase 3; it also reports whether phase 4's
+Mamba-2 check (f32) fails each.
 """
 
 from __future__ import annotations
@@ -399,14 +412,15 @@ def time_decode(q, k, v, pos, cur_t):
 
 
 def kernel_times(card: str) -> int:
-    """``--kernel-times``: the flash, dense decode, prefix and paged verify
-    kernels, their plain versions and their PyTorch calls at the main
-    paths' bf16 shapes, timed against the ``src/repro_torch`` beside this
-    script, without the correctness cases: a copy of the script placed in
-    another checkout (e.g. the parent commit unpacked with ``git
-    archive``) times that checkout's kernels, so two trees compare in turns
-    within one chip call.  It calls only the ``ops`` and ``ref`` functions
-    every tree since the verify kernel's port has."""
+    """``--kernel-times``: the flash, dense decode, prefix, paged verify,
+    SSD scan and matmul kernels, their plain versions and their PyTorch
+    calls at the main paths' bf16 shapes (the matmul also decode-shaped),
+    timed against the ``src/repro_torch`` beside this script, without the
+    correctness cases: a copy of the script placed in another checkout
+    (e.g. the parent commit unpacked with ``git archive``) times that
+    checkout's kernels, so two trees compare in turns within one chip
+    call.  It calls only the ``ops`` and ``ref`` functions every tree
+    since the matmul kernel's port has."""
     import torch
 
     gen = torch.Generator(device="cuda")
@@ -437,11 +451,21 @@ def kernel_times(card: str) -> int:
         _rand(gen, (B, W, H, dh), bf16), kp, vp,
         torch.from_numpy(_verify_table(rng, B, maxp, P, cur, W, ps)).cuda(),
         torch.as_tensor(np.asarray(cur, np.int32)).cuda())
-    rows = [flash, decode, prefix, verify]
+    ssd = time_ssd(_ssd_inputs(gen, *(SSD_MAIN[k] for k in (
+        "B", "S", "nh", "hd", "G", "N")), bf16, 1.0, xbc=True),
+        SSD_MAIN["chunk"])
+    mm = time_matmul(_rand(gen, (2048, 1024), bf16),
+                     _rand(gen, (1024, 3072), bf16))
+    mm_decode = time_matmul(_rand(gen, (8, 1024), bf16),
+                            _rand(gen, (1024, 3072), bf16))
+    mm_decode["name"] = "matmul (8, 1024) @ (1024, 3072)"
+    rows = [flash, decode, prefix, verify, ssd, mm, mm_decode]
     for row in rows:
+        library = ("none" if row["library_ms"] is None
+                   else f"{row['library_ms'] * 1e3:.2f} us")
         log(f"  {row['name']}: {row['ms'] * 1e3:.2f} us kernel, "
-            f"{row['plain_ms'] * 1e3:.2f} us plain, "
-            f"{row['library_ms'] * 1e3:.2f} us library [{card}]")
+            f"{row['plain_ms'] * 1e3:.2f} us plain, {library} library "
+            f"[{card}]")
     print(json.dumps({"kernel_times": {"root": str(ROOT), "card": card,
                                        "rows": rows}}), flush=True)
     return 0
@@ -816,6 +840,8 @@ def _ssd_cases():
     return [
         # every admission of the Mamba-2 path: 8 prompts of 1024 in 4 chunks
         ("main bf16", SSD_MAIN, bf16, 1.0),
+        # the same as the SSM block hands it over: views of its conv output
+        ("main bf16, xBC views", dict(SSD_MAIN, xbc=True), bf16, 1.0),
         ("main f32", SSD_MAIN, f32, 1.0),
         ("main slow decay bf16", SSD_MAIN, bf16, SSD_SLOW[256]),
         ("main slow decay f32", SSD_MAIN, f32, SSD_SLOW[256]),
@@ -836,7 +862,10 @@ def _ssd_cases():
     ]
 
 
-def _ssd_inputs(gen, B, S, nh, hd, G, N, dtype, dt):
+def _ssd_inputs(gen, B, S, nh, hd, G, N, dtype, dt, *, xbc=False):
+    """x, dt, A, Bm, Cm of one case; with ``xbc``, x, Bm and Cm are views
+    of one (B, S, nh hd + 2 G N) tensor, as the SSM block slices them out
+    of its conv output ``xBC`` (row stride the conv width)."""
     import torch
     import torch.nn.functional as F
 
@@ -850,6 +879,12 @@ def _ssd_inputs(gen, B, S, nh, hd, G, N, dtype, dt):
     A = -torch.exp(_rand(gen, (nh,), torch.float32) * 0.5)
     Bm = (_rand(gen, (B, S, G, N), torch.float32) * 0.3).to(dtype)
     Cm = (_rand(gen, (B, S, G, N), torch.float32) * 0.3).to(dtype)
+    if xbc:
+        buf = torch.cat([t.reshape(B, S, -1) for t in (x, Bm, Cm)], dim=-1)
+        d_in, gn = nh * hd, G * N
+        x = buf[..., :d_in].view(B, S, nh, hd)
+        Bm = buf[..., d_in:d_in + gn].view(B, S, G, N)
+        Cm = buf[..., d_in + gn:].view(B, S, G, N)
     return x, dts, A, Bm, Cm
 
 
@@ -877,13 +912,16 @@ def _ssd_case(gen, shape, dtype, dt):
 
     chunk = shape["chunk"]
     args = _ssd_inputs(gen, *(shape[k] for k in ("B", "S", "nh", "hd", "G",
-                                                 "N")), dtype, dt)
+                                                 "N")), dtype, dt,
+                       xbc=shape.get("xbc", False))
     before = ops.ssd.launches
+    routes = dict(ops.ssd.route_calls)
     y, st = ops.ssd(*args, chunk=chunk, return_state=True)
+    routes = [k for k, n in ops.ssd.route_calls.items() if n != routes[k]]
     want_y, want_st = ssd_chunked(*args, chunk=chunk, return_state=True)
     torch.cuda.synchronize()
     return dict(
-        args=args, launched=ops.ssd.launches - before,
+        args=args, launched=ops.ssd.launches - before, routes=routes,
         shape_ok=y.shape == args[0].shape and y.dtype == dtype,
         finite=bool(torch.isfinite(y).all() and torch.isfinite(st).all()),
         err_y=_rel_err(y, want_y), err_st=_rel_err(st, want_st),
@@ -907,18 +945,26 @@ def check_ssd(gen):
     (a few 2^-9 roundings of terms near |y|), and 1e-4 for the state, which
     both build in f32 from the same bf16 inputs.  The slow-decay cases must
     keep the chunk's median decay within [0.1, 0.9], or they would no
-    longer test the carry."""
-    from repro_torch.kernels.ssd_scan import ops
-    from repro_torch.models.ssm import ssd_chunked
+    longer test the carry.  bf16 cases take the kernel's five passes, f32
+    ones its f32 kernel (``kernel.ssd_route``), as the route counters
+    show; the main shape is timed on views of one ``xBC`` tensor, as the
+    SSM block passes them."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ssd_route
 
     for name, shape, dtype, dt in _ssd_cases():
         r = _ssd_case(gen, shape, dtype, dt)
-        log(f"  ssd {name:<34} y rel err={r['err_y']:.3e} (tol "
+        want = ssd_route(dtype)
+        log(f"  ssd {name:<34} route {'+'.join(r['routes'])}; "
+            f"y rel err={r['err_y']:.3e} (tol "
             f"{r['tol_y']:g}, abs {r['abs_y']:.3e} of max {r['max_y']:.3g}) "
             f"state rel err={r['err_st']:.3e} (tol {F32_TOL:g}); chunk decay "
             f"p10/p50/p90 {r['decay'][0]:.2g}/{r['decay'][1]:.2g}/"
             f"{r['decay'][2]:.2g}")
         check(r["launched"] == 1, f"ssd {name}: no kernel launch")
+        check(r["routes"] == [want], f"ssd {name}: route {r['routes']}, "
+              f"expected {want}")
         check(r["shape_ok"], f"ssd {name}: wrong shape or dtype of y")
         check(r["finite"], f"ssd {name}: non-finite output")
         check(r["err_y"] <= r["tol_y"],
@@ -929,13 +975,27 @@ def check_ssd(gen):
             check(0.1 <= r["decay"][1] <= 0.9,
                   f"ssd {name}: median chunk decay {r['decay'][1]} outside "
                   f"[0.1, 0.9]")
-        if name == "main bf16":
+        if name == "main bf16, xBC views":
             err, args = r["abs_y"], r["args"]
+    torch.cuda.empty_cache()
+    return dict(time_ssd(args, SSD_MAIN["chunk"]), max_abs_err=err)
 
-    B, S, nh, hd, G, N, L = (SSD_MAIN[k] for k in ("B", "S", "nh", "hd", "G",
-                                                   "N", "chunk"))
+
+def time_ssd(args, chunk):
+    """Kernel and plain times (and the bound) of one ``ops.ssd`` call (a
+    bf16 call launches five kernels) at the Mamba-2 path's admission shape
+    (B=8, S=1024 in chunks of 256, nh=32, hd=64, G=1, N=128, bf16), from
+    ``args`` there; no PyTorch call computes the scan."""
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.models.ssm import ssd_chunked
+
+    x, _, _, Bm, _ = args
+    B, S, nh, hd = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    L = min(chunk, S)
     sets = copies_over_l2(list(args))
-    kernel = device_ms(lambda *a: ops.ssd(*a, chunk=L, return_state=True), sets)
+    kernel = device_ms(lambda *a: ops.ssd(*a, chunk=L, return_state=True),
+                       sets)
     plain = device_ms(lambda *a: ssd_chunked(*a, chunk=L, return_state=True),
                       sets)
     # bytes: x, dt, A, B, C read once (bf16 x, B, C; f32 dt, A), y written
@@ -952,8 +1012,8 @@ def check_ssd(gen):
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan/kernel.py:85",
-                max_abs_err=err, ms=kernel, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=None)
+                ms=kernel, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=None)
 
 
 def check_rmsnorm(gen):
@@ -1028,10 +1088,14 @@ def check_matmul(gen):
     3072 outputs reach ~50 and bf16's rounding of them alone exceeds the
     absolute ``BF16_TOL``.  Limits: 1e-5 at f32 output (only the summation
     order differs), 8e-3 at bf16 output (one rounding, 2^-9 of an output,
-    and a flip across a rounding boundary)."""
+    and a flip across a rounding boundary).  The route counters must show
+    the bf16 2048-row and decode cases on the ``wgmma`` route, the ragged
+    case (a 600-byte row of a, which TMA cannot describe) and f32 on the
+    CUDA cores.  Also logs the host time of a launch on each route: the
+    ``wgmma`` route encodes two TMA tensor maps a call."""
     import torch
 
-    from repro_torch.kernels.matmul import ops, ref
+    from repro_torch.kernels.matmul import kernel, ops, ref
 
     f32, bf16 = torch.float32, torch.bfloat16
     shapes = [("admission up", 2048, 1024, 3072),
@@ -1044,15 +1108,22 @@ def check_matmul(gen):
         for in_dt, out_dt in kinds:
             a = _rand(gen, (M, K), in_dt)
             b = _rand(gen, (K, N), in_dt)
+            routes = dict(ops.matmul.route_launches)
             got = ops.matmul(a, b, out_dtype=out_dt)
             want = ref.matmul_ref(a, b, out_dtype=out_dt)
             torch.cuda.synchronize()
+            route = [k for k, n in ops.matmul.route_launches.items()
+                     if n != routes[k]]
+            expected = ("wgmma" if in_dt == bf16 and name != "ragged"
+                        else "cuda_core")
             err = _rel_err(got, want)
             tol = 8e-3 if out_dt == bf16 else 1e-5
             log(f"  matmul {name:<14} ({M}, {K}) @ ({K}, {N}) "
-                f"{str(in_dt)[6:]:>8} -> {str(out_dt)[6:]:<8} rel err="
-                f"{err:.3e} (tol {tol:g}) of max "
-                f"{want.float().abs().max().item():.3g}")
+                f"{str(in_dt)[6:]:>8} -> {str(out_dt)[6:]:<8} route "
+                f"{'+'.join(route):<9} rel err={err:.3e} (tol {tol:g}) of "
+                f"max {want.float().abs().max().item():.3g}")
+            check(route == [expected],
+                  f"matmul {name}: route {route}, expected {expected}")
             check(got.shape == (M, N) and got.dtype == out_dt,
                   f"matmul {name}: wrong shape or dtype")
             check(bool(torch.isfinite(got).all()), f"matmul {name}: non-finite")
@@ -1063,8 +1134,33 @@ def check_matmul(gen):
     check(ops.matmul.launches - before == len(shapes) * len(kinds),
           "matmul: a case did not launch the kernel")
 
-    (M, K), N = args[0].shape, args[1].shape[1]
-    sets = copies_over_l2(list(args))
+    a, b = _rand(gen, (128, 64), bf16), _rand(gen, (64, 128), bf16)
+    host = {}
+    for route in kernel.ROUTES:
+        kernel.matmul_kernel(a, b, route=route)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            kernel.matmul_kernel(a, b, route=route)
+        host[route] = (time.perf_counter() - t0) / 500
+        torch.cuda.synchronize()
+    log(f"  matmul host time a launch, (128, 64) @ (64, 128) bf16: wgmma "
+        f"{host['wgmma'] * 1e6:.1f} us (two TMA maps encoded), CUDA cores "
+        f"{host['cuda_core'] * 1e6:.1f} us")
+    torch.cuda.empty_cache()
+    return dict(time_matmul(*args), max_abs_err=main_err)
+
+
+def time_matmul(a, b):
+    """Kernel, plain and ``torch.matmul`` times (and the bound) of one
+    ``ops.matmul`` call on bf16 ``a``, ``b``: the tenant program's (2048,
+    1024) @ (1024, 3072), or a decode-shaped 8 rows."""
+    import torch
+
+    from repro_torch.kernels.matmul import ops, ref
+
+    (M, K), N = a.shape, b.shape[1]
+    sets = copies_over_l2([a, b])
     kernel = device_ms(lambda a, b: ops.matmul(a, b), sets, iters=20)
     plain = device_ms(lambda a, b: ref.matmul_ref(a, b), sets, iters=20)
     library = device_ms(lambda a, b: torch.matmul(a, b), sets, iters=20)
@@ -1076,24 +1172,36 @@ def check_matmul(gen):
     return dict(name="matmul", route="cuda",
                 source="src/repro_torch/csrc/matmul.cu",
                 replaces="src/repro/kernels/matmul/kernel.py:50",
-                max_abs_err=main_err, ms=kernel, plain_ms=plain,
-                bound_ms=bms, bound_by=by, library_ms=library)
+                ms=kernel, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=library)
 
 
-# Faults planted in a copy of ssd_scan.cu, as (name, original, fault): y
-# without the inter-chunk term, a state update that drops the carried
-# state (keeping only this chunk's sum), one that keeps it without its
-# decay, and query tiles that skip every key tile more than one below the
-# diagonal.
+# Faults planted in a copy of ssd_scan.cu, as (name, original, fault), in
+# the bf16 passes and in the f32 kernel: y without the inter-chunk term, a
+# state passing that drops the carried state (keeping only the last
+# chunk's own), one that keeps it without its decay, query tiles that skip
+# every key tile more than one below the diagonal, and (bf16) a passing
+# that never adds a chunk's own state.
 SSD_FAULTS = (
-    ("reads no carried state",
+    ("passes: reads no carried state",
+     "const float e = i < L ? exp2f(cum_s[i] * LOG2E) : 0.f;",
+     "const float e = 0.f;"),
+    ("passes: drops the carried state",
+     "st = st * et + states[o];", "st = states[o];"),
+    ("passes: carries the state undecayed",
+     "st = st * et + states[o];", "st = st + states[o];"),
+    ("passes: skips the far key tiles",
+     "const int k_first = 0;", "const int k_first = max(0, k_last - 1);"),
+    ("passes: passes no chunk state on",
+     "st = st * et + states[o];", "st = st * et;"),
+    ("f32: reads no carried state",
      "const float e = (i < L) ? expf(s.cum[i]) : 0.f;",
      "const float e = 0.f;"),
-    ("drops the carried state",
+    ("f32: drops the carried state",
      "*e = et * *e + sacc[a][c];", "*e = sacc[a][c];"),
-    ("carries the state undecayed",
+    ("f32: carries the state undecayed",
      "*e = et * *e + sacc[a][c];", "*e = *e + sacc[a][c];"),
-    ("skips the far key tiles",
+    ("f32: skips the far key tiles",
      "for (int k0 = 0; k0 < k_end; k0 += TK) {",
      "for (int k0 = max(0, q0 - TK); k0 < k_end; k0 += TK) {"),
 )
@@ -1108,7 +1216,7 @@ def _build_fault(name, original, fault, out_dir):
     src = (_build.CSRC / "ssd_scan.cu").read_text()
     check(src.count(original) == 1, f"fault {name!r}: the line to replace "
           f"is not in ssd_scan.cu once")
-    tag = name.replace(" ", "_")
+    tag = name.replace(":", "").replace(" ", "_")
     cu = out_dir / f"ssd_scan_{tag}.cu"
     cu.write_text(src.replace(original, fault))
     lib = out_dir / f"libssd_{tag}.so"
@@ -1915,6 +2023,7 @@ def serve_mamba_path(card: str):
             pfx_ops.prefix_flash_attention)
     for c in (ssd_ops.ssd,) + attn:
         c.launches = 0
+    ssd_ops.ssd.route_calls.update(dict.fromkeys(ssd_ops.ssd.route_calls, 0))
     t0 = time.perf_counter()
     stats = batcher.run()
     torch.cuda.synchronize()
@@ -1932,6 +2041,9 @@ def serve_mamba_path(card: str):
     check(stats.prefills > 0 and stats.steps > 0, "nothing was served")
     check(ssd_n == L * stats.prefills,
           f"ssd launches {ssd_n} != {L} x {stats.prefills} admissions")
+    check(ssd_ops.ssd.route_calls["passes"] == ssd_n,
+          f"ssd routes {ssd_ops.ssd.route_calls}: every bf16 admission "
+          f"should take the five passes")
     check(not any(attn_n.values()),
           f"attention kernels ran on the Mamba-2 path: {attn_n}")
     check(stats.dispatches == stats.prefills + stats.chunks,
@@ -1947,7 +2059,8 @@ def serve_mamba_path(card: str):
         f"({_gib(peak - base)} above the {_gib(base)} allocated at the start, "
         f"params {_gib(_param_bytes(params))}, decode state "
         f"{_gib(stats.cache_bytes)}) [{card}]")
-    log(f"  launches: ssd_scan={ssd_n} (= {L} x {stats.prefills}), attention "
+    log(f"  launches: ssd_scan={ssd_n} calls (= {L} x {stats.prefills}), "
+        f"routes {ssd_ops.ssd.route_calls}, 5 kernels a call; attention "
         f"kernels {attn_n}")
     return {"ssd_scan": ssd_n}, (params, cfg)
 
@@ -2066,6 +2179,8 @@ def serve_tenancy_path(card: str, params, cfg, build_s: float):
                 pa_ops.paged_decode_attention)
     for c in counters:
         c.launches = 0
+    mm_ops.matmul.route_launches.update(
+        dict.fromkeys(mm_ops.matmul.route_launches, 0))
     bf16 = torch.bfloat16
     specs = tuple(TensorSpec(NORM_PROJ_SHAPES[k], bf16) for k in "xsw")
     progs = ex.compiler.static_compile("norm_proj", norm_proj, specs,
@@ -2152,6 +2267,9 @@ def serve_tenancy_path(card: str, params, cfg, build_s: float):
     check(launches["rmsnorm"] == 3 and launches["matmul"] == 3,
           f"rmsnorm/matmul launches {launches}: expected 2 in the static "
           f"stage and 1 after the regrow")
+    check(mm_ops.matmul.route_launches["wgmma"] == 3,
+          f"matmul routes {mm_ops.matmul.route_launches}: the program's bf16 "
+          f"product should take the wgmma route")
     L = cfg.n_layers
     prefills = alice_stats.prefills + bob_stats.prefills
     steps = alice_stats.steps + bob_stats.steps
@@ -2188,7 +2306,8 @@ def serve_tenancy_path(card: str, params, cfg, build_s: float):
         f"uninterrupted run: {same}/{len(alice_reqs)}; norm_proj rel err "
         f"{err:.3e}")
     log(f"  launches: rmsnorm={launches['rmsnorm']} matmul="
-        f"{launches['matmul']} (2 static + 1 after the regrow), "
+        f"{launches['matmul']} (2 static + 1 after the regrow; routes "
+        f"{mm_ops.matmul.route_launches}), "
         f"flash_attention={launches['flash_attention']} (= {L} x {prefills}),"
         f" paged_decode_attention={launches['paged_decode_attention']} "
         f"(= {L} x {steps})")
@@ -2200,12 +2319,16 @@ def serve_tenancy_path(card: str, params, cfg, build_s: float):
 # ---------------------------------------------------------------------------
 
 
-# the first match names the class; the dense decode kernels are
+# the SSD scan's bf16 passes, in launch order
+SSD_KERNELS = ("ssd_cumsum_kernel", "ssd_cb_kernel", "ssd_chunk_state_kernel",
+               "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
+# the first match names the class (the SSD's f32 route is ssd_f32_kernel);
+# the dense decode kernels are
 # dec_split_kernel and dec_merge_kernel, the paged one paged_dec_kernel, the
 # verify kernels paged_verify_{mma,f32}_kernel and paged_verify_merge_kernel
 # (paged_verify_kernel before the split)
 _KERNEL_CLASSES = (("flash_attention", ("fa_kernel", "fa_mma_kernel")),
-                   ("ssd_scan", ("ssd_kernel",)),
+                   ("ssd_scan", SSD_KERNELS + ("ssd_f32_kernel",)),
                    ("paged_verify_attention", ("paged_verify_kernel",
                                                "paged_verify_mma_kernel",
                                                "paged_verify_f32_kernel",
@@ -2214,6 +2337,7 @@ _KERNEL_CLASSES = (("flash_attention", ("fa_kernel", "fa_mma_kernel")),
                    ("paged_decode_attention", ("paged_dec_kernel",)),
                    ("decode_attention", ("dec_split_kernel",
                                          "dec_merge_kernel")),
+                   ("matmul (port)", ("mm_wgmma_kernel", "mm_simt_kernel")),
                    # cuBLASLt's Hopper GEMMs are named nvjet_*
                    ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "cublas",
                                         "nvjet")))
@@ -2332,8 +2456,8 @@ def main() -> int:
         log("SSD scan with planted faults against phases 3 and 4")
         return ssd_fault_check()
     if "--kernel-times" in sys.argv[1:]:
-        log("flash, dense decode, prefix and verify kernels timed at the "
-            "main paths' shapes")
+        log("flash, dense decode, prefix, verify, SSD and matmul kernels "
+            "timed at the main paths' shapes")
         return kernel_times(card)
 
     log("phase 2: build")
@@ -2395,7 +2519,8 @@ def main() -> int:
          ("paged_verify_mma_kernel", "paged_verify_merge_kernel",
           "pfx_mma_kernel")),
         ("mamba2 path", lambda: _mamba_batcher(mparams, mcfg,
-                                               _mamba_requests(mcfg)), ())])
+                                               _mamba_requests(mcfg)),
+         SSD_KERNELS)])
 
     for row in rows:
         # each kernel's launches on the path that runs it: flash on the

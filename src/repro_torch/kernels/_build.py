@@ -49,13 +49,15 @@ SIGNATURES = {
     # q, pk, pv, k, v, out, B, Sq, Lp, Sk, H, Hkv, dh, q_offset, is_bf16,
     # stream
     "repro_prefix_flash_attention": [_P] * 6 + [_I] * 9 + [_P],
-    # x, dt, dA, Bm, Cm, y, state, B, nh, S, hd, G, N, chunk, is_bf16,
-    # stream
-    "repro_ssd_scan": [_P] * 7 + [_I] * 8 + [_P],
+    # x, dt, A, Bm, Cm, y, state, the bf16 passes' scratch (cum, dt, C.B^T,
+    # chunk states, entering states), B, nh, S, hd, G, N, chunk, is_bf16,
+    # then the batch and sequence strides of x, dt, Bm and Cm, stream
+    "repro_ssd_scan": [_P] * 12 + [_I] * 16 + [_P],
     # x, scale, y, T, d, eps, x_is_bf16, scale_is_bf16, stream
     "repro_rmsnorm": [_P] * 3 + [_I] * 2 + [_F] + [_I] * 2 + [_P],
-    # a, b, c, M, N, K, in_is_bf16, out_is_bf16, stream
-    "repro_matmul": [_P] * 3 + [_I] * 5 + [_P],
+    # a, b, c, M, N, K, in_is_bf16, out_is_bf16, route (1 wgmma, 0 CUDA
+    # cores), stream
+    "repro_matmul": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 # what the last build printed (registers, shared memory, spills per kernel)

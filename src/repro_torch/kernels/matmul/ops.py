@@ -3,13 +3,15 @@
 The leading dims of ``a`` are flattened into M and both operands made
 contiguous, as ``repro.kernels.matmul.ops`` does.  The route follows the
 tensor's device: a CPU tensor takes the plain version (:mod:`.ref`), a
-CUDA tensor launches the kernel or raises.  There is no fallback between
-the two.  ``matmul.launches`` counts kernel launches.
+CUDA tensor launches a kernel or raises.  There is no fallback between
+the two, nor between the kernel's routes (``kernel.matmul_route``).
+``matmul.launches`` counts kernel launches, and ``matmul.route_launches``
+counts them by route.
 """
 
 from __future__ import annotations
 
-from .kernel import matmul_kernel
+from .kernel import ROUTES, matmul_kernel, route_of
 from .ref import matmul_ref
 
 
@@ -20,10 +22,13 @@ def matmul(a, b, *, out_dtype=None):
     if a.device.type == "cpu":
         out = matmul_ref(a2, b, out_dtype=out_dtype)
     else:
-        out = matmul_kernel(a2.contiguous(), b.contiguous(),
-                            out_dtype=out_dtype)
+        a2, b2 = a2.contiguous(), b.contiguous()
+        route = route_of(a2, b2)
+        out = matmul_kernel(a2, b2, out_dtype=out_dtype, route=route)
         matmul.launches += 1
+        matmul.route_launches[route] += 1
     return out.reshape(*lead, b.shape[-1])
 
 
 matmul.launches = 0
+matmul.route_launches = dict.fromkeys(ROUTES, 0)

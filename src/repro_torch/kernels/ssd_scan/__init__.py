@@ -1,5 +1,5 @@
 from . import ops, ref
-from .kernel import ssd_scan_kernel
+from .kernel import ssd_route, ssd_scan_kernel
 from .ops import ssd
 
-__all__ = ["ops", "ref", "ssd", "ssd_scan_kernel"]
+__all__ = ["ops", "ref", "ssd", "ssd_route", "ssd_scan_kernel"]

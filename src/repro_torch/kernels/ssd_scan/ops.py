@@ -4,18 +4,22 @@
 It takes ``L = min(chunk, S)`` and pads a ragged tail with ``dt = 0``
 (``models.ssm.pad_to_chunks``), as ``ssd_chunked`` does, where the
 reference's Pallas route asserts ``S % chunk == 0`` (ROADMAP.md Queue 3);
-the padded rows are cut off y.  For the kernel it moves the head axis
-ahead of the sequence and forms ``dA = dt · A``, as
-``repro.kernels.ssd_scan.ops`` does.  The route follows the tensor's
-device: a CPU tensor takes the plain version (``models.ssm.ssd_chunked``
-on the padded input), a CUDA tensor launches the kernel or raises.  There
-is no fallback between the two.  ``ssd.launches`` counts kernel launches.
+the padded rows are cut off y.  Otherwise the inputs reach the kernel as
+the caller holds them: it reads the model layout through strides and forms
+``dA = dt · A`` itself, where ``repro.kernels.ssd_scan.ops`` moves the
+head axis ahead of the sequence.  The route follows the tensor's device: a
+CPU tensor takes the plain version (``models.ssm.ssd_chunked`` on the
+padded input), a CUDA tensor launches the kernel or raises.  There is no
+fallback between the two, nor between the kernel's routes
+(``kernel.ssd_route``).  ``ssd.launches`` counts calls that reached the
+card (a bf16 call launches five kernels, an f32 call one), and
+``ssd.route_calls`` counts them by route.
 """
 
 from __future__ import annotations
 
 from ...models.ssm import pad_to_chunks, ssd_chunked
-from .kernel import ssd_scan_kernel
+from .kernel import ROUTES, ssd_route, ssd_scan_kernel
 
 
 def ssd(x, dt, A, Bm, Cm, *, chunk: int, return_state: bool = False):
@@ -27,14 +31,9 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int, return_state: bool = False):
     if x.device.type == "cpu":
         y, state = ssd_chunked(x, dt, A, Bm, Cm, chunk=L, return_state=True)
     else:
-        xt = x.movedim(2, 1).contiguous()                # (B, nh, S, hd)
-        dtt = dt.movedim(2, 1).float().contiguous()      # (B, nh, S)
-        dAt = dtt * A[None, :, None]
-        Bt = Bm.movedim(2, 1).contiguous()               # (B, G, S, N)
-        Ct = Cm.movedim(2, 1).contiguous()
-        y, state = ssd_scan_kernel(xt, dtt, dAt, Bt, Ct, chunk=L)
+        y, state = ssd_scan_kernel(x, dt.float(), A.float(), Bm, Cm, chunk=L)
         ssd.launches += 1
-        y = y.movedim(1, 2)
+        ssd.route_calls[ssd_route(x.dtype)] += 1
     y = y[:, :S]
     if return_state:
         return y, state
@@ -42,3 +41,4 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int, return_state: bool = False):
 
 
 ssd.launches = 0
+ssd.route_calls = dict.fromkeys(ROUTES, 0)

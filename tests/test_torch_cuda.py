@@ -554,10 +554,10 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(gen):
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
 
     def args(hd=32, N=16, S=64, dtype=torch.float32):
-        x = _rand(gen, (1, 4, S, hd), dtype)
-        dt = torch.ones((1, 4, S), device="cuda")
-        bc = _rand(gen, (1, 1, S, N), dtype)
-        return x, dt, dt.clone(), bc, bc.clone()
+        x = _rand(gen, (1, S, 4, hd), dtype)
+        dt = torch.ones((1, S, 4), device="cuda")
+        bc = _rand(gen, (1, S, 1, N), dtype)
+        return x, dt, -torch.ones(4, device="cuda"), bc, bc.clone()
 
     with pytest.raises(ValueError, match="hd=48"):
         ssd_scan_kernel(*args(hd=48), chunk=32)
@@ -569,6 +569,78 @@ def test_ssd_scan_kernel_refuses_what_it_does_not_take(gen):
         ssd_scan_kernel(*args(S=48), chunk=32)
     with pytest.raises(ValueError, match="dtype"):
         ssd_scan_kernel(*args(dtype=torch.float16), chunk=32)
+    x, dt, A, Bm, Cm = args(dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="strides"):
+        ssd_scan_kernel(x.transpose(1, 2).contiguous().transpose(1, 2), dt,
+                        A, Bm, Cm, chunk=32)
+    flat = torch.empty(1 + x.numel(), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        ssd_scan_kernel(flat[1:].view(x.shape), dt, A, Bm, Cm, chunk=32)
+
+
+def _xbc_inputs(gen, B, S, nh, hd, G, N, dt_range=None):
+    """x, dt, A, Bm, Cm as the SSM block hands them over: bf16 views of one
+    conv output (B, S, nh hd + 2 G N)."""
+    d_in, gn = nh * hd, G * N
+    xbc = torch.cat([_rand(gen, (B, S, d_in), torch.float32) * 0.5,
+                     _rand(gen, (B, S, 2 * gn), torch.float32) * 0.3],
+                    dim=-1).to(torch.bfloat16)
+    _, dt, A, _, _ = _ssd_inputs(gen, B, S, nh, hd, G, N, torch.bfloat16,
+                                 dt_range=dt_range)
+    return (xbc[..., :d_in].view(B, S, nh, hd), dt, A,
+            xbc[..., d_in:d_in + gn].view(B, S, G, N),
+            xbc[..., d_in + gn:].view(B, S, G, N))
+
+
+@pytest.mark.parametrize("B,S,nh,hd,G,N,chunk,dt_range", [
+    (8, 1024, 32, 64, 1, 128, 256, None),          # mamba2-370m's admission
+    (8, 1024, 32, 64, 1, 128, 256, (1e-4, 1e-2)),  # slow decay
+    (4, 96, 8, 32, 1, 16, 32, (1e-3, 1e-1)),       # the reduced config
+    (2, 512, 8, 64, 2, 128, 128, None),            # G = 2
+    (2, 100, 8, 64, 1, 128, 256, None),            # S < chunk: L = 100
+])
+def test_ssd_scan_reads_the_model_layout_without_copies(
+        gen, monkeypatch, B, S, nh, hd, G, N, chunk, dt_range):
+    """The bf16 call takes the SSM block's views of ``xBC`` as they are: the
+    launcher receives x, Bm and Cm at their own addresses and strides (no
+    copy), the route counter shows the five passes, and y and the final
+    state agree with ``ssd_chunked`` (2e-2 and 1e-4 of its largest
+    magnitude)."""
+    from repro_torch.kernels.ssd_scan import kernel, ops
+    from repro_torch.models.ssm import ssd_chunked
+
+    args = _xbc_inputs(gen, B, S, nh, hd, G, N, dt_range)
+    seen = []
+
+    def spy(*a, **kw):
+        seen.append([(t.data_ptr(), t.stride()) for t in a])
+        return kernel.ssd_scan_kernel(*a, **kw)
+
+    monkeypatch.setattr(ops, "ssd_scan_kernel", spy)
+    before = dict(ops.ssd.route_calls)
+    y, st = ops.ssd(*args, chunk=chunk, return_state=True)
+    want_y, want_st = ssd_chunked(*args, chunk=chunk, return_state=True)
+    torch.cuda.synchronize()
+    assert seen == [[(t.data_ptr(), t.stride()) for t in args]]
+    assert ops.ssd.route_calls["passes"] == before["passes"] + 1
+    assert ops.ssd.route_calls["f32"] == before["f32"]
+    assert y.shape == args[0].shape and y.dtype == torch.bfloat16
+    assert bool(torch.isfinite(y).all() and torch.isfinite(st).all())
+    assert _rel(y, want_y) <= TOL[torch.bfloat16]
+    assert _rel(st, want_st) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "passes"),
+                                         (torch.float32, "f32")])
+def test_ssd_scan_routes_by_dtype(gen, dtype, route):
+    from repro_torch.kernels.ssd_scan import ops
+
+    args = _ssd_inputs(gen, 2, 128, 4, 32, 1, 16, dtype)
+    before = dict(ops.ssd.route_calls)
+    ops.ssd(*args, chunk=32)
+    torch.cuda.synchronize()
+    assert {k: n - before[k] for k, n in ops.ssd.route_calls.items()} == \
+        {k: int(k == route) for k in before}
 
 
 def _mamba2_dt_init(params, seed):
@@ -684,6 +756,45 @@ def test_matmul_kernel_matches_plain(gen, in_dtype, out_dtype, sa, sb):
     scale = want.float().abs().max().clamp(min=1e-30)
     err = ((got.float() - want.float()).abs().max() / scale).item()
     assert err <= (1e-5 if out_dtype == torch.float32 else 8e-3)
+
+
+@pytest.mark.parametrize("in_dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.float32),
+    (torch.float32, torch.float32)])
+@pytest.mark.parametrize("M,K,N", [(2048, 1024, 3072), (2048, 3072, 1024),
+                                   (8, 1024, 3072), (100, 300, 72)])
+def test_matmul_routes_on_the_card(gen, in_dtype, out_dtype, M, K, N):
+    """The phase-3 shapes: the bf16 2048-row and decode products go through
+    the wgmma route, the ragged one (600-byte rows of a) and f32 through the
+    CUDA-core kernel, as the route counters show; errors as in
+    ``test_matmul_kernel_matches_plain``."""
+    from repro_torch.kernels.matmul import ops, ref
+
+    a = _rand(gen, (M, K), in_dtype)
+    b = _rand(gen, (K, N), in_dtype)
+    before = dict(ops.matmul.route_launches)
+    got = ops.matmul(a, b, out_dtype=out_dtype)
+    want = ref.matmul_ref(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    route = ("wgmma" if in_dtype == torch.bfloat16 and K % 8 == 0
+             else "cuda_core")
+    assert {k: n - before[k] for k, n in ops.matmul.route_launches.items()} \
+        == {k: int(k == route) for k in before}
+    err = _rel(got, want)
+    assert err <= (1e-5 if out_dtype == torch.float32 else 8e-3)
+
+
+def test_matmul_wgmma_route_raises_where_tma_cannot_read(gen):
+    """Asked for the wgmma route on what TMA cannot describe, the launcher
+    raises; it never gives way to the other route."""
+    from repro_torch.kernels.matmul import kernel
+
+    a = _rand(gen, (100, 300), torch.bfloat16)
+    b = _rand(gen, (300, 72), torch.bfloat16)
+    with pytest.raises(RuntimeError, match="wgmma"):
+        kernel.matmul_kernel(a, b, route="wgmma")
+    with pytest.raises(RuntimeError, match="wgmma"):
+        kernel.matmul_kernel(a.float(), b.float(), route="wgmma")
 
 
 def test_rmsnorm_and_matmul_refuse_what_they_do_not_take(gen):

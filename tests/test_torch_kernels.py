@@ -805,3 +805,116 @@ def test_prefix_bf16_p_rounding_stays_within_bf16_tol(Lp, q_offset):
     exact = pfx_ref.prefix_flash_attention_mma_ref(
         *(t.float() for t in (q, pk, pv, k, v)), q_offset=q_offset)
     assert (got.float() - exact).abs().max().item() > 0
+
+
+# ---------------------------------------------------------------------------
+# the matmul's route planner: which products the wgmma (TMA) route takes
+# ---------------------------------------------------------------------------
+
+_BF, _F32 = torch.bfloat16, torch.float32
+# (dtype, M, K, N, a strides, b strides, a base, b base, route)
+ROUTE_CASES = {
+    "admission up bf16": (_BF, 2048, 1024, 3072, (1024, 1), (3072, 1), 0, 0,
+                          "wgmma"),
+    "admission down bf16": (_BF, 2048, 3072, 1024, (3072, 1), (1024, 1), 512,
+                            4096, "wgmma"),
+    "decode bf16": (_BF, 8, 1024, 3072, (1024, 1), (3072, 1), 0, 0, "wgmma"),
+    "tenant test (64, 128) @ (128, 96)": (_BF, 64, 128, 96, (128, 1), (96, 1),
+                                          0, 0, "wgmma"),
+    "ragged (100, 300) @ (300, 72): 600-byte rows of a": (
+        _BF, 100, 300, 72, (300, 1), (72, 1), 0, 0, "cuda_core"),
+    "N = 100: 200-byte rows of b": (_BF, 64, 64, 100, (64, 1), (100, 1), 0, 0,
+                                    "cuda_core"),
+    "(1, 1) @ (1, 1)": (_BF, 1, 1, 1, (1, 1), (1, 1), 0, 0, "cuda_core"),
+    "a off the 16-byte boundary": (_BF, 64, 64, 64, (64, 1), (64, 1), 2, 0,
+                                   "cuda_core"),
+    "b off the 16-byte boundary": (_BF, 64, 64, 64, (64, 1), (64, 1), 0, 8,
+                                   "cuda_core"),
+    "b column-major": (_BF, 64, 64, 64, (64, 1), (1, 64), 0, 0, "cuda_core"),
+    "f32 admission (no TF32)": (_F32, 2048, 1024, 3072, (1024, 1), (3072, 1),
+                                0, 0, "cuda_core"),
+    "f32 decode": (_F32, 8, 1024, 3072, (1024, 1), (3072, 1), 0, 0,
+                   "cuda_core"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_matmul_route_planner(case):
+    """``kernel.matmul_route`` is a pure function of (dtype, shape, strides,
+    alignment): bf16 row-major operands with 16-byte aligned bases and rows
+    take the wgmma route (TMA's rule), everything else, f32 included, the
+    CUDA-core kernel."""
+    dtype, M, K, N, sa, sb, pa, pb, want = ROUTE_CASES[case]
+    assert mm_kernel.matmul_route(dtype, M, K, N, sa, sb, pa, pb) == want
+
+
+@pytest.mark.parametrize("case", ["admission up bf16", "decode bf16",
+                                  "ragged (100, 300) @ (300, 72): 600-byte "
+                                  "rows of a", "f32 decode"])
+def test_matmul_route_of_tensors(case):
+    """``kernel.route_of`` reads the planner's inputs off two tensors (CPU
+    tensors here: the planner needs no card)."""
+    dtype, M, K, N, _, _, _, _, want = ROUTE_CASES[case]
+    a, b = torch.zeros(M, K, dtype=dtype), torch.zeros(K, N, dtype=dtype)
+    if a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0:
+        assert mm_kernel.route_of(a, b) == want
+    assert mm_kernel.route_of(a, b.t().contiguous().t()) == "cuda_core"
+
+
+def test_matmul_wrapper_counts_routes_only_on_the_card():
+    """The per-route counters sit beside ``matmul.launches`` and, like it,
+    count nothing on the CPU."""
+    assert set(mm_ops.matmul.route_launches) == set(mm_kernel.ROUTES)
+    before = dict(mm_ops.matmul.route_launches)
+    mm_ops.matmul(torch.ones(4, 8, dtype=torch.bfloat16),
+                  torch.ones(8, 16, dtype=torch.bfloat16))
+    assert mm_ops.matmul.route_launches == before
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's planted SSD faults and phase-6 kernel classes stay in step
+# with the sources they name
+# ---------------------------------------------------------------------------
+
+def _load_chip_smoke():
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_CHIP_SMOKE = _load_chip_smoke()
+
+
+@pytest.mark.parametrize("fault", [f[0] for f in _CHIP_SMOKE.SSD_FAULTS])
+def test_ssd_fault_replaces_one_line_of_the_kernel(fault):
+    """``chip_smoke.py --ssd-faults`` plants each fault by replacing one
+    source line of ``csrc/ssd_scan.cu``: the line must be there exactly
+    once, and the fault must change it."""
+    name, original, planted = next(f for f in _CHIP_SMOKE.SSD_FAULTS
+                                   if f[0] == fault)
+    src = (Path(_build.CSRC) / "ssd_scan.cu").read_text()
+    assert src.count(original) == 1
+    assert planted != original
+
+
+@pytest.mark.parametrize("kernel,cls", [
+    *((k, "ssd_scan") for k in _CHIP_SMOKE.SSD_KERNELS),
+    ("ssd_f32_kernel", "ssd_scan"),
+    ("mm_wgmma_kernel", "matmul (port)"),
+    ("mm_simt_kernel", "matmul (port)"),
+])
+def test_phase6_attributes_the_new_kernels(kernel, cls):
+    """Phase 6 names a kernel's class by the first key its (lower-cased,
+    demangled) name holds: the SSD passes land in the SSD class and the
+    matmul's kernels in the port's matmul class, not cuBLAS's; each name is
+    a ``__global__`` of the sources."""
+    name = f"void (anonymous namespace)::{kernel}<64, 128>(float const*)"
+    got = next(c for c, keys in _CHIP_SMOKE._KERNEL_CLASSES
+               if any(k in name.lower() for k in keys))
+    assert got == cls
+    src = "".join(p.read_text() for p in Path(_build.CSRC).glob("*.cu"))
+    assert re.search(rf"\b{kernel}\(", src)

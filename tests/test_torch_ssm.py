@@ -35,7 +35,7 @@ from repro.serving import ServingConfig as JaxServingConfig
 from repro.serving import kv_cache as jax_kv_cache
 from repro_torch.configs import get_reduced
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.kernels.ssd_scan.ref import ssd_naive
+from repro_torch.kernels.ssd_scan.ref import ssd_naive, ssd_passes_ref
 from repro_torch.models import decode_step, init_caches, init_params, prefill
 from repro_torch.models import layers, ssm
 from repro_torch.serving import (
@@ -194,6 +194,194 @@ def test_ssd_kernel_is_built_and_refuses_cpu_tensors(tmp_path, monkeypatch):
     bc = torch.zeros(1, 1, 32, 16)
     with pytest.raises(ValueError, match="cpu"):
         ssd_scan_kernel(x, dt, dt, bc, bc, chunk=32)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's bf16 route, pass by pass in plain torch
+# ---------------------------------------------------------------------------
+
+# (B, S, nh, hd, G, N, chunk, dt_range)
+PASSES_CASES = {
+    "G=1, 4 chunks": (2, 128, 4, 32, 1, 16, 32, None),
+    "G=2, rep 4": (1, 192, 8, 16, 2, 8, 64, None),
+    "ragged S=120": (2, 120, 4, 32, 1, 16, 32, None),
+    "S=24 < chunk": (2, 24, 4, 32, 1, 16, 32, None),
+    "one chunk": (2, 96, 2, 32, 1, 16, 96, None),
+    "slow decay": (2, 128, 4, 32, 1, 16, 32, (1e-3, 1e-1)),
+    "slow decay, ragged, G=2": (1, 100, 4, 32, 2, 16, 32, (1e-3, 1e-1)),
+}
+
+
+@pytest.mark.parametrize("case", list(PASSES_CASES))
+def test_ssd_passes_ref_matches_jax(case):
+    """``ref.ssd_passes_ref`` (cum, C·Bᵀ per group, chunk states, passing,
+    chunk scan) at f32 against JAX's ``ssd_chunked`` and the port's (1e-5:
+    the same sums in another order), JAX's ``ssd_naive`` and, where S
+    divides by the chunk (or is below it), the Pallas kernel in interpret
+    mode (1e-4, the oracles' tolerance)."""
+    B, S, nh, hd, G, N, chunk, dt_range = PASSES_CASES[case]
+    x, dt, A, Bm, Cm = _scan_inputs(5, B, S, nh, hd, G, N, dt_range=dt_range)
+    y, st = ssd_passes_ref(_t(x), _t(dt), _t(A), _t(Bm), _t(Cm), chunk=chunk)
+    assert y.shape == (B, S, nh, hd) and y.dtype == torch.float32
+    jargs = [jnp.asarray(a) for a in (x, dt, A, Bm, Cm)]
+    jy, jst = jax_ssm.ssd_chunked(*jargs, chunk=chunk, return_state=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), **SCAN_TOL)
+    np.testing.assert_allclose(st.numpy(), np.asarray(jst), **SCAN_TOL)
+    ty, tst = ssm.ssd_chunked(_t(x), _t(dt), _t(A), _t(Bm), _t(Cm),
+                              chunk=chunk, return_state=True)
+    np.testing.assert_allclose(y.numpy(), ty.numpy(), **SCAN_TOL)
+    np.testing.assert_allclose(st.numpy(), tst.numpy(), **SCAN_TOL)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jax_ssd_naive(*jargs)),
+                               **ORACLE_TOL)
+    L = min(chunk, S)
+    if S % L == 0:
+        py, pst = jax_ssd_ops.ssd(*jargs, chunk=L, return_state=True,
+                                  interpret=True)
+        np.testing.assert_allclose(y.numpy(), np.asarray(py), **ORACLE_TOL)
+        np.testing.assert_allclose(st.numpy(), np.asarray(pst), **ORACLE_TOL)
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def _bf16_inputs(case, seed=6):
+    B, S, nh, hd, G, N, chunk, dt_range = PASSES_CASES[case]
+    x, dt, A, Bm, Cm = _scan_inputs(seed, B, S, nh, hd, G, N,
+                                    dt_range=dt_range)
+    bf = torch.bfloat16
+    return (_t(x).to(bf), _t(dt), _t(A), _t(Bm).to(bf), _t(Cm).to(bf)), chunk
+
+
+@pytest.mark.parametrize("case", list(PASSES_CASES))
+def test_ssd_passes_bf16_rounding_stays_within_phase3_tolerances(case):
+    """The kernel's bf16 rounding points modelled (C·Bᵀ, the scaled scores
+    and the entering state rounded to bf16, the state update's weighted
+    operand split into bf16 hi + lo, y rounded once), on bf16 inputs,
+    against ``ssd_chunked`` on the same inputs (what ``chip_smoke.py``
+    phase 3 holds the kernel to): y within 2e-2 and the final state within
+    1e-4 of the plain version's largest magnitude, the slow-decay cases
+    included."""
+    args, chunk = _bf16_inputs(case)
+    y, st = ssd_passes_ref(*args, chunk=chunk, bf16_points=True)
+    want_y, want_st = ssm.ssd_chunked(*args, chunk=chunk, return_state=True)
+    assert y.dtype == torch.bfloat16 and y.shape == want_y.shape
+    assert _rel(y, want_y) <= 2e-2
+    assert _rel(st, want_st) <= 1e-4
+
+
+@pytest.mark.parametrize("case", ["G=1, 4 chunks", "slow decay",
+                                  "slow decay, ragged, G=2"])
+def test_ssd_state_update_needs_the_hi_lo_split(case):
+    """The design's reason for the hi + lo pair: the state update's weighted
+    operand rounded to bf16 once misses the state's 1e-4 tolerance."""
+    args, chunk = _bf16_inputs(case)
+    _, st = ssd_passes_ref(*args, chunk=chunk, bf16_points=True,
+                           split_state=False)
+    _, want_st = ssm.ssd_chunked(*args, chunk=chunk, return_state=True)
+    assert _rel(st, want_st) > 1e-4
+
+
+class _OnCard:
+    """A CPU tensor that the kernel's input checks take for a card tensor:
+    only ``.device`` differs (strides, dtype and ``data_ptr`` are real)."""
+
+    def __init__(self, t):
+        self._t = t
+
+    def __getattr__(self, k):
+        return getattr(self._t, k)
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _model_layout(B=2, S=64, nh=4, hd=32, G=1, N=16, dtype=torch.bfloat16,
+                  offset=0):
+    """x, dt, A, Bm, Cm as the SSM block hands them to ``ops.ssd``: views of
+    one conv output ``xBC`` (B, S, nh hd + 2 G N), ``offset`` elements into
+    its storage."""
+    d_in, gn = nh * hd, G * N
+    buf = torch.zeros(offset + B * S * (d_in + 2 * gn), dtype=dtype)
+    xbc = buf[offset:].view(B, S, d_in + 2 * gn)
+    x = xbc[..., :d_in].reshape(B, S, nh, hd)
+    Bm = xbc[..., d_in:d_in + gn].reshape(B, S, G, N)
+    Cm = xbc[..., d_in + gn:].reshape(B, S, G, N)
+    return x, torch.zeros(B, S, nh), torch.zeros(nh), Bm, Cm
+
+
+def _check(args, chunk=32):
+    from repro_torch.kernels.ssd_scan.kernel import check_inputs
+
+    check_inputs(*(_OnCard(a) for a in args), chunk)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd,N,G", [(32, 16, 1), (64, 128, 1), (32, 128, 2)])
+def test_ssd_kernel_takes_the_model_layout_views(dtype, hd, N, G):
+    """The SSM block's views of ``xBC`` (row stride the conv width) pass the
+    kernel's checks as they are: the wrapper makes no copy of them."""
+    x, dt, A, Bm, Cm = _model_layout(hd=hd, N=N, G=G, nh=4, dtype=dtype)
+    assert not x.is_contiguous() and not Bm.is_contiguous()
+    _check((x, dt, A, Bm, Cm))
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("x last stride 2", "strides"),
+    ("x heads interleaved", "strides"),
+    ("dt head-major", "strides"),
+    ("Bm last stride 2", "strides"),
+    ("bf16 view off the 16-byte boundary", "16-byte"),
+    ("A (nh, 2)[:, 0]", "contiguous"),
+])
+def test_ssd_kernel_refuses_strides_it_cannot_read(bad, match):
+    """A view the kernel cannot read raises before any build: a non-unit
+    last stride, inner strides other than (hd, 1) / (N, 1) / (1,), a bf16
+    row off the 16-byte boundary the passes' copies need, a strided A."""
+    x, dt, A, Bm, Cm = _model_layout()
+    if bad == "x last stride 2":
+        x = torch.zeros(2, 64, 4, 64, dtype=torch.bfloat16)[..., ::2]
+    elif bad == "x heads interleaved":
+        x = torch.zeros(2, 64, 32, 4, dtype=torch.bfloat16).transpose(2, 3)
+    elif bad == "dt head-major":
+        dt = torch.zeros(2, 4, 64).transpose(1, 2)
+    elif bad == "Bm last stride 2":
+        Bm = torch.zeros(2, 64, 1, 32, dtype=torch.bfloat16)[..., ::2]
+    elif bad == "bf16 view off the 16-byte boundary":
+        x, dt, A, Bm, Cm = _model_layout(offset=1)
+    else:
+        A = torch.zeros(4, 2)[:, 0]
+    with pytest.raises(ValueError, match=match):
+        _check((x, dt, A, Bm, Cm))
+
+
+def test_ssd_f32_route_takes_a_view_off_the_16_byte_boundary():
+    """The f32 kernel reads element by element: an f32 view one element off
+    the boundary is taken, and the routes follow the dtype."""
+    from repro_torch.kernels.ssd_scan.kernel import ROUTES, ssd_route
+
+    _check(_model_layout(dtype=torch.float32, offset=1))
+    assert ssd_route(torch.bfloat16) == "passes"
+    assert ssd_route(torch.float32) == "f32"
+    assert set(ssd_ops.ssd.route_calls) == set(ROUTES)
+
+
+def test_ssd_passes_workspace_shapes():
+    """The passes' scratch at the Mamba-2 path's admission shape: C·Bᵀ once
+    per (batch, group, chunk), 4.2 MB; the chunk states 33.5 MB f32 and the
+    entering states 16.8 MB bf16.  C·Bᵀ is kept in whole 64 x 64 tiles."""
+    from repro_torch.kernels.ssd_scan.kernel import workspace_shapes
+
+    ws = {name: (shape, dtype) for name, shape, dtype in
+          workspace_shapes(8, 1024, 32, 64, 1, 128, 256)}
+    assert ws["cb"] == ((8, 4, 256, 256), torch.bfloat16)
+    assert ws["states"] == ((8, 4, 32, 64, 128), torch.float32)
+    assert ws["state_in"] == ((8, 4, 32, 64, 128), torch.bfloat16)
+    assert ws["cum"] == ws["dt"] == ((8, 32, 1024), torch.float32)
+    assert workspace_shapes(2, 100, 4, 32, 1, 16, 100)[2][1] == (2, 1, 128, 128)
+    assert workspace_shapes(4, 96, 8, 32, 1, 16, 32)[2][1] == (4, 3, 64, 64)
 
 
 # ---------------------------------------------------------------------------
