@@ -20,7 +20,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               ring wrapping across a split boundary and GQA 16:1, in f32
               and bf16; paged: holes, a cur_pos sweep across
               page boundaries, a fully unmapped slot, GQA 16:1, with the
-              trash page poisoned to 1e4; verify: the same, a row 0 without
+              trash page poisoned to 1e4, and the page split (a split
+              whose pages are all holes, more splits than mapped pages,
+              pages of 4 and 8), in f32 and bf16; verify: the same, a row 0 without
               keys, W = 2, 6 and 8, dh 32 and 64, and the page split
               (windows across split boundaries, more splits than mapped
               pages, 32 rows a kv head), in f32 and bf16; prefix: ragged
@@ -34,8 +36,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               slow decay (dt ~ 1e-3, the carried state matters) at the
               admission shape and at chunk 32, and every (hd, N) it
               takes; rmsnorm: the qwen3-0.6b admission (2048, 1024),
-              decode (8, 1024) and q/k-norm (32768, 128) rows, d = 5120
-              and d = 130, f32 and bf16, a bf16 x with an f32 scale;
+              decode (8, 1024) and q/k-norm (32768, 128) rows, d = 4096,
+              5120 and 12288, d = 130 and a view off the 16-byte boundary,
+              f32 and bf16, mixed x and scale dtypes, each case's route
+              logged and checked (rows in registers except d = 130 and
+              the view, which take the two-pass kernel);
               matmul: (2048, 1024) @ (1024, 3072), (2048, 3072) @
               (3072, 1024), (8, 1024) @ (1024, 3072) and a ragged
               (100, 300) @ (300, 72), bf16 -> bf16, bf16 -> f32 and
@@ -107,7 +112,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               kv lease change reaches ``set_page_limit`` and no batcher
               outgrows its lease, the pool's isolation and bandwidth
               invariants hold, rmsnorm and matmul launch in the static
-              stage and after the regrow (the matmul on its wgmma route),
+              stage and after the regrow (the rmsnorm on its register
+              route, the matmul on its wgmma route),
               and the program's output agrees
               with its plain version.  Prints the static stage's seconds
               per lease size beside the regrow's ``t_context``.
@@ -116,8 +122,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
               all untraced first, then each under ``torch.profiler``: device
               busy time, idle share and device time by kernel class; the
               dense path must run the tensor-core flash kernel and the
-              decode split and merge kernels, the paged path the former
-              and the tensor-core prefix kernel, the spec path the verify
+              decode split and merge kernels, the paged path the former,
+              the tensor-core prefix kernel and the paged decode split and
+              merge kernels, the spec path the verify
               split (tensor-core) and merge kernels and the prefix kernel,
               the Mamba-2 path the SSD's five bf16 passes.
 
@@ -134,8 +141,9 @@ another checkout measures that checkout.
     python3 chip_smoke.py --kernel-times
 
 runs phase 1 and times the flash, dense decode, prefix, paged verify,
-SSD scan (on views of one xBC tensor) and matmul (the tenant program's
-shape and a decode-shaped one) kernels, their plain versions and their
+SSD scan (on views of one xBC tensor), matmul (the tenant program's
+shape and a decode-shaped one), paged decode and rmsnorm (the tenant
+program's (2048, 1024)) kernels, their plain versions and their
 PyTorch calls at the main paths' bf16 shapes (phase 3's timings without
 its correctness cases), against
 the ``src/repro_torch`` beside the script: a copy in another checkout
@@ -413,14 +421,14 @@ def time_decode(q, k, v, pos, cur_t):
 
 def kernel_times(card: str) -> int:
     """``--kernel-times``: the flash, dense decode, prefix, paged verify,
-    SSD scan and matmul kernels, their plain versions and their PyTorch
-    calls at the main paths' bf16 shapes (the matmul also decode-shaped),
-    timed against the ``src/repro_torch`` beside this script, without the
-    correctness cases: a copy of the script placed in another checkout
-    (e.g. the parent commit unpacked with ``git archive``) times that
-    checkout's kernels, so two trees compare in turns within one chip
-    call.  It calls only the ``ops`` and ``ref`` functions every tree
-    since the matmul kernel's port has."""
+    SSD scan, matmul, paged decode and rmsnorm kernels, their plain
+    versions and their PyTorch calls at the main paths' bf16 shapes (the
+    matmul also decode-shaped), timed against the ``src/repro_torch``
+    beside this script, without the correctness cases: a copy of the
+    script placed in another checkout (e.g. the parent commit unpacked
+    with ``git archive``) times that checkout's kernels, so two trees
+    compare in turns within one chip call.  It calls only the ``ops`` and
+    ``ref`` functions every tree since the matmul kernel's port has."""
     import torch
 
     gen = torch.Generator(device="cuda")
@@ -459,12 +467,23 @@ def kernel_times(card: str) -> int:
     mm_decode = time_matmul(_rand(gen, (8, 1024), bf16),
                             _rand(gen, (1024, 3072), bf16))
     mm_decode["name"] = "matmul (8, 1024) @ (1024, 3072)"
-    rows = [flash, decode, prefix, verify, ssd, mm, mm_decode]
+    cur = rng.integers(256, 322, size=B)       # a paged decode step
+    paged = time_paged_decode(
+        _rand(gen, (B, H, dh), bf16), kp, vp,
+        torch.from_numpy(_page_table(rng, B, maxp, P, cur, ps)).cuda(),
+        torch.as_tensor(np.asarray(cur, np.int32)).cuda())
+    rms = time_rmsnorm(_rand(gen, (2048, 1024), bf16),
+                       _rand(gen, (1024,), bf16))
+    rows = [flash, decode, prefix, verify, ssd, mm, mm_decode, paged, rms]
     for row in rows:
         library = ("none" if row["library_ms"] is None
                    else f"{row['library_ms'] * 1e3:.2f} us")
+        copy = (f", {row['copy_ms'] * 1e3:.2f} us copy of x" if "copy_ms" in row
+                else "")
+        if "floor_ms" in row:
+            copy += f", {row['floor_ms'] * 1e3:.2f} us one-element fill"
         log(f"  {row['name']}: {row['ms'] * 1e3:.2f} us kernel, "
-            f"{row['plain_ms'] * 1e3:.2f} us plain, {library} library "
+            f"{row['plain_ms'] * 1e3:.2f} us plain, {library} library{copy} "
             f"[{card}]")
     print(json.dumps({"kernel_times": {"root": str(ROOT), "card": card,
                                        "rows": rows}}), flush=True)
@@ -497,9 +516,8 @@ def _page_table(rng, B, max_pages, n_pages, cur, ps, *, holes=0.0):
 
 def check_paged_decode(gen):
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch.kernels.paged_attention import ops, ref
+    from repro_torch.kernels.paged_attention import kernel, ops, ref
 
     rng = np.random.default_rng(2)
 
@@ -546,8 +564,37 @@ def check_paged_decode(gen):
              rng.integers(0, 330, size=4), holes=0.2)
     run_case("gqa 16:1 dh=128 bf16", 4, 16, 1, 128, 8, 12, 64, bf16,
              rng.integers(0, 96, size=4))
+    # the page split (kernel.plan_page_splits: 6 splits of 4 pages at the
+    # main shape): a split whose pages are all holes, more splits than
+    # mapped pages, and pages of 4 and 8 (a 32-row tile over 8 or 4 pages)
+    n_split, pps = kernel.plan_page_splits(B, Hkv, maxp)
+    check((n_split, pps) == (6, 4), f"paged decode split {(n_split, pps)}")
+    for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
+        skipped = _page_table(rng, B, maxp, P, cur, ps)
+        skipped[:, pps:2 * pps] = -1           # split 1 sees no key
+        run_case(f"split all skipped {tag}", B, H, Hkv, dh, ps, maxp, P,
+                 dtype, cur, table=skipped)
+        run_case(f"splits > mapped pages {tag}", B, H, Hkv, dh, ps, maxp, P,
+                 dtype, rng.integers(0, 40, size=B))
+        for small in (4, 8):                   # 96 positions, 4 slots
+            run_case(f"page size {small} {tag}", 4, H, Hkv, dh, small,
+                     96 // small, 4 * 96 // small, dtype,
+                     rng.integers(0, 96, size=4), holes=0.2)
+    return dict(time_paged_decode(*main), max_abs_err=err)
 
-    q, kp, vp, tab, cur_t = main
+
+def time_paged_decode(q, kp, vp, tab, cur_t):
+    """Kernel, plain and page gather + SDPA times (and the bound) at the
+    paged serving path's decode shape (B=8, 21 pages of 16, bf16), from
+    its inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import ops, ref
+
+    B, H, dh = q.shape
+    P, ps, Hkv = kp.shape[0] - 1, kp.shape[1], kp.shape[2]
+    maxp = tab.shape[1]
     sets = copies_over_l2([q, kp, vp, tab, cur_t])
     kernel = device_ms(lambda *a: ops.paged_decode_attention(*a), sets)
     plain = device_ms(lambda *a: ref.paged_decode_attention_ref(*a), sets)
@@ -566,20 +613,19 @@ def check_paged_decode(gen):
             enable_gqa=True)
 
     library = device_ms(library_call, sets)
-    mapped_pages = int((tab >= 0).sum().item())
     pos = torch.arange(L, device="cuda")
     n_valid = int(((tab >= 0)[:, pos // ps] & (pos[None, :] <= cur_t[:, None]))
-                  .sum().item())
+                  .sum().item())              # (slot, key) pairs attended
     n_bytes = (2 * B * H * dh * 2                       # q in, out
-               + mapped_pages * ps * Hkv * dh * 2 * 2   # mapped K and V pages
+               + n_valid * Hkv * dh * 2 * 2             # valid K and V rows
                + B * maxp * 4 + B * 4)                  # table, cur_pos
     flops = 4.0 * dh * H * n_valid
     bms, by = bound_ms(n_bytes, flops)
     return dict(name="paged_decode_attention", route="cuda",
                 source="src/repro_torch/csrc/paged_decode_attention.cu",
                 replaces="src/repro/kernels/paged_attention/kernel.py:91",
-                max_abs_err=err, ms=kernel, plain_ms=plain, bound_ms=bms,
-                bound_by=by, library_ms=library)
+                ms=kernel, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=library)
 
 
 def check_prefix(gen):
@@ -731,9 +777,9 @@ def check_paged_verify(gen):
     run_case("dh=64 gqa 8:8 bf16", 3, 4, 8, 8, 64, 8, 6, 20, bf16,
              rng.integers(0, 44, size=3))
     # the bf16 route (tensor cores) on the f32 route's edge cases, and the
-    # split: kernel.plan_verify_splits gives the main shape 6 splits of 4
+    # split: kernel.plan_page_splits gives the main shape 6 splits of 4
     # pages (64 positions), so these windows straddle split boundaries
-    n_split, pps = kernel.plan_verify_splits(B, Hkv, maxp)
+    n_split, pps = kernel.plan_page_splits(B, Hkv, maxp)
     log(f"  verify main: {n_split} splits of {pps} pages")
     edges = np.asarray([62, 63, 64, 126, 127, 128, 190, 318])
     check(bool(((edges // (pps * ps)) != ((edges + W - 1) // (pps * ps)))
@@ -1019,42 +1065,60 @@ def time_ssd(args, chunk):
 def check_rmsnorm(gen):
     """RMSNorm against its plain version at the qwen3-0.6b shapes (an
     admission's 2048 rows of d_model 1024, a decode step's 8, the q/k norm's
-    32768 rows of d_head 128) and at d = 5120 (a block-wide row) and
-    d = 130 (scalar head and tail around the vectors).  The error is
-    ``_err``: absolute where the plain output is below 1, relative above,
-    within ``F32_TOL`` / ``BF16_TOL``: both round the same f32 value to
-    bf16 once, but their sums of squares differ in order, which can move
-    an output across a rounding boundary, one bf16 step (2^-8 of its
-    magnitude; outputs reach ~15 with a random scale)."""
+    32768 rows of d_head 128), at d = 4096, 5120 and 12288 (block-wide
+    rows), and at d = 130 (scalar head and tail around the vectors) and on
+    a row view one element off the 16-byte boundary, each case's route
+    (``kernel.rmsnorm_route``) logged and checked: rows in registers
+    wherever rows start on 16-byte boundaries and span a multiple of 16
+    bytes, two passes elsewhere.  The error is ``_err``: absolute where the
+    plain output is below 1, relative above, within ``F32_TOL`` /
+    ``BF16_TOL``: both round the same f32 value to bf16 once, but their
+    sums of squares differ in order, which can move an output across a
+    rounding boundary, one bf16 step (2^-8 of its magnitude; outputs reach
+    ~15 with a random scale)."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels.rmsnorm import ops, ref
 
     f32, bf16 = torch.float32, torch.bfloat16
-    cases = [("main (2048, 1024)", (2048, 1024), bf16, bf16),
-             ("main (2048, 1024)", (2048, 1024), f32, f32),
-             ("decode (8, 1024)", (8, 1024), bf16, bf16),
-             ("decode (8, 1024)", (8, 1024), f32, f32),
-             ("qk-norm (32768, 128)", (32768, 128), bf16, bf16),
-             ("qk-norm (32768, 128)", (32768, 128), f32, f32),
-             ("d=5120 (7, 5120)", (7, 5120), bf16, bf16),
-             ("d=5120 (7, 5120)", (7, 5120), f32, f32),
-             ("d=130 (33, 130)", (33, 130), bf16, bf16),
-             ("d=130 (33, 130)", (33, 130), f32, f32),
-             ("bf16 x, f32 scale (2048, 1024)", (2048, 1024), bf16, f32),
-             ("bf16 x, f32 scale (3, 130)", (3, 130), bf16, f32)]
+    reg, two = "registers", "two_pass"
+    # (name, shape, x dtype, scale dtype, route, one element off the boundary)
+    cases = [("main (2048, 1024)", (2048, 1024), bf16, bf16, reg, False),
+             ("main (2048, 1024)", (2048, 1024), f32, f32, reg, False),
+             ("decode (8, 1024)", (8, 1024), bf16, bf16, reg, False),
+             ("decode (8, 1024)", (8, 1024), f32, f32, reg, False),
+             ("qk-norm (32768, 128)", (32768, 128), bf16, bf16, reg, False),
+             ("qk-norm (32768, 128)", (32768, 128), f32, f32, reg, False),
+             ("d=4096 (16, 4096)", (16, 4096), bf16, f32, reg, False),
+             ("d=4096 (16, 4096)", (16, 4096), f32, bf16, reg, False),
+             ("d=5120 (7, 5120)", (7, 5120), bf16, bf16, reg, False),
+             ("d=5120 (7, 5120)", (7, 5120), f32, f32, reg, False),
+             ("d=12288 (3, 12288)", (3, 12288), bf16, bf16, reg, False),
+             ("d=12288 (3, 12288)", (3, 12288), f32, f32, reg, False),
+             ("d=130 (33, 130)", (33, 130), bf16, bf16, two, False),
+             ("d=130 (33, 130)", (33, 130), f32, f32, two, False),
+             ("misaligned view (64, 256)", (64, 256), bf16, bf16, two, True),
+             ("bf16 x, f32 scale (2048, 1024)", (2048, 1024), bf16, f32, reg,
+              False),
+             ("bf16 x, f32 scale (3, 130)", (3, 130), bf16, f32, two, False)]
     before = ops.rmsnorm.launches
-    for name, shape, xdt, sdt in cases:
-        x = _rand(gen, shape, xdt)
+    for name, shape, xdt, sdt, route, off in cases:
+        if off:
+            x = _rand(gen, (1 + shape[0] * shape[1],), xdt)[1:].view(shape)
+        else:
+            x = _rand(gen, shape, xdt)
         s = _rand(gen, (shape[-1],), sdt)
+        routes = dict(ops.rmsnorm.route_launches)
         got = ops.rmsnorm(x, s)
         want = ref.rmsnorm_ref(x, s)
         torch.cuda.synchronize()
         err = _err(got, want)
         tol = BF16_TOL if xdt == bf16 else F32_TOL
+        took = [k for k, n in ops.rmsnorm.route_launches.items()
+                if n != routes[k]]
         log(f"  rmsnorm {name:<31} x {str(xdt)[6:]:<8} scale "
-            f"{str(sdt)[6:]:<8} err={err:.3e} (tol {tol:g})")
+            f"{str(sdt)[6:]:<8} route {took} err={err:.3e} (tol {tol:g})")
+        check(took == [route], f"rmsnorm {name}: route {took}, not {route}")
         check(got.shape == x.shape and got.dtype == x.dtype,
               f"rmsnorm {name}: wrong shape or dtype")
         check(bool(torch.isfinite(got).all()), f"rmsnorm {name}: non-finite")
@@ -1063,20 +1127,35 @@ def check_rmsnorm(gen):
             main_err, args = (got.float() - want.float()).abs().max().item(), (x, s)
     check(ops.rmsnorm.launches - before == len(cases),
           "rmsnorm: a case did not launch the kernel")
+    return dict(time_rmsnorm(*args), max_abs_err=main_err)
 
-    T, d = args[0].shape
-    sets = copies_over_l2(list(args))
+
+def time_rmsnorm(x, s):
+    """Kernel, plain and ``F.rms_norm`` times (and the bound) at the tenant
+    program's shape ((2048, 1024), bf16), from its inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import ops, ref
+
+    T, d = x.shape
+    sets = copies_over_l2([x, s])
     kernel = device_ms(lambda x, s: ops.rmsnorm(x, s), sets)
     plain = device_ms(lambda x, s: ref.rmsnorm_ref(x, s), sets)
     library = device_ms(lambda x, s: F.rms_norm(x, (d,), s, eps=1e-6), sets)
+    # a copy of x moves the same bytes; a one-element fill moves none: the
+    # least device time of any launch under this timer
+    copy = device_ms(lambda x, s: x.clone(), sets)
+    one = torch.zeros(1, device=x.device)
+    floor = device_ms(lambda x, s: one.fill_(1.0), sets)
     n_bytes = 2 * T * d * 2 + d * 2          # x read, y written, scale read
     flops = 4.0 * T * d                      # square, sum, two products
     bms, by = bound_ms(n_bytes, flops)
     return dict(name="rmsnorm", route="cuda",
                 source="src/repro_torch/csrc/rmsnorm.cu",
                 replaces="src/repro/kernels/rmsnorm/kernel.py:36",
-                max_abs_err=main_err, ms=kernel, plain_ms=plain,
-                bound_ms=bms, bound_by=by, library_ms=library)
+                ms=kernel, plain_ms=plain, bound_ms=bms, bound_by=by,
+                library_ms=library, copy_ms=copy, floor_ms=floor)
 
 
 def check_matmul(gen):
@@ -2179,8 +2258,8 @@ def serve_tenancy_path(card: str, params, cfg, build_s: float):
                 pa_ops.paged_decode_attention)
     for c in counters:
         c.launches = 0
-    mm_ops.matmul.route_launches.update(
-        dict.fromkeys(mm_ops.matmul.route_launches, 0))
+    for c in (mm_ops.matmul, rms_ops.rmsnorm):
+        c.route_launches.update(dict.fromkeys(c.route_launches, 0))
     bf16 = torch.bfloat16
     specs = tuple(TensorSpec(NORM_PROJ_SHAPES[k], bf16) for k in "xsw")
     progs = ex.compiler.static_compile("norm_proj", norm_proj, specs,
@@ -2270,6 +2349,9 @@ def serve_tenancy_path(card: str, params, cfg, build_s: float):
     check(mm_ops.matmul.route_launches["wgmma"] == 3,
           f"matmul routes {mm_ops.matmul.route_launches}: the program's bf16 "
           f"product should take the wgmma route")
+    check(rms_ops.rmsnorm.route_launches["registers"] == 3,
+          f"rmsnorm routes {rms_ops.rmsnorm.route_launches}: the program's "
+          f"aligned (2048, 1024) rows should take the register route")
     L = cfg.n_layers
     prefills = alice_stats.prefills + bob_stats.prefills
     steps = alice_stats.steps + bob_stats.steps
@@ -2307,7 +2389,7 @@ def serve_tenancy_path(card: str, params, cfg, build_s: float):
         f"{err:.3e}")
     log(f"  launches: rmsnorm={launches['rmsnorm']} matmul="
         f"{launches['matmul']} (2 static + 1 after the regrow; routes "
-        f"{mm_ops.matmul.route_launches}), "
+        f"{rms_ops.rmsnorm.route_launches}, {mm_ops.matmul.route_launches}), "
         f"flash_attention={launches['flash_attention']} (= {L} x {prefills}),"
         f" paged_decode_attention={launches['paged_decode_attention']} "
         f"(= {L} x {steps})")
@@ -2323,18 +2405,18 @@ def serve_tenancy_path(card: str, params, cfg, build_s: float):
 SSD_KERNELS = ("ssd_cumsum_kernel", "ssd_cb_kernel", "ssd_chunk_state_kernel",
                "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
 # the first match names the class (the SSD's f32 route is ssd_f32_kernel);
-# the dense decode kernels are
-# dec_split_kernel and dec_merge_kernel, the paged one paged_dec_kernel, the
-# verify kernels paged_verify_{mma,f32}_kernel and paged_verify_merge_kernel
-# (paged_verify_kernel before the split)
+# the dense decode kernels are dec_split_kernel and dec_merge_kernel, the
+# paged ones paged_decode_split_kernel and paged_decode_merge_kernel,
+# the verify kernels paged_verify_{mma,f32}_kernel and
+# paged_verify_merge_kernel
 _KERNEL_CLASSES = (("flash_attention", ("fa_kernel", "fa_mma_kernel")),
                    ("ssd_scan", SSD_KERNELS + ("ssd_f32_kernel",)),
-                   ("paged_verify_attention", ("paged_verify_kernel",
-                                               "paged_verify_mma_kernel",
+                   ("paged_verify_attention", ("paged_verify_mma_kernel",
                                                "paged_verify_f32_kernel",
                                                "paged_verify_merge_kernel")),
                    ("prefix_flash_attention", ("pfx_kernel", "pfx_mma_kernel")),
-                   ("paged_decode_attention", ("paged_dec_kernel",)),
+                   ("paged_decode_attention", ("paged_decode_split_kernel",
+                                               "paged_decode_merge_kernel")),
                    ("decode_attention", ("dec_split_kernel",
                                          "dec_merge_kernel")),
                    ("matmul (port)", ("mm_wgmma_kernel", "mm_simt_kernel")),
@@ -2456,8 +2538,8 @@ def main() -> int:
         log("SSD scan with planted faults against phases 3 and 4")
         return ssd_fault_check()
     if "--kernel-times" in sys.argv[1:]:
-        log("flash, dense decode, prefix, verify, SSD and matmul kernels "
-            "timed at the main paths' shapes")
+        log("flash, dense decode, prefix, verify, SSD, matmul, paged "
+            "decode and rmsnorm kernels timed at the main paths' shapes")
         return kernel_times(card)
 
     log("phase 2: build")
@@ -2506,14 +2588,15 @@ def main() -> int:
     path_launches.update(serve_tenancy_path(card, params, cfg, build_s))
 
     log("phase 6: where the time goes")
-    # the bf16 paths' prefill, prefix, decode and verify take the
-    # redesigned kernels
+    # the bf16 paths' prefill, prefix, decode, paged decode and verify
+    # take the redesigned kernels
     trace_main_paths(card, [
         ("dense path", lambda: _batcher(params, cfg, _requests(cfg)),
          ("fa_mma_kernel", "dec_split_kernel", "dec_merge_kernel")),
         ("paged path", lambda: _paged_batcher(params, cfg,
                                               _paged_requests(cfg)),
-         ("fa_mma_kernel", "pfx_mma_kernel")),
+         ("fa_mma_kernel", "pfx_mma_kernel", "paged_decode_split_kernel",
+          "paged_decode_merge_kernel")),
         ("spec path", lambda: _spec_batcher(params, cfg,
                                             _spec_requests(cfg)),
          ("paged_verify_mma_kernel", "paged_verify_merge_kernel",

@@ -1,5 +1,8 @@
-// Device helpers shared by the attention kernels of this directory, and the
-// tiled f32 online-softmax step of the prefill-shaped kernels (the f32 route
+// Device helpers shared by the attention kernels of this directory, the
+// programmatic dependent launch of their merge passes, the tile step, the
+// partial write and the merge of the two decode kernels' split passes
+// (decode_attention.cu, paged_decode_attention.cu), which differ only in
+// how they stage key rows and score masked ones, and the tiled f32 online-softmax step of the prefill-shaped kernels (the f32 route
 // of flash_attention.cu, prefix_flash_attention.cu), which differ only in
 // their masks and in which K/V operands their k-tile loops walk.  The bf16
 // tensor-core tile is attn_mma.cuh's.
@@ -121,6 +124,202 @@ __device__ __forceinline__ float merge_splits(const float* __restrict__ part_acc
 #pragma unroll 4
   for (int s = 0; s < n_split; ++s) num = fmaf(w[s], part_acc[(row0 + s) * DH + d], num);
   return num / fmaxf(w[n_split], 1e-30f);
+}
+
+// 16 bytes of K/V (8 bf16 or 4 f32) as f32
+__device__ __forceinline__ void chunk_to_f32(const __nv_bfloat16* p, float* x) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void chunk_to_f32(const float* p, float* x) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
+}
+
+// two consecutive elements as f32
+__device__ __forceinline__ float2 pair_to_f32(const __nv_bfloat16* p) {
+  const unsigned u = *reinterpret_cast<const unsigned*>(p);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+__device__ __forceinline__ float2 pair_to_f32(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// Launch a merge pass as a programmatic dependent of the split pass just
+// launched on `stream`: its blocks may be scheduled while the split pass
+// drains, and its griddepcontrol.wait holds them until the split pass's
+// partials are complete and visible.  Returns the launch's error.
+template <typename... Params, typename... Args>
+int launch_dependent(void (*kernel)(Params...), dim3 grid, dim3 block,
+                     size_t smem, cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The split pass of the decode kernels (decode_attention.cu over ring
+// slots, paged_decode_attention.cu over pages): one query row per q head,
+// the `group` q heads of one kv head in a block of dec::NT threads, key
+// rows staged in shared memory in tiles of dec::BC, products on the CUDA
+// cores in f32.  The block's shared memory holds Qs [group][DH] (q as f32),
+// Ss [group][BC] (scores, then p) and Ms, Ls, Sc [group] (running max,
+// running sum, this tile's rescale); thread tid owns the accumulators of
+// (q head, dim pair) tid + NT * r.
+// ---------------------------------------------------------------------------
+
+namespace dec {
+constexpr int BC = 32;              // key rows per staged tile (a lane each)
+constexpr int NT = 256;             // threads per block (8 warps)
+constexpr int SUB = 4;              // lanes per q.k dot product
+constexpr int MAX_GROUP = 16;       // q heads per kv head
+template <int DH>
+constexpr int MAXR = MAX_GROUP * (DH / 2) / NT;   // accumulator pairs a thread
+}  // namespace dec
+
+// One staged tile through the online softmax.  score(c, dot) gives row c's
+// score from its q.k dot: dot / sqrt(DH) where attended, NEG_INF where
+// masked (the row takes part at -1e30), -inf where the row takes no part
+// (weight 0; its V row must be staged as zeros).  While every row so far
+// took no part, the max stays -inf and the state (0, 0) is kept.  The
+// caller brackets the tile with __syncthreads(): after staging, and before
+// the buffer refills.
+template <typename T, int DH, typename Score>
+__device__ __forceinline__ void decode_tile(
+    const T* Kt, const T* Vt, const float* Qs, float* Ss, float* Ms,
+    float* Ls, float* Sc, float2 (&acc)[dec::MAXR<DH>], int group, int tid,
+    Score score) {
+  using namespace dec;
+  constexpr int VEC = 16 / sizeof(T);             // elements per 16-byte chunk
+  constexpr int CHUNKS = DH / VEC;                // chunks per K/V row
+  constexpr int NP = DH / 2;                      // dim pairs per q head
+  static_assert(CHUNKS % SUB == 0, "a K row must split over SUB lanes");
+  static_assert(BC == 32, "the softmax takes one lane per row");
+  const int lane = tid & 31, warp = tid >> 5;
+
+  // scores: SUB lanes per (q head, row), each reading 16-byte chunks of the
+  // K row (odd rows rotated by SUB chunks, so the eight lanes of one
+  // 128-byte shared-memory phase hit distinct banks), reduced with two
+  // shuffles.  Every lane runs every pass (the pass count is rounded up to
+  // whole passes), so the shuffles are uniform
+  const int sub = tid % SUB;
+  const int n_pairs = group * BC;
+  const int pass_end = (n_pairs + NT / SUB - 1) / (NT / SUB) * (NT / SUB);
+  for (int pair = tid / SUB; pair < pass_end; pair += NT / SUB) {
+    const int g = min(pair, n_pairs - 1) / BC, c = pair % BC;
+    const T* krow = Kt + c * DH;
+    const float* qrow = Qs + g * DH;
+    float dot = 0.f;
+#pragma unroll
+    for (int j = 0; j < CHUNKS / SUB; ++j) {     // independent chunk sums
+      const int ch = (j * SUB + sub + (c & 1) * SUB) % CHUNKS;
+      float kx[VEC];
+      chunk_to_f32(krow + ch * VEC, kx);
+      float part = 0.f;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) part = fmaf(qrow[ch * VEC + e], kx[e], part);
+      dot += part;
+    }
+#pragma unroll
+    for (int off = 1; off < SUB; off <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    if (sub == 0 && pair < n_pairs) Ss[pair] = score(c, dot);
+  }
+  __syncthreads();
+
+  // online softmax: one warp per q head, one lane per row
+  for (int g = warp; g < group; g += NT / 32) {
+    const float s = Ss[g * BC + lane];
+    const float m_prev = Ms[g];
+    const float m_new = fmaxf(m_prev, warp_max(s));
+    const float m_use = m_new == -CUDART_INF_F ? 0.f : m_new;
+    const float p = s == -CUDART_INF_F ? 0.f : expf(s - m_use);
+    const float sum = warp_sum(p);
+    Ss[g * BC + lane] = p;
+    if (lane == 0) {
+      const float scale = expf(m_prev - m_use);
+      Ls[g] = Ls[g] * scale + sum;
+      Ms[g] = m_new;
+      Sc[g] = scale;
+    }
+  }
+  __syncthreads();
+
+  // acc = acc * scale + P V; the V rows of rows that take no part are
+  // zeros and their p is 0
+#pragma unroll
+  for (int r = 0; r < MAXR<DH>; ++r) {
+    const int idx = tid + NT * r;
+    if (idx < group * NP) {
+      const int g = idx / NP, d = 2 * (idx % NP);
+      const float scale = Sc[g];
+      float2 a[2] = {make_float2(acc[r].x * scale, acc[r].y * scale),
+                     make_float2(0.f, 0.f)};      // even and odd rows
+#pragma unroll 8
+      for (int c = 0; c < BC; ++c) {
+        const float p = Ss[g * BC + c];
+        const float2 vv = pair_to_f32(Vt + c * DH + d);
+        a[c & 1].x = fmaf(p, vv.x, a[c & 1].x);
+        a[c & 1].y = fmaf(p, vv.y, a[c & 1].y);
+      }
+      acc[r] = make_float2(a[0].x + a[1].x, a[0].y + a[1].y);
+    }
+  }
+}
+
+// The split's unnormalised partials: acc at part_acc (B, H, n_split, DH)
+// and (m, l) at part_ml (B, H, n_split, 2); row0 is the (batch row, first
+// q head of the kv head, split) row of both
+template <int DH>
+__device__ __forceinline__ void decode_write_partials(
+    const float2 (&acc)[dec::MAXR<DH>], const float* Ms, const float* Ls,
+    float* __restrict__ part_acc, float* __restrict__ part_ml, long long row0,
+    int n_split, int group, int tid) {
+  constexpr int NP = DH / 2;
+#pragma unroll
+  for (int r = 0; r < dec::MAXR<DH>; ++r) {
+    const int idx = tid + dec::NT * r;
+    if (idx < group * NP) {
+      const int g = idx / NP, d = 2 * (idx % NP);
+      *reinterpret_cast<float2*>(part_acc + (row0 + (long long)g * n_split) * DH + d) = acc[r];
+    }
+  }
+  for (int g = tid; g < group; g += dec::NT) {
+    part_ml[(row0 + (long long)g * n_split) * 2] = Ms[g];
+    part_ml[(row0 + (long long)g * n_split) * 2 + 1] = Ls[g];
+  }
+}
+
+// The body of the decode merge passes: one block of DH threads per (q
+// head, batch row), one dim each, merging the row's splits (merge_splits)
+// into q's dtype.  The kernels are launched as programmatic dependents of
+// their split pass, so griddepcontrol.wait holds the block until the
+// partials are complete and visible.
+template <typename T>
+__device__ __forceinline__ void decode_merge(const float* __restrict__ part_acc,
+                                             const float* __restrict__ part_ml,
+                                             T* __restrict__ o, int H, int DH,
+                                             int n_split) {
+  extern __shared__ float w[];        // n_split weights, then the denominator
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
+  const long long row = (long long)b * H + h;
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  o[row * DH + d] = from_f32<T>(
+      merge_splits(part_acc, part_ml, row * n_split, n_split, DH, d, w));
 }
 
 // reductions over the 16 lanes that share one ty (lanes 0-15 or 16-31)

@@ -40,6 +40,9 @@
 //   lanes of one 128-byte shared-memory phase hit distinct banks), reduced
 //   with two shuffles.  Softmax: one warp per q head, one lane per slot.
 //   P V: each thread owns (q head, dim pair) accumulators in registers.
+//   This tile step, the partial write and the merge body are
+//   attn_common.cuh's (decode_tile, decode_write_partials, decode_merge),
+//   shared with paged_decode_attention.cu.
 //
 // Why the merge reproduces ref.py in every case: masked slots score
 // NEG_INF = -1e30 (as on the TPU) and take part in the softmax; slots past
@@ -59,35 +62,9 @@
 namespace {
 
 using namespace attn;
-
-constexpr int BC = 32;          // cache slots per tile; split_len is a multiple
-constexpr int NT = 256;         // threads per block of the split pass (8 warps)
-constexpr int SUB = 4;          // lanes per q.k dot product
-constexpr int MAX_GROUP = 16;   // q heads per kv head the kernel takes
-
-// 16 bytes of K/V (8 bf16 or 4 f32) as f32
-__device__ __forceinline__ void chunk_to_f32(const __nv_bfloat16* p, float* x) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    x[2 * i] = __uint_as_float(w[i] << 16);
-    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void chunk_to_f32(const float* p, float* x) {
-  const float4 u = *reinterpret_cast<const float4*>(p);
-  x[0] = u.x; x[1] = u.y; x[2] = u.z; x[3] = u.w;
-}
-
-// two consecutive elements as f32
-__device__ __forceinline__ float2 pair_to_f32(const __nv_bfloat16* p) {
-  const unsigned u = *reinterpret_cast<const unsigned*>(p);
-  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
-}
-__device__ __forceinline__ float2 pair_to_f32(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
+// tiles of BC = 32 cache slots (split_len is a multiple), NT = 256 threads
+// a block of the split pass, at most MAX_GROUP = 16 q heads per kv head
+using namespace attn::dec;
 
 template <typename T, int DH>
 constexpr size_t split_smem_bytes(int group) {
@@ -106,9 +83,6 @@ __global__ void __launch_bounds__(NT) dec_split_kernel(
     int Hkv, int split_len, int has_window, int window) {
   constexpr int VEC = 16 / sizeof(T);             // elements per 16-byte chunk
   constexpr int CHUNKS = DH / VEC;                // chunks per K/V row
-  constexpr int NP = DH / 2;                      // dim pairs per q head
-  constexpr int MAXR = MAX_GROUP * NP / NT;       // accumulator pairs per thread
-  static_assert(CHUNKS % SUB == 0, "a K row must split over SUB lanes");
   const int group = H / Hkv;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);         // [2][BC][DH]
@@ -124,7 +98,7 @@ __global__ void __launch_bounds__(NT) dec_split_kernel(
   asm volatile("griddepcontrol.launch_dependents;\n" ::);
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int n_split = gridDim.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int c_begin = split * split_len;
   const int c_end = min(C, c_begin + split_len);
   const int n_tiles = (c_end - c_begin + BC - 1) / BC;
@@ -161,9 +135,9 @@ __global__ void __launch_bounds__(NT) dec_split_kernel(
     Ms[g] = NEG_INF;
     Ls[g] = 0.f;
   }
-  float2 acc[MAXR];
+  float2 acc[MAXR<DH>];
 #pragma unroll
-  for (int r = 0; r < MAXR; ++r) acc[r] = make_float2(0.f, 0.f);
+  for (int r = 0; r < MAXR<DH>; ++r) acc[r] = make_float2(0.f, 0.f);
 
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t & 1;
@@ -174,115 +148,35 @@ __global__ void __launch_bounds__(NT) dec_split_kernel(
       cp_async_wait<0>();
     }
     __syncthreads();                  // tile t (and Qs) visible
-    const T* Kt = Ks + buf * BC * DH;
-    const T* Vt = Vs + buf * BC * DH;
     const int* pt = Pos + buf * BC;
     const int n_in = c_end - (c_begin + t * BC);   // real slots of the tile
-
-    // scores: SUB lanes per (q head, slot).  Every lane runs every pass (the
-    // pass count is rounded up to whole passes), so the shuffles are uniform
-    const int sub = tid % SUB;
-    const int n_pairs = group * BC;
-    const int pass_end = (n_pairs + NT / SUB - 1) / (NT / SUB) * (NT / SUB);
-    for (int pair = tid / SUB; pair < pass_end; pair += NT / SUB) {
-      const int g = min(pair, n_pairs - 1) / BC, c = pair % BC;
-      const T* krow = Kt + c * DH;
-      const float* qrow = Qs + g * DH;
-      float dot = 0.f;
-#pragma unroll
-      for (int j = 0; j < CHUNKS / SUB; ++j) {   // independent chunk sums
-        const int ch = (j * SUB + sub + (c & 1) * SUB) % CHUNKS;
-        float kx[VEC];
-        chunk_to_f32(krow + ch * VEC, kx);
-        float part = 0.f;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) part = fmaf(qrow[ch * VEC + e], kx[e], part);
-        dot += part;
-      }
-#pragma unroll
-      for (int off = 1; off < SUB; off <<= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (sub == 0 && pair < n_pairs) {
-        const int p = pt[c];
-        bool ok = c < n_in && p >= 0 && p <= cur_b;
-        if (has_window) ok = ok && p > cur_b - window;
-        Ss[pair] = ok ? dot / sm : NEG_INF;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp per q head, one lane per slot (BC == 32);
-    // every tile holds a real slot, so the max is at least NEG_INF
-    for (int g = warp; g < group; g += NT / 32) {
-      const float s = Ss[g * BC + lane];
-      const bool pad = lane >= n_in;
-      const float m_prev = Ms[g];
-      const float m_new = fmaxf(m_prev, warp_max(pad ? -CUDART_INF_F : s));
-      const float p = pad ? 0.f : expf(s - m_new);
-      const float sum = warp_sum(p);
-      Ss[g * BC + lane] = p;
-      if (lane == 0) {
-        const float scale = expf(m_prev - m_new);
-        Ls[g] = Ls[g] * scale + sum;
-        Ms[g] = m_new;
-        Sc[g] = scale;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * scale + P V; thread owns (q head, dim pair) tid + NT * r;
-    // pad rows of V are zeros and their p is 0
-#pragma unroll
-    for (int r = 0; r < MAXR; ++r) {
-      const int idx = tid + NT * r;
-      if (idx < group * NP) {
-        const int g = idx / NP, d = 2 * (idx % NP);
-        const float scale = Sc[g];
-        float2 a[2] = {make_float2(acc[r].x * scale, acc[r].y * scale),
-                       make_float2(0.f, 0.f)};    // even and odd slots
-#pragma unroll 8
-        for (int c = 0; c < BC; ++c) {
-          const float p = Ss[g * BC + c];
-          const float2 vv = pair_to_f32(Vt + c * DH + d);
-          a[c & 1].x = fmaf(p, vv.x, a[c & 1].x);
-          a[c & 1].y = fmaf(p, vv.y, a[c & 1].y);
-        }
-        acc[r] = make_float2(a[0].x + a[1].x, a[0].y + a[1].y);
-      }
-    }
+    // slots past the split's end take no part; masked slots score NEG_INF
+    decode_tile<T, DH>(Ks + buf * BC * DH, Vs + buf * BC * DH, Qs, Ss, Ms, Ls,
+                       Sc, acc, group, tid, [&](int c, float dot) {
+      if (c >= n_in) return -CUDART_INF_F;
+      const int p = pt[c];
+      bool ok = p >= 0 && p <= cur_b;
+      if (has_window) ok = ok && p > cur_b - window;
+      return ok ? dot / sm : NEG_INF;
+    });
     __syncthreads();                  // readers done before the buffer refills
   }
 
-  // unnormalised partials of this split: acc (B, H, n_split, DH), (m, l)
-  const long long row0 = ((long long)b * H + (long long)hk * group) * n_split + split;
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) {
-    const int idx = tid + NT * r;
-    if (idx < group * NP) {
-      const int g = idx / NP, d = 2 * (idx % NP);
-      *reinterpret_cast<float2*>(part_acc + (row0 + (long long)g * n_split) * DH + d) = acc[r];
-    }
-  }
-  for (int g = tid; g < group; g += NT) {
-    part_ml[(row0 + (long long)g * n_split) * 2] = Ms[g];
-    part_ml[(row0 + (long long)g * n_split) * 2 + 1] = Ls[g];
-  }
+  decode_write_partials<DH>(
+      acc, Ms, Ls, part_acc, part_ml,
+      ((long long)b * H + (long long)hk * group) * n_split + split, n_split,
+      group, tid);
 }
 
-// pass 2: one block of dh threads per (q head, batch row), one dim each,
-// merging the splits (attn_common.cuh's merge_splits).  Launched as a
-// programmatic dependent of the split pass: its blocks may start while the
-// split pass drains, and griddepcontrol.wait holds them until the split
-// pass's partials are complete and visible.
+// pass 2: one block of dh threads per (q head, batch row), merging the
+// splits (attn_common.cuh's decode_merge).  Launched as a programmatic
+// dependent of the split pass, so its blocks may start while the split
+// pass drains.
 template <typename T>
 __global__ void dec_merge_kernel(const float* __restrict__ part_acc,
                                  const float* __restrict__ part_ml,
                                  T* __restrict__ o, int H, int DH, int n_split) {
-  extern __shared__ float w[];        // n_split weights, then the denominator
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const long long row = (long long)b * H + h;
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-  o[row * DH + d] = from_f32<T>(
-      merge_splits(part_acc, part_ml, row * n_split, n_split, DH, d, w));
+  decode_merge(part_acc, part_ml, o, H, DH, n_split);
 }
 
 template <typename T, int DH>
@@ -301,24 +195,13 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
       static_cast<const int*>(pos), static_cast<const int*>(cur),
       static_cast<float*>(part_acc), static_cast<float*>(part_ml), C, H, Hkv,
       split_len, has_window, window);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute pdl;
-  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(H, B);
-  cfg.blockDim = dim3(DH);
-  cfg.dynamicSmemBytes = sizeof(float) * (size_t)(n_split + 1);
-  cfg.stream = stream;
-  cfg.attrs = &pdl;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, dec_merge_kernel<T>,
-                           static_cast<const float*>(part_acc),
-                           static_cast<const float*>(part_ml), static_cast<T*>(o),
-                           H, (int)DH, n_split);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_dependent(dec_merge_kernel<T>, dim3(H, B), dim3(DH),
+                          sizeof(float) * (size_t)(n_split + 1), stream,
+                          static_cast<const float*>(part_acc),
+                          static_cast<const float*>(part_ml),
+                          static_cast<T*>(o), H, (int)DH, n_split);
 }
 
 template <typename T>

@@ -26,7 +26,7 @@
 //   slot) and writes the unnormalised (m, l, acc) of all W * group query
 //   rows to f32 scratch the wrapper allocates (part_acc (B, Hkv, rows,
 //   n_split, dh), part_ml (B, Hkv, rows, n_split, 2), m in units of
-//   q.k / sqrt(dh)).  The wrapper's plan_verify_splits fills ~2 x 132
+//   q.k / sqrt(dh)).  The wrapper's plan_page_splits fills ~2 x 132
 //   blocks and gives every split at least one page of the table.  Pass 2,
 //   paged_verify_merge_kernel, one block of dh threads per (row, kv head,
 //   slot), merges the splits and writes q's dtype; it is a programmatic
@@ -476,22 +476,12 @@ __global__ void paged_verify_merge_kernel(const float* __restrict__ part_acc,
 template <typename T>
 int launch_merge(const void* part_acc, const void* part_ml, void* o, int B,
                  int W, int H, int Hkv, int dh, int n_split, cudaStream_t stream) {
-  cudaLaunchAttribute pdl;
-  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(W * (H / Hkv), Hkv, B);
-  cfg.blockDim = dim3(dh);
-  cfg.dynamicSmemBytes = sizeof(float) * (size_t)(n_split + 1);
-  cfg.stream = stream;
-  cfg.attrs = &pdl;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(
-      &cfg, paged_verify_merge_kernel<T>, static_cast<const float*>(part_acc),
-      static_cast<const float*>(part_ml), static_cast<T*>(o), W, H, Hkv, dh,
-      n_split);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_dependent(paged_verify_merge_kernel<T>,
+                          dim3(W * (H / Hkv), Hkv, B), dim3(dh),
+                          sizeof(float) * (size_t)(n_split + 1), stream,
+                          static_cast<const float*>(part_acc),
+                          static_cast<const float*>(part_ml),
+                          static_cast<T*>(o), W, H, Hkv, dh, n_split);
 }
 
 struct Args {

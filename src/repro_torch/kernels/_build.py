@@ -39,9 +39,10 @@ SIGNATURES = {
     # q, k, v, pos, cur, part_acc, part_ml, out, B, C, H, Hkv, dh,
     # n_split, split_len, has_window, window, is_bf16, stream
     "repro_decode_attention": [_P] * 8 + [_I] * 10 + [_P],
-    # q, k_pool, v_pool, table, cur, out, B, H, Hkv, dh, n_pages,
-    # page_size, max_pages, is_bf16, stream
-    "repro_paged_decode_attention": [_P] * 6 + [_I] * 8 + [_P],
+    # q, k_pool, v_pool, table, cur, part_acc, part_ml, out, B, H, Hkv, dh,
+    # n_pages, page_size, max_pages, n_split, pages_per_split, is_bf16,
+    # stream
+    "repro_paged_decode_attention": [_P] * 8 + [_I] * 10 + [_P],
     # q, k_pool, v_pool, table, cur, part_acc, part_ml, out, B, W, H, Hkv,
     # dh, n_pages, page_size, max_pages, n_split, pages_per_split, is_bf16,
     # stream
@@ -53,8 +54,9 @@ SIGNATURES = {
     # chunk states, entering states), B, nh, S, hd, G, N, chunk, is_bf16,
     # then the batch and sequence strides of x, dt, Bm and Cm, stream
     "repro_ssd_scan": [_P] * 12 + [_I] * 16 + [_P],
-    # x, scale, y, T, d, eps, x_is_bf16, scale_is_bf16, stream
-    "repro_rmsnorm": [_P] * 3 + [_I] * 2 + [_F] + [_I] * 2 + [_P],
+    # x, scale, y, T, d, eps, x_is_bf16, scale_is_bf16, route (1 rows in
+    # registers, 0 two passes), stream
+    "repro_rmsnorm": [_P] * 3 + [_I] * 2 + [_F] + [_I] * 3 + [_P],
     # a, b, c, M, N, K, in_is_bf16, out_is_bf16, route (1 wgmma, 0 CUDA
     # cores), stream
     "repro_matmul": [_P] * 3 + [_I] * 6 + [_P],

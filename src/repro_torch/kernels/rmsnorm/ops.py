@@ -2,12 +2,14 @@
 
 The route follows the tensor's device: a CPU tensor takes the plain version
 (:mod:`.ref`), a CUDA tensor launches the kernel or raises.  There is no
-fallback between the two.  ``rmsnorm.launches`` counts kernel launches.
+fallback between the two, nor between the kernel's routes
+(``kernel.rmsnorm_route``).  ``rmsnorm.launches`` counts kernel launches,
+and ``rmsnorm.route_launches`` counts them by route.
 """
 
 from __future__ import annotations
 
-from .kernel import rmsnorm_kernel
+from .kernel import ROUTES, rmsnorm_kernel, route_of
 from .ref import rmsnorm_ref
 
 
@@ -16,10 +18,13 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps=eps)
     shape = x.shape
-    out = rmsnorm_kernel(x.reshape(-1, shape[-1]).contiguous(),
-                         scale.contiguous(), eps=eps)
+    x2d = x.reshape(-1, shape[-1]).contiguous()
+    route = route_of(x2d)
+    out = rmsnorm_kernel(x2d, scale.contiguous(), eps=eps, route=route)
     rmsnorm.launches += 1
+    rmsnorm.route_launches[route] += 1
     return out.reshape(shape)
 
 
 rmsnorm.launches = 0
+rmsnorm.route_launches = dict.fromkeys(ROUTES, 0)

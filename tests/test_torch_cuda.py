@@ -170,6 +170,22 @@ def test_prefix_and_verify_kernels_refuse_misaligned_inputs(gen):
             _rand(gen, (1, 2, 4, 32), bf16), shifted_pool, pool, tab, cur)
 
 
+def test_paged_decode_kernel_refuses_a_misaligned_pool(gen):
+    """The split pass copies K/V rows with 16-byte cp.async: a pool view
+    that starts off the 16-byte boundary is refused, not read wrong."""
+    from repro_torch.kernels.paged_attention import kernel
+
+    bf16 = torch.bfloat16
+    pool = _rand(gen, (3, 4, 2, 32), bf16)
+    shifted = _rand(gen, (3 * 4 * 2 * 32 + 1,), bf16)[1:].view(3, 4, 2, 32)
+    tab = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    cur = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    for k, v in ((shifted, pool), (pool, shifted)):
+        with pytest.raises(ValueError, match="aligned"):
+            kernel.paged_decode_attention_kernel(
+                _rand(gen, (1, 4, 32), bf16), k, v, tab, cur)
+
+
 def _page_table(rng, B, maxp, P, cur, ps, holes):
     """Shuffled distinct pages for logical pages 0..cur // ps of each slot,
     later pages unmapped; ``holes`` unmaps earlier ones at random."""
@@ -212,6 +228,67 @@ def test_paged_decode_attention_kernel_matches_ref(gen, dtype, B, H, Hkv, dh,
     assert ops.paged_decode_attention.launches == before + 1
     assert bool(torch.isfinite(got).all())
     # relative above magnitude 1: the unmapped slot averages the trash page
+    err = ((got.float() - want.float()).abs()
+           / want.float().abs().clamp(min=1.0)).max().item()
+    assert err <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    "split-boundaries", "fully-unmapped", "split-all-skipped",
+    "splits-more-than-mapped-pages", "ragged-last-split", "page-size-4",
+    "page-size-8", "gqa16:1-dh64", "gqa16:1-dh128"])
+def test_paged_decode_attention_split_cases_match_ref(gen, dtype, case):
+    """The split pass and the merge on the splits ``plan_page_splits``
+    picks (6 of 4 pages at the paged path's shape): cur_pos on both sides
+    of split boundaries, slots with no mapped page, a split whose pages
+    are all holes, more splits than mapped pages, a ragged last split of
+    one page that holds cur_pos, pages of 4 and 8, GQA 16:1; one launch
+    counted per call, the trash page poisoned to 1e4."""
+    from repro_torch.kernels.paged_attention import kernel, ops, ref
+
+    rng = np.random.default_rng(4)
+    B, H, Hkv, dh, ps, maxp = 8, 16, 8, 128, 16, 21
+    if case.startswith("page-size"):
+        ps = int(case[-1])
+        maxp = 336 // ps
+    if case.startswith("gqa"):
+        Hkv, dh = 1, int(case.split("dh")[1])
+    P = B * maxp
+    n_split, pps = kernel.plan_page_splits(B, Hkv, maxp)
+    if case == "split-boundaries":
+        cur = np.asarray([62, 63, 64, 65, 127, 128, 191, 255], np.int32)
+    elif case == "ragged-last-split":
+        assert maxp % pps == 1
+        cur = rng.integers(maxp * ps - ps, maxp * ps, size=B).astype(np.int32)
+    elif case == "splits-more-than-mapped-pages":
+        cur = rng.integers(0, 3 * ps, size=B).astype(np.int32)
+    else:
+        cur = rng.integers(0, maxp * ps, size=B).astype(np.int32)
+    table = _page_table(rng, B, maxp, P, cur, ps,
+                        0.2 if case in ("split-boundaries", "page-size-4",
+                                        "page-size-8") else 0.0)
+    if case == "fully-unmapped":
+        table[::2] = -1
+    if case == "split-all-skipped":
+        cur[:] = rng.integers(3 * pps * ps, maxp * ps, size=B)
+        table = _page_table(rng, B, maxp, P, cur, ps, 0.0)
+        table[:, pps:2 * pps] = -1
+    if case == "splits-more-than-mapped-pages":
+        assert n_split > (table >= 0).sum(axis=1).max()
+    q = _rand(gen, (B, H, dh), dtype)
+    kp = _rand(gen, (P + 1, ps, Hkv, dh), dtype)
+    vp = _rand(gen, (P + 1, ps, Hkv, dh), dtype)
+    kp[P] = 1e4
+    vp[P] = 1e4
+    tab, cur_t = torch.from_numpy(table).cuda(), torch.from_numpy(cur).cuda()
+    before = ops.paged_decode_attention.launches
+    got = ops.paged_decode_attention(q, kp, vp, tab, cur_t)
+    want = ref.paged_decode_attention_ref(q, kp, vp, tab, cur_t)
+    torch.cuda.synchronize()
+    assert ops.paged_decode_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
     err = ((got.float() - want.float()).abs()
            / want.float().abs().clamp(min=1.0)).max().item()
     assert err <= TOL[dtype]
@@ -262,7 +339,7 @@ def test_paged_verify_attention_kernel_matches_ref(gen, dtype, B, W, H, Hkv,
 @pytest.mark.parametrize("case", ["split-boundaries", "row-0-without-keys",
                                   "fully-unmapped", "sweep", "split-skipped"])
 def test_paged_verify_attention_split_cases_match_ref(gen, dtype, case):
-    """The split pass and the merge on the splits ``plan_verify_splits``
+    """The split pass and the merge on the splits ``plan_page_splits``
     picks (6 of 4 pages at the speculative path's shape): windows that
     straddle split boundaries, a row 0 without keys (every page walked), a
     slot with no mapped page, cur_pos swept across page boundaries, and a
@@ -272,7 +349,7 @@ def test_paged_verify_attention_split_cases_match_ref(gen, dtype, case):
 
     rng = np.random.default_rng(3)
     B, W, H, Hkv, dh, ps, maxp, P = 8, 4, 16, 8, 128, 16, 21, 168
-    n_split, pps = kernel.plan_verify_splits(B, Hkv, maxp)
+    n_split, pps = kernel.plan_page_splits(B, Hkv, maxp)
     assert (n_split, pps) == (6, 4)
     if case == "split-boundaries":
         cur = np.asarray([62, 63, 64, 126, 127, 128, 190, 318], np.int32)
@@ -728,6 +805,50 @@ def test_rmsnorm_kernel_takes_a_misaligned_view(gen):
     got = kernel.rmsnorm_kernel(x, s)
     torch.cuda.synchronize()
     assert _err(got, ref.rmsnorm_ref(x, s)) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset,route", [
+    ((2048, 1024), 0, "registers"),      # a warp a row
+    ((64, 4096), 0, "registers"),        # a block a row
+    ((3, 12288), 0, "registers"),        # the widest row
+    ((64, 1024), 1, "two_pass"),         # one element off the boundary
+])
+def test_rmsnorm_routes_on_the_card(gen, x_dtype, s_dtype, shape, offset,
+                                    route):
+    """Aligned rows take the register route at d = 1024, 4096 and 12288,
+    a row view one element off the 16-byte boundary the two-pass kernel,
+    as the route counters show; errors as in
+    ``test_rmsnorm_kernel_matches_plain``."""
+    from repro_torch.kernels.rmsnorm import ops, ref
+
+    base = _rand(gen, (offset + shape[0] * shape[1],), x_dtype)
+    x = base[offset:].view(shape)
+    s = _rand(gen, (shape[1],), s_dtype)
+    before = dict(ops.rmsnorm.route_launches)
+    got = ops.rmsnorm(x, s)
+    want = ref.rmsnorm_ref(x, s)
+    torch.cuda.synchronize()
+    assert {k: n - before[k] for k, n in ops.rmsnorm.route_launches.items()} \
+        == {k: int(k == route) for k in before}
+    assert got.shape == x.shape and got.dtype == x.dtype
+    assert _err(got, want) <= TOL[x_dtype]
+
+
+def test_rmsnorm_register_route_raises_on_a_misaligned_view(gen):
+    """Asked for the register route on rows off the 16-byte boundary, the
+    launcher raises; it never gives way to the two-pass kernel."""
+    from repro_torch.kernels.rmsnorm import kernel
+
+    base = _rand(gen, (1 + 64 * 256,), torch.bfloat16)
+    s = _rand(gen, (256,), torch.bfloat16)
+    with pytest.raises(RuntimeError, match="registers"):
+        kernel.rmsnorm_kernel(base[1:].view(64, 256), s, route="registers")
+    with pytest.raises(RuntimeError, match="registers"):
+        kernel.rmsnorm_kernel(_rand(gen, (4, 130), torch.bfloat16),
+                              _rand(gen, (130,), torch.bfloat16),
+                              route="registers")
 
 
 @pytest.mark.parametrize("in_dtype,out_dtype", [

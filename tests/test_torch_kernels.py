@@ -209,6 +209,123 @@ def test_paged_decode_attention_fully_unmapped_slot_is_finite():
 
 
 # ---------------------------------------------------------------------------
+# paged decode: the table's pages split across blocks and merged
+# ---------------------------------------------------------------------------
+
+# (B, H, Hkv, dh, ps, table rows, cur per row, pages_per_split or None for
+# the planner's split of the main path's shape)
+DECODE_PAGED_SPLIT_CASES = {
+    # pages of 4: a 32-row tile spans 8 pages; holes mid-table
+    "page-size-4": (3, 4, 2, 32, 4, [[0, 3, 9, -1, 11, 12, -1, -1],
+                                     [5, -1, 7, 1, 2, 4, 6, 8],
+                                     [10, 13, -1, -1, -1, -1, -1, -1]],
+                    [17, 30, 5], 3),
+    # pages of 8: four pages a tile, splits of 2
+    "page-size-8": (2, 4, 2, 32, 8, [[2, 0, 5, 1, 3, -1], [4, 6, 7, -1, 8, 9]],
+                    [33, 47], 2),
+    # mid-table holes, cur mid-page, at a page's end and at the table's end
+    "holes": (3, 8, 2, 32, 8, [[0, 3, -1, -1], [5, -1, 7, -1], [2, 4, 6, 8]],
+              [9, 23, 31], 1),
+    # every entry -1: the slot averages the (poisoned) trash page
+    "fully-unmapped-slot": (2, 4, 2, 32, 8, [[-1, -1, -1], [1, 2, -1]],
+                            [0, 9], 1),
+    # the second split's pages are all holes: it sees no key and weighs 0
+    "split-all-skipped": (2, 4, 2, 32, 8, [[1, 2, -1, -1, 5, 6],
+                                           [3, 4, -1, -1, -1, -1]],
+                          [47, 12], 2),
+    # six one-page splits over a table with two mapped pages
+    "more-splits-than-mapped-pages": (2, 4, 2, 32, 8,
+                                      [[4, 7, -1, -1, -1, -1],
+                                       [9, -1, -1, -1, -1, -1]], [10, 3], 1),
+    # 7 pages in splits of 3: the last split holds one page, cur inside it
+    "ragged-last-split": (2, 4, 2, 32, 8, [[0, 1, 2, 3, 4, 5, 6],
+                                           [7, 8, 9, 10, 11, 12, 13]],
+                          [50, 44], 3),
+    # GQA 16:1 at dh 64 and 128
+    "gqa16:1-dh64": (2, 16, 1, 64, 8, [[0, 1, 2, -1], [3, 5, 4, 6]],
+                     [17, 29], 2),
+    "gqa16:1-dh128": (2, 16, 1, 128, 16, [[0, -1, 2], [3, 5, 4]],
+                      [40, 33], 1),
+    # the planner's split of the paged path's 21 pages of 16
+    "planner-main-path": (2, 4, 2, 32, 16,
+                          [list(range(21)), list(range(21, 38)) + [-1] * 4],
+                          [321, 260], None),
+}
+
+
+def _decode_split_all(table, cur, B, H, Hkv, dh, ps, pps, seed):
+    """(split ref, one-pass port ref, JAX ref, Pallas interpret) of the
+    paged decode on numpy inputs made from ``seed``."""
+    table = np.asarray(table, np.int32)
+    cur = np.asarray(cur, np.int32)
+    n_split = -(-table.shape[1] // pps)
+    P = int(table.max()) + 1
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (B, H, dh))
+    kp, vp = _pools(rng, P, ps, Hkv, dh)
+    targs = tuple(torch.from_numpy(a) for a in (q, kp, vp, table, cur))
+    got = pa_ref.paged_decode_attention_split_ref(
+        *targs, n_split=n_split, pages_per_split=pps).numpy()
+    one_pass = pa_ref.paged_decode_attention_ref(*targs).numpy()
+    args = tuple(jnp.asarray(a) for a in (q, kp, vp, table, cur))
+    jref = np.asarray(jpa_ref.paged_decode_attention_ref(*args))
+    pallas = np.asarray(jpa_ops.paged_decode_attention(*args, interpret=True))
+    return got, one_pass, jref, pallas
+
+
+@pytest.mark.parametrize("case", list(DECODE_PAGED_SPLIT_CASES))
+def test_paged_decode_split_merge_matches_the_references(case):
+    """Partials per split of the table's entries (only valid keys when the
+    slot attends to some position, every key at -1e30 otherwise), then the
+    merge, equal the one-pass softmax of both packages' references and the
+    Pallas kernel in interpret mode: a split that saw no key weighs 0, and
+    a slot with no valid key averages V over every gathered row.
+    Tolerance 2e-4 (the reference kernel tests'), relative where the
+    poisoned trash page (1e4) is averaged."""
+    B, H, Hkv, dh, ps, table, cur, pps = DECODE_PAGED_SPLIT_CASES[case]
+    if pps is None:
+        _, pps = pa_kernel.plan_page_splits(8, 8, len(table[0]))
+    t = np.asarray(table)
+    mapped = t >= 0
+    first = np.arange(t.shape[1])[None, :] * ps
+    attended = mapped & (first <= np.asarray(cur)[:, None])
+    if case == "fully-unmapped-slot":
+        assert not attended.any(axis=1).all()
+    if case == "split-all-skipped":        # split 1 of slot 0: no key
+        assert attended[0].any() and not attended[0, pps:2 * pps].any()
+    if case == "more-splits-than-mapped-pages":
+        assert t.shape[1] // pps > mapped.sum(axis=1).max()
+    if case == "ragged-last-split":
+        assert t.shape[1] % pps and attended[:, -1].any()
+    got, one_pass, jref, pallas = _decode_split_all(
+        table, cur, B, H, Hkv, dh, ps, pps, seed=len(case) + 500)
+    np.testing.assert_allclose(got, one_pass, **PAGED_TOL)
+    np.testing.assert_allclose(got, jref, **PAGED_TOL)
+    np.testing.assert_allclose(got, pallas, **PAGED_TOL)
+
+
+@pytest.mark.parametrize("cur", [6, 7, 8, 9, 15, 16, 17, 31, 32, 33, 39])
+def test_paged_decode_split_merge_cur_pos_sweep(cur):
+    """cur_pos swept across page (8) and split (16) boundaries: each step
+    moves one key into the slot, and from 16 on into the next split."""
+    got, one_pass, jref, pallas = _decode_split_all(
+        [[2, 0, 5, 1, 3]], [cur], 1, 4, 2, 32, 8, 2, seed=cur + 600)
+    np.testing.assert_allclose(got, one_pass, **PAGED_TOL)
+    np.testing.assert_allclose(got, jref, **PAGED_TOL)
+    np.testing.assert_allclose(got, pallas, **PAGED_TOL)
+
+
+def test_paged_decode_split_plan_fills_the_card_on_the_paged_path():
+    """qwen3-0.6b paged serving: B=8 slots, 8 kv heads, 21 pages of 16 a
+    slot -> 6 splits of 4 pages, 384 blocks of the split pass (>= 2 x
+    132), each split two 32-row tiles; every split holds a table entry."""
+    n_split, pps = pa_kernel.plan_page_splits(8, 8, 21)
+    assert n_split * 8 * 8 >= pa_kernel.MIN_BLOCKS == 264
+    assert (n_split, pps) == (6, 4)
+    assert (n_split - 1) * pps < 21 <= n_split * pps
+
+
+# ---------------------------------------------------------------------------
 # prefix-context flash attention: two phases vs the concat oracle
 # ---------------------------------------------------------------------------
 
@@ -457,6 +574,51 @@ def test_rmsnorm_and_matmul_wrappers_count_only_card_launches():
     assert (rms_ops.rmsnorm.launches, mm_ops.matmul.launches) == before
 
 
+# (d, itemsize, first row's address, route)
+RMS_ROUTE_CASES = {
+    "admission (2048, 1024) bf16": (1024, 2, 0, "registers"),
+    "admission f32": (1024, 4, 4096, "registers"),
+    "narrow d=8 bf16 (one vector a row)": (8, 2, 256, "registers"),
+    "q/k norm d=128 bf16": (128, 2, 512, "registers"),
+    "wide d=4096 bf16 (a block a row)": (4096, 2, 0, "registers"),
+    "widest d=12288 f32": (12288, 4, 0, "registers"),
+    "view one bf16 element off the boundary": (256, 2, 2, "two_pass"),
+    "view one f32 element off the boundary": (1024, 4, 4, "two_pass"),
+    "d=130 bf16: 260-byte rows": (130, 2, 0, "two_pass"),
+    "d=5 f32: 20-byte rows": (5, 4, 0, "two_pass"),
+    "d=12 bf16: 24-byte rows": (12, 2, 0, "two_pass"),
+    "wide d=4100 bf16: 8,200-byte rows": (4100, 2, 0, "two_pass"),
+}
+
+
+@pytest.mark.parametrize("case", list(RMS_ROUTE_CASES))
+def test_rmsnorm_route_planner(case):
+    """``kernel.rmsnorm_route`` is a pure function of (d, itemsize,
+    address): rows that start on a 16-byte boundary and span a multiple of
+    16 bytes take the register route, every other row the two-pass
+    kernel.  It launches nothing."""
+    d, itemsize, addr, want = RMS_ROUTE_CASES[case]
+    before = dict(rms_ops.rmsnorm.route_launches)
+    assert rms_kernel.rmsnorm_route(d, itemsize, addr) == want
+    assert rms_ops.rmsnorm.route_launches == before
+
+
+def test_rmsnorm_route_of_tensors_and_counters():
+    """``kernel.route_of`` reads the planner's inputs off a tensor (CPU
+    tensors here: the planner needs no card); the per-route counters sit
+    beside ``rmsnorm.launches`` and count nothing on the CPU."""
+    assert set(rms_ops.rmsnorm.route_launches) == set(rms_kernel.ROUTES)
+    base = torch.zeros(1 + 64 * 256, dtype=torch.bfloat16)
+    if base.data_ptr() % 16 == 0:
+        assert rms_kernel.route_of(base[:64 * 256].view(64, 256)) == "registers"
+        assert rms_kernel.route_of(base[1:].view(64, 256)) == "two_pass"
+    assert rms_kernel.route_of(torch.zeros(3, 130)) == "two_pass"
+    before = dict(rms_ops.rmsnorm.route_launches)
+    rms_ops.rmsnorm(torch.ones(4, 1024, dtype=torch.bfloat16),
+                    torch.ones(1024, dtype=torch.bfloat16))
+    assert rms_ops.rmsnorm.route_launches == before
+
+
 def test_rmsnorm_and_matmul_kernels_refuse_what_they_do_not_take():
     """The launchers' checks run before any build: dtypes, shapes and the
     widest row (``MAX_D``) are refused with a ValueError."""
@@ -657,7 +819,7 @@ def _verify_split_all(case):
     B, W, H, Hkv, dh, ps, table, cur, pps = VERIFY_SPLIT_CASES[case]
     table = np.asarray(table, np.int32)
     if pps is None:
-        _, pps = pa_kernel.plan_verify_splits(8, 8, table.shape[1])
+        _, pps = pa_kernel.plan_page_splits(8, 8, table.shape[1])
     P = int(table.max()) + 1
     rng = np.random.default_rng(len(case) + 400)
     q = _randn(rng, (B, W, H, dh))
@@ -726,7 +888,7 @@ def test_verify_split_merge_page_boundary_sweep(cur):
     (1, 1, 1000), (3, 2, 8), (16, 8, 65), (1, 8, 7),
 ])
 def test_verify_split_plan_gives_every_split_a_page(B, Hkv, max_pages):
-    n_split, pps = pa_kernel.plan_verify_splits(B, Hkv, max_pages)
+    n_split, pps = pa_kernel.plan_page_splits(B, Hkv, max_pages)
     assert pps >= 1
     assert (n_split - 1) * pps < max_pages <= n_split * pps
     # as many blocks as MIN_BLOCKS asks where the table has the pages
@@ -737,7 +899,7 @@ def test_verify_split_plan_fills_the_card_on_the_spec_path():
     """qwen3-0.6b speculative serving: B=8 slots, 8 kv heads, 21 pages of
     16 a slot -> at least 2 x 132 blocks, each split one staging round (4
     pages) of the bf16 kernel."""
-    n_split, pps = pa_kernel.plan_verify_splits(8, 8, 21)
+    n_split, pps = pa_kernel.plan_page_splits(8, 8, 21)
     assert n_split * 8 * 8 >= 264
     assert (n_split, pps) == (6, 4)
 
@@ -757,7 +919,7 @@ def test_verify_bf16_p_rounding_stays_within_bf16_tol():
     table = np.arange(P, dtype=np.int32).reshape(B, maxp)
     table[(np.arange(maxp)[None, :] * ps) > (cur[:, None] + W - 1)] = -1
     table[0, 3] = -1                            # a hole
-    _, pps = pa_kernel.plan_verify_splits(B, 8, maxp)
+    _, pps = pa_kernel.plan_page_splits(B, 8, maxp)
     targs = (q, kp, vp, torch.from_numpy(table), torch.from_numpy(cur))
     got = pa_ref.paged_verify_attention_split_ref(
         *targs, pages_per_split=pps, round_p=True)
@@ -906,15 +1068,32 @@ def test_ssd_fault_replaces_one_line_of_the_kernel(fault):
     ("ssd_f32_kernel", "ssd_scan"),
     ("mm_wgmma_kernel", "matmul (port)"),
     ("mm_simt_kernel", "matmul (port)"),
+    ("paged_decode_split_kernel", "paged_decode_attention"),
+    ("paged_decode_merge_kernel", "paged_decode_attention"),
+    ("dec_split_kernel", "decode_attention"),
+    ("dec_merge_kernel", "decode_attention"),
 ])
 def test_phase6_attributes_the_new_kernels(kernel, cls):
     """Phase 6 names a kernel's class by the first key its (lower-cased,
     demangled) name holds: the SSD passes land in the SSD class and the
-    matmul's kernels in the port's matmul class, not cuBLAS's; each name is
-    a ``__global__`` of the sources."""
+    matmul's kernels in the port's matmul class, not cuBLAS's, and the
+    paged decode's split and merge kernels in the paged decode class, not
+    the dense decode's; each name is a ``__global__`` of the sources."""
     name = f"void (anonymous namespace)::{kernel}<64, 128>(float const*)"
     got = next(c for c, keys in _CHIP_SMOKE._KERNEL_CLASSES
                if any(k in name.lower() for k in keys))
     assert got == cls
     src = "".join(p.read_text() for p in Path(_build.CSRC).glob("*.cu"))
     assert re.search(rf"\b{kernel}\(", src)
+
+
+@pytest.mark.parametrize("key", [
+    key for cls, keys in _CHIP_SMOKE._KERNEL_CLASSES
+    if cls != "matmul (cuBLAS)" for key in keys])
+def test_phase6_keys_name_kernels_of_the_sources(key):
+    """Every key of the port's classes in phase 6 is the name of a
+    ``__global__`` of the sources: a key left behind by a kernel that was
+    replaced would attribute nothing, or another kernel's time."""
+    src = "".join(p.read_text() for p in Path(_build.CSRC).glob("*.cu"))
+    assert re.search(rf"__global__ void (__launch_bounds__\([^)]*\) )?"
+                     rf"{key}\(", src)
