@@ -117,6 +117,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and the program's output agrees
               with its plain version.  Prints the static stage's seconds
               per lease size beside the regrow's ``t_context``.
+5f. guards  — phase 5b's batcher and requests with ``audit=True,
+              watchdog_s=5.0``: after two clean rounds (one host sync per
+              admission and per chunk), an out-of-range id in a live
+              slot's page table, then a live slot mapping another live
+              slot's private page, then a synthetic 6 s stall blamed on a
+              third live slot, one round apart.  Every request completes
+              its ``max_new`` tokens; the audit repairs at least 3
+              entries, quarantines exactly the stolen page (in no table
+              row, not on the free stack), the watchdog trips once, mapped,
+              free, shared and quarantined pages partition the pool and the
+              ledger checks; every admission went through the flash or the
+              prefix kernel and every decode step through the paged decode
+              kernel.  Token identity with phase 5b for the requests never
+              requeued is reported, not gated.
 6. trace    — the first rounds of the dense, the paged, the spec and the
               Mamba-2 path,
               all untraced first, then each under ``torch.profiler``: device
@@ -1858,8 +1872,9 @@ def serve_paged_path(card: str, params, cfg):
         f"prefix_flash_attention={pfx_n} (= {L} x {stats.prefills}), "
         f"paged_decode_attention={pa_n} (= {L} x {stats.steps}), "
         f"decode_attention={da_n}")
-    return {"flash_attention": fa_n, "prefix_flash_attention": pfx_n,
-            "paged_decode_attention": pa_n}
+    return ({"flash_attention": fa_n, "prefix_flash_attention": pfx_n,
+             "paged_decode_attention": pa_n},
+            {r.rid: list(r.out) for r in reqs})
 
 
 # ---------------------------------------------------------------------------
@@ -2397,6 +2412,176 @@ def serve_tenancy_path(card: str, params, cfg, build_s: float):
 
 
 # ---------------------------------------------------------------------------
+# phase 5f: the fault guards (page-table audit, quarantine, watchdog)
+# ---------------------------------------------------------------------------
+
+
+GUARD_CONFIG = dict(PAGED_CONFIG, audit=True, watchdog_s=5.0)
+
+
+def _guarded_batcher(params, cfg, reqs):
+    from repro_torch.serving import ContinuousBatcher, ServingConfig
+
+    batcher = ContinuousBatcher(params, cfg, ServingConfig(**GUARD_CONFIG))
+    for r in reqs:
+        batcher.submit(r)
+    return batcher
+
+
+def _private_page(batcher, slot: int):
+    """The first page of ``slot``'s row past its pinned prefix that is
+    mapped and not owned by the prefix cache, or None."""
+    row = batcher.pages.table[slot].cpu().numpy()
+    pin = int(batcher.pages.pinned[slot])
+    shared = batcher.kv_pool.shared_ids()
+    for pid in row[pin:]:
+        if pid >= 0 and int(pid) not in shared:
+            return int(pid)
+    return None
+
+
+def serve_guarded_path(card: str, params, cfg, paged_tokens):
+    """Phase 5b's batcher with ``audit=True, watchdog_s=5.0`` and its 16
+    requests: after two clean rounds, an out-of-range id in a live slot's
+    table, then a live slot mapping another live slot's private page, then
+    a synthetic 6 s stall blamed on a third live slot, one round apart.
+    ``paged_tokens`` ({rid: tokens}) is phase 5b's run of the same
+    requests."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.prefix_attention import ops as pfx_ops
+
+    t0 = time.perf_counter()
+    _guarded_batcher(params, cfg, _paged_requests(cfg, n=8, seed=1,
+                                                  namespace="warm-up")).run()
+    torch.cuda.synchronize()
+    log(f"  warm-up run (8 other requests): {time.perf_counter() - t0:.3f} s")
+
+    reqs = _paged_requests(cfg)
+    batcher = _guarded_batcher(params, cfg, reqs)
+    stats = batcher.stats
+    torch.cuda.synchronize()
+    counters = (fa_ops.flash_attention, pfx_ops.prefix_flash_attention,
+                pa_ops.paged_decode_attention, da_ops.decode_attention)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(2):
+        batcher.step()
+    check(stats.chunks > 0 and stats.host_syncs == stats.prefills
+          + stats.chunks, f"guarded path, clean rounds: {stats.host_syncs} "
+          f"host syncs for {stats.prefills} admissions + {stats.chunks} "
+          f"chunks")
+    check(stats.dispatches - batcher.page_pushes == stats.prefills
+          + stats.chunks, "guarded path, clean rounds: dispatches != "
+          "prefills + chunks + page pushes")
+    check(stats.audit_repairs == 0 and stats.watchdog_trips == 0,
+          "a guard fired in a clean round")
+    clean = (stats.prefills, stats.chunks, stats.host_syncs)
+
+    def live():
+        return [i for i, r in enumerate(batcher.slot_req) if r is not None]
+
+    requeued = set()
+
+    def faulted_round(what: str):
+        before = {r.rid for r in batcher.slot_req if r is not None}
+        batcher.step()
+        back = sorted(r.rid for r in batcher.queue if r.rid in before)
+        requeued.update(back)
+        log(f"  {what}: requests {back} requeued; audit_repairs="
+            f"{stats.audit_repairs} quarantined_pages="
+            f"{stats.quarantined_pages} watchdog_trips={stats.watchdog_trips}")
+
+    slots = live()
+    check(len(slots) >= 3, f"only {len(slots)} live slots after two rounds")
+    batcher.inject_kv_corruption(slots[0])
+    faulted_round(f"out-of-range id in slot {slots[0]}'s table")
+    check(stats.audit_repairs >= 1, "the audit missed an out-of-range id")
+
+    slots = live()
+    check(len(slots) >= 2, f"only {len(slots)} live slots for the double "
+          f"mapping")
+    thief, owner = slots[0], slots[1]
+    stolen = _private_page(batcher, owner)
+    check(stolen is not None, f"slot {owner} maps no private page")
+    batcher.inject_kv_corruption(thief, pid=stolen)
+    faulted_round(f"slot {thief} maps page {stolen}, private to slot {owner}")
+    check(stolen in batcher._quarantined,
+          f"the double-mapped page {stolen} was not quarantined")
+
+    slots = [i for i in live() if i not in (thief, owner)]
+    check(bool(slots), "no third live slot to stall")
+    batcher.inject_stall(slots[0], 6.0)
+    faulted_round(f"synthetic 6 s stall blamed on slot {slots[0]}")
+    check(stats.watchdog_trips == 1, "the watchdog missed a 6 s stall")
+
+    batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fa_n, pfx_n, pa_n, da_n = (c.launches for c in counters)
+
+    for r in reqs:
+        check(r.done and not r.dropped,
+              f"guarded request {r.rid} did not complete")
+        check(len(r.out) == r.max_new, f"guarded request {r.rid}: "
+              f"{len(r.out)} tokens, expected {r.max_new}")
+        check(all(0 <= t < cfg.vocab for t in r.out),
+              f"guarded request {r.rid}: token outside the vocab")
+    L = cfg.n_layers
+    check(stats.audit_repairs >= 3, f"audit_repairs {stats.audit_repairs} < 3")
+    check(stats.quarantined_pages == 1 and batcher._quarantined == {stolen},
+          f"quarantined {sorted(batcher._quarantined)}, expected [{stolen}]")
+    check(stats.watchdog_trips == 1,
+          f"watchdog_trips {stats.watchdog_trips}: a real chunk took > 5 s")
+    tab = batcher.pages.table.cpu().numpy()
+    top = int(batcher.pages.free_top)
+    mapped = set(tab[tab >= 0].tolist())
+    free = set(batcher.pages.free[:top].tolist())
+    shared = batcher.kv_pool.shared_ids()
+    quarantined = batcher._quarantined
+    check(not (quarantined & (mapped | free | shared)),
+          "a quarantined page is mapped, free or shared")
+    check(len(mapped) + len(free) + len(shared) + len(quarantined)
+          == batcher.n_pages and sorted(mapped | free | shared | quarantined)
+          == list(range(batcher.n_pages)),
+          f"mapped {len(mapped)} + free {len(free)} + shared {len(shared)} + "
+          f"quarantined {len(quarantined)} do not partition "
+          f"{batcher.n_pages} pages")
+    batcher.kv_pool.check()
+    check(fa_n + pfx_n == L * stats.prefills,
+          f"flash {fa_n} + prefix {pfx_n} launches != {L} x {stats.prefills} "
+          f"prefills")
+    check(pa_n == L * stats.steps,
+          f"paged_decode_attention launches {pa_n} != {L} x {stats.steps} steps")
+    check(da_n == 0, f"the dense decode kernel ran {da_n} times on the "
+          f"guarded path")
+    kept = [r for r in reqs if r.rid not in requeued]
+    same = sum(r.out == paged_tokens[r.rid] for r in kept)
+    log(f"  {stats.completed}/16 requests, {stats.tokens} tokens, "
+        f"{stats.prefills} prefills, {stats.chunks} chunks, {stats.steps} "
+        f"decode steps, {batcher.page_pushes} page pushes in {wall:.3f} s "
+        f"[{card}]")
+    log(f"  guards: audit_repairs={stats.audit_repairs} quarantined_pages="
+        f"{stats.quarantined_pages} (page {stolen}) watchdog_trips="
+        f"{stats.watchdog_trips} requeued requests {sorted(requeued)}; "
+        f"clean rounds: {clean[2]} host syncs for {clean[0]} admissions + "
+        f"{clean[1]} chunks; whole run: {stats.host_syncs} host syncs for "
+        f"{stats.prefills} admissions + {stats.chunks} chunks [{card}]")
+    log(f"  pool: mapped {len(mapped)} + free {len(free)} + shared "
+        f"{len(shared)} + quarantined {len(quarantined)} = {batcher.n_pages} "
+        f"pages; launches: flash_attention={fa_n} + prefix_flash_attention="
+        f"{pfx_n} (= {L} x {stats.prefills}), paged_decode_attention={pa_n} "
+        f"(= {L} x {stats.steps}), decode_attention={da_n}")
+    log(f"  bf16 token identity with phase 5b for the {len(kept)} requests "
+        f"never requeued (reported, not gated): {same}/{len(kept)} "
+        f"({same / max(len(kept), 1):.3f})")
+
+
+# ---------------------------------------------------------------------------
 # phase 6: where the time goes (a traced window of the same requests)
 # ---------------------------------------------------------------------------
 
@@ -2573,7 +2758,7 @@ def main() -> int:
 
     log("phase 5b: paged main path, qwen3-0.6b behind a paged batcher with "
         "the prefix cache")
-    path_launches = serve_paged_path(card, params, cfg)
+    path_launches, paged_tokens = serve_paged_path(card, params, cfg)
 
     log("phase 5c: speculative path, qwen3-0.6b behind a paged batcher with "
         "the prefix cache, speculative decode and overlap")
@@ -2586,6 +2771,10 @@ def main() -> int:
     log("phase 5e: tenancy, qwen3-0.6b tenants served through the "
         "hypervisor (leases, static stage, regrow between chunks)")
     path_launches.update(serve_tenancy_path(card, params, cfg, build_s))
+
+    log("phase 5f: fault guards, qwen3-0.6b behind phase 5b's batcher with "
+        "the page-table audit and the watchdog, three faults injected")
+    serve_guarded_path(card, params, cfg, paged_tokens)
 
     log("phase 6: where the time goes")
     # the bf16 paths' prefill, prefix, decode, paged decode and verify

@@ -16,12 +16,13 @@ Level 1 (task-level scheduler, one per accelerator):
 
 Level 2 (module-level scheduler, one per core) is the in-order-per-unit
 dependency scoreboard — implemented by the latency simulator's list scheduler
-(`repro.core.latency_sim.simulate` in the JAX package; the simulation
-engine is not ported yet), which this module drives.
+(the port's own :func:`repro_torch.core.latency_sim.simulate`), which this
+module drives.
 
 These classes are behavioural models (discrete-event), exercised by the
-virtualized engine and unit-tested directly; the serving port uses
-``SwitchMode``, the mode of the hypervisor's resize decisions.
+virtualized engine (:class:`repro_torch.core.vengine.VirtualEngine`) and
+unit-tested directly; the serving port uses ``SwitchMode``, the mode of the
+hypervisor's resize decisions.
 """
 
 from __future__ import annotations

@@ -52,14 +52,25 @@ Invariants:
 past at admission time sheds the request (``dropped`` /
 ``stats.deadline_drops``).
 
-**Fault guard**: every chunk carries the non-finite logit sentinel — a slot
-whose logits go NaN/inf is deactivated on the device before a poisoned token
-can be emitted, and its request is requeued with its pre-fault tokens
-intact (``stats.poisoned_slots``).
+**Fault guards**: every chunk carries the non-finite logit sentinel — a
+slot whose logits go NaN/inf is deactivated on the device before a poisoned
+token can be emitted, and its request is requeued with its pre-fault tokens
+intact (``stats.poisoned_slots``).  An optional **watchdog**
+(``watchdog_s``) bounds the wall time of one chunk dispatch+sync and
+retires the most suspect slot instead of stalling every other request
+(``stats.watchdog_trips``).  An opt-in **page-table audit** (``audit=True``,
+paged mode) rides the chunk's one fetch: the page table joins the packed
+vector, is checked against the no-double-mapping invariant (shared prefix
+pages are exempt: they are read-only and multi-mapped by design), and
+violating entries are cleared, double-mapped physical pages quarantined out
+of circulation for good, and the slots whose KV integrity is suspect
+requeued (``stats.audit_repairs`` / ``stats.quarantined_pages``).  A chunk
+with nothing to repair costs no extra sync.  ``inject_stall`` and
+``inject_kv_corruption`` are seeded-chaos hooks for tests and
+``chip_smoke.py``.
 
-Tensor parallelism, the watchdog and the page-table audit raise
-``NotImplementedError`` at construction until the ROADMAP items that port
-them land.
+Tensor parallelism raises ``NotImplementedError`` at construction until the
+ROADMAP item that ports it lands.
 """
 
 from __future__ import annotations
@@ -98,15 +109,13 @@ from .engine import (
     make_paged_spec_decode_chunk,
     make_spec_decode_chunk,
 )
-from .kv_cache import PagedKVPool, pages_for, tree_bytes
+from .kv_cache import PagedKVPool, PageQuotaError, pages_for, tree_bytes
 from .prefix_cache import PrefixCache, PrefixNode
 
 # ServingConfig modes this slice does not run yet, with the ROADMAP item
 # (ROADMAP.md, Queue 1) that ports each
 _UNPORTED = (
     ("tp > 1", lambda c: c.tp > 1, "item 12 (tensor parallel)"),
-    ("watchdog_s", lambda c: c.watchdog_s is not None, "item 11 (fault guards)"),
-    ("audit", lambda c: c.audit, "item 11 (fault guards)"),
 )
 
 
@@ -421,11 +430,19 @@ class ContinuousBatcher:
         self.stats = BatcherStats(registry=self.telemetry.registry,
                                   tenant=self.telemetry.tenant,
                                   cache_bytes=tree_bytes(self.caches))
+        # fault guards: watchdog_s bounds the wall time of one chunk
+        # dispatch+sync (None = off); audit=True cross-checks the fetched
+        # page tables against the no-double-mapping invariant every chunk
+        self._watchdog_s = config.watchdog_s
+        self._audit = bool(config.audit) and self.paged
+        self._stall: Optional[tuple] = None      # inject_stall chaos hook
+        self._quarantined: set = set()           # page ids out of circulation
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(0)
         self._stalled = 0           # consecutive zero-emission paged chunks
         self._admitted_pages_since_sync = 0
-        # page pushes (cache evictions): dispatches with no host sync
+        # page pushes (cache evictions, guard releases): dispatches with no
+        # host sync
         self.page_pushes = 0
         # over-subscription throttle: after a denied page fault, cap
         # residency at the survivors so restarted requests stop thrashing
@@ -543,15 +560,7 @@ class ContinuousBatcher:
         self.kv_pool.drop_shared(pids)
         self.stats.prefix_evictions += len(pids)
         self.stats.shared_pages = self.kv_pool.shared
-        # back onto the device free stack: one dispatch, no sync; the id
-        # vector is padded to a power-of-two width with -1 (no-ops)
-        width = 1 << (len(pids) - 1).bit_length() if len(pids) > 1 else 1
-        vec = np.full((width,), -1, dtype=np.int32)
-        vec[: len(pids)] = pids
-        self.pages = self._push_fn(self.pages,
-                                   torch.from_numpy(vec).to(self.device))
-        self.stats.dispatches += 1
-        self.page_pushes += 1
+        self._push_pages(pids)
         self.stats.pages_in_use = max(0, self.stats.pages_in_use - len(pids))
         return len(pids)
 
@@ -608,6 +617,174 @@ class ContinuousBatcher:
             req.out.clear()
         self.queue.appendleft(req)
         return kept
+
+    def _push_pages(self, pids: List[int]) -> None:
+        """Push ``pids`` onto the device free stack: one dispatch, no sync;
+        the id vector is padded to a power-of-two width with -1 (no-ops)."""
+        width = 1 << (len(pids) - 1).bit_length() if len(pids) > 1 else 1
+        vec = np.full((width,), -1, dtype=np.int32)
+        vec[: len(pids)] = pids
+        self.pages = self._push_fn(self.pages,
+                                   torch.from_numpy(vec).to(self.device))
+        self.stats.dispatches += 1
+        self.page_pushes += 1
+
+    # -- fault guards: watchdog, page-table audit ------------------------
+    def inject_stall(self, slot: int, seconds: float) -> None:
+        """Chaos hook: add ``seconds`` to the next chunk's measured wall
+        time and blame ``slot``, so tests can trip the watchdog
+        deterministically without a real hang."""
+        self._stall = (int(slot), float(seconds))
+
+    def inject_kv_corruption(self, slot: int, *,
+                             pid: Optional[int] = None) -> None:
+        """Chaos hook: overwrite ``slot``'s first mapped page-table entry
+        with ``pid`` (default: an out-of-range id), simulating a flipped bit
+        in the table; another slot's physical id forges a double mapping.
+        One unguarded host read of the row, then one in-place write on the
+        device, between steps.  ``audit=True`` detects and self-heals either
+        on the next chunk's sync."""
+        if not self.paged:
+            raise ValueError("page corruption applies to paged batchers")
+        row = self.pages.table[slot].cpu().numpy()
+        mapped = np.nonzero(row >= 0)[0]
+        j = int(mapped[0]) if mapped.size else 0
+        bad = int(pid) if pid is not None else self.n_pages + 7
+        self.pages.table[slot, j] = bad
+
+    def _host_release_slot(self, slot: int) -> None:
+        """Host-side analogue of the in-chunk finish path: deactivate
+        ``slot`` on the device and (paged) push its private pages back to
+        the free stack, clearing its table row.  Cache-owned (pinned) pages
+        are left to the refcount ledger; quarantined and out-of-range ids
+        are never pushed."""
+        active = self.state.active.clone()
+        active[slot] = False
+        self.state = self.state._replace(active=active)
+        if not self.paged:
+            return
+        fetched = _Fetch(torch.cat([self.pages.table[slot],
+                                    self.pages.pinned[slot:slot + 1]])).wait()
+        self.stats.host_syncs += 1
+        row, pin = fetched[:-1], int(fetched[-1])
+        pids = [int(p) for p in row[pin:]
+                if 0 <= p < self.n_pages and int(p) not in self._quarantined]
+        table, pinned = self.pages.table.clone(), self.pages.pinned.clone()
+        table[slot] = -1
+        pinned[slot] = 0
+        self.pages = self.pages._replace(table=table, pinned=pinned)
+        if pids:
+            self._push_pages(pids)
+            self.stats.pages_in_use = max(
+                0, self.stats.pages_in_use - len(pids))
+
+    def _watchdog_trip(self, stall_slot: Optional[int]) -> None:
+        """A chunk exceeded ``watchdog_s``: retire the most suspect slot (the
+        injected one when the stall was synthetic, else the slot with the
+        most generated tokens, the longest-running lane) and requeue its
+        request, instead of letting one wedged lane stall every request on
+        this batcher.  Tokens emitted before the trip are kept whenever they
+        still fit the prompt bucket."""
+        self.stats.watchdog_trips += 1
+        self._tracer.instant("watchdog_trip", self._track)
+        candidates = [i for i, r in enumerate(self.slot_req)
+                      if r is not None]
+        if stall_slot is not None and self.slot_req[stall_slot] is not None:
+            victim = stall_slot
+        elif candidates:
+            victim = max(candidates,
+                         key=lambda i: (len(self.slot_req[i].out), -i))
+        else:
+            return
+        req = self.slot_req[victim]
+        self._host_release_slot(victim)
+        self._requeue_slot(victim, req)
+
+    def _run_audit(self, table_np: np.ndarray) -> None:
+        """Cross-check the fetched page tables against the no-double-mapping
+        invariant: every physical id maps at most one (slot, logical) entry
+        unless it is cache-owned (shared prefix pages are read-only and
+        legitimately multi-mapped).  Violations self-heal: out-of-range
+        entries are cleared, a double-mapped private page is unmapped
+        everywhere and **quarantined** (never returned to the free stack;
+        billed to a ``"__quarantine__"`` ledger owner so admission control
+        sees the shrunken pool), and every slot that lost a mapping is
+        requeued: its KV integrity is suspect, but its emitted tokens are
+        host-side and kept.  ``table_np`` is the table as the chunk left it;
+        the repairs act on the live table, which overlap admission may have
+        written since."""
+        shared = self.kv_pool.shared_ids()
+        owner: Dict[int, tuple] = {}
+        clear: set = set()               # (slot, logical) entries to wipe
+        corrupt: set = set()             # pool pids leaving circulation
+        suspects: set = set()            # slots whose KV integrity is gone
+        B, maxp = table_np.shape
+        for i in range(B):
+            for j in range(maxp):
+                pid = int(table_np[i, j])
+                if pid < 0:
+                    continue
+                if pid >= self.n_pages or pid in self._quarantined:
+                    clear.add((i, j))
+                    suspects.add(i)
+                    continue
+                if pid in shared:
+                    continue
+                prev = owner.get(pid)
+                if prev is None:
+                    owner[pid] = (i, j)
+                else:
+                    clear.add(prev)
+                    clear.add((i, j))
+                    corrupt.add(pid)
+                    suspects.add(prev[0])
+                    suspects.add(i)
+        if not clear:
+            return
+        entries = sorted(clear)
+        dev = self.device
+        rows = torch.tensor([e[0] for e in entries], dtype=torch.long,
+                            device=dev)
+        cols = torch.tensor([e[1] for e in entries], dtype=torch.long,
+                            device=dev)
+        self.pages = self.pages._replace(table=self.pages.table.index_put(
+            (rows, cols), torch.tensor(-1, dtype=torch.int32, device=dev)))
+        self.stats.audit_repairs += len(entries)
+        self._tracer.instant("audit_repair", self._track,
+                             args={"entries": len(entries)})
+        new_q = corrupt - self._quarantined
+        self._quarantined |= corrupt
+        self.stats.quarantined_pages = len(self._quarantined)
+        if new_q:
+            try:
+                self.kv_pool.alloc("__quarantine__", len(new_q))
+            except PageQuotaError:
+                pass        # ledger over-subscribed; the device governs
+        for i in sorted(suspects):
+            req = self.slot_req[i]
+            if req is None:
+                continue
+            self._host_release_slot(i)
+            self._requeue_slot(i, req)
+        # leak reconciliation: the corrupt entry overwrote some page's only
+        # mapping, orphaning it: neither mapped, free, shared, nor
+        # quarantined.  Its owner was just requeued, so the contents are
+        # dead, and the page itself is fine (the *table* was corrupt), so
+        # orphans go back on the free stack: corruption never shrinks the
+        # pool beyond the quarantined pages.
+        pg = self.pages
+        fetched = _Fetch(torch.cat([pg.table.reshape(-1), pg.free,
+                                    pg.free_top.reshape(1)])).wait()
+        self.stats.host_syncs += 1
+        tab = fetched[: B * maxp]
+        free_np, top = fetched[B * maxp:-1], int(fetched[-1])
+        known = set(tab[tab >= 0].tolist())
+        known |= set(free_np[:top].tolist())
+        known |= shared | self._quarantined
+        leaked = [p for p in range(self.n_pages) if p not in known]
+        if leaked:
+            self._push_pages(leaked)
+            self.stats.audit_repairs += len(leaked)
 
     # -- admission: right-sized prefill + per-slot scatter ---------------
     def _padded_row(self, req: Request) -> np.ndarray:
@@ -994,12 +1171,16 @@ class ContinuousBatcher:
             self.caches, self.state, toks, emitted, poisoned = chunk(
                 self.params, self.caches, self.state, self._gen)
         # one packed int32 vector so the chunk costs one fetch: tokens,
-        # emitted, poisoned, then (paged) active, free_top and the counters
+        # emitted, poisoned, then (paged) active, free_top, the counters and
+        # (audit) the page table; the copy is the table as this chunk left
+        # it, before any admission behind the chunk writes it
         parts = [toks.reshape(-1), emitted.to(torch.int32).reshape(-1),
                  poisoned.to(torch.int32)]
         if self.paged:
             parts += [self.state.active.to(torch.int32),
                       self.pages.free_top.reshape(1), ctr]
+            if self._audit:
+                parts.append(self.pages.table.reshape(-1))
         fetch = _Fetch(torch.cat(parts))
         self.stats.steps += T * W
         self.stats.chunks += 1
@@ -1013,7 +1194,8 @@ class ContinuousBatcher:
     def _finish_chunk(self, pending: Dict[str, Any], *,
                       keep_admitted_pages: int = 0) -> None:
         """Sync one dispatched chunk and run the host bookkeeping: token
-        emission, completion, poison and OOM requeues, page accounting.
+        emission, completion, poison and OOM requeues, page accounting,
+        audit, watchdog.
         ``keep_admitted_pages`` is the number of pages that admission
         dispatched *behind* this chunk has popped: the fetched ``free_top``
         predates those pops, so they survive the estimate's reset."""
@@ -1028,6 +1210,11 @@ class ContinuousBatcher:
                                   t_end - t_sync0)
             self._tracer.complete("chunk", self._track, pending["t0"],
                                   elapsed, {"T": T, "slots": len(active)})
+        stall_slot: Optional[int] = None
+        if self._stall is not None:
+            stall_slot, extra = self._stall
+            self._stall = None
+            elapsed += extra
         n = T * B * W
         toks_np = fetched[:n].reshape(T, B, W)
         emit_np = fetched[n:2 * n].reshape(T, B, W)
@@ -1063,7 +1250,8 @@ class ContinuousBatcher:
                 self._requeue_slot(i, req)
         if self.paged:
             rest = fetched[2 * n + B:]
-            active_np, free_top, ctr_np = rest[:B], int(rest[B]), rest[B + 1:]
+            active_np, free_top = rest[:B], int(rest[B])
+            ctr_np, table_np = rest[B + 1:B + 5], rest[B + 5:]
             self.stats.device_pages_popped += int(ctr_np[0])
             self.stats.device_pages_pushed += int(ctr_np[1])
             self.stats.fault_denied_slots += int(ctr_np[2])
@@ -1092,6 +1280,10 @@ class ContinuousBatcher:
             self.stats.peak_pages_in_use = max(
                 self.stats.peak_pages_in_use, self.stats.pages_in_use)
             self._admitted_pages_since_sync = keep_admitted_pages
+            if self._audit:
+                self._run_audit(table_np.reshape(B, -1))
+        if self._watchdog_s is not None and elapsed > self._watchdog_s:
+            self._watchdog_trip(stall_slot)
 
     def _maybe_complete(self, slot: int, req: Request) -> None:
         """Retire ``slot`` if its request just hit EOS or its budget."""

@@ -6,11 +6,12 @@ cross-field rules, checked at construction against the port's
 attention impls are ``"cuda"`` (the kernels, the default), ``"torch"`` (the
 counterpart of ``"xla"``) and ``"naive"``.
 
-The modes that are not ported yet (tensor parallelism, watchdog, audit)
-keep their fields and value rules here, so a config means the same in both
-packages; ``ContinuousBatcher`` raises ``NotImplementedError`` for them at
-construction, naming the ROADMAP item that ports each.  The paged pool, the
-prefix cache, speculative decode and overlap run.
+Tensor parallelism, which is not ported yet, keeps its field and value
+rules here, so a config means the same in both packages;
+``ContinuousBatcher`` raises ``NotImplementedError`` for ``tp > 1`` at
+construction, naming the ROADMAP item that ports it.  The paged pool, the
+prefix cache, speculative decode, overlap and the fault guards (watchdog,
+page-table audit) run.
 
 The legacy kwargs constructor is kept as a thin deprecation shim::
 

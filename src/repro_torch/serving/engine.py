@@ -24,13 +24,14 @@ cleared in the same step, so its later writes land on the trash page.)
 The paged steps keep the page allocator on the device, as the reference
 does: the free stack, its pointer ``free_top`` and the lease ``quota`` are
 tensors; grants are cumsum-ranked on the device; the host learns
-``free_top`` only from the chunk's single fetch.  Two torch hazards are
+``free_top`` only from the chunk's single fetch.  Three torch hazards are
 handled explicitly where JAX's semantics are implicit: an index past the
 page table (a stopped slot at ``cur_pos == max_len`` with ``max_len %
-page_size == 0``) is clamped and masked, since torch raises where JAX
-clamps a gather and drops a scatter; and duplicate-index scatters only
-ever write identical values or land on a scratch element or the trash
-page, since ``index_put_`` does not say which duplicate wins.
+page_size == 0``) is clamped and masked, and so is a page id outside the
+pool that a corrupt table entry put on the free stack, since torch raises
+where JAX clamps a gather and drops a scatter; and duplicate-index
+scatters only ever write identical values or land on a scratch element or
+the trash page, since ``index_put_`` does not say which duplicate wins.
 """
 
 from __future__ import annotations
@@ -407,7 +408,9 @@ def _grant_admission_pages(pages: PageState, ask, np_: int):
     only ever cut a suffix — pops stay contiguous at the stack top.  Shared
     by the cold and cached admission steps.  Returns (ok, grant, pid
     (n, np_), dest, free_top); ``dest`` is the trash page for rows without
-    a grant."""
+    a grant, and for a popped id outside ``[0, n_pages)``: a corrupt table
+    entry that a finishing slot pushed back before the page-table audit
+    saw it, whose write JAX drops and torch would raise on."""
     n_pages = pages.free.shape[0] - 1
     cum = _cumsum(ask) * np_
     allocated = n_pages - pages.free_top
@@ -416,7 +419,8 @@ def _grant_admission_pages(pages: PageState, ask, np_: int):
     ranks = ((_cumsum(grant) - 1)[:, None] * np_
              + torch.arange(np_, dtype=torch.int32, device=ask.device)[None, :])
     pid = pages.free[(pages.free_top - 1 - ranks).clamp(0, n_pages).long()]
-    dest = torch.where(grant[:, None], pid, n_pages)
+    dest = torch.where(grant[:, None] & (pid >= 0) & (pid < n_pages), pid,
+                       n_pages)
     free_top = pages.free_top - grant.sum(dtype=torch.int32) * np_
     return ok, grant, pid, dest, free_top
 

@@ -502,6 +502,61 @@ def test_paged_prefix_batcher_on_the_card_matches_the_plain_path(gen):
     assert outs["cuda"] == outs["torch"]
 
 
+def test_page_table_audit_on_the_card_matches_the_plain_path(gen):
+    """Reduced qwen3-0.6b at f32 on the card with audit=True: an
+    out-of-range id, then a double mapping, each injected into a live slot.
+    The paged decode kernel reads the corrupt entries as unmapped, the
+    audit repairs both on the chunk's one fetch, quarantines the stolen
+    page, and tokens, counters, quarantine and pool agree with the plain
+    path on the card."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousBatcher, Request, ServingConfig
+
+    cfg = dataclasses.replace(get_reduced("qwen3-0.6b"), dtype="float32")
+    params = init_params(cfg, 0)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab, size=1 + i % 6).astype(np.int32)
+               for i in range(6)]
+    outs = {}
+    for impl in ("cuda", "torch"):
+        before = pa_ops.paged_decode_attention.launches
+        b = ContinuousBatcher(params, cfg, ServingConfig(
+            slots=4, prompt_len=8, max_len=64, chunk=4, paged=True,
+            page_size=8, audit=True, attn_impl=impl))
+        reqs = [Request(rid=i, prompt=p, max_new=24) for i, p in
+                enumerate(prompts)]
+        for r in reqs:
+            b.submit(r)
+        b.step()
+        b.step()
+        b.inject_kv_corruption(0)
+        b.step()
+        assert b.stats.audit_repairs >= 1
+        live = [i for i, r in enumerate(b.slot_req) if r is not None]
+        row = b.pages.table[live[1]].cpu().numpy()
+        stolen = int(row[row >= 0][0])
+        b.inject_kv_corruption(live[0], pid=stolen)
+        b.step()
+        b.run()
+        torch.cuda.synchronize()
+        assert stolen in b._quarantined and b.stats.quarantined_pages == 1
+        assert all(r.done and len(r.out) == r.max_new for r in reqs)
+        tab = b.pages.table.cpu().numpy()
+        top = int(b.pages.free_top)
+        free = set(b.pages.free[:top].tolist())
+        assert not (b._quarantined & free)
+        assert sorted(set(tab[tab >= 0].tolist()) | free | b._quarantined) \
+            == list(range(b.n_pages))
+        b.kv_pool.check()
+        ran = pa_ops.paged_decode_attention.launches - before
+        assert (ran > 0) == (impl == "cuda")
+        outs[impl] = ([r.out for r in reqs], b.stats.as_dict(),
+                      sorted(b._quarantined))
+    assert outs["cuda"] == outs["torch"]
+
+
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 def test_spec_overlap_batcher_on_the_card_matches_the_plain_path(gen, paged):
     """Reduced qwen3-0.6b at f32 on the card: speculative decode with

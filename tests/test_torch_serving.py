@@ -234,8 +234,6 @@ def test_serving_config_defaults_to_the_kernels():
 
 UNPORTED = {
     "tp": dict(tp=2, attn_impl="torch"),
-    "watchdog_s": dict(watchdog_s=1.0),
-    "audit": dict(audit=True),
 }
 
 
