@@ -58,7 +58,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               PyTorch library call (``scaled_dot_product_attention``,
               after a torch page gather for the paged kernel;
               ``F.rms_norm``; ``torch.matmul``; a yardstick only; no
-              PyTorch call computes the SSD scan).
+              PyTorch call computes the SSD scan).  Flash, dense decode,
+              paged decode, verify and prefix also take group 1 (H = Hkv =
+              16, dh 128, deepseek-moe-16b's heads) in f32 and bf16, and
+              their bf16 times at group 1 are logged beside the PyTorch
+              call's.
 4. model    — full-width qwen3-0.6b cut to 2 layers, f32: prefill + 4 decode
               steps with attn_impl="cuda" against attn_impl="torch"; the
               same decode on a shuffled paged pool (``page_table=``); one
@@ -70,6 +74,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
               decode steps against the plain path, and decode of token
               S + 1 against a prefill over S + 1.
               Logits within 2e-3 max abs, greedy tokens identical.
+4c. moe     — deepseek-moe-16b and mixtral-8x22b at full width, each
+              freed before the next: cut to 2 layers in f32 with phase 4's
+              rule (logits within 2e-3, greedy tokens identical), then in
+              bf16, deepseek at full depth (28 layers, 64 routed experts
+              top-6 + 2 shared) and mixtral cut to 2 layers, against two
+              plain routes ("torch" and "naive"): logits finite and the
+              kernels' within ``MOE_SPREAD`` x the plain routes' own
+              difference (see ``check_moe_model``).  A prefill of 2 x 256
+              tokens and 4 decode steps each; the flash and decode kernels
+              launched once a layer on the cuda route only.
 5. serve    — the dense main path: full qwen3-0.6b (28 layers, bf16, seeded
               random weights) behind ``ContinuousBatcher`` in dense mode, 16
               requests after a short warm-up; every request completes and
@@ -131,8 +145,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
               prefix kernel and every decode step through the paged decode
               kernel.  Token identity with phase 5b for the requests never
               requeued is reported, not gated.
-6. trace    — the first rounds of the dense, the paged, the spec and the
-              Mamba-2 path,
+5g. moe     — full deepseek-moe-16b, its weights made once for three legs:
+              phase 5's dense batcher and 16 requests, phase 5b's paged
+              batcher and requests (prefix cache), and 4 of phase 5c's
+              requests with speculation and overlap (2 arriving after the
+              first round, so their admission runs behind a chunk).  Every
+              request completes its ``max_new``; one dispatch (plus page
+              pushes) and one host sync per admission and per chunk; each
+              leg's kernels launched 28 x their calls and no other
+              attention kernel; the page ledger balances; ``init_params`` peaks
+              below 1.1 x the weights and each leg below weights + its
+              cache + 10 % of the weights (all three printed).  Reports
+              tokens/s and the wall ms of a dense decode step beside the
+              floor to read the routed experts once.
+6. trace    — the first rounds of the dense, the paged, the spec, the
+              Mamba-2 and the MoE path,
               all untraced first, then each under ``torch.profiler``: device
               busy time, idle share and device time by kernel class; the
               dense path must run the tensor-core flash kernel and the
@@ -140,7 +167,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the tensor-core prefix kernel and the paged decode split and
               merge kernels, the spec path the verify
               split (tensor-core) and merge kernels and the prefix kernel,
-              the Mamba-2 path the SSD's five bf16 passes.
+              the Mamba-2 path the SSD's five bf16 passes; the MoE path
+              (phase 5g's dense leg, with its host ops traced) splits out
+              the expert products and the dispatch ops by the profiler
+              ranges of ``models/moe.py``, and a window of its pure decode
+              chunks (8 requests admitted before it opens), split the same
+              way, gives the device ms of a decode step.  Each window's
+              batcher is built before the window opens.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -192,6 +225,10 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor-core peak
 F32_TOL, BF16_TOL, MODEL_TOL = 1e-4, 2e-2, 2e-3
+# phase 4c at bf16: the kernels' logits may differ from each plain route by
+# up to this multiple of the two plain routes' own difference (see
+# check_moe_model)
+MOE_SPREAD = 2.0
 
 
 def log(msg: str) -> None:
@@ -291,6 +328,8 @@ def check_flash(gen):
                  dtype, q_offset=70, window=50)
         run_case(f"gqa 8:1 dh=64 {tag}", 2, 96, 96, 8, 1, 64, dtype)
         run_case(f"dh=32 {tag}", 2, 100, 100, 4, 2, 32, dtype)
+        # group 1 (H = Hkv = 16, deepseek-moe-16b's prefill)
+        run_case(f"group 1 16:16 {tag}", dtype=dtype, **dict(main, Hkv=16))
     return dict(time_flash(q, k, v), max_abs_err=err)
 
 
@@ -393,6 +432,10 @@ def check_decode(gen):
                  [70, 90, 100, 119], window=40)
         run_case(f"split: gqa 16:1 {tag}", 4, 130, 16, 1, 64, dtype,
                  [129, 60, 200, 5])
+        # group 1: one query row a kv head in the m16 tile, twice the grid
+        run_case(f"group 1 16:16 {tag}", B, C, H, H, dh, dtype, cur)
+        run_case(f"group 1 holes {tag}", B, C, H, H, dh, dtype, cur,
+                 holes=0.3)
     return dict(time_decode(q, k, v, pos, cur_t), max_abs_err=err)
 
 
@@ -431,6 +474,59 @@ def time_decode(q, k, v, pos, cur_t):
                 replaces="src/repro/kernels/decode_attention/kernel.py:76",
                 ms=kernel, plain_ms=plain, bound_ms=bms, bound_by=by,
                 library_ms=library)
+
+
+def group1_times(gen, rng):
+    """The five attention kernels at group 1 (H = Hkv = 16, dh 128, bf16;
+    deepseek-moe-16b's heads), every other dimension the main paths':
+    kernel, plain and PyTorch-call times and the bound, one row each,
+    named ``<kernel> group 1``."""
+    import torch
+
+    bf16 = torch.bfloat16
+    B, S, H, dh, C = 8, 256, 16, 128, 322
+    W, ps, maxp, P = 4, 16, 21, 168
+    kp = _rand(gen, (P + 1, ps, H, dh), bf16)
+    vp = _rand(gen, (P + 1, ps, H, dh), bf16)
+    kp[P] = 1e4
+    vp[P] = 1e4
+    cur = rng.integers(256, 320, size=B)
+    vcur = rng.integers(256, 322 - W + 1, size=B)
+    rows = [
+        time_flash(*(_rand(gen, (B, S, H, dh), bf16) for _ in range(3))),
+        time_decode(_rand(gen, (B, H, dh), bf16),
+                    _rand(gen, (B, C, H, dh), bf16),
+                    _rand(gen, (B, C, H, dh), bf16),
+                    torch.from_numpy(_ring_pos(rng, B, C, cur)).cuda(),
+                    torch.as_tensor(np.asarray(cur, np.int32)).cuda()),
+        time_paged_decode(
+            _rand(gen, (B, H, dh), bf16), kp, vp,
+            torch.from_numpy(_page_table(rng, B, maxp, P, cur, ps)).cuda(),
+            torch.as_tensor(np.asarray(cur, np.int32)).cuda()),
+        time_prefix(*(_rand(gen, shape, bf16) for shape in (
+            (B, 64, H, dh), (B, 192, H, dh), (B, 192, H, dh), (B, 64, H, dh),
+            (B, 64, H, dh)))),
+        time_verify(
+            _rand(gen, (B, W, H, dh), bf16), kp, vp,
+            torch.from_numpy(
+                _verify_table(rng, B, maxp, P, vcur, W, ps)).cuda(),
+            torch.as_tensor(np.asarray(vcur, np.int32)).cuda()),
+    ]
+    for row in rows:
+        row["name"] += " group 1"
+    return rows
+
+
+def _log_time_row(row, card: str) -> None:
+    library = ("none" if row["library_ms"] is None
+               else f"{row['library_ms'] * 1e3:.2f} us")
+    extra = (f", {row['copy_ms'] * 1e3:.2f} us copy of x" if "copy_ms" in row
+             else "")
+    if "floor_ms" in row:
+        extra += f", {row['floor_ms'] * 1e3:.2f} us one-element fill"
+    log(f"  {row['name']}: {row['ms'] * 1e3:.2f} us kernel, "
+        f"{row['plain_ms'] * 1e3:.2f} us plain, {library} library{extra}, "
+        f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}) [{card}]")
 
 
 def kernel_times(card: str) -> int:
@@ -489,16 +585,9 @@ def kernel_times(card: str) -> int:
     rms = time_rmsnorm(_rand(gen, (2048, 1024), bf16),
                        _rand(gen, (1024,), bf16))
     rows = [flash, decode, prefix, verify, ssd, mm, mm_decode, paged, rms]
+    rows += group1_times(gen, rng)
     for row in rows:
-        library = ("none" if row["library_ms"] is None
-                   else f"{row['library_ms'] * 1e3:.2f} us")
-        copy = (f", {row['copy_ms'] * 1e3:.2f} us copy of x" if "copy_ms" in row
-                else "")
-        if "floor_ms" in row:
-            copy += f", {row['floor_ms'] * 1e3:.2f} us one-element fill"
-        log(f"  {row['name']}: {row['ms'] * 1e3:.2f} us kernel, "
-            f"{row['plain_ms'] * 1e3:.2f} us plain, {library} library{copy} "
-            f"[{card}]")
+        _log_time_row(row, card)
     print(json.dumps({"kernel_times": {"root": str(ROOT), "card": card,
                                        "rows": rows}}), flush=True)
     return 0
@@ -594,6 +683,13 @@ def check_paged_decode(gen):
             run_case(f"page size {small} {tag}", 4, H, Hkv, dh, small,
                      96 // small, 4 * 96 // small, dtype,
                      rng.integers(0, 96, size=4), holes=0.2)
+        # group 1: twice the kv heads, so fewer and longer splits
+        _, pps1 = kernel.plan_page_splits(B, H, maxp)
+        skipped1 = _page_table(rng, B, maxp, P, cur, ps)
+        skipped1[:, pps1:2 * pps1] = -1        # split 1 sees no key
+        run_case(f"group 1 16:16 {tag}", B, H, H, dh, ps, maxp, P, dtype, cur)
+        run_case(f"group 1 split all skipped {tag}", B, H, H, dh, ps, maxp, P,
+                 dtype, cur, table=skipped1)
     return dict(time_paged_decode(*main), max_abs_err=err)
 
 
@@ -682,6 +778,10 @@ def check_prefix(gen):
     run_case("gqa 8:1 dh=64 ragged bf16", 2, 33, 21, 33, 8, 1, 64, bf16)
     run_case("dh=32 Lp=130 q_offset=7 bf16", 2, 70, 130, 77, 4, 2, 32, bf16,
              q_offset=7)
+    for dtype, tag in ((f32, "f32"), (bf16, "bf16")):
+        run_case(f"group 1 16:16 {tag}", B, Sq, Lp, Sq, H, H, dh, dtype)
+        run_case(f"group 1 ragged q_offset=30 {tag}", 2, 40, 100, 70, H, H, dh,
+                 dtype, q_offset=30)
     return dict(time_prefix(*main), max_abs_err=err)
 
 
@@ -816,6 +916,11 @@ def check_paged_verify(gen):
                  dtype, rng.integers(0, 330, size=4), holes=0.2)
         run_case(f"W=8 gqa 4:1 32 rows ps=8 {tag}", 4, 8, 16, 4, dh, 8, 40,
                  160, dtype, rng.integers(0, 310, size=4), holes=0.2)
+        # group 1: W = 4 rows a kv head
+        run_case(f"group 1 16:16 {tag}", B, W, H, H, dh, ps, maxp, P, dtype,
+                 cur)
+        run_case(f"group 1 split boundaries {tag}", B, W, H, H, dh, ps, maxp,
+                 P, dtype, edges, holes=0.2)
     return dict(time_verify(*main), max_abs_err=err)
 
 
@@ -1625,21 +1730,169 @@ def check_mamba_model():
 
 
 # ---------------------------------------------------------------------------
+# phase 4c: the MoE family at full width through the kernels
+# ---------------------------------------------------------------------------
+
+
+def _attn_counters():
+    """The five attention kernels' wrappers, each with its ``launches``."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.prefix_attention import ops as pfx_ops
+
+    return {"flash_attention": fa_ops.flash_attention,
+            "prefix_flash_attention": pfx_ops.prefix_flash_attention,
+            "decode_attention": da_ops.decode_attention,
+            "paged_decode_attention": pa_ops.paged_decode_attention,
+            "paged_verify_attention": pa_ops.paged_verify_attention}
+
+
+def _free_device_memory() -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def check_moe_model(card: str, arch: str, *, n_layers=None,
+                    dtype: str = "bfloat16"):
+    """``arch`` at full width (cut to ``n_layers`` when given) in ``dtype``,
+    from the port's ``init_params``: a prefill of 2 x 256 tokens and 4
+    decode steps through the kernels (impl="cuda") and the plain path
+    (impl="torch"), every route fed the plain path's greedy tokens, the
+    flash and dense decode kernels launched once a layer on the cuda route
+    only.
+
+    f32 takes phase 4's rule: logits within ``MODEL_TOL``, greedy tokens
+    identical.  bf16, the serving dtype, runs a second plain route
+    (impl="naive") as well: over many layers the routes' roundings move
+    some tokens' top-k experts, so even two plain routes disagree by more
+    than a fixed tolerance could allow.  The kernels' logits must then lie
+    as close to both plain routes as those do to each other: each
+    difference, relative to the largest plain logit, within
+    ``MOE_SPREAD`` x the plain routes' own (at least ``BF16_TOL``).  A
+    kernel wrong at group 1 moves the logits by their own size.  Greedy
+    token agreement is reported.  Frees the model after."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}, {cfg.n_layers} layers, {dtype}: params "
+        f"{_gib(_param_bytes(params))} made in {time.perf_counter() - t0:.1f} "
+        f"s [{card}]")
+    B, S, steps = 2, 256, 4
+    L = cfg.n_layers
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(
+        rng.integers(1, cfg.vocab, size=(B, S)).astype(np.int32)).cuda()
+    counters = _attn_counters()
+    fa, da = counters["flash_attention"], counters["decode_attention"]
+    impls = ("cuda", "torch") if dtype == "float32" else ("cuda", "torch",
+                                                          "naive")
+
+    def greedy(logits):
+        return torch.argmax(logits[:, :cfg.vocab], -1).to(torch.int32)
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    runs = {}
+    for impl in impls:
+        fa.launches = 0
+        runs[impl] = list(prefill(params, toks, cfg, max_len=S + steps + 1,
+                                  impl=impl))
+        check(fa.launches == (L if impl == "cuda" else 0),
+              f"{cfg.name} prefill impl={impl}: {fa.launches} flash launches")
+    worst, same = {}, {}
+    cur = torch.full((B,), S, dtype=torch.int32, device=toks.device)
+    for step in range(steps + 1):
+        logits = {impl: runs[impl][0].float() for impl in impls}
+        tt = greedy(logits["torch"])
+        for impl in impls:
+            check(bool(torch.isfinite(logits[impl]).all()),
+                  f"{cfg.name} step {step} impl={impl}: non-finite logits")
+            same[impl] = same.get(impl, 0) + int(
+                (greedy(logits[impl]) == tt).sum())
+        if dtype == "float32":
+            err = (logits["cuda"] - logits["torch"]).abs().max().item()
+            worst["cuda-torch"] = max(worst.get("cuda-torch", 0.0), err)
+            check(err <= MODEL_TOL, f"{cfg.name} step {step}: logits differ "
+                  f"by {err}")
+            check(bool((greedy(logits["cuda"]) == tt).all()),
+                  f"{cfg.name} step {step}: greedy tokens differ")
+        else:
+            d = {"cuda-torch": rel(logits["cuda"], logits["torch"]),
+                 "cuda-naive": rel(logits["cuda"], logits["naive"]),
+                 "naive-torch": rel(logits["naive"], logits["torch"])}
+            for key, v in d.items():
+                worst[key] = max(worst.get(key, 0.0), v)
+            bound = MOE_SPREAD * max(d["naive-torch"], BF16_TOL)
+            check(max(d["cuda-torch"], d["cuda-naive"]) <= bound,
+                  f"{cfg.name} step {step}: the kernels' logits differ from "
+                  f"the plain routes' by {d} (bound {bound:.3e})")
+        if step == steps:
+            break
+        for impl in impls:
+            da.launches = 0
+            runs[impl][0], runs[impl][1] = decode_step(
+                params, tt, runs[impl][1], cur, cfg, impl=impl)
+            check(da.launches == (L if impl == "cuda" else 0),
+                  f"{cfg.name} decode impl={impl}: {da.launches} decode "
+                  f"launches")
+        cur = cur + 1
+    n = B * (steps + 1)
+    rule = (f"tol {MODEL_TOL:g} abs" if dtype == "float32" else
+            f"relative to the largest plain logit, bound {MOE_SPREAD:g} x "
+            f"max(naive-torch, {BF16_TOL:g})")
+    log(f"  {cfg.name}: prefill {B} x {S} + {steps} decode steps, {dtype}, "
+        f"{L} layers: max logit differences "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f" ({rule}); greedy tokens equal to the plain path's: "
+        + ", ".join(f"{k} {v}/{n}" for k, v in same.items() if k != "torch")
+        + f"; launches: flash {L} a prefill, decode {L} a step on the cuda "
+        f"route [{card}]")
+    del runs, params
+    _free_device_memory()
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the main path
 # ---------------------------------------------------------------------------
 
 
-def _requests(cfg, n=16, seed=0):
+def _requests(cfg, n=16, seed=0, max_new=None):
     from repro_torch.serving import Request
 
     rng = np.random.default_rng(seed)
     reqs = []
     for rid in range(n):
         plen = int(rng.integers(32, 257))
-        max_new = int(rng.integers(16, 65))
+        budget = int(rng.integers(16, 65))
         prompt = rng.integers(1, cfg.vocab, size=plen).astype(np.int32)
-        reqs.append(Request(rid=rid, prompt=prompt, max_new=max_new))
+        reqs.append(Request(rid=rid, prompt=prompt,
+                            max_new=max_new or budget))
     return reqs
+
+
+def _admitted(batcher):
+    """``batcher`` after its first round (the admission of every queued
+    request that fits, and one chunk), synchronised."""
+    import torch
+
+    batcher.step()
+    torch.cuda.synchronize()
+    return batcher
 
 
 def _batcher(params, cfg, reqs):
@@ -2582,6 +2835,203 @@ def serve_guarded_path(card: str, params, cfg, paged_tokens):
 
 
 # ---------------------------------------------------------------------------
+# phase 5g: the MoE family (deepseek-moe-16b, dense, paged, speculative)
+# ---------------------------------------------------------------------------
+
+
+def _moe_leg(card, label, params, cfg, config, reqs, base, pbytes, *,
+             late: int = 0):
+    """One leg of phase 5g: a 2-request warm-up of ``config``, then
+    ``reqs`` through a fresh batcher with every attention kernel's count
+    set to 0; the last ``late`` requests arrive after the first round.
+    Gates completion, one dispatch (plus page pushes) and one host sync
+    per admission and per chunk, and the peak device memory above ``base``
+    (taken before the weights were made) against the weights, the leg's
+    cache and 10 % of the weights.  Returns (batcher, stats, wall,
+    launches)."""
+    import torch
+
+    from repro_torch.serving import ContinuousBatcher, Request, ServingConfig
+
+    warm = [Request(rid=r.rid, prompt=r.prompt[-64:], max_new=8,
+                    namespace="warm-up") for r in reqs[:2]]
+    warm_b = ContinuousBatcher(params, cfg, ServingConfig(**config))
+    for r in warm:
+        warm_b.submit(r)
+    warm_b.run()
+    del warm_b
+    _free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    batcher = ContinuousBatcher(params, cfg, ServingConfig(**config))
+    for r in reqs[:len(reqs) - late]:
+        batcher.submit(r)
+    counters = _attn_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if late:
+        batcher.step()
+        for r in reqs[len(reqs) - late:]:
+            batcher.submit(r)
+    stats = batcher.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    for r in reqs:
+        check(r.done and not r.dropped and len(r.out) == r.max_new,
+              f"{label}: request {r.rid} gave {len(r.out)} of {r.max_new} "
+              f"tokens")
+        check(all(0 <= t < cfg.vocab for t in r.out),
+              f"{label}: request {r.rid}: token outside the vocab")
+    pushes = batcher.page_pushes if batcher.paged else 0
+    check(stats.dispatches - pushes == stats.prefills + stats.chunks,
+          f"{label}: dispatches != admissions + chunks + page pushes")
+    check(stats.host_syncs == stats.prefills + stats.chunks,
+          f"{label}: host syncs != one per admission + one per chunk")
+    peak = torch.cuda.max_memory_allocated() - base
+    cache = stats.cache_bytes
+    limit = pbytes + cache + 0.1 * pbytes
+    log(f"  {label}: {stats.completed}/{len(reqs)} requests, {stats.tokens} "
+        f"tokens, {stats.prefills} admissions, {stats.chunks} chunks, "
+        f"{stats.steps} decode steps in {wall:.3f} s: tokens/s="
+        f"{stats.tokens / wall:.1f} [{card}]")
+    log(f"  {label}: peak {_gib(peak)} above the start of the phase; params "
+        f"{_gib(pbytes)} + cache {_gib(cache)} + 10 % of params "
+        f"{_gib(0.1 * pbytes)} = {_gib(limit)} [{card}]")
+    check(peak <= limit, f"{label}: peak device memory {_gib(peak)} > params "
+          f"+ cache + 10 % of params ({_gib(limit)})")
+    return batcher, stats, wall, launches
+
+
+def _moe_step_ms(params, cfg, n_rounds: int = 4):
+    """Wall ms per decode step of phase 5's dense batcher once 8 requests
+    of ``max_new`` 64 are resident: one round admits all 8, then
+    ``n_rounds`` rounds are pure chunks of 8 steps, timed between syncs."""
+    import torch
+
+    batcher = _admitted(_batcher(params, cfg, _requests(cfg, n=8, seed=9,
+                                                        max_new=64)))
+    prefills, steps = batcher.stats.prefills, batcher.stats.steps
+    t0 = time.perf_counter()
+    for _ in range(n_rounds):
+        batcher.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(batcher.stats.prefills == prefills, "an admission ran in the "
+          "timed decode rounds")
+    return wall * 1e3 / (batcher.stats.steps - steps)
+
+
+def serve_moe_path(card: str):
+    """Phase 5g: full deepseek-moe-16b, its weights made once for three
+    legs: phase 5's dense batcher and 16 requests, phase 5b's paged batcher
+    and requests with the prefix cache, and 4 of phase 5c's requests on its
+    speculative batcher with overlap.  Each kernel's launches are 28 x its
+    calls on its leg and no other attention kernel runs there."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = get_config("deepseek-moe-16b")
+    L = cfg.n_layers
+    _free_device_memory()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pbytes = _param_bytes(params)
+    init_peak = torch.cuda.max_memory_allocated() - base
+    log(f"  {cfg.name}: params {_gib(pbytes)} ({pbytes / 1e9:.2f} GB) made in "
+        f"{init_s:.1f} s; init_params peak {_gib(init_peak)} above the start "
+        f"[{card}]")
+    check(init_peak <= 1.1 * pbytes, f"init_params peaked at {_gib(init_peak)}"
+          f" > 1.1 x params: a stacked copy of the weights")
+
+    expert_bytes = L * cfg.moe.n_experts * 3 * cfg.d_model \
+        * cfg.moe.expert_d_ff * 2
+    step_bytes = pbytes - params["embed"]["w"].numel() * 2
+    floor_ms = expert_bytes / HBM_BYTES_PER_S * 1e3
+    step_floor_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+
+    _, st, _, n = _moe_leg(card, "dense leg", params, cfg,
+                           dict(slots=8, prompt_len=256, max_len=322, chunk=8),
+                           _requests(cfg), base, pbytes)
+    check(n["flash_attention"] == L * st.prefills
+          and n["decode_attention"] == L * st.steps
+          and n["prefix_flash_attention"] == n["paged_decode_attention"]
+          == n["paged_verify_attention"] == 0,
+          f"dense leg launches {n}: flash != {L} x {st.prefills} admissions "
+          f"or decode != {L} x {st.steps} steps")
+    log(f"  dense leg launches: flash_attention={n['flash_attention']} (= {L} "
+        f"x {st.prefills}), decode_attention={n['decode_attention']} (= {L} x "
+        f"{st.steps})")
+
+    b, st, _, n = _moe_leg(card, "paged leg", params, cfg, PAGED_CONFIG,
+                           _paged_requests(cfg), base, pbytes)
+    check(st.prefix_hits > 0 and n["prefix_flash_attention"] > 0,
+          "paged leg: no admission went through the prefix cache's kernel")
+    check(n["flash_attention"] + n["prefix_flash_attention"] == L * st.prefills
+          and n["paged_decode_attention"] == L * st.steps
+          and n["decode_attention"] == n["paged_verify_attention"] == 0,
+          f"paged leg launches {n}: flash + prefix != {L} x {st.prefills} "
+          f"admissions or paged decode != {L} x {st.steps} steps")
+    b.kv_pool.check()
+    free_top = int(b.pages.free_top)
+    check(free_top + b.kv_pool.shared == b.n_pages,
+          f"paged leg: free_top {free_top} + shared {b.kv_pool.shared} != "
+          f"{b.n_pages} pages")
+    log(f"  paged leg: {st.prefix_hits} prefix hits; ledger free_top "
+        f"{free_top} + shared {b.kv_pool.shared} = {b.n_pages} pages; "
+        f"launches: flash_attention={n['flash_attention']} + "
+        f"prefix_flash_attention={n['prefix_flash_attention']} (= {L} x "
+        f"{st.prefills}), paged_decode_attention="
+        f"{n['paged_decode_attention']} (= {L} x {st.steps})")
+    del b
+
+    W = SPEC_CONFIG["draft_window"]
+    # two of the four arrive after the first round, so their admission
+    # runs behind a verify chunk (overlap)
+    b, st, _, n = _moe_leg(card, "speculative leg", params, cfg, SPEC_CONFIG,
+                           _spec_requests(cfg, n=4), base, pbytes, late=2)
+    windows = st.steps // W
+    check(st.spec_windows > 0 and windows > 0, "speculative leg: no window")
+    check(st.overlap_rounds >= 1, "speculative leg: no admission overlapped "
+          "a verify chunk")
+    check(n["paged_verify_attention"] == L * windows
+          and n["flash_attention"] + n["prefix_flash_attention"]
+          == L * st.prefills
+          and n["decode_attention"] == n["paged_decode_attention"] == 0,
+          f"speculative leg launches {n}: verify != {L} x {windows} windows "
+          f"or flash + prefix != {L} x {st.prefills} admissions")
+    check(st.device_draft_accepted == st.accepted_tokens,
+          f"speculative leg: device-counted accepted drafts "
+          f"{st.device_draft_accepted} != {st.accepted_tokens} on the host")
+    b.kv_pool.check()
+    free_top = int(b.pages.free_top)
+    check(free_top + b.kv_pool.shared == b.n_pages,
+          f"speculative leg: free_top {free_top} + shared {b.kv_pool.shared} "
+          f"!= {b.n_pages} pages")
+    log(f"  speculative leg: {windows} verify windows, acceptance_rate="
+        f"{st.acceptance_rate:.3f}, {st.overlap_rounds} overlap rounds; "
+        f"launches: paged_verify_attention={n['paged_verify_attention']} (= "
+        f"{L} x {windows}), flash_attention={n['flash_attention']} + "
+        f"prefix_flash_attention={n['prefix_flash_attention']} (= {L} x "
+        f"{st.prefills})")
+    del b
+
+    step_ms = _moe_step_ms(params, cfg)
+    log(f"  dense decode, 8 slots resident: {step_ms:.2f} ms a step (wall); "
+        f"floor {floor_ms:.2f} ms to read the {expert_bytes / 1e9:.1f} GB of "
+        f"routed experts once, {step_floor_ms:.2f} ms for all "
+        f"{step_bytes / 1e9:.1f} GB a step reads [{card}]")
+    return params, cfg, floor_ms
+
+
+# ---------------------------------------------------------------------------
 # phase 6: where the time goes (a traced window of the same requests)
 # ---------------------------------------------------------------------------
 
@@ -2610,13 +3060,50 @@ _KERNEL_CLASSES = (("flash_attention", ("fa_kernel", "fa_mma_kernel")),
                                         "nvjet")))
 
 
-def _rounds(make_batcher, n_rounds: int) -> float:
-    """Wall time of the first ``n_rounds`` scheduling rounds of a fresh
-    batcher from ``make_batcher()`` (admission, then chunks), ending in a
-    sync."""
+# on the MoE path, device time is also split by the op that launched each
+# kernel and the profiler range of models/moe.py it ran in: the expert
+# products (the batched matmuls in "moe.expert_products") and the dispatch
+# ops (top-k, sorts, scatters, gathers and index copies in "moe.dispatch")
+_MOE_PRODUCT_OPS = ("aten::bmm", "aten::mm", "aten::matmul", "aten::baddbmm",
+                    "aten::addmm")
+_MOE_DISPATCH_OPS = ("aten::topk", "aten::sort", "aten::argsort",
+                     "aten::scatter", "aten::scatter_", "aten::scatter_add_",
+                     "aten::gather", "aten::index", "aten::index_put_",
+                     "aten::_index_put_impl_", "aten::index_add_",
+                     "aten::index_select", "aten::cumsum")
+MOE_PRODUCTS = "MoE expert products"
+MOE_DISPATCH = "MoE dispatch (top-k, sort, scatter, gather)"
+
+
+def _kernel_class(name: str) -> str:
+    name = name.lower()
+    for cls_name, keys in _KERNEL_CLASSES:
+        if any(k in name for k in keys):
+            return cls_name
+    return "other (elementwise, reductions, copies)"
+
+
+def _moe_op_class(evt):
+    """MOE_PRODUCTS or MOE_DISPATCH for a profiled op inside the matching
+    range of ``models/moe.py`` (found through the profiler's
+    ``cpu_parent`` links), else None."""
+    scope = evt.cpu_parent
+    while scope is not None and not scope.name.startswith("moe."):
+        scope = scope.cpu_parent
+    if scope is None:
+        return None
+    if scope.name == "moe.expert_products" and evt.name in _MOE_PRODUCT_OPS:
+        return MOE_PRODUCTS
+    if scope.name == "moe.dispatch" and evt.name in _MOE_DISPATCH_OPS:
+        return MOE_DISPATCH
+    return None
+
+
+def _rounds(batcher, n_rounds: int) -> float:
+    """Wall time of ``n_rounds`` scheduling rounds of ``batcher``
+    (admissions, then chunks), from a sync to a sync."""
     import torch
 
-    batcher = make_batcher()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_rounds):
@@ -2626,35 +3113,53 @@ def _rounds(make_batcher, n_rounds: int) -> float:
 
 
 def trace_main_paths(card: str, paths, n_rounds: int = 3):
-    """The first rounds of each main path in ``paths`` ((label,
-    make_batcher, must_run) triples), first all untraced, then each under
-    ``torch.profiler`` (device activity only), so no untraced window runs
-    after a profiler session: device busy time (union of kernel
-    intervals), the idle share against the untraced window's wall time, and
-    device time by kernel class.  Fails unless a kernel whose name holds
-    each of ``must_run`` ran in the path's traced window."""
+    """The first rounds of a fresh batcher of each main path in ``paths``
+    ((label, make_batcher, must_run, moe) tuples), first all untraced,
+    then each under ``torch.profiler`` (device activity; with ``moe``, also
+    the host's ops, whose ``models/moe.py`` ranges name the MoE's classes),
+    so no untraced window runs after a profiler session: device busy time
+    (union of kernel intervals), the idle share against the untraced
+    window's wall time, and device time by kernel class, with ``moe`` the
+    expert products and the dispatch ops as classes of their own.  Fails
+    unless a kernel whose name holds each of ``must_run`` ran in the
+    path's traced window and, with ``moe``, unless both MoE classes took
+    device time.  Returns {label: (device busy ms,
+    decode steps in the traced window)}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    clean = {label: _rounds(make, n_rounds) for label, make, _ in paths}
-    for label, make, must_run in paths:
+    # each window is a fresh batcher from make_batcher(), built (and for
+    # the decode window, admitted) before the window opens
+    clean = {label: _rounds(make(), n_rounds) for label, make, _, _ in paths}
+    busy_by_label = {}
+    for label, make, must_run, moe in paths:
+        batcher = make()
+        steps = batcher.stats.steps
         t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            traced = _rounds(make, n_rounds)
+        activities = [ProfilerActivity.CUDA]
+        if moe:
+            activities.append(ProfilerActivity.CPU)
+        with profile(activities=activities) as prof:
+            traced = _rounds(batcher, n_rounds)
+        steps = batcher.stats.steps - steps
+        del batcher
         spans, by_class, by_name = [], {}, {}
         for evt in prof.events():
-            if evt.device_type != torch.autograd.DeviceType.CUDA:
+            if moe and evt.device_type == torch.autograd.DeviceType.CPU:
+                cls = _moe_op_class(evt) if evt.kernels else None
+                for k in (evt.kernels if cls else ()):
+                    by_class[cls] = by_class.get(cls, 0.0) + k.duration
+                    old = _kernel_class(k.name)
+                    by_class[old] = by_class.get(old, 0.0) - k.duration
                 continue
+            if (evt.device_type != torch.autograd.DeviceType.CUDA
+                    or evt.name.startswith("moe.")):
+                continue              # the ranges' device spans are no kernels
             start, end = evt.time_range.start, evt.time_range.end
             if end <= start:
                 continue
             spans.append((start, end))
-            name = evt.name.lower()
-            cls = "other (elementwise, reductions, copies)"
-            for cls_name, keys in _KERNEL_CLASSES:
-                if any(k in name for k in keys):
-                    cls = cls_name
-                    break
+            cls = _kernel_class(evt.name)
             by_class[cls] = by_class.get(cls, 0.0) + (end - start)
             by_name[evt.name] = by_name.get(evt.name, 0.0) + (end - start)
         log(f"  {label}: profiler post-processing "
@@ -2690,6 +3195,13 @@ def trace_main_paths(card: str, paths, n_rounds: int = 3):
             log(f"  {label} ran {key}: "
                 f"{sum(by_name[n] for n in names) * 1e-3:.2f} ms "
                 f"({names[0][:70]})")
+        if moe:
+            check(by_class.get(MOE_PRODUCTS, 0) > 0
+                  and by_class.get(MOE_DISPATCH, 0) > 0,
+                  f"{label}: no device time traced to the MoE expert "
+                  f"products or dispatch ops")
+        busy_by_label[label] = (busy_s * 1e3, steps)
+    return busy_by_label
 
 
 def main() -> int:
@@ -2746,12 +3258,23 @@ def main() -> int:
     rows = [check_flash(gen), check_decode(gen), check_paged_decode(gen),
             check_paged_verify(gen), check_prefix(gen), check_ssd(gen),
             check_rmsnorm(gen), check_matmul(gen)]
+    log("  the five attention kernels at group 1 (H = Hkv = 16, dh 128, "
+        "bf16), deepseek-moe-16b's heads:")
+    for row in group1_times(gen, np.random.default_rng(7)):
+        _log_time_row(row, card)
     torch.cuda.empty_cache()
 
     log("phase 4: model (cuda kernels) against the plain path")
     check_model()
     check_mamba_model()
     torch.cuda.empty_cache()
+
+    log("phase 4c: the MoE family at full width, bf16, cuda kernels against "
+        "the plain path")
+    for arch in ("deepseek-moe-16b", "mixtral-8x22b"):
+        check_moe_model(card, arch, n_layers=2, dtype="float32")
+    check_moe_model(card, "deepseek-moe-16b")
+    check_moe_model(card, "mixtral-8x22b", n_layers=2)
 
     log("phase 5: main path, qwen3-0.6b behind ContinuousBatcher")
     launches, (params, cfg) = serve_main_path(card)
@@ -2776,34 +3299,46 @@ def main() -> int:
         "the page-table audit and the watchdog, three faults injected")
     serve_guarded_path(card, params, cfg, paged_tokens)
 
+    log("phase 5g: MoE path, full deepseek-moe-16b behind the dense, the "
+        "paged (prefix cache) and the speculative (overlap) batchers")
+    dparams, dcfg, floor_ms = serve_moe_path(card)
+
     log("phase 6: where the time goes")
     # the bf16 paths' prefill, prefix, decode, paged decode and verify
     # take the redesigned kernels
-    trace_main_paths(card, [
+    dense_kernels = ("fa_mma_kernel", "dec_split_kernel", "dec_merge_kernel")
+    busy = trace_main_paths(card, [
         ("dense path", lambda: _batcher(params, cfg, _requests(cfg)),
-         ("fa_mma_kernel", "dec_split_kernel", "dec_merge_kernel")),
+         dense_kernels, False),
         ("paged path", lambda: _paged_batcher(params, cfg,
                                               _paged_requests(cfg)),
          ("fa_mma_kernel", "pfx_mma_kernel", "paged_decode_split_kernel",
-          "paged_decode_merge_kernel")),
+          "paged_decode_merge_kernel"), False),
         ("spec path", lambda: _spec_batcher(params, cfg,
                                             _spec_requests(cfg)),
          ("paged_verify_mma_kernel", "paged_verify_merge_kernel",
-          "pfx_mma_kernel")),
+          "pfx_mma_kernel"), False),
         ("mamba2 path", lambda: _mamba_batcher(mparams, mcfg,
                                                _mamba_requests(mcfg)),
-         SSD_KERNELS)])
+         SSD_KERNELS, False),
+        ("moe path", lambda: _batcher(dparams, dcfg, _requests(dcfg)),
+         dense_kernels, True),
+        # 8 requests admitted before the window: its rounds are pure chunks
+        ("moe decode", lambda: _admitted(_batcher(
+            dparams, dcfg, _requests(dcfg, n=8, seed=9, max_new=64))),
+         ("dec_split_kernel", "dec_merge_kernel"), True)])
+    if "moe decode" in busy:
+        busy_ms, steps = busy["moe decode"]
+        log(f"  moe decode: {busy_ms / steps:.2f} ms of device time a decode "
+            f"step ({steps} steps), beside the {floor_ms:.2f} ms floor to "
+            f"read the routed experts once [{card}]")
 
     for row in rows:
         # each kernel's launches on the path that runs it: flash on the
         # dense path (it runs on both), the others on their own path
         row["launches"] = (launches[row["name"]] if row["name"] in launches
                            else path_launches[row["name"]])
-        library = ("none" if row["library_ms"] is None
-                   else f"{row['library_ms'] * 1e3:.1f} us")
-        log(f"  {row['name']}: {row['ms'] * 1e3:.1f} us kernel, "
-            f"{row['plain_ms'] * 1e3:.1f} us plain, {library} library, bound "
-            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}) [{card}]")
+        _log_time_row(row, card)
     log(f"done in {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

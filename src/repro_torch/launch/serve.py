@@ -4,6 +4,7 @@
         --reduced --tenants 2 --requests 16
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
 
 The same flags as ``repro.launch.serve``, plus ``--device`` (default
 ``cuda``; pass ``--device cpu`` to run on the CPU).  Each tenant leases a

@@ -1,6 +1,6 @@
 """PyTorch model zoo: nested-dict parameter trees, stacked blocks, the
-pure-attention dense-MLP families and the SSM (Mamba-2) family (the others
-arrive in later slices)."""
+pure-attention families (dense MLP or Mixture-of-Experts) and the SSM
+(Mamba-2) family (hybrid, VLM and audio arrive in later slices)."""
 
 from .transformer import (
     Caches,

@@ -1,5 +1,5 @@
-"""Model assembly for the pure-attention dense-MLP families and the
-attention-free SSM (Mamba-2) family.
+"""Model assembly for the pure-attention families (dense MLP or
+Mixture-of-Experts) and the attention-free SSM (Mamba-2) family.
 
 Counterpart of ``repro.models.transformer``.  The parameter tree has the
 same nested-dict layout as the reference: layers are grouped into periods
@@ -8,7 +8,9 @@ and each period position's blocks are stacked on a leading ``nb`` axis, so
 packages and the weight bridge (:mod:`repro_torch.weights`) is a plain
 mapping.  Where the reference runs the stacked blocks under ``lax.scan``,
 the port loops over them in Python, indexing block ``b`` of every stacked
-tensor (a view, no copy).
+tensor (a view, no copy).  A MoE layer (``LayerSpec(mlp="moe")``) takes the
+grouped dispatch on the prefill shape and the dense decode path for a
+decode step and a verify window (:mod:`repro_torch.models.moe`).
 
 Decode caches are the stacked :class:`KVCacheView` per attention period
 position, or the stacked :class:`PagedKVView` page pool
@@ -17,28 +19,30 @@ position; :func:`decode_step` and :func:`verify_step` (a window of draft
 tokens in one pass) update them **in place** (the reference returns new
 caches and relies on buffer donation).
 
-Other families (MoE, hybrid, VLM, audio) raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+Other families (hybrid, VLM, audio) raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..device import resolve_device
 from . import attention as attn_mod
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .attention import KVCacheView
 from .layers import embed, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm
 from .ssm import SSMState
 
 _OTHER_FAMILIES = (
-    "only the pure-attention dense-MLP and the SSM (Mamba-2) families are "
-    "ported; the {family} family waits for ROADMAP.md Queue 1 item 13 "
-    "(other model families)")
+    "only the pure-attention (dense MLP or MoE) and the SSM (Mamba-2) "
+    "families are ported; the {family} family waits for ROADMAP.md Queue 1 "
+    "item 13 (other model families)")
 
 
 # ---------------------------------------------------------------------------
@@ -49,27 +53,35 @@ _OTHER_FAMILIES = (
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     mixer: str           # "attn" | "ssm"
-    mlp: Optional[str]   # "mlp" | None (SSM blocks carry their own gating;
-                         # "moe" arrives with the MoE family)
+    mlp: Optional[str]   # "mlp" | "moe" | None (SSM blocks carry their own
+                         # gating)
 
 
 def _check_family(cfg) -> None:
-    ported = ((cfg.family == "dense" and cfg.ssm is None)
-              or cfg.family == "ssm")
-    if not ported or cfg.moe is not None:
+    ported = ((cfg.family == "dense" and cfg.ssm is None and cfg.moe is None)
+              or (cfg.family == "moe" and cfg.ssm is None)
+              or (cfg.family == "ssm" and cfg.moe is None))
+    if not ported:
         raise NotImplementedError(_OTHER_FAMILIES.format(family=cfg.family))
 
 
 def period_len(cfg) -> int:
     _check_family(cfg)
-    return 1
+    p = 1
+    if cfg.moe is not None:
+        p = math.lcm(p, cfg.moe.every)
+    assert cfg.n_layers % p == 0, (cfg.n_layers, p)
+    return p
 
 
 def period_structure(cfg) -> List[LayerSpec]:
     """Layer specs for positions 0..P-1 of one period."""
-    return [LayerSpec(mixer="attn" if cfg.is_attn_layer(i) else "ssm",
-                      mlp=None if cfg.family == "ssm" else "mlp")
-            for i in range(period_len(cfg))]
+    specs = []
+    for i in range(period_len(cfg)):
+        mlp_kind = "moe" if cfg.is_moe_layer(i) else "mlp"
+        specs.append(LayerSpec(mixer="attn" if cfg.is_attn_layer(i) else "ssm",
+                               mlp=None if cfg.family == "ssm" else mlp_kind))
+    return specs
 
 
 def n_blocks(cfg) -> int:
@@ -89,17 +101,39 @@ def _init_one_layer(gen, cfg, spec: LayerSpec, device):
         p["ssm"] = ssm_mod.init_ssm(gen, cfg, device=device)
     if spec.mlp is not None:
         p["ln2"] = init_rmsnorm(cfg.d_model, cfg.dtype, device=device)
-        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype,
-                            kind=cfg.mlp_kind, device=device)
+        if spec.mlp == "moe":
+            p["moe"] = moe_mod.init_moe(gen, cfg, device=device)
+        else:
+            p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.dtype,
+                                kind=cfg.mlp_kind, device=device)
     return p
 
 
-def _stack(trees: List[Any]):
-    """Stack a list of identically-shaped nested dicts on a new axis 0."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees, dim=0)
+def _stacked_blocks(make_block, nb: int):
+    """``nb`` blocks from ``make_block()``, stacked on a new axis 0.  Each
+    leaf is allocated once at its stacked size and filled block by block,
+    so no more than one block's tree is alive beside the result (a list of
+    blocks and then ``torch.stack`` would hold every leaf twice)."""
+
+    def fill(dst, src, b):
+        if isinstance(src, dict):
+            for key in src:
+                fill(dst[key], src[key], b)
+        else:
+            dst[b].copy_(src)
+
+    def alloc(t):
+        if isinstance(t, dict):
+            return {key: alloc(v) for key, v in t.items()}
+        return t.new_empty((nb,) + tuple(t.shape))
+
+    first = make_block()
+    out = alloc(first)
+    fill(out, first, 0)
+    del first
+    for b in range(1, nb):
+        fill(out, make_block(), b)
+    return out
 
 
 def _index(tree, b: int):
@@ -127,7 +161,7 @@ def init_params(cfg, seed: int = 0, *, device="cuda") -> Dict[str, Any]:
         "final_norm": init_rmsnorm(cfg.d_model, cfg.dtype, device=dev),
     }
     params["blocks"] = [
-        _stack([_init_one_layer(gen, cfg, spec, dev) for _ in range(nb)])
+        _stacked_blocks(lambda: _init_one_layer(gen, cfg, spec, dev), nb)
         for spec in specs
     ]
     if not cfg.tie_embeddings:
@@ -139,6 +173,19 @@ def init_params(cfg, seed: int = 0, *, device="cuda") -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 # Shared block application
 # ---------------------------------------------------------------------------
+
+
+def _ffn(lp, spec: LayerSpec, x, cfg, *, decode: bool):
+    """The layer's second half: RMS norm of the residual stream ``x``, its
+    MLP or MoE, added back to ``x``.  ``decode=False`` on the prefill shape
+    (grouped MoE dispatch), ``decode=True`` for a decode step or a verify
+    window (dense MoE), as the reference picks them."""
+    h2 = rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
+    if spec.mlp == "moe":
+        y2, _ = moe_mod.moe_apply(lp["moe"], h2, cfg, decode=decode)
+    else:
+        y2 = mlp(lp["mlp"], h2, kind=cfg.mlp_kind)
+    return x + y2
 
 
 def _apply_layer_train(lp, spec: LayerSpec, x, cfg, *, positions, impl,
@@ -156,8 +203,7 @@ def _apply_layer_train(lp, spec: LayerSpec, x, cfg, *, positions, impl,
                                        return_state=True)
     x = x + y
     if spec.mlp is not None:
-        h2 = rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
-        x = x + mlp(lp["mlp"], h2, kind=cfg.mlp_kind)
+        x = _ffn(lp, spec, x, cfg, decode=False)
     return x, state
 
 
@@ -180,8 +226,7 @@ def _apply_layer_decode(lp, spec: LayerSpec, x, cfg, *, cur_pos, cache,
                                              cfg, impl=impl)
     x = x + y
     if spec.mlp is not None:
-        h2 = rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
-        x = x + mlp(lp["mlp"], h2, kind=cfg.mlp_kind)
+        x = _ffn(lp, spec, x, cfg, decode=True)
     return x, cache
 
 
@@ -434,7 +479,8 @@ def verify_step(params, tokens, caches: Caches, cur_pos, cfg, *,
 
     Pure-attention, non-sliding-window text archs only: SSM state advances
     sequentially and cannot be rolled back, and audio/vlm prompts carry
-    non-token context.
+    non-token context.  MoE layers take the dense decode path over the
+    window, as in the reference: decode routing is per token.
     """
     specs = period_structure(cfg)
     if any(s.mixer != "attn" for s in specs):
@@ -469,8 +515,8 @@ def verify_step(params, tokens, caches: Caches, cur_pos, cfg, *,
                     lp["attn"], h, view, cur_pos, cfg, impl=impl,
                     write_limit=write_limit)
             x = x + y
-            h2 = rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
-            x = x + mlp(lp["mlp"], h2, kind=cfg.mlp_kind)
+            if spec.mlp is not None:
+                x = _ffn(lp, spec, x, cfg, decode=True)
     x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
     return logits_fn(params, x, cfg), caches
 

@@ -22,11 +22,12 @@ multiplexes a dynamic request stream onto B fixed slots:
 * ``overlap=True`` dispatches the decode chunk first and runs admission
   behind it, so the host plans admission while the card decodes.
 
-The model is a pure-attention family or the attention-free SSM (Mamba-2)
-family, whose per-slot state (conv window and f32 SSM state) rides in
-``caches.ssm`` and is scattered at admission like the rings.  As in the
-reference, paged mode needs an attention layer, and the prefix cache and
-speculative decode need a pure-attention arch.
+The model is a pure-attention family (dense MLP or Mixture-of-Experts) or
+the attention-free SSM (Mamba-2) family, whose per-slot state (conv window
+and f32 SSM state) rides in ``caches.ssm`` and is scattered at admission
+like the rings.  As in the reference, paged mode needs an attention layer,
+the prefix cache and speculative decode need a pure-attention arch, and
+speculative decode refuses a sliding window (mixtral).
 
 A "dispatch" is one call of the admission or chunk step (or of the page
 push that returns evicted prefix-cache pages), and a "host sync" one

@@ -46,6 +46,7 @@ def _rand(gen, shape, dtype):
     (8, 256, 256, 16, 8, 128, 64, 0),
     (2, 100, 300, 16, 8, 128, None, 200),
     (2, 96, 96, 8, 1, 64, None, 0),
+    (8, 256, 256, 16, 16, 128, None, 0),       # group 1 (deepseek-moe-16b)
 ])
 def test_flash_attention_kernel_matches_ref(gen, dtype, B, Sq, Sk, H, Hkv, dh,
                                             window, q_offset):
@@ -70,6 +71,7 @@ def test_flash_attention_kernel_matches_ref(gen, dtype, B, Sq, Sk, H, Hkv, dh,
     (8, 322, 16, 8, 128, None, 256, 320, 0.0),
     (4, 64, 16, 8, 128, 64, 100, 300, 0.2),
     (3, 100, 16, 1, 64, None, 150, 400, 0.3),
+    (8, 322, 16, 16, 128, None, 256, 320, 0.2),    # group 1
 ])
 def test_decode_attention_kernel_matches_ref(gen, dtype, B, C, H, Hkv, dh,
                                              window, lo, hi, holes):
@@ -204,6 +206,7 @@ def _page_table(rng, B, maxp, P, cur, ps, holes):
     (4, 16, 1, 64, 16, 21, 96, 0, 330, 0.2),
     (3, 8, 2, 128, 8, 6, 30, 0, 48, 0.3),
     (3, 4, 2, 32, 4, 8, 24, 0, 32, 0.2),
+    (8, 16, 16, 128, 16, 21, 168, 256, 322, 0.2),    # group 1
 ])
 def test_paged_decode_attention_kernel_matches_ref(gen, dtype, B, H, Hkv, dh,
                                                    ps, maxp, P, lo, hi, holes):
@@ -304,6 +307,7 @@ def test_paged_decode_attention_split_cases_match_ref(gen, dtype, case):
     (8, 4, 16, 8, 128, 16, 21, 168, 0, 40, 0.0),     # splits > mapped pages
     (4, 2, 16, 1, 128, 16, 21, 96, 0, 330, 0.2),     # GQA 16:1, 32 rows
     (4, 8, 16, 4, 128, 8, 40, 160, 0, 310, 0.2),     # W=8, 32 rows
+    (8, 4, 16, 16, 128, 16, 21, 168, 256, 319, 0.2),  # group 1, 4 rows
 ])
 def test_paged_verify_attention_kernel_matches_ref(gen, dtype, B, W, H, Hkv,
                                                    dh, ps, maxp, P, lo, hi,
@@ -406,6 +410,7 @@ def test_paged_verify_attention_kernel_refuses_too_many_rows(gen):
     (2, 50, 0, 50, 4, 2, 32, 0),
     (2, 70, 130, 77, 4, 2, 32, 7),          # Lp not a multiple of 64, offset
     (3, 130, 65, 150, 16, 8, 128, 20),      # 3 q tiles over both phases
+    (8, 64, 192, 64, 16, 16, 128, 0),       # group 1 (deepseek-moe-16b)
 ])
 def test_prefix_flash_attention_kernel_matches_ref(gen, dtype, B, Sq, Lp, Sk,
                                                    H, Hkv, dh, q_offset):
@@ -598,6 +603,62 @@ def test_spec_overlap_batcher_on_the_card_matches_the_plain_path(gen, paged):
         else:
             assert ran == 0
     assert outs["cuda"] == outs["torch"] == outs["plain"]
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged-prefix", "spec-overlap"])
+def test_moe_batcher_on_the_card_matches_the_plain_path(gen, mode):
+    """Reduced deepseek-moe-16b (group 1, MoE layers) at f32 on the card:
+    the batcher through the kernels gives the plain path's tokens and
+    stats in each serving mode, and every admission and step launched the
+    mode's kernels."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.prefix_attention import ops as pfx_ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousBatcher, Request, ServingConfig
+
+    cfg = dataclasses.replace(get_reduced("deepseek-moe-16b"), dtype="float32")
+    params = init_params(cfg, 0)
+    rng = np.random.default_rng(6)
+    head = rng.integers(1, cfg.vocab, size=16).astype(np.int32)
+    prompts = [np.concatenate([head, rng.integers(1, cfg.vocab, size=5 + i % 4)
+                               .astype(np.int32)]) for i in range(10)]
+    kw = dict(slots=4, prompt_len=32, max_len=64, chunk=4)
+    if mode != "dense":
+        kw.update(paged=True, page_size=8, prefix_cache=True)
+    if mode == "spec-overlap":
+        kw.update(speculative=True, draft_window=4, overlap=True)
+    counters = (fa_ops.flash_attention, pfx_ops.prefix_flash_attention,
+                da_ops.decode_attention, pa_ops.paged_decode_attention,
+                pa_ops.paged_verify_attention)
+    outs = {}
+    for impl in ("cuda", "torch"):
+        before = [c.launches for c in counters]
+        b = ContinuousBatcher(params, cfg, ServingConfig(attn_impl=impl, **kw))
+        reqs = [Request(rid=i, prompt=p, max_new=10 + i % 4, namespace="m")
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            b.submit(r)
+        b.run()
+        assert all(r.done and len(r.out) == r.max_new for r in reqs)
+        outs[impl] = ([r.out for r in reqs], b.stats.as_dict())
+        fa, pfx, da, pa, pv = (c.launches - n
+                               for c, n in zip(counters, before))
+        st, L = b.stats, cfg.n_layers
+        assert (st.prefix_hits > 0) == (mode != "dense")
+        if impl == "torch":
+            assert fa == pfx == da == pa == pv == 0
+        elif mode == "dense":
+            assert (fa, da, pa, pv) == (L * st.prefills, L * st.steps, 0, 0)
+        elif mode == "paged-prefix":
+            assert fa + pfx == L * st.prefills and pfx > 0
+            assert (pa, da, pv) == (L * st.steps, 0, 0)
+        else:
+            assert fa + pfx == L * st.prefills
+            assert (pv, pa, da) == (L * st.steps // 4, 0, 0)
+    assert outs["cuda"] == outs["torch"]
 
 
 def _rel(a, b):

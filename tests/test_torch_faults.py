@@ -7,8 +7,12 @@ out-of-range page id, a double mapping, shared prefix pages, the audit
 under ``overlap=True``), then the tokens of every request, every
 ``BatcherStats`` counter (``dispatches`` and ``host_syncs`` included), the
 quarantined set, the page tables, the free stack and ``free_top`` must be
-identical.  Reduced qwen3-0.6b; weights from ``repro.models.init_params``
-through ``weights.params_from_jax``; prompts made with numpy from a seed.
+identical.  The NaN sentinel, the watchdog and a double mapping also run
+under ``speculative=True``, held to the same equality; an out-of-range id
+there differs from the reference by exactly one accepted draft
+(``SPEC_OUT_OF_RANGE_DELTA``).  Reduced qwen3-0.6b; weights from
+``repro.models.init_params`` through ``weights.params_from_jax``; prompts
+made with numpy from a seed.
 
 Core faults (mirrors of ``TestSlowCoreFaults`` and
 ``TestRollbackUnderShrink``): ``CORE_SLOW`` through the port's
@@ -402,6 +406,106 @@ def test_guard_pushes_count_as_page_pushes(models):
     st = pair.t.stats
     assert pair.t.page_pushes >= 2
     assert st.dispatches - pair.t.page_pushes == st.prefills + st.chunks
+
+
+# ---------------------------------------------------------------------------
+# the guards under speculative decode (draft-and-verify windows)
+# ---------------------------------------------------------------------------
+
+
+SPEC = dict(speculative=True, page_size=8, audit=True)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_spec_nan_sentinel_requeues_like_reference(models, paged):
+    pair = _Pair(models, paged=paged, **SPEC)
+    pair.submit(_prompts(pair.cfg, 4), [32])
+    pair.step()
+    _poison_jax(pair.j)
+    _poison_port(pair.t.caches)
+    pair.step()
+    pair.assert_same()
+    assert pair.t.stats.poisoned_slots >= 1
+    pair.run()
+    pair.assert_same()
+    assert all(len(r.out) > 0 for r in pair.treqs)
+    assert not any(pair.t.slot_req)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_spec_watchdog_trips_like_reference(models, paged):
+    pair = _Pair(models, clock=lambda: 0.0, watchdog_s=0.5, paged=paged,
+                 **SPEC)
+    pair.submit(_prompts(pair.cfg, 2), [32])
+    pair.step()
+    for b in (pair.j, pair.t):
+        b.inject_stall(0, 1.0)
+    pair.step()
+    pair.assert_same()
+    assert pair.t.stats.watchdog_trips == 1 and pair.t.slot_req[0] is None
+    pair.run()
+    pair.assert_same()
+    assert all(len(r.out) > 0 for r in pair.treqs)
+
+
+@pytest.mark.parametrize("impl,overlap", [("torch", False), ("torch", True),
+                                          ("cuda", False)],
+                         ids=["serial", "overlap", "cuda"])
+def test_spec_audit_quarantines_double_mapped_page_like_reference(
+        models, impl, overlap):
+    pair = _Pair(models, impl=impl, paged=True, overlap=overlap, **SPEC)
+    pair.submit(_prompts(pair.cfg, 8, seed=5), [32, 40])
+    pair.step()
+    pair.assert_same()
+    row1 = pair.t.pages.table[1].numpy()
+    stolen = int(row1[row1 >= 0][0])
+    pair.j.inject_kv_corruption(0, pid=stolen)
+    pair.t.inject_kv_corruption(0, pid=stolen)
+    pair.step()
+    pair.assert_same()
+    assert stolen in pair.t._quarantined
+    pair.run()
+    pair.assert_same()
+    assert all(r.done and len(r.out) == r.max_new for r in pair.treqs)
+    _quarantine_partition(pair.t)
+
+
+# the counters an out-of-range id moves in the port's corrupt window: the
+# port reads the entry as unmapped where the reference attends the trash
+# page (ROADMAP.md Queue 3), and here that accepts one more draft
+SPEC_OUT_OF_RANGE_DELTA = dict(accepted_tokens=1, device_draft_accepted=1,
+                               decode_tokens=1, slot_busy_steps=1,
+                               oom_discarded_tokens=1)
+
+
+def test_spec_out_of_range_id_differs_from_reference_by_one_draft(models):
+    """8 requests, one clean round, then an out-of-range id in slot 0's
+    table.  The corrupt window leaves the port exactly
+    ``SPEC_OUT_OF_RANGE_DELTA`` ahead of the reference, and the run ends
+    so; tokens, every other counter, slots, tables, free stack, ledger and
+    quarantine are equal every round."""
+    pair = _Pair(models, paged=True, **SPEC)
+    pair.submit(_prompts(pair.cfg, 8), [32, 40])
+    pair.step()
+    pair.assert_same()
+    pair.j.inject_kv_corruption(0)
+    pair.t.inject_kv_corruption(0)
+
+    def assert_delta():
+        want, got = _state(pair.j, pair.jreqs), _state(pair.t, pair.treqs)
+        delta = {k: got["stats"][k] - want["stats"][k]
+                 for k in want["stats"] if got["stats"][k] != want["stats"][k]}
+        assert delta == SPEC_OUT_OF_RANGE_DELTA
+        want.pop("stats"), got.pop("stats")
+        assert got == want
+
+    pair.step()
+    assert_delta()
+    assert pair.t.stats.audit_repairs >= 1
+    pair.run()
+    assert_delta()
+    assert all(r.done and len(r.out) == r.max_new for r in pair.treqs)
+    _quarantine_partition(pair.t)
 
 
 def _init_pools(cfg, P, ps, seed):

@@ -154,11 +154,71 @@ def test_init_params_seeded():
     assert not torch.equal(a["blocks"][0]["attn"]["wq"], c["blocks"][0]["attn"]["wq"])
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "mixtral-8x22b",
-                                  "whisper-base", "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "whisper-base",
+                                  "qwen2-vl-72b"])
 def test_unported_families_raise(arch):
+    """jamba (hybrid, with MoE layers), whisper and qwen2-vl still raise."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_params(get_reduced(arch), 0, device="cpu")
+
+
+def test_moe_family_builds_mixtral():
+    """mixtral-8x22b, refused before the MoE family was ported, builds its
+    ``moe`` tree (no shared experts) in every block."""
+    cfg = get_reduced("mixtral-8x22b")
+    lp = init_params(cfg, 0, device="cpu")["blocks"][0]
+    m = cfg.moe
+    assert "mlp" not in lp and "shared" not in lp["moe"]
+    assert tuple(lp["moe"]["wi"].shape) == (cfg.n_layers, m.n_experts,
+                                            cfg.d_model, 2 * m.expert_d_ff)
+    assert tuple(lp["moe"]["wo"].shape) == (cfg.n_layers, m.n_experts,
+                                            m.expert_d_ff, cfg.d_model)
+    assert lp["moe"]["router"].dtype == torch.float32
+
+
+def _init_params_by_stacking(cfg, seed):
+    """init_params as it was before the in-place fill: every block built
+    from the same generator in the same order, then ``torch.stack``ed."""
+    from repro_torch.models import transformer as tr
+
+    dev = torch.device("cpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return torch.stack(trees, dim=0)
+
+    params = {"embed": layers.init_embedding(gen, cfg.vocab_padded,
+                                             cfg.d_model, cfg.dtype,
+                                             device=dev),
+              "final_norm": layers.init_rmsnorm(cfg.d_model, cfg.dtype,
+                                                device=dev)}
+    params["blocks"] = [
+        stack([tr._init_one_layer(gen, cfg, spec, dev)
+               for _ in range(tr.n_blocks(cfg))])
+        for spec in tr.period_structure(cfg)]
+    if not cfg.tie_embeddings:
+        params["lm_head"] = layers.init_embedding(
+            gen, cfg.vocab_padded, cfg.d_model, cfg.dtype, device=dev)
+    return params
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "mamba2-370m",
+                                  "deepseek-moe-16b", "mixtral-8x22b"])
+def test_init_params_fills_in_place_as_stacking_did(arch):
+    """The stacked leaves filled block by block hold the same tree, dtypes
+    and seeded values as stacking a list of blocks, for every ported
+    family."""
+    cfg = get_reduced(arch)
+    got = init_params(cfg, 5, device="cpu")
+    want = _init_params_by_stacking(cfg, 5)
+    flat_g, tree_g = jax.tree_util.tree_flatten(got)
+    flat_w, tree_w = jax.tree_util.tree_flatten(want)
+    assert tree_g == tree_w
+    for a, b in zip(flat_g, flat_w):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

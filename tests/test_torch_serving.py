@@ -338,6 +338,7 @@ def test_importing_the_whole_port_loads_no_jax():
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
         " or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "assert 'repro_torch.models.moe' in sys.modules\n"
         "print('ok', len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
