@@ -62,7 +62,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
               paged decode, verify and prefix also take group 1 (H = Hkv =
               16, dh 128, deepseek-moe-16b's heads) in f32 and bf16, and
               their bf16 times at group 1 are logged beside the PyTorch
-              call's.
+              call's.  The last families' shapes: flash at 64:8 (group
+              8, qwen2-vl-72b) and non-causal at whisper-base's heads (8:8,
+              dh 64: 1500 x 1500 frames, and Sq = 4 and 1 over 1500 for the
+              cross-attention), dense decode at 64:8, the SSD at
+              jamba-1.5-large's SSM widths (B 2, S 1024, chunk 256, nh 128,
+              hd 128, G 8, N 128, also with slow decay) and at hd 128, N 16,
+              each in f32 and bf16; their bf16 times (and qwen2-vl's and
+              whisper's decode) logged beside the bound and SDPA (none for
+              the SSD).
 4. model    — full-width qwen3-0.6b cut to 2 layers, f32: prefill + 4 decode
               steps with attn_impl="cuda" against attn_impl="torch"; the
               same decode on a shuffled paged pool (``page_table=``); one
@@ -84,6 +92,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
               difference (see ``check_moe_model``).  A prefill of 2 x 256
               tokens and 4 decode steps each; the flash and decode kernels
               launched once a layer on the cuda route only.
+4d. families — after phase 6, one model at a time: qwen2-vl-72b at full
+              width, 2 layers in f32, then 16 layers in bf16 (weights made
+              once, kept for 5h); whisper-base whole in f32 and bf16; one
+              full-width jamba-1.5-large period (8 layers, 7 Mamba and 1
+              attention, MoE every second) holding 4 of its 16 experts in
+              f32 (a 4-way expert split's share) and 8 in bf16 (a 2-way
+              split's; the period with all 16 is 85.6 GB, more than the
+              card).  Prompts through the engine's prefill step: 2 x
+              (64 stub patch embeddings at an 8 x 8 M-RoPE grid, t = 0,
+              then 192 text tokens), 2 x (1500 stub frames through the
+              encoder, 4 tokens), 2 x 256 tokens; 4 decode steps; phase
+              4c's rules, and the flash, decode and SSD kernels launched
+              once a layer (whisper: the encoder's 6 and the
+              cross-attention's 6 a prefill, 6 a step) on the cuda route.
 5. serve    — the dense main path: full qwen3-0.6b (28 layers, bf16, seeded
               random weights) behind ``ContinuousBatcher`` in dense mode, 16
               requests after a short warm-up; every request completes and
@@ -158,6 +180,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
               cache + 10 % of the weights (all three printed).  Reports
               tokens/s and the wall ms of a dense decode step beside the
               floor to read the routed experts once.
+5h. vlm     — qwen2-vl-72b, 16 layers (33.07 GB bf16): ``generate`` of
+              8 prompts of 64 stub patches + 192 tokens, ``n_new`` 64:
+              one chunk step a chunk bucket, no host sync inside the call
+              (``torch.cuda.set_sync_debug_mode``), flash 16 a prefill,
+              decode 16 a step, peak <= weights + cache + 10 % of the
+              weights; tokens/s and the wall and device ms of a decode
+              step beside the floor of reading the decoder's weights and
+              caches once.
+5i. audio   — whisper-base, uncut: ``generate`` of 8 x 1500 stub frames
+              and 4-token prompts, ``n_new`` 128, ``max_len`` 448 (its
+              decoder's context): one
+              encoder pass a call (6 non-causal flash launches), the
+              cross K/V made once a decoder layer a call, 6 cross-attention
+              flash launches and 6 decode launches a step; one chunk step
+              a bucket and no host sync inside the call, as in 5h; peak
+              memory within the weights, the larger of the caches (with
+              the encoder's output and one layer's cross K/V beside them)
+              and the encoder pass's own peak (measured alone), and 10 %
+              of the weights.
+5j. hybrid  — phase 4d's bf16 jamba period (8 experts held) behind the
+              dense, paged (pages of 8), overlap and audited paged
+              batchers, 16 requests each: completions, one dispatch and
+              sync per admission and per chunk, 7 SSD calls and 1 flash
+              launch an admission, 1 decode launch a step, overlap rounds,
+              a clean audit, the page ledger, peak memory within the
+              weights, the cache and 10 % of the weights.
 6. trace    — the first rounds of the dense, the paged, the spec, the
               Mamba-2 and the MoE path,
               all untraced first, then each under ``torch.profiler``: device
@@ -330,29 +378,44 @@ def check_flash(gen):
         run_case(f"dh=32 {tag}", 2, 100, 100, 4, 2, 32, dtype)
         # group 1 (H = Hkv = 16, deepseek-moe-16b's prefill)
         run_case(f"group 1 16:16 {tag}", dtype=dtype, **dict(main, Hkv=16))
+        # the last families: qwen2-vl's prefill (64:8, group 8), whisper's
+        # encoder over its 1500 frames and its cross-attention (a 4-token
+        # prompt, a decode row) over them, all non-causal at 8:8, dh 64
+        run_case(f"group 8 64:8 {tag}", 2, 256, 256, 64, 8, 128, dtype)
+        run_case(f"non-causal 1500 8:8 dh=64 {tag}", 2, 1500, 1500, 8, 8,
+                 64, dtype, causal=False)
+        run_case(f"non-causal Sq=4 Sk=1500 {tag}", 8, 4, 1500, 8, 8, 64,
+                 dtype, causal=False)
+        run_case(f"non-causal Sq=1 Sk=1500 {tag}", 8, 1, 1500, 8, 8, 64,
+                 dtype, causal=False)
     return dict(time_flash(q, k, v), max_abs_err=err)
 
 
-def time_flash(q, k, v):
+def time_flash(q, k, v, causal: bool = True):
     """Kernel, plain and SDPA times (and the bound) at the serving path's
-    prefill shape (B=8 rows of 256, bf16), from ``q, k, v`` there."""
+    prefill shape (B=8 rows of 256, bf16), from ``q, k, v`` there; with
+    ``causal=False`` every query attends to every key (Sq may differ from
+    Sk)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops, ref
 
-    B, S, H, dh = q.shape
-    Hkv = k.shape[2]
+    B, Sq, H, dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     sets = copies_over_l2([q, k, v])
-    kernel = device_ms(lambda a, b, c: ops.flash_attention(a, b, c), sets)
+    kernel = device_ms(
+        lambda a, b, c: ops.flash_attention(a, b, c, causal=causal), sets)
     plain = device_ms(
         lambda a, b, c: ref.flash_attention_ref(
-            a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2)), sets)
+            a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+            causal=causal), sets)
     lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
     library = device_ms(
         lambda a, b, c: F.scaled_dot_product_attention(
-            a, b, c, is_causal=True, enable_gqa=True), lib_sets)
-    pairs = S * (S + 1) // 2                    # causal (row, col) pairs
-    n_bytes = 2 * (2 * B * S * H * dh + 2 * B * S * Hkv * dh)   # q, out, k, v
+            a, b, c, is_causal=causal, enable_gqa=True), lib_sets)
+    # the (row, col) pairs attended: causal (Sq = Sk) or all
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+    n_bytes = 2 * (2 * B * Sq * H * dh + 2 * B * Sk * Hkv * dh)  # q, out, k, v
     flops = 4.0 * dh * pairs * B * H            # QK^T and PV
     bms, by = bound_ms(n_bytes, flops)
     return dict(name="flash_attention", route="cuda",
@@ -436,6 +499,9 @@ def check_decode(gen):
         run_case(f"group 1 16:16 {tag}", B, C, H, H, dh, dtype, cur)
         run_case(f"group 1 holes {tag}", B, C, H, H, dh, dtype, cur,
                  holes=0.3)
+        # group 8: qwen2-vl-72b's 64:8 heads, its ring of 192 + 64 + 64
+        run_case(f"group 8 64:8 {tag}", B, 320, 64, 8, dh, dtype,
+                 rng.integers(256, 320, size=B))
     return dict(time_decode(q, k, v, pos, cur_t), max_abs_err=err)
 
 
@@ -515,6 +581,49 @@ def group1_times(gen, rng):
     for row in rows:
         row["name"] += " group 1"
     return rows
+
+
+def family_times(gen, rng):
+    """The kernels at the shapes the last three families give them (bf16):
+    qwen2-vl's prefill of 8 x 256 and its decode over rings of 320 at 64:8
+    (group 8); whisper-base's encoder over 8 x 1500 frames and its
+    cross-attention over them (a 4-token prompt, a decode row), all
+    non-causal at 8:8, dh 64, and its decode over rings of 448; the SSD at
+    jamba-1.5-large's SSM widths.  Kernel, plain and PyTorch-call times and
+    the bound, one row each, named by the shape."""
+    import torch
+
+    bf16 = torch.bfloat16
+
+    def qkv(B, Sq, Sk, H, Hkv, dh):
+        return (_rand(gen, (B, Sq, H, dh), bf16), _rand(gen, (B, Sk, Hkv, dh), bf16),
+                _rand(gen, (B, Sk, Hkv, dh), bf16))
+
+    def decode(B, C, H, Hkv, dh, lo):
+        cur = rng.integers(lo, C, size=B)
+        return time_decode(
+            _rand(gen, (B, H, dh), bf16), _rand(gen, (B, C, Hkv, dh), bf16),
+            _rand(gen, (B, C, Hkv, dh), bf16),
+            torch.from_numpy(_ring_pos(rng, B, C, cur)).cuda(),
+            torch.as_tensor(np.asarray(cur, np.int32)).cuda())
+
+    rows = [
+        (time_flash(*qkv(8, 256, 256, 64, 8, 128)), "qwen2-vl prefill 64:8"),
+        (decode(8, 320, 64, 8, 128, 256), "qwen2-vl decode 64:8"),
+        (time_flash(*qkv(8, 1500, 1500, 8, 8, 64), causal=False),
+         "whisper encoder non-causal 1500"),
+        (time_flash(*qkv(8, 4, 1500, 8, 8, 64), causal=False),
+         "whisper cross Sq=4 Sk=1500"),
+        (time_flash(*qkv(8, 1, 1500, 8, 8, 64), causal=False),
+         "whisper cross Sq=1 Sk=1500"),
+        (decode(8, 448, 8, 8, 64, 4), "whisper decode 8:8 dh=64"),
+        (time_ssd(_ssd_inputs(gen, *(SSD_JAMBA[k] for k in (
+            "B", "S", "nh", "hd", "G", "N")), bf16, 1.0), SSD_JAMBA["chunk"]),
+         "jamba hd=128 G=8"),
+    ]
+    for row, shape in rows:
+        row["name"] += f" {shape}"
+    return [row for row, _ in rows]
 
 
 def _log_time_row(row, card: str) -> None:
@@ -990,6 +1099,9 @@ def _rel_err(got, want) -> float:
 # every chunk after the first depends on the carried state and on the
 # far-off key tiles of its own chunk.
 SSD_MAIN = dict(B=8, S=1024, nh=32, hd=64, G=1, N=128, chunk=256)
+# jamba-1.5-large's SSM at full width: d_inner 16384 in 128 heads of 128,
+# 8 groups of d_state 128
+SSD_JAMBA = dict(B=2, S=1024, nh=128, hd=128, G=8, N=128, chunk=256)
 SSD_REDUCED = dict(B=4, S=96, nh=8, hd=32, G=1, N=16, chunk=32)
 SSD_SLOW = {256: (1e-4, 1e-2), 32: (1e-3, 1e-1)}    # chunk -> dt range
 
@@ -1024,6 +1136,14 @@ def _ssd_cases():
         ("hd=32 N=128 chunk=64 f32", shape(2, 160, 4, 32, 2, 128, 64), f32,
          1.0),
         ("hd=64 N=16 chunk=48 f32", shape(2, 144, 4, 64, 1, 16, 48), f32, 1.0),
+        ("jamba hd=128 G=8 bf16", SSD_JAMBA, bf16, 1.0),
+        ("jamba hd=128 G=8 f32", SSD_JAMBA, f32, 1.0),
+        ("jamba slow decay bf16", SSD_JAMBA, bf16, SSD_SLOW[256]),
+        ("jamba slow decay f32", SSD_JAMBA, f32, SSD_SLOW[256]),
+        ("hd=128 N=16 chunk=32 bf16", shape(2, 96, 8, 128, 2, 16, 32), bf16,
+         SSD_SLOW[32]),
+        ("hd=128 N=16 chunk=32 f32", shape(2, 96, 8, 128, 2, 16, 32), f32,
+         SSD_SLOW[32]),
     ]
 
 
@@ -1142,6 +1262,7 @@ def check_ssd(gen):
                   f"[0.1, 0.9]")
         if name == "main bf16, xBC views":
             err, args = r["abs_y"], r["args"]
+        del r
     torch.cuda.empty_cache()
     return dict(time_ssd(args, SSD_MAIN["chunk"]), max_abs_err=err)
 
@@ -1173,7 +1294,8 @@ def time_ssd(args, chunk):
     flops = 2.0 * B * nc * (G * pairs * N
                             + nh * (pairs * hd + 2 * L * N * hd))
     bms, by = bound_ms(n_bytes, flops)
-    log(f"  ssd main: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP")
+    log(f"  ssd B={B} S={S} nh={nh} hd={hd} G={G} N={N}: {n_bytes / 1e6:.2f} "
+        f"MB, {flops / 1e9:.2f} GFLOP")
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan/kernel.py:85",
@@ -1550,7 +1672,7 @@ def check_model():
     n_pages = B * max_pages
     table = torch.from_numpy(rng.permutation(n_pages).astype(np.int32)
                              .reshape(B, max_pages)).cuda()
-    logits0, fresh = prefill_kv(params, toks, cfg, impl="torch")
+    logits0, fresh, _ = prefill_kv(params, toks, cfg, impl="torch")
     prompt_pages = table[:, :S // ps].reshape(-1).long()
     runs = {}
     for impl in ("cuda", "torch"):
@@ -1622,7 +1744,7 @@ def check_model():
     # prefix kernel, against a cold prefill of the whole prompt
     Lp = 3 * ps
     cold, _ = prefill(params, toks, cfg, max_len=S, impl="cuda")
-    _, pkv = prefill_kv(params, toks[:, :Lp], cfg, impl="cuda")
+    _, pkv, _ = prefill_kv(params, toks[:, :Lp], cfg, impl="cuda")
     before = pfx_ops.prefix_flash_attention.launches
     warm, _ = prefix_prefill(params, toks[:, Lp:], pkv, cfg, prefix_len=Lp,
                              impl="cuda")
@@ -1762,25 +1884,12 @@ def check_moe_model(card: str, arch: str, *, n_layers=None,
                     dtype: str = "bfloat16"):
     """``arch`` at full width (cut to ``n_layers`` when given) in ``dtype``,
     from the port's ``init_params``: a prefill of 2 x 256 tokens and 4
-    decode steps through the kernels (impl="cuda") and the plain path
-    (impl="torch"), every route fed the plain path's greedy tokens, the
-    flash and dense decode kernels launched once a layer on the cuda route
-    only.
-
-    f32 takes phase 4's rule: logits within ``MODEL_TOL``, greedy tokens
-    identical.  bf16, the serving dtype, runs a second plain route
-    (impl="naive") as well: over many layers the routes' roundings move
-    some tokens' top-k experts, so even two plain routes disagree by more
-    than a fixed tolerance could allow.  The kernels' logits must then lie
-    as close to both plain routes as those do to each other: each
-    difference, relative to the largest plain logit, within
-    ``MOE_SPREAD`` x the plain routes' own (at least ``BF16_TOL``).  A
-    kernel wrong at group 1 moves the logits by their own size.  Greedy
-    token agreement is reported.  Frees the model after."""
+    decode steps through the kernels against the plain path
+    (:func:`check_routes`).  Frees the model after."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import init_params
 
     cfg = dataclasses.replace(get_config(arch), dtype=dtype)
     if n_layers is not None:
@@ -1791,13 +1900,62 @@ def check_moe_model(card: str, arch: str, *, n_layers=None,
     log(f"  {cfg.name}, {cfg.n_layers} layers, {dtype}: params "
         f"{_gib(_param_bytes(params))} made in {time.perf_counter() - t0:.1f} "
         f"s [{card}]")
-    B, S, steps = 2, 256, 4
-    L = cfg.n_layers
     rng = np.random.default_rng(4)
     toks = torch.from_numpy(
-        rng.integers(1, cfg.vocab, size=(B, S)).astype(np.int32)).cuda()
+        rng.integers(1, cfg.vocab, size=(2, 256)).astype(np.int32)).cuda()
+    check_routes(card, cfg, params, {"tokens": toks})
+    del params
+    _free_device_memory()
+
+
+def _layer_counts(cfg):
+    """(attention layers, SSM layers) of the decoder stack."""
+    from repro_torch.models.transformer import n_blocks, period_structure
+
+    specs = period_structure(cfg)
+    n_attn = n_blocks(cfg) * sum(s.mixer == "attn" for s in specs)
+    return n_attn, cfg.n_layers - n_attn
+
+
+def check_routes(card: str, cfg, params, batch, *, steps: int = 4):
+    """A prefill of ``batch`` (the engine's prefill step: tokens plus the
+    family's extras, the audio encoder included) and ``steps`` decode steps
+    through the kernels (impl="cuda") and the plain path (impl="torch"),
+    every route fed the plain path's greedy tokens; on the cuda route only,
+    the flash kernel launched once an attention layer a prefill (audio:
+    also once an encoder layer and once a decoder layer for the
+    cross-attention) and once a decoder layer a step for audio's
+    cross-attention, the dense decode kernel once an attention layer a
+    step, the SSD kernel once an SSM layer a prefill.
+
+    f32 takes phase 4's rule: logits within ``MODEL_TOL``, greedy tokens
+    identical.  bf16, the serving dtype, runs a second plain route
+    (impl="naive") as well: over many layers the routes' roundings move
+    some tokens' top-k experts, so even two plain routes disagree by more
+    than a fixed tolerance could allow.  The kernels' logits must then lie
+    as close to both plain routes as those do to each other: each
+    difference, relative to the largest plain logit, within
+    ``MOE_SPREAD`` x the plain routes' own (at least ``BF16_TOL``).  A
+    kernel wrong at its shape moves the logits by their own size.  Greedy
+    token agreement is reported."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import decode_step
+    from repro_torch.serving import ServeConfig
+    from repro_torch.serving.engine import make_prefill_step
+
+    B, S = batch["tokens"].shape
+    if "extra_embeds" in batch:
+        S += batch["extra_embeds"].shape[1]
+    n_attn, n_ssm = _layer_counts(cfg)
+    L = cfg.n_layers
+    audio = cfg.family == "audio"
+    flash_prefill = n_attn + (cfg.n_enc_layers + L if audio else 0)
+    flash_step = L if audio else 0
     counters = _attn_counters()
     fa, da = counters["flash_attention"], counters["decode_attention"]
+    dtype = cfg.dtype
     impls = ("cuda", "torch") if dtype == "float32" else ("cuda", "torch",
                                                           "naive")
 
@@ -1809,13 +1967,19 @@ def check_moe_model(card: str, arch: str, *, n_layers=None,
 
     runs = {}
     for impl in impls:
-        fa.launches = 0
-        runs[impl] = list(prefill(params, toks, cfg, max_len=S + steps + 1,
-                                  impl=impl))
-        check(fa.launches == (L if impl == "cuda" else 0),
+        fa.launches = ssd_ops.ssd.launches = 0
+        step = make_prefill_step(cfg, ServeConfig(max_len=S + steps + 1,
+                                                  attn_impl=impl))
+        runs[impl] = list(step(params, batch))
+        on = impl == "cuda"
+        check(fa.launches == (flash_prefill if on else 0),
               f"{cfg.name} prefill impl={impl}: {fa.launches} flash launches")
+        check(ssd_ops.ssd.launches == (n_ssm if on else 0),
+              f"{cfg.name} prefill impl={impl}: {ssd_ops.ssd.launches} SSD "
+              f"launches")
     worst, same = {}, {}
-    cur = torch.full((B,), S, dtype=torch.int32, device=toks.device)
+    cur = torch.full((B,), S, dtype=torch.int32,
+                     device=batch["tokens"].device)
     for step in range(steps + 1):
         logits = {impl: runs[impl][0].float() for impl in impls}
         tt = greedy(logits["torch"])
@@ -1844,12 +2008,14 @@ def check_moe_model(card: str, arch: str, *, n_layers=None,
         if step == steps:
             break
         for impl in impls:
-            da.launches = 0
+            da.launches = fa.launches = 0
             runs[impl][0], runs[impl][1] = decode_step(
                 params, tt, runs[impl][1], cur, cfg, impl=impl)
-            check(da.launches == (L if impl == "cuda" else 0),
-                  f"{cfg.name} decode impl={impl}: {da.launches} decode "
-                  f"launches")
+            on = impl == "cuda"
+            check(da.launches == (n_attn if on else 0)
+                  and fa.launches == (flash_step if on else 0),
+                  f"{cfg.name} decode impl={impl}: {da.launches} decode and "
+                  f"{fa.launches} flash launches")
         cur = cur + 1
     n = B * (steps + 1)
     rule = (f"tol {MODEL_TOL:g} abs" if dtype == "float32" else
@@ -1860,10 +2026,10 @@ def check_moe_model(card: str, arch: str, *, n_layers=None,
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
         + f" ({rule}); greedy tokens equal to the plain path's: "
         + ", ".join(f"{k} {v}/{n}" for k, v in same.items() if k != "torch")
-        + f"; launches: flash {L} a prefill, decode {L} a step on the cuda "
-        f"route [{card}]")
-    del runs, params
-    _free_device_memory()
+        + f"; launches on the cuda route: flash {flash_prefill} a prefill, "
+        f"{flash_step} a step; decode {n_attn} a step; SSD {n_ssm} a prefill "
+        f"[{card}]")
+    del runs
 
 
 # ---------------------------------------------------------------------------
@@ -3032,6 +3198,484 @@ def serve_moe_path(card: str):
 
 
 # ---------------------------------------------------------------------------
+# phases 4d and 5h-5j: the VLM, audio and hybrid families
+# ---------------------------------------------------------------------------
+
+
+VLM_SIDE = 8           # the stub image: an 8 x 8 patch grid at t = 0
+VLM_TEXT = 192         # text tokens after it
+VLM_LAYERS = 16        # qwen2-vl-72b's 80 layers cut to 16: 33.07 GB of bf16
+# phases 4d and 5j: one full-width jamba-1.5-large period (7 Mamba layers
+# and 1 attention layer, MoE every second), every width as published; the
+# card holds its share of the experts of each MoE layer: 8 of the 16 (a
+# 2-way expert split) in bf16, 4 (a 4-way split) for phase 4d's f32 check
+HYBRID_LAYERS = 8
+HYBRID_EXPERTS = {"bfloat16": 8, "float32": 4}
+# phase 5j: that period behind the batcher in each mode, 16 requests
+HYBRID_CONFIG = dict(slots=8, prompt_len=256, max_len=322, chunk=8)
+HYBRID_LEGS = (("dense", {}), ("paged", dict(paged=True, page_size=8)),
+               ("overlap", dict(overlap=True)),
+               ("paged + audit", dict(paged=True, page_size=8, audit=True)))
+
+
+def vlm_positions(B: int, side: int, n_text: int, device="cuda"):
+    """(3, B, side**2 + n_text) int32 M-RoPE ids: a side x side patch grid
+    at t = 0 (its rows in the h stream, its columns in the w stream), then
+    the text at ``side**2 + j`` on all three streams, where decode goes
+    on."""
+    import torch
+
+    n_p = side * side
+    i = torch.arange(n_p)
+    patch = torch.stack([torch.zeros_like(i), i // side, i % side])
+    text = (n_p + torch.arange(n_text)).expand(3, n_text)
+    pos = torch.cat([patch, text], dim=1).to(torch.int32)
+    return pos[:, None].expand(3, B, pos.shape[1]).contiguous().to(device)
+
+
+def family_batch(cfg, B: int, n_text: int, seed: int, device="cuda"):
+    """A prompt batch for ``cfg``'s family, made from ``seed``: B prompts of
+    ``n_text`` tokens; the VLM's 64 stub patch embeddings before them at
+    :func:`vlm_positions`; the audio family's stub frames (B, enc_seq, d).
+    Embeddings are drawn at the token table's scale (0.02)."""
+    import torch
+
+    from repro_torch.device import torch_dtype
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, cfg.vocab, size=(B, n_text)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks).to(device)}
+
+    def emb(n):
+        e = rng.standard_normal((B, n, cfg.d_model)).astype(np.float32) * 0.02
+        return torch.from_numpy(e).to(device=device,
+                                      dtype=torch_dtype(cfg.dtype))
+
+    if cfg.family == "vlm":
+        batch["extra_embeds"] = emb(VLM_SIDE ** 2)
+        batch["positions"] = vlm_positions(B, VLM_SIDE, n_text, device)
+    if cfg.family == "audio":
+        batch["frames"] = emb(cfg.enc_seq)
+    return batch
+
+
+def _counting(obj, name: str, counts: dict, key: str, on_call=None):
+    """Replace ``obj.name`` by a wrapper that adds one to ``counts[key]`` a
+    call (and runs ``on_call(before, after)`` around it, given); returns
+    the function that restores it."""
+    real = getattr(obj, name)
+
+    def wrapped(*a, **kw):
+        counts[key] += 1
+        before = on_call() if on_call else None
+        out = real(*a, **kw)
+        if on_call:
+            counts[key + " flash"] += on_call() - before
+        return out
+
+    setattr(obj, name, wrapped)
+    return lambda: setattr(obj, name, real)
+
+
+def _union_ms(spans) -> float:
+    """Total length in ms of the union of (start, end) intervals in us."""
+    if not spans:
+        return 0.0
+    spans = sorted(spans)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for st, e in spans[1:]:
+        if st > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = st, e
+        else:
+            cur_e = max(cur_e, e)
+    return (busy + cur_e - cur_s) * 1e-3
+
+
+def _decode_device_ms(params, cfg, scfg, batch, S: int, n_steps: int = 8):
+    """Device ms a decode step: after a prefill of ``batch`` (S positions),
+    one chunk of
+    ``n_steps`` steps untraced, then one under ``torch.profiler`` (the
+    union of its kernel intervals over ``n_steps``); None when the
+    profiler saw no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import (
+        SlotState, make_decode_chunk, make_prefill_step)
+
+    logits, caches = make_prefill_step(cfg, scfg)(params, batch)
+    B = logits.shape[0]
+    dev = logits.device
+    state = SlotState(
+        tokens=torch.argmax(logits, -1).to(torch.int32),
+        cur_pos=torch.full((B,), S, dtype=torch.int32, device=dev),
+        active=torch.ones((B,), dtype=torch.bool, device=dev),
+        remaining=torch.full((B,), 2 * n_steps, dtype=torch.int32, device=dev),
+        eos=torch.full((B,), -1, dtype=torch.int32, device=dev))
+    chunk = make_decode_chunk(cfg, scfg, n_steps)
+    caches, state, *_ = chunk(params, caches, state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chunk(params, caches, state)
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.time_range.end > e.time_range.start]
+    return _union_ms(spans) / n_steps if spans else None
+
+
+def _is_sync(warning) -> bool:
+    """A warning of ``torch.cuda.set_sync_debug_mode("warn")``."""
+    return "synchronizing" in str(warning.message)
+
+
+def _generate_leg(card: str, label: str, params, cfg, batch, n_new: int,
+                  base: int, max_len=None):
+    """``generate`` over ``batch`` (a warm-up call first): gates one chunk
+    step a chunk bucket, no host sync inside the call (the one fetch of
+    the tokens after it is the only synchronising operation
+    ``torch.cuda.set_sync_debug_mode`` reports), the kernels' launches
+    (flash once an attention layer a prefill, audio: the encoder's pass
+    once a call with its layers' flash launches inside it, the cross K/V
+    made once a decoder layer a call and one cross-attention flash launch
+    a decoder layer a step; the decode kernel once an attention layer a
+    step), tokens in the vocab, and the peak device memory above ``base``
+    (taken before the weights were made) against the weights + cache + 10
+    % of the weights.  Audio runs its encoder before any cache exists, and
+    a small model's encoder activations outgrow 10 % of its weights, so
+    there the cache's term is the larger of the encoder pass's own peak
+    (measured alone before the call) and the cache with what building its
+    cross K/V keeps beside it: the encoder's output and one decoder
+    layer's fresh K/V.  Logs tokens/s and the wall and device ms of a
+    decode step beside the floor of reading the decoder's weights and
+    caches once."""
+    import warnings
+
+    import torch
+
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.serving import ServeConfig, engine, generate
+    from repro_torch.serving.kv_cache import kv_cache_bytes
+
+    toks = batch["tokens"]
+    extras = {k: v for k, v in batch.items() if k != "tokens"}
+    B, S = toks.shape
+    if "extra_embeds" in extras:
+        S += extras["extra_embeds"].shape[1]
+    scfg = ServeConfig(max_len=max_len or S + n_new)
+
+    def run(n):
+        return generate(params, cfg, toks, n_new=n, scfg=scfg, extras=extras)
+
+    run(9)                                    # first-use costs, one chunk
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(1)                                    # the prefill and first token
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    _free_device_memory()
+
+    n_attn, _ = _layer_counts(cfg)
+    L, audio = cfg.n_layers, cfg.family == "audio"
+    enc_peak = enc_out = layer_kv = 0
+    if audio:
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        enc = engine.encoder_forward(params, extras["frames"], cfg,
+                                     impl=scfg.attn_impl)
+        torch.cuda.synchronize()
+        enc_peak = torch.cuda.max_memory_allocated() - start
+        enc_out = enc.numel() * enc.element_size()
+        layer_kv = 2 * enc.shape[0] * enc.shape[1] * cfg.kv_dim \
+            * enc.element_size()
+        del enc
+    counters = _attn_counters()
+    fa, da = counters["flash_attention"], counters["decode_attention"]
+    for c in counters.values():
+        c.launches = 0
+    counts = {"chunks": 0, "encoder": 0, "encoder flash": 0, "cross_kv": 0}
+    restore = [
+        _counting(engine, "make_decode_chunk", counts, "chunks"),
+        _counting(engine, "encoder_forward", counts, "encoder",
+                  on_call=lambda: fa.launches),
+        _counting(attn_mod, "encode_cross_kv", counts, "cross_kv")]
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            out = run(n_new)
+            in_call = sum(_is_sync(w) for w in caught)
+            out = out.cpu()
+            wall = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        for r in restore:
+            r()
+    syncs = [w for w in caught if _is_sync(w)]
+    launches = {name: c.launches for name, c in counters.items()}
+    steps = n_new - 1
+    buckets, left = 0, steps
+    while left > 0:
+        left -= engine.chunk_bucket(min(left, scfg.chunk))
+        buckets += 1
+    check(tuple(out.shape) == (B, n_new), f"{label}: tokens {tuple(out.shape)}")
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()),
+          f"{label}: a token outside the vocab")
+    check(counts["chunks"] == buckets, f"{label}: {counts['chunks']} decode "
+          f"chunk steps for {buckets} chunk buckets")
+    check(in_call == 0 and len(syncs) == 1,
+          f"{label}: {in_call} synchronising operations inside generate, "
+          f"{len(syncs)} in all (the fetch of the tokens is one)")
+    flash_want = n_attn + (cfg.n_enc_layers + L + L * steps if audio else 0)
+    check(launches["flash_attention"] == flash_want,
+          f"{label}: {launches['flash_attention']} flash launches, expected "
+          f"{flash_want}")
+    check(launches["decode_attention"] == n_attn * steps,
+          f"{label}: {launches['decode_attention']} decode launches, expected "
+          f"{n_attn} x {steps}")
+    check(sum(launches.values()) == launches["flash_attention"]
+          + launches["decode_attention"], f"{label}: other attention kernels "
+          f"ran: {launches}")
+    if audio:
+        check(counts["encoder"] == 1
+              and counts["encoder flash"] == cfg.n_enc_layers,
+              f"{label}: {counts['encoder']} encoder passes with "
+              f"{counts['encoder flash']} flash launches")
+    check(counts["cross_kv"] == (L if audio else 0),
+          f"{label}: the cross K/V made {counts['cross_kv']} times")
+    pbytes = _param_bytes(params)
+    cache = kv_cache_bytes(cfg, B, scfg.max_len)
+    peak = torch.cuda.max_memory_allocated() - base
+    limit = pbytes + max(cache + enc_out + layer_kv, enc_peak) + 0.1 * pbytes
+    check(peak <= limit, f"{label}: peak device memory {_gib(peak)} > "
+          f"params + cache + 10 % of params ({_gib(limit)})")
+    unembed = params["embed" if cfg.tie_embeddings else "lm_head"]["w"]
+    read = (_param_bytes(params["blocks"])
+            + unembed.numel() * unembed.element_size() + cache)
+    floor_ms = read / HBM_BYTES_PER_S * 1e3
+    step_wall = (wall - prefill_s) * 1e3 / steps
+    step_dev = _decode_device_ms(params, cfg, scfg, batch, S)
+    dev = "not measured" if step_dev is None else f"{step_dev:.2f} ms"
+    log(f"  {label}: {B} x {n_new} tokens in {wall:.3f} s (prefill and first "
+        f"token {prefill_s:.3f} s): tokens/s={B * n_new / wall:.1f}; a decode "
+        f"step {step_wall:.2f} ms wall, {dev} device, beside the "
+        f"{floor_ms:.2f} ms floor to read {read / 1e9:.2f} GB (decoder weights "
+        f"and caches) at 3.35 TB/s [{card}]")
+    log(f"  {label}: {counts['chunks']} chunk steps, 0 host syncs inside "
+        f"generate; launches: flash {launches['flash_attention']}, decode "
+        f"{launches['decode_attention']}"
+        + (f"; 1 encoder pass ({counts['encoder flash']} non-causal flash "
+           f"launches), cross K/V made {counts['cross_kv']} times (once a "
+           f"decoder layer)" if audio else "")
+        + f"; peak {_gib(peak)} above the start; params {_gib(pbytes)} + "
+        f"cache {_gib(cache)}"
+        + (f" (+ encoder output {_gib(enc_out)} + one layer's cross K/V "
+           f"{_gib(layer_kv)}; the encoder pass alone peaks at "
+           f"{_gib(enc_peak)}: the larger counts)" if audio else "")
+        + f" + 10 % = {_gib(limit)} [{card}]")
+    return out
+
+
+def serve_hybrid_path(card: str, params, cfg, base: int):
+    """Phase 5j: the jamba period behind the batcher in each of
+    :data:`HYBRID_LEGS`, 16 requests each after a 2-request warm-up.  Gates
+    completion, one dispatch and one host sync per admission and per
+    chunk, the SSD kernel once an SSM layer an admission, the flash kernel
+    once an attention layer an admission and the leg's decode kernel once
+    an attention layer a step (the other decode kernel never), overlap
+    rounds on the overlap leg, a clean audit, the page ledger, and the
+    peak device memory above ``base`` (taken before the weights were made)
+    against the weights, the leg's cache and 10 % of the weights."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.serving import ContinuousBatcher, Request, ServingConfig
+
+    n_attn, n_ssm = _layer_counts(cfg)
+    counters = _attn_counters()
+    pbytes = _param_bytes(params)
+    for label, kw in HYBRID_LEGS:
+        config = ServingConfig(**HYBRID_CONFIG, **kw)
+        warm = ContinuousBatcher(params, cfg, config)
+        for r in _requests(cfg, n=2, seed=20, max_new=8):
+            warm.submit(r)
+        warm.run()
+        del warm
+        _free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        reqs = _requests(cfg, seed=21)
+        batcher = ContinuousBatcher(params, cfg, config)
+        for r in reqs:
+            batcher.submit(r)
+        for c in (*counters.values(), ssd_ops.ssd):
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = batcher.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        tag = f"jamba {label}"
+        for r in reqs:
+            check(r.done and not r.dropped and len(r.out) == r.max_new,
+                  f"{tag}: request {r.rid} gave {len(r.out)} of {r.max_new} "
+                  f"tokens")
+            check(all(0 <= t < cfg.vocab for t in r.out),
+                  f"{tag}: request {r.rid}: token outside the vocab")
+        pushes = batcher.page_pushes if batcher.paged else 0
+        check(stats.dispatches - pushes == stats.prefills + stats.chunks,
+              f"{tag}: dispatches != admissions + chunks + page pushes")
+        check(stats.host_syncs == stats.prefills + stats.chunks,
+              f"{tag}: host syncs != one per admission + one per chunk")
+        check(ssd_ops.ssd.launches == n_ssm * stats.prefills,
+              f"{tag}: {ssd_ops.ssd.launches} SSD calls for {stats.prefills} "
+              f"admissions of {n_ssm} SSM layers")
+        decode = ("paged_decode_attention" if batcher.paged
+                  else "decode_attention")
+        want = {name: 0 for name in launches}
+        want["flash_attention"] = n_attn * stats.prefills
+        want[decode] = n_attn * stats.steps
+        check(launches == want, f"{tag}: attention launches {launches}, "
+              f"expected {want}")
+        if label == "overlap":
+            check(stats.overlap_rounds > 0, f"{tag}: no overlap round")
+        ledger = ""
+        if batcher.paged:
+            pool = batcher.kv_pool
+            pool.check()
+            free_top = int(batcher.pages.free_top)
+            check(pool.used == 0 and free_top == batcher.n_pages,
+                  f"{tag}: {pool.used} pages held, free_top {free_top} of "
+                  f"{batcher.n_pages} after the run")
+            check(stats.audit_repairs == 0 and stats.quarantined_pages == 0,
+                  f"{tag}: the audit repaired a clean run")
+            ledger = (f"; ledger: free_top {free_top} = {batcher.n_pages} "
+                      f"pages, peak {stats.peak_pages_in_use} in use")
+        peak = torch.cuda.max_memory_allocated() - base
+        limit = pbytes + stats.cache_bytes + 0.1 * pbytes
+        check(peak <= limit, f"{tag}: peak device memory {_gib(peak)} > "
+              f"params + cache + 10 % of params ({_gib(limit)})")
+        log(f"  {tag}: {stats.completed}/{len(reqs)} requests, {stats.tokens} "
+            f"tokens, {stats.prefills} admissions, {stats.chunks} chunks, "
+            f"{stats.steps} steps in {wall:.3f} s: tokens/s="
+            f"{stats.tokens / wall:.1f}; SSD {ssd_ops.ssd.launches} "
+            f"(= {n_ssm} x {stats.prefills}), flash "
+            f"{launches['flash_attention']}, {decode} {launches[decode]}"
+            f"{ledger}; peak {_gib(peak)} above the start: params "
+            f"{_gib(pbytes)} + cache {_gib(stats.cache_bytes)} + 10 % = "
+            f"{_gib(limit)} [{card}]")
+        del batcher
+
+
+def _make_params(card: str, cfg):
+    """``init_params(cfg)`` on the card, after freeing what is unreferenced;
+    returns (params, the memory allocated before them)."""
+    import torch
+
+    from repro_torch.models import init_params
+
+    _free_device_memory()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  {cfg.name}, {cfg.n_layers} layers, {cfg.dtype}: params "
+        f"{_gib(_param_bytes(params))} made in "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return params, base
+
+
+def family_phases(card: str, families=("vlm", "audio", "hybrid")) -> None:
+    """Phases 4d and 5h-5j, one family at a time, each model freed before
+    the next is made: qwen2-vl-72b at full width (2 layers in f32, then 16
+    layers in bf16, those weights made once for phase 4d's bf16 check and
+    phase 5h), whole whisper-base (f32, then bf16 for phase 4d and phase
+    5i), one full-width jamba period (f32 holding 4 experts, then bf16
+    holding 8, those weights made once for phase 4d's bf16 check and phase
+    5j)."""
+    phases = {"vlm": _vlm_phases, "audio": _audio_phases,
+              "hybrid": _hybrid_phases}
+    for family in families:
+        phases[family](card)
+        _free_device_memory()
+
+
+def _vlm_phases(card: str) -> None:
+    from repro_torch.configs import get_config
+
+    vlm = get_config("qwen2-vl-72b")
+    log("phase 4d: qwen2-vl-72b at full width (M-RoPE over an 8 x 8 patch "
+        "grid, then text), cuda kernels against the plain path")
+    cfg = dataclasses.replace(vlm, n_layers=2, dtype="float32")
+    params, _ = _make_params(card, cfg)
+    check_routes(card, cfg, params, family_batch(cfg, 2, VLM_TEXT, seed=12))
+    del params
+    cfg = dataclasses.replace(vlm, n_layers=VLM_LAYERS)
+    params, base = _make_params(card, cfg)
+    check_routes(card, cfg, params, family_batch(cfg, 2, VLM_TEXT, seed=12))
+    log(f"phase 5h: VLM path, qwen2-vl-72b ({VLM_LAYERS} layers) through "
+        f"generate with patch embeddings")
+    _generate_leg(card, "qwen2-vl", params, cfg,
+                  family_batch(cfg, 8, VLM_TEXT, seed=11), 64, base)
+    del params
+
+
+def _audio_phases(card: str) -> None:
+    from repro_torch.configs import get_config
+
+    log("phase 4d: whisper-base, whole (encoder over 1500 stub frames, "
+        "cross-attention), cuda kernels against the plain path")
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config("whisper-base"), dtype=dtype)
+        params = None
+        params, base = _make_params(card, cfg)
+        check_routes(card, cfg, params, family_batch(cfg, 2, 4, seed=13))
+    log("phase 5i: audio path, whisper-base through generate with stub "
+        "frames")
+    _generate_leg(card, "whisper", params, cfg,
+                  family_batch(cfg, 8, 4, seed=14), 128, base, max_len=448)
+    del params
+
+
+def hybrid_period(dtype: str):
+    """:data:`HYBRID_LAYERS` layers of jamba-1.5-large in ``dtype``, every
+    width as published, holding :data:`HYBRID_EXPERTS` of its 16 experts."""
+    from repro_torch.configs import get_config
+
+    full = get_config("jamba-1.5-large-398b")
+    return dataclasses.replace(
+        full, n_layers=HYBRID_LAYERS, dtype=dtype,
+        moe=dataclasses.replace(full.moe, n_experts=HYBRID_EXPERTS[dtype]))
+
+
+def _expert_bytes(params) -> int:
+    """Bytes of the routed experts' weights (the MoE layers' wi and wo)."""
+    return sum(_param_bytes({k: blk["moe"][k] for k in ("wi", "wo")})
+               for blk in params["blocks"] if "moe" in blk)
+
+
+def _hybrid_phases(card: str) -> None:
+    log(f"phase 4d: jamba-1.5-large, one full-width period ({HYBRID_LAYERS} "
+        f"layers: SSM, MoE and attention), cuda kernels against the plain "
+        f"path")
+    for dtype in ("float32", "bfloat16"):
+        cfg = hybrid_period(dtype)
+        params = None
+        params, base = _make_params(card, cfg)
+        held = cfg.moe.n_experts
+        whole = _param_bytes(params) + _expert_bytes(params) * (16 - held) / held
+        log(f"  {held} of 16 experts held (a {16 // held}-way expert split); "
+            f"the period with all 16 would be {whole / 1e9:.2f} GB [{card}]")
+        check_routes(card, cfg, params, family_batch(cfg, 2, 256, seed=15))
+    log("phase 5j: hybrid path, the jamba period behind the dense, paged, "
+        "overlap and audited paged batchers")
+    serve_hybrid_path(card, params, cfg, base)
+
+
+# ---------------------------------------------------------------------------
 # phase 6: where the time goes (a traced window of the same requests)
 # ---------------------------------------------------------------------------
 
@@ -3168,16 +3812,7 @@ def trace_main_paths(card: str, paths, n_rounds: int = 3):
             log(f"  {label}: device time not measured: the profiler saw no "
                 f"CUDA kernels")
             continue
-        spans.sort()
-        busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-        for s, e in spans[1:]:
-            if s > cur_e:
-                busy += cur_e - cur_s
-                cur_s, cur_e = s, e
-            else:
-                cur_e = max(cur_e, e)
-        busy += cur_e - cur_s
-        busy_s = busy * 1e-6
+        busy_s = _union_ms(spans) * 1e-3
         log(f"  {label}, first {n_rounds} rounds: {len(spans)} device kernels, "
             f"device busy {busy_s * 1e3:.1f} ms; wall {clean[label]:.3f} s "
             f"untraced ({traced:.3f} s traced) -> device idle share "
@@ -3262,6 +3897,10 @@ def main() -> int:
         "bf16), deepseek-moe-16b's heads:")
     for row in group1_times(gen, np.random.default_rng(7)):
         _log_time_row(row, card)
+    log("  the kernels at the shapes of qwen2-vl-72b, whisper-base and "
+        "jamba-1.5-large (bf16):")
+    for row in family_times(gen, np.random.default_rng(8)):
+        _log_time_row(row, card)
     torch.cuda.empty_cache()
 
     log("phase 4: model (cuda kernels) against the plain path")
@@ -3332,6 +3971,9 @@ def main() -> int:
         log(f"  moe decode: {busy_ms / steps:.2f} ms of device time a decode "
             f"step ({steps} steps), beside the {floor_ms:.2f} ms floor to "
             f"read the routed experts once [{card}]")
+    del dparams
+
+    family_phases(card)
 
     for row in rows:
         # each kernel's launches on the path that runs it: flash on the

@@ -71,6 +71,16 @@
 //   (batch, head) walks its chunks in order with the (hd, N) state in shared
 //   memory and runs every product as f32 FMAs on the CUDA cores (exact to
 //   the plain version's summation order; 256 blocks at the main shape).
+//
+// Head dims 32, 64 and 128 (jamba-1.5-large: hd 128, N 128, G 8), each
+// with N 16 or 128.  At hd 128 nothing is split: pass 3's eight warps each
+// take 16 rows p of the state and all N columns (64 f32 sums a thread), pass
+// 5 holds a 16-row slice of y across hd (64 sums a thread) and stages
+// 80 KB, pass 3 102 KB; the f32 kernel's state tile doubles to 64 KB and
+// its shared memory to 119 KB (N 128), under the 227 KB a block may opt
+// into.  Every column p of x moves through the SSD on its own (dt, the
+// decay, B and C are shared by all p), so halving hd across the grid would
+// be exact, were the budget short.
 
 #include "attn_common.cuh"
 #include "attn_mma.cuh"
@@ -854,6 +864,8 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt, const void* A,
   const SsdStrides sd{x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss};
 #define SSD_ARGS x, dt, A, Bm, Cm, y, state, ws_cum, ws_dt, ws_cb, ws_states, \
                  ws_state_in, B, nh, S, G, chunk, is_bf16, sd, s
+  if (hd == 128 && N == 128) return launch<128, 128>(SSD_ARGS);
+  if (hd == 128 && N == 16) return launch<128, 16>(SSD_ARGS);
   if (hd == 64 && N == 128) return launch<64, 128>(SSD_ARGS);
   if (hd == 32 && N == 128) return launch<32, 128>(SSD_ARGS);
   if (hd == 64 && N == 16) return launch<64, 16>(SSD_ARGS);

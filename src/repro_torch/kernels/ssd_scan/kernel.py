@@ -21,7 +21,7 @@ import torch
 
 from .._build import check, load_library
 
-HEAD_DIMS = (32, 64)
+HEAD_DIMS = (32, 64, 128)         # 128: jamba-1.5-large's SSM heads
 STATE_DIMS = (16, 128)
 MAX_CHUNK = 256
 DTYPES = (torch.float32, torch.bfloat16)

@@ -5,6 +5,8 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-1.5-large-398b --reduced --device cpu
 
 The same flags as ``repro.launch.serve``, plus ``--device`` (default
 ``cuda``; pass ``--device cpu`` to run on the CPU).  Each tenant leases a
@@ -12,7 +14,9 @@ disjoint set of ``pool.n_cores // tenants`` logical cores from a
 ``VirtualAcceleratorPool`` of ``max(16, tenants)`` cores over the one
 device (the paper's isolation model), and runs a ``ContinuousBatcher`` on
 the dense chunked hot path (one dispatch and one host sync per ``--chunk``
-tokens).
+tokens).  The VLM and audio families (qwen2-vl-72b, whisper-base) are
+refused before any weight is made: the batcher serves token prompts only,
+and ``repro_torch.serving.generate(..., extras=...)`` serves them.
 """
 
 from __future__ import annotations
@@ -47,6 +51,11 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.family in ("vlm", "audio"):
+        raise ValueError(
+            f"the launcher runs ContinuousBatcher, which serves token prompts "
+            f"only; serve the {cfg.family} family {cfg.name} with "
+            f"repro_torch.serving.generate(..., extras=...)")
     params = init_params(cfg, args.seed, device=device)
     pool = VirtualAcceleratorPool(devices=[device] * max(16, args.tenants),
                                   devices_per_core=1)

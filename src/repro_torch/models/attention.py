@@ -1,5 +1,6 @@
-"""Attention: GQA + qk_norm + RoPE + sliding window + dense and paged
-KV-cache decode + prefix-context prefill.
+"""Attention: GQA + qk_norm + RoPE/M-RoPE + sliding window + dense and
+paged KV-cache decode + prefix-context prefill + encoder-decoder
+cross-attention.
 
 Counterpart of ``repro.models.attention`` for the serving modes the port
 runs.  Three compute paths, selected by ``impl``:
@@ -14,6 +15,11 @@ runs.  Three compute paths, selected by ``impl``:
 * ``"torch"`` — chunked online-softmax attention in plain PyTorch (a loop
   over KV blocks), the counterpart of the reference's ``"xla"`` oracle.
 * ``"naive"`` — materialised-scores einsum.
+
+Cross-attention (:func:`cross_attention`, the audio family's decoder over
+the encoder's K/V) is the same non-causal attention: ``"cuda"`` sends it
+through the prefill kernel with ``causal=False``, where the reference runs
+its plain ``chunked_flash_attention`` on every route.
 
 Draft verification (speculative decode) scores a window of W tokens in one
 pass: :func:`verify_decode_attention` on dense rings and
@@ -37,7 +43,7 @@ import torch
 
 from ..device import resolve_device, torch_dtype
 from ..kernels.common import NEG_INF
-from .layers import apply_rope, init_dense, init_rmsnorm, rmsnorm
+from .layers import apply_mrope, apply_rope, init_dense, init_rmsnorm, rmsnorm
 
 
 # ---------------------------------------------------------------------------
@@ -85,7 +91,10 @@ def check_attn_impl(impl: str, mode: str) -> str:
 # ---------------------------------------------------------------------------
 
 
-def init_attention(gen: torch.Generator, cfg, *, device=None):
+def init_attention(gen: torch.Generator, cfg, *, cross: bool = False,
+                   device=None):
+    """``cross=True`` builds encoder-decoder cross-attention (no qk_norm,
+    K/V over the encoder's states)."""
     device = device or gen.device
     p = {
         "wq": init_dense(gen, cfg.d_model, cfg.q_dim, cfg.dtype, device=device)["w"],
@@ -93,7 +102,7 @@ def init_attention(gen: torch.Generator, cfg, *, device=None):
         "wv": init_dense(gen, cfg.d_model, cfg.kv_dim, cfg.dtype, device=device)["w"],
         "wo": init_dense(gen, cfg.q_dim, cfg.d_model, cfg.dtype, device=device)["w"],
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = init_rmsnorm(cfg.d_head, cfg.dtype, device=device)
         p["k_norm"] = init_rmsnorm(cfg.d_head, cfg.dtype, device=device)
     return p
@@ -114,14 +123,16 @@ def _project_qkv(params, x, cfg, *, positions=None, rope: bool = True):
         q = rmsnorm(params["q_norm"], q, eps=cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, eps=cfg.norm_eps)
     if rope and cfg.rope_theta > 0:
-        if cfg.m_rope:
-            raise NotImplementedError(
-                "M-RoPE (qwen2-vl) is not ported yet: ROADMAP.md Queue 1, "
-                "other model families")
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if cfg.m_rope:
+            if positions.dim() == 2:   # plain (B,S) ids (e.g. text-only decode)
+                positions = positions[None].expand((3,) + positions.shape)
+            q = apply_mrope(q, positions, cfg.rope_theta)
+            k = apply_mrope(k, positions, cfg.rope_theta)
+        else:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -260,6 +271,33 @@ def self_attention(
     B, S, _, _ = q.shape
     y = out.reshape(B, S, cfg.q_dim) @ params["wo"]
     return y, (k, v)
+
+
+def cross_attention(params, x, enc_kv, cfg, *, impl: str = "cuda"):
+    """Decoder cross-attention of x (B, S, D) over precomputed encoder
+    (k, v), each (B, S_enc, Hkv, dh): non-causal, no RoPE."""
+    B, S, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, S, cfg.n_heads, cfg.d_head)
+    k, v = enc_kv
+    if impl == "cuda":
+        from ..kernels.flash_attention import ops as fa_ops
+
+        out = fa_ops.flash_attention(q, k, v, causal=False)
+    elif impl == "naive":
+        out = naive_attention(q, k, v, causal=False)
+    elif impl == "torch":
+        out = chunked_flash_attention(q, k, v, causal=False)
+    else:
+        raise ValueError(f"unknown attn impl {impl!r}")
+    return out.reshape(B, S, cfg.q_dim) @ params["wo"]
+
+
+def encode_cross_kv(params, enc_out, cfg):
+    """Cross-attention K/V from the encoder output (once per request)."""
+    B, S, _ = enc_out.shape
+    k = (enc_out @ params["wk"]).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    v = (enc_out @ params["wv"]).reshape(B, S, cfg.n_kv_heads, cfg.d_head)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

@@ -8,12 +8,14 @@ Two places where PyTorch's defaults differ from JAX's are pinned here:
 * RoPE: the inverse frequencies are computed in float64 numpy and then cast
   to float32, exactly as the reference does; a ``torch.pow`` in float32
   gives other bits.  They are cached per device so a decode step never
-  copies them from the host.
+  copies them from the host.  M-RoPE (Qwen2-VL) takes the same
+  frequencies, each section rotated by its own position stream.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -116,3 +118,45 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_sections(d_head: int) -> Tuple[int, int, int]:
+    """Qwen2-VL splits the rotary half-dim into (temporal, h, w) sections;
+    128-dim heads use (16, 24, 24).  Generalized proportionally."""
+    half = d_head // 2
+    t = half // 4
+    h = (half - t) // 2
+    w = half - t - h
+    return t, h, w
+
+
+@functools.lru_cache(maxsize=64)
+def _mrope_section_ids(d_head: int, device: torch.device) -> torch.Tensor:
+    """Section index (0, 1 or 2) of each rotary frequency, on ``device``."""
+    ids = np.concatenate([np.full(s, i)
+                          for i, s in enumerate(mrope_sections(d_head))])
+    return torch.tensor(ids, dtype=torch.long, device=device)
+
+
+def apply_mrope(x, positions3, theta: float):
+    """M-RoPE: x (..., S, H, Dh); positions3 (3, ..., S) — (temporal,
+    height, width) ids.  Each rotary-frequency section uses its own
+    position stream."""
+    d_head = x.shape[-1]
+    inv = _inv_freq(d_head, float(theta), x.device)
+    pos = torch.movedim(positions3, 0, -1).float()               # (..., S, 3)
+    pos_f = pos[..., _mrope_section_ids(d_head, x.device)]       # (..., S, half)
+    ang = pos_f * inv
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(n_pos: int, d_model: int) -> np.ndarray:
+    """Whisper-style sinusoidal embeddings (host constant)."""
+    half = d_model // 2
+    freq = np.exp(-np.log(10000.0) * np.arange(half) / max(half - 1, 1))
+    pos = np.arange(n_pos)[:, None] * freq[None, :]
+    return np.concatenate([np.sin(pos), np.cos(pos)], axis=1).astype(np.float32)

@@ -1,9 +1,14 @@
-"""Model assembly for the pure-attention families (dense MLP or
-Mixture-of-Experts) and the attention-free SSM (Mamba-2) family.
+"""Model assembly for every family: pure attention (dense MLP or
+Mixture-of-Experts), the attention-free SSM (Mamba-2), the hybrid (Mamba-2
+with attention every ``attn_every`` layers and MoE every ``moe.every``,
+Jamba), the VLM (a dense backbone with M-RoPE over a patch-embedding stub,
+Qwen2-VL) and audio (an encoder-decoder over a frame-embedding stub,
+Whisper).
 
 Counterpart of ``repro.models.transformer``.  The parameter tree has the
 same nested-dict layout as the reference: layers are grouped into periods
-and each period position's blocks are stacked on a leading ``nb`` axis, so
+of ``P = lcm(attn_every, moe.every)`` layers and each period position's
+blocks are stacked on a leading ``nb`` axis, so
 ``params["blocks"][p]["attn"]["wq"]`` is (nb, d_model, q_dim) in both
 packages and the weight bridge (:mod:`repro_torch.weights`) is a plain
 mapping.  Where the reference runs the stacked blocks under ``lax.scan``,
@@ -12,15 +17,20 @@ tensor (a view, no copy).  A MoE layer (``LayerSpec(mlp="moe")``) takes the
 grouped dispatch on the prefill shape and the dense decode path for a
 decode step and a verify window (:mod:`repro_torch.models.moe`).
 
+The VLM's prompt is ``extra_embeds`` (patch embeddings) followed by the
+token embeddings, at (3, B, S) M-RoPE positions; decode passes plain (B,)
+positions, broadcast to the three streams.  The audio family runs
+:func:`encoder_forward` (non-causal) over the stub frames, and every
+decoder layer attends to the encoder's K/V (``Caches.cross``, made once a
+request by :func:`prefill`); sinusoidal positions are added at embed and
+at decode.
+
 Decode caches are the stacked :class:`KVCacheView` per attention period
 position, or the stacked :class:`PagedKVView` page pool
 (:func:`init_paged_caches`), and the stacked :class:`SSMState` per SSM
 position; :func:`decode_step` and :func:`verify_step` (a window of draft
 tokens in one pass) update them **in place** (the reference returns new
 caches and relies on buffer donation).
-
-Other families (hybrid, VLM, audio) raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -31,19 +41,13 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, torch_dtype
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .attention import KVCacheView
 from .layers import embed, init_embedding, init_mlp, init_rmsnorm, mlp, rmsnorm
 from .ssm import SSMState
-
-_OTHER_FAMILIES = (
-    "only the pure-attention (dense MLP or MoE) and the SSM (Mamba-2) "
-    "families are ported; the {family} family waits for ROADMAP.md Queue 1 "
-    "item 13 (other model families)")
-
 
 # ---------------------------------------------------------------------------
 # Period structure
@@ -57,17 +61,10 @@ class LayerSpec:
                          # gating)
 
 
-def _check_family(cfg) -> None:
-    ported = ((cfg.family == "dense" and cfg.ssm is None and cfg.moe is None)
-              or (cfg.family == "moe" and cfg.ssm is None)
-              or (cfg.family == "ssm" and cfg.moe is None))
-    if not ported:
-        raise NotImplementedError(_OTHER_FAMILIES.format(family=cfg.family))
-
-
 def period_len(cfg) -> int:
-    _check_family(cfg)
     p = 1
+    if cfg.family == "hybrid":
+        p = cfg.attn_every
     if cfg.moe is not None:
         p = math.lcm(p, cfg.moe.every)
     assert cfg.n_layers % p == 0, (cfg.n_layers, p)
@@ -75,12 +72,20 @@ def period_len(cfg) -> int:
 
 
 def period_structure(cfg) -> List[LayerSpec]:
-    """Layer specs for positions 0..P-1 of one period."""
+    """Layer specs for positions 0..P-1 of one period.  A hybrid SSM layer
+    carries a MoE FFN on a MoE position and no FFN elsewhere; Mamba-2
+    blocks (the SSM family) carry their own gating and never an FFN."""
     specs = []
     for i in range(period_len(cfg)):
-        mlp_kind = "moe" if cfg.is_moe_layer(i) else "mlp"
-        specs.append(LayerSpec(mixer="attn" if cfg.is_attn_layer(i) else "ssm",
-                               mlp=None if cfg.family == "ssm" else mlp_kind))
+        mixer = "attn" if cfg.is_attn_layer(i) else "ssm"
+        moe = cfg.is_moe_layer(i)
+        if cfg.family == "ssm":
+            m = None
+        elif cfg.family == "hybrid" and mixer == "ssm":
+            m = "moe" if moe else None
+        else:
+            m = "moe" if moe else "mlp"
+        specs.append(LayerSpec(mixer=mixer, mlp=m))
     return specs
 
 
@@ -93,12 +98,16 @@ def n_blocks(cfg) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _init_one_layer(gen, cfg, spec: LayerSpec, device):
+def _init_one_layer(gen, cfg, spec: LayerSpec, device, *, cross: bool = False):
     p: Dict[str, Any] = {"ln1": init_rmsnorm(cfg.d_model, cfg.dtype, device=device)}
     if spec.mixer == "attn":
         p["attn"] = attn_mod.init_attention(gen, cfg, device=device)
     else:
         p["ssm"] = ssm_mod.init_ssm(gen, cfg, device=device)
+    if cross:
+        p["ln_x"] = init_rmsnorm(cfg.d_model, cfg.dtype, device=device)
+        p["cross"] = attn_mod.init_attention(gen, cfg, cross=True,
+                                             device=device)
     if spec.mlp is not None:
         p["ln2"] = init_rmsnorm(cfg.d_model, cfg.dtype, device=device)
         if spec.mlp == "moe":
@@ -160,19 +169,43 @@ def init_params(cfg, seed: int = 0, *, device="cuda") -> Dict[str, Any]:
                                 device=dev),
         "final_norm": init_rmsnorm(cfg.d_model, cfg.dtype, device=dev),
     }
+    cross = cfg.family == "audio"
     params["blocks"] = [
-        _stacked_blocks(lambda: _init_one_layer(gen, cfg, spec, dev), nb)
+        _stacked_blocks(lambda: _init_one_layer(gen, cfg, spec, dev,
+                                                cross=cross), nb)
         for spec in specs
     ]
     if not cfg.tie_embeddings:
         params["lm_head"] = init_embedding(gen, cfg.vocab_padded, cfg.d_model,
                                            cfg.dtype, device=dev)
+    if cfg.family == "audio":
+        params["encoder"] = {
+            "blocks": [_stacked_blocks(
+                lambda: _init_one_layer(gen, cfg, _ENC_SPEC, dev),
+                cfg.n_enc_layers)],
+            "final_norm": init_rmsnorm(cfg.d_model, cfg.dtype, device=dev),
+        }
     return params
 
 
 # ---------------------------------------------------------------------------
 # Shared block application
 # ---------------------------------------------------------------------------
+
+
+_ENC_SPEC = LayerSpec(mixer="attn", mlp="mlp")     # an audio encoder layer
+
+
+def _sinusoid(positions, d_model: int):
+    """Sinusoidal embedding of integer ``positions`` (..., S) -> (..., S,
+    d_model) f32, computed on the fly (no host table)."""
+    half = d_model // 2
+    freq = torch.exp(-math.log(10000.0)
+                     * torch.arange(half, dtype=torch.float32,
+                                    device=positions.device)
+                     / max(half - 1, 1))
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def _ffn(lp, spec: LayerSpec, x, cfg, *, decode: bool):
@@ -189,10 +222,11 @@ def _ffn(lp, spec: LayerSpec, x, cfg, *, decode: bool):
 
 
 def _apply_layer_train(lp, spec: LayerSpec, x, cfg, *, positions, impl,
-                       causal: bool = True, prefix_kv=None):
+                       causal: bool = True, prefix_kv=None, enc_kv=None):
     """One layer, full-sequence (prefill shape).  Returns (x, state): the
     layer's (k, v) for an attention layer, its :class:`SSMState` after the
-    last token for an SSM layer."""
+    last token for an SSM layer.  ``enc_kv`` is the layer's cross-attention
+    K/V over the encoder (audio decoder layers)."""
     h = rmsnorm(lp["ln1"], x, eps=cfg.norm_eps)
     if spec.mixer == "attn":
         y, state = attn_mod.self_attention(
@@ -202,18 +236,27 @@ def _apply_layer_train(lp, spec: LayerSpec, x, cfg, *, positions, impl,
         y, state = ssm_mod.ssm_forward(lp["ssm"], h, cfg, impl=impl,
                                        return_state=True)
     x = x + y
+    if enc_kv is not None and "cross" in lp:
+        x = _cross(lp, x, enc_kv, cfg, impl)
     if spec.mlp is not None:
         x = _ffn(lp, spec, x, cfg, decode=False)
     return x, state
 
 
+def _cross(lp, x, enc_kv, cfg, impl):
+    """The decoder layer's cross-attention over the encoder, added to x."""
+    hx = rmsnorm(lp["ln_x"], x, eps=cfg.norm_eps)
+    return x + attn_mod.cross_attention(lp["cross"], hx, enc_kv, cfg,
+                                        impl=impl)
+
+
 def _apply_layer_decode(lp, spec: LayerSpec, x, cfg, *, cur_pos, cache,
-                        impl, page_table, write_target):
+                        impl, page_table, write_target, cross_kv=None):
     """One layer, single-token decode.  ``cache`` is the layer's KV view
     (attention) or :class:`SSMState` (SSM); returns (x, cache) with the
     cache updated in place.  With ``page_table`` an attention cache is a
     page pool and ``write_target`` the step's (page, offset) of the new
-    token."""
+    token.  ``cross_kv`` is the layer's encoder K/V (audio)."""
     h = rmsnorm(lp["ln1"], x, eps=cfg.norm_eps)
     if spec.mixer == "ssm":
         y, cache = ssm_mod.ssm_decode(lp["ssm"], h, cache, cfg)
@@ -225,9 +268,25 @@ def _apply_layer_decode(lp, spec: LayerSpec, x, cfg, *, cur_pos, cache,
         y, cache = attn_mod.decode_attention(lp["attn"], h, cache, cur_pos,
                                              cfg, impl=impl)
     x = x + y
+    if cross_kv is not None and "cross" in lp:
+        x = _cross(lp, x, cross_kv, cfg, impl)
     if spec.mlp is not None:
         x = _ffn(lp, spec, x, cfg, decode=True)
     return x, cache
+
+
+def encoder_forward(params, frames, cfg, *, impl: str = "cuda"):
+    """Audio encoder over stub frame embeddings (B, S_enc, d): sinusoidal
+    positions, then ``n_enc_layers`` non-causal attention + MLP layers and
+    the encoder's final norm."""
+    enc = params["encoder"]
+    S = frames.shape[1]
+    pos = torch.arange(S, dtype=torch.int32, device=frames.device)[None, :]
+    x = frames + _sinusoid(pos, cfg.d_model).to(frames.dtype)
+    for b in range(cfg.n_enc_layers):
+        x, _ = _apply_layer_train(_index(enc["blocks"][0], b), _ENC_SPEC, x,
+                                  cfg, positions=pos, impl=impl, causal=False)
+    return rmsnorm(enc["final_norm"], x, eps=cfg.norm_eps)
 
 
 # ---------------------------------------------------------------------------
@@ -254,7 +313,8 @@ class Caches(NamedTuple):
     kv:    {str(p): KVCacheView or PagedKVView stacked over blocks}
            (attention positions)
     ssm:   {str(p): SSMState stacked over blocks} (SSM positions)
-    cross: None until the audio family is ported
+    cross: {str(p): (k, v) stacked over blocks} | None (audio: the
+           decoder's cross-attention K/V over the encoder output)
     """
 
     kv: Dict[str, KVCacheView]
@@ -274,6 +334,17 @@ def _init_ssm_caches(cfg, specs, batch: int, device):
             for p, spec in enumerate(specs) if spec.mixer == "ssm"}
 
 
+def _init_cross_caches(cfg, specs, batch: int, device):
+    """Zeroed cross-attention K/V (audio; seeded by prefill), else None."""
+    if cfg.family != "audio":
+        return None
+    shape = (n_blocks(cfg), batch, cfg.enc_seq, cfg.n_kv_heads, cfg.d_head)
+    dt = torch_dtype(cfg.dtype)
+    return {str(p): (torch.zeros(shape, dtype=dt, device=device),
+                     torch.zeros(shape, dtype=dt, device=device))
+            for p in range(len(specs))}
+
+
 def init_caches(cfg, batch: int, max_len: int, *, device="cuda") -> Caches:
     device = resolve_device(device)
     specs = period_structure(cfg)
@@ -281,7 +352,8 @@ def init_caches(cfg, batch: int, max_len: int, *, device="cuda") -> Caches:
     kv = {str(p): _stacked(attn_mod.init_kv_cache(cfg, batch, max_len,
                                                   device=device), nb)
           for p, spec in enumerate(specs) if spec.mixer == "attn"}
-    return Caches(kv=kv, ssm=_init_ssm_caches(cfg, specs, batch, device))
+    return Caches(kv=kv, ssm=_init_ssm_caches(cfg, specs, batch, device),
+                  cross=_init_cross_caches(cfg, specs, batch, device))
 
 
 def init_paged_caches(cfg, batch: int, n_pages: int, page_size: int, *,
@@ -291,14 +363,16 @@ def init_paged_caches(cfg, batch: int, n_pages: int, page_size: int, *,
     blocks) instead of per-slot dense buffers.  The per-slot page *table*
     lives with the slot bookkeeping (``serving.engine.PageState``), not in
     the cache tree.  SSM states stay dense per slot (``batch`` of them):
-    they are fixed-size per sequence, so there is nothing to page."""
+    they are fixed-size per sequence, so there is nothing to page; so do
+    the audio family's cross-attention K/V."""
     device = resolve_device(device)
     specs = period_structure(cfg)
     nb = n_blocks(cfg)
     kv = {str(p): _stacked(attn_mod.init_paged_kv_cache(
               cfg, n_pages, page_size, device=device), nb)
           for p, spec in enumerate(specs) if spec.mixer == "attn"}
-    return Caches(kv=kv, ssm=_init_ssm_caches(cfg, specs, batch, device))
+    return Caches(kv=kv, ssm=_init_ssm_caches(cfg, specs, batch, device),
+                  cross=_init_cross_caches(cfg, specs, batch, device))
 
 
 def _block_cache(view, b: int):
@@ -306,24 +380,59 @@ def _block_cache(view, b: int):
     return type(view)(*(t[b] for t in view))
 
 
-def _prefill_layers(params, tokens, cfg, *, positions, impl):
-    """Run the full prompt through every layer.  Returns (last-token
-    logits, {str(p): (k, v)} with k/v (nb, B, S, Hkv, dh) in absolute-
-    position order for the attention positions, {str(p): SSMState stacked
-    over blocks} for the SSM positions).  Each layer's SSM state is copied
-    into the stacked tensors as soon as it is made, so no layer's conv
-    input stays alive through the rest of the prompt."""
+def _embed_prompt(params, tokens, cfg, extra_embeds):
+    """Token embeddings, after the VLM's patch embeddings when given; the
+    audio family adds sinusoidal positions."""
+    x = embed(params["embed"], tokens)
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    if cfg.family == "audio":
+        pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        x = x + _sinusoid(pos[None, :], cfg.d_model).to(x.dtype)
+    return x
+
+
+def _cross_kv(params, enc_out, cfg):
+    """{str(p): (k, v)} stacked over blocks, (nb, B, S_enc, Hkv, dh): every
+    decoder layer's cross-attention K/V over ``enc_out``.  The stacked
+    tensors are allocated once and filled block by block, so no more than
+    one layer's K/V is alive beside them (as in :func:`_stacked_blocks`)."""
+    nb = n_blocks(cfg)
+    out = {}
+    for p in range(len(params["blocks"])):
+        for b in range(nb):
+            k, v = attn_mod.encode_cross_kv(
+                _index(params["blocks"][p], b)["cross"], enc_out, cfg)
+            if b == 0:
+                out[str(p)] = (k.new_empty((nb,) + k.shape),
+                               v.new_empty((nb,) + v.shape))
+            out[str(p)][0][b].copy_(k)
+            out[str(p)][1][b].copy_(v)
+            del k, v
+    return out
+
+
+def _prefill_layers(params, x, cfg, *, positions, impl, cross=None):
+    """Run the embedded prompt ``x`` (B, S, d) through every layer.
+    Returns (last-token logits, {str(p): (k, v)} with k/v (nb, B, S, Hkv,
+    dh) in absolute-position order for the attention positions, {str(p):
+    SSMState stacked over blocks} for the SSM positions).  Each layer's SSM
+    state is copied into the stacked tensors as soon as it is made, so no
+    layer's conv input stays alive through the rest of the prompt.
+    ``cross`` is :func:`_cross_kv`'s output (audio)."""
     specs = period_structure(cfg)
     nb = n_blocks(cfg)
-    x = embed(params["embed"], tokens)
     ys: Dict[str, List] = {str(p): [] for p, spec in enumerate(specs)
                            if spec.mixer == "attn"}
     ssm: Dict[str, SSMState] = {}
     for b in range(nb):
         for p, spec in enumerate(specs):
+            enc_kv = None
+            if cross is not None:
+                enc_kv = (cross[str(p)][0][b], cross[str(p)][1][b])
             x, state = _apply_layer_train(
                 _index(params["blocks"][p], b), spec, x, cfg,
-                positions=positions, impl=impl)
+                positions=positions, impl=impl, enc_kv=enc_kv)
             if spec.mixer == "attn":
                 ys[str(p)].append(state)
                 continue
@@ -340,32 +449,39 @@ def _prefill_layers(params, tokens, cfg, *, positions, impl):
     return logits, kv, ssm
 
 
-def _positions(tokens, positions):
+def _positions(x, positions):
     if positions is None:
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=tokens.device)[None, :]
+        positions = torch.arange(x.shape[1], dtype=torch.int32,
+                                 device=x.device)[None, :]
     return positions
 
 
 def prefill_kv(params, tokens, cfg, *, positions=None, impl: str = "cuda"):
-    """Run the full prompt, returning (last-token logits, {str(p): (k, v)})
-    with k/v (nb, B, S, Hkv, dh) in absolute-position order — what paged
-    admission packs into pool pages directly (the reference seeds a
-    prompt-sized dense cache and reads it back, an identity placement).
-    Attention-only archs: an SSM layer's state is not K/V (paged mode
-    refuses a model without attention; :func:`prefill` seeds SSM state)."""
-    if any(s.mixer != "attn" for s in period_structure(cfg)):
-        raise ValueError("prefill_kv returns attention K/V only; use prefill "
-                         "for an arch with SSM layers")
-    logits, kv, _ = _prefill_layers(params, tokens, cfg,
-                                    positions=_positions(tokens, positions),
-                                    impl=impl)
-    return logits, kv
+    """Run the full prompt, returning (last-token logits, {str(p): (k, v)},
+    {str(p): SSMState}): k/v (nb, B, S, Hkv, dh) in absolute-position
+    order — what paged admission packs into pool pages directly (the
+    reference seeds a prompt-sized dense cache and reads it back, an
+    identity placement) — and each SSM position's state after the last
+    prompt token, stacked over blocks (empty for a pure-attention arch),
+    which stays dense per slot.  Needs an attention layer (an SSM-only
+    arch has no K/V to page)."""
+    if all(s.mixer != "attn" for s in period_structure(cfg)):
+        raise ValueError("prefill_kv needs an attention layer: an SSM-only "
+                         "arch has no K/V to page; use prefill")
+    return _prefill_layers(params, embed(params["embed"], tokens), cfg,
+                           positions=_positions(tokens, positions), impl=impl)
 
 
 def prefill(params, tokens, cfg, *, max_len: int, positions=None,
-            impl: str = "cuda"):
+            extra_embeds=None, enc_out=None, impl: str = "cuda"):
     """Run the full prompt, returning (last-token logits, seeded Caches).
+
+    tokens:       (B, S_txt) int32.
+    extra_embeds: (B, S_vis, d) patch embeddings prepended to the token
+                  embeddings (VLM stub frontend); ``positions`` is then
+                  (3, B, S_vis + S_txt) M-RoPE ids.
+    enc_out:      (B, S_enc, d) encoder output (audio): its cross K/V is
+                  computed once and returned as ``Caches.cross``.
 
     The KV buffers are sized ``min(max_len, window)``; prompt K/V are
     scattered in ring-buffer order (see serving.kv_cache.seed_kv_cache).
@@ -374,13 +490,16 @@ def prefill(params, tokens, cfg, *, max_len: int, positions=None,
     """
     from ..serving.kv_cache import seed_kv_cache, seed_ssm_state
 
-    positions = _positions(tokens, positions)
-    logits, ys, ssm = _prefill_layers(params, tokens, cfg,
-                                      positions=positions, impl=impl)
+    x = _embed_prompt(params, tokens, cfg, extra_embeds)
+    positions = _positions(x, positions)
+    cross = _cross_kv(params, enc_out, cfg) if enc_out is not None else None
+    logits, ys, ssm = _prefill_layers(params, x, cfg, positions=positions,
+                                      impl=impl, cross=cross)
     kv = {p: seed_kv_cache(cfg, k, v, max_len=max_len, seq_positions=positions)
           for p, (k, v) in ys.items()}
     return logits, Caches(kv=kv, ssm={p: seed_ssm_state(st)
-                                      for p, st in ssm.items()})
+                                      for p, st in ssm.items()},
+                          cross=cross)
 
 
 def prefix_prefill(params, tokens, prefix_kv, cfg, *, prefix_len: int,
@@ -401,13 +520,17 @@ def prefix_prefill(params, tokens, prefix_kv, cfg, *, prefix_len: int,
     dtype is the compute dtype).
 
     Pure-attention archs only: an SSM layer's state after the prompt
-    depends on every prompt token, so there is no per-page prefix to reuse.
+    depends on every prompt token, so there is no per-page prefix to reuse,
+    and audio/VLM prompts carry non-token context that shifts positions.
     """
     specs = period_structure(cfg)
     if any(s.mixer != "attn" for s in specs):
         raise ValueError(
             "prefix_prefill requires a pure-attention arch (SSM state is "
             "not positional — there is no per-page prefix to reuse)")
+    if cfg.family in ("audio", "vlm"):
+        raise ValueError(
+            f"prefix_prefill does not support the {cfg.family} family")
     x = embed(params["embed"], tokens)
     B, S, _ = x.shape
     positions = prefix_len + torch.arange(S, dtype=torch.int32,
@@ -438,6 +561,9 @@ def decode_step(params, tokens, caches: Caches, cur_pos, cfg, *,
     allocation happens in the caller (the chunk loop or admission)."""
     specs = period_structure(cfg)
     x = embed(params["embed"], tokens)[:, None, :]     # (B, 1, d)
+    if cfg.family == "audio":
+        x = x + _sinusoid(cur_pos[:, None], cfg.d_model).to(x.dtype)
+    cross = caches.cross or {}
     target = None
     if page_table is not None:
         # every layer writes the same (page, offset): compute it once
@@ -448,10 +574,12 @@ def decode_step(params, tokens, caches: Caches, cur_pos, cfg, *,
     for b in range(n_blocks(cfg)):
         for p, spec in enumerate(specs):
             stacked = (caches.kv if spec.mixer == "attn" else caches.ssm)[str(p)]
+            ck = cross.get(str(p))
             x, _ = _apply_layer_decode(
                 _index(params["blocks"][p], b), spec, x, cfg, cur_pos=cur_pos,
                 cache=_block_cache(stacked, b), impl=impl,
-                page_table=page_table, write_target=target)
+                page_table=page_table, write_target=target,
+                cross_kv=None if ck is None else (ck[0][b], ck[1][b]))
     x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
     logits = logits_fn(params, x, cfg)[:, 0]
     return logits, caches
@@ -522,7 +650,8 @@ def verify_step(params, tokens, caches: Caches, cur_pos, cfg, *,
 
 
 __all__ = [
-    "Caches", "LayerSpec", "decode_step", "init_caches", "init_paged_caches",
-    "init_params", "logits_fn", "n_blocks", "period_len", "period_structure",
-    "prefill", "prefill_kv", "prefix_prefill", "unembed_weight", "verify_step",
+    "Caches", "LayerSpec", "decode_step", "encoder_forward", "init_caches",
+    "init_paged_caches", "init_params", "logits_fn", "n_blocks", "period_len",
+    "period_structure", "prefill", "prefill_kv", "prefix_prefill",
+    "unembed_weight", "verify_step",
 ]

@@ -22,12 +22,17 @@ multiplexes a dynamic request stream onto B fixed slots:
 * ``overlap=True`` dispatches the decode chunk first and runs admission
   behind it, so the host plans admission while the card decodes.
 
-The model is a pure-attention family (dense MLP or Mixture-of-Experts) or
-the attention-free SSM (Mamba-2) family, whose per-slot state (conv window
-and f32 SSM state) rides in ``caches.ssm`` and is scattered at admission
-like the rings.  As in the reference, paged mode needs an attention layer,
-the prefix cache and speculative decode need a pure-attention arch, and
-speculative decode refuses a sliding window (mixtral).
+The model is a pure-attention family (dense MLP or Mixture-of-Experts),
+the attention-free SSM (Mamba-2) family or the hybrid (Jamba), whose
+per-slot SSM state (conv window and f32 state) rides in ``caches.ssm`` and
+is scattered at admission like the rings (paged too: only the attention
+layers are paged).  As in the reference, paged mode needs an attention
+layer, the prefix cache and speculative decode need a pure-attention arch,
+and speculative decode refuses a sliding window (mixtral).  The VLM and
+audio families are refused at construction: their prompts carry patch
+embeddings or encoder frames that a token request cannot hold, and the
+reference's batcher fails on them at the first admission; ``generate``
+serves them.
 
 A "dispatch" is one call of the admission or chunk step (or of the page
 push that returns evicted prefix-cache pages), and a "host sync" one
@@ -342,6 +347,11 @@ class ContinuousBatcher:
             raise TypeError(
                 f"pass either a ServingConfig or legacy kwargs, not both "
                 f"(got config and {sorted(legacy)})")
+        if cfg.family in ("vlm", "audio"):
+            raise ValueError(
+                f"ContinuousBatcher serves token prompts only; a {cfg.family} "
+                f"prompt carries patch embeddings or encoder frames: serve "
+                f"it with repro_torch.serving.generate(..., extras=...)")
         for name, enabled, item in _UNPORTED:
             if enabled(config):
                 raise NotImplementedError(

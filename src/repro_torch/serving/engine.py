@@ -44,7 +44,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models import decode_step, prefill, prefix_prefill, verify_step
+from ..models import (
+    decode_step, encoder_forward, prefill, prefix_prefill, verify_step,
+)
 from ..models.attention import check_attn_impl
 from ..models.transformer import Caches, prefill_kv
 from .kv_cache import pages_for
@@ -101,11 +103,21 @@ def select_token(logits, mask, scfg: ServeConfig,
 def make_prefill_step(cfg, scfg: ServeConfig):
     """prefill_step(params, batch) -> (last-token logits, Caches).
 
-    batch: {"tokens": (B, S) int32}."""
+    batch: {"tokens": (B, S) int32} + the family's extras: the VLM's
+    ``extra_embeds`` (B, S_vis, d) and ``positions`` (3, B, S_vis + S),
+    the audio family's ``frames`` (B, S_enc, d), which the encoder runs
+    over first."""
 
     def prefill_step(params, batch):
+        kw = {}
+        if cfg.family == "vlm":
+            kw["extra_embeds"] = batch["extra_embeds"]
+            kw["positions"] = batch["positions"]
+        if cfg.family == "audio":
+            kw["enc_out"] = encoder_forward(params, batch["frames"], cfg,
+                                            impl=scfg.attn_impl)
         return prefill(params, batch["tokens"], cfg, max_len=scfg.max_len,
-                       impl=scfg.attn_impl)
+                       impl=scfg.attn_impl, **kw)
 
     return prefill_step
 
@@ -191,6 +203,14 @@ def make_decode_chunk(cfg, scfg: ServeConfig, n_steps: int):
     return decode_chunk
 
 
+def _merge_fresh(resident, fresh, idx) -> None:
+    """Scatter each freshly prefilled per-slot tensor (stacked over blocks,
+    slots on axis 1) into the resident tree's rows ``idx``, in place."""
+    for p, old in resident.items():
+        for o, n in zip(old, fresh[p]):
+            o[:, idx] = n.to(o.dtype)
+
+
 def make_admit_step(cfg, scfg: ServeConfig):
     """admit_step(params, batch, caches, state, slots, pos0, budget, eos) ->
     (first_tokens (n,), caches, state).
@@ -198,8 +218,10 @@ def make_admit_step(cfg, scfg: ServeConfig):
     Right-sized admission: ``batch["tokens"]`` is (n, S) for the *bucketed*
     number of joining requests — prefill runs over n rows, not the full slot
     count — and the fresh caches (KV rings and SSM states) are scattered
-    into the resident tree per slot.  The resident caches and slot state are updated **in place**
-    (``index_put_``; the reference donates them instead) and returned.
+    into the resident tree per slot, and so is the audio family's
+    cross-attention K/V.  The resident caches and slot state are updated
+    **in place** (``index_put_``; the reference donates them instead) and
+    returned.
 
     Duplicate entries in ``slots`` are allowed only when they carry
     identical rows (the batcher pads a partial bucket by repeating row 0):
@@ -216,11 +238,10 @@ def make_admit_step(cfg, scfg: ServeConfig):
             logits = logits + mask.to(logits.dtype)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         idx = slots.long()
-        for resident, new_tree in ((caches.kv, fresh.kv),
-                                   (caches.ssm, fresh.ssm)):
-            for p, old in resident.items():
-                for o, n in zip(old, new_tree[p]):
-                    o[:, idx] = n.to(o.dtype)
+        _merge_fresh(caches.kv, fresh.kv, idx)
+        _merge_fresh(caches.ssm, fresh.ssm, idx)
+        if caches.cross is not None and fresh.cross is not None:
+            _merge_fresh(caches.cross, fresh.cross, idx)
         # the admission token already counts toward the budget; a slot with
         # nothing left (or an immediate EOS) never activates
         remaining = budget - 1
@@ -486,7 +507,9 @@ def make_paged_admit_step(cfg, scfg: ServeConfig):
     rewritten.  ``real`` (n,) bool marks genuine rows — bucket padding
     duplicates row 0 and neither pops pages nor writes conflicting values.
     A row that never activates (immediate EOS, zero budget, allocation
-    denied) gets no pages and a cleared table row.  ``pin`` (n,) int32 is
+    denied) gets no pages and a cleared table row.  SSM states (hybrid
+    archs) stay dense per slot and are scattered into the joining slots as
+    the dense admission scatters them.  ``pin`` (n,) int32 is
     the prefix-cache pin plan (how many leading logical pages the host will
     insert into the shared cache after the sync), recorded in
     ``PageState.pinned``.  ``rows`` returns the written table rows so the
@@ -500,7 +523,8 @@ def make_paged_admit_step(cfg, scfg: ServeConfig):
         tokens = batch["tokens"]
         n, S = tokens.shape
         # the prompt's K/V in absolute-position order, ready to pack
-        logits, fresh = prefill_kv(params, tokens, cfg, impl=scfg.attn_impl)
+        logits, fresh, fresh_ssm = prefill_kv(params, tokens, cfg,
+                                              impl=scfg.attn_impl)
         mask = scfg.logit_mask(cfg, logits.device)
         if mask is not None:
             logits = logits + mask.to(logits.dtype)
@@ -518,6 +542,7 @@ def make_paged_admit_step(cfg, scfg: ServeConfig):
         row = _dup_row0(real, row)
         table = pages.table.index_put((slots.long(),), row)
         _scatter_fresh_kv(caches.kv, fresh, dest, S=S, np_=np_, ps=ps, n=n)
+        _merge_fresh(caches.ssm, fresh_ssm, slots.long())
 
         activates = wants & (ok | (np_ == 0))
         pin_vals = torch.where(grant, pin.clamp(0, np_), 0)
@@ -918,33 +943,44 @@ def make_paged_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
 # ---------------------------------------------------------------------------
 
 
+def _to_device(a, dev, dtype=None):
+    """A numpy array or tensor as a tensor on ``dev``."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.asarray(a))
+    return t.to(device=dev, dtype=dtype)
+
+
 def generate(params, cfg, prompt_tokens, *, n_new: int,
-             scfg: Optional[ServeConfig] = None, seed: int = 0,
+             scfg: Optional[ServeConfig] = None, extras=None, seed: int = 0,
              device="cuda"):
     """Prefill the prompt, then decode ``n_new`` tokens through the chunked
     path: the remaining budget is covered by power-of-two chunk buckets.
 
-    prompt_tokens: (B, S) int32 (numpy or tensor).  ``params`` must live on
+    prompt_tokens: (B, S) int32 (numpy or tensor).  ``extras`` carries the
+    family's prompt context (see :func:`make_prefill_step`): the VLM's
+    ``extra_embeds`` and ``positions`` (decode then starts at ``S +
+    n_patches``), the audio family's ``frames``.  ``params`` must live on
     ``device``.  Returns (B, n_new) int32 on ``device``.
     """
     dev = resolve_device(device)
-    if isinstance(prompt_tokens, torch.Tensor):
-        tokens = prompt_tokens.to(device=dev, dtype=torch.int32)
-    else:
-        tokens = torch.from_numpy(np.asarray(prompt_tokens, dtype=np.int32)).to(dev)
+    tokens = _to_device(prompt_tokens, dev, torch.int32)
     B, S = tokens.shape
     scfg = scfg or ServeConfig(max_len=S + n_new)
-    logits, caches = make_prefill_step(cfg, scfg)(params, {"tokens": tokens})
+    batch = {"tokens": tokens,
+             **{k: _to_device(v, dev) for k, v in (extras or {}).items()}}
+    logits, caches = make_prefill_step(cfg, scfg)(params, batch)
     mask = scfg.logit_mask(cfg, dev)
     if mask is not None:
         logits = logits + mask.to(logits.dtype)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    offset = S
+    if cfg.family == "vlm" and "extra_embeds" in batch:
+        offset = S + batch["extra_embeds"].shape[1]
 
     out = [tok[:, None]]
     left = n_new - 1
     state = SlotState(
         tokens=tok,
-        cur_pos=torch.full((B,), S, dtype=torch.int32, device=dev),
+        cur_pos=torch.full((B,), offset, dtype=torch.int32, device=dev),
         active=torch.ones((B,), dtype=torch.bool, device=dev),
         remaining=torch.full((B,), max(left, 0), dtype=torch.int32, device=dev),
         eos=torch.full((B,), -1, dtype=torch.int32, device=dev),

@@ -1,8 +1,8 @@
 """KV-cache lifecycle for serving: ring-buffer seeding from prefill outputs
 and the byte accounting used for admission control.
 
-Counterpart of ``repro.serving.kv_cache`` for the pure-attention and SSM
-families: the dense ring-buffer seeding, the SSM state hand-over, and the
+Counterpart of ``repro.serving.kv_cache``: the dense ring-buffer seeding,
+the SSM state hand-over, and the
 paged pool's host-side ledger
 (:class:`PagedKVPool`, copied from the reference; it deals in page counts
 and shared-page refcounts, never in tensors) with its byte accounting.
@@ -316,4 +316,7 @@ def kv_cache_bytes(cfg, batch: int, max_len: int) -> int:
             d_in, nh, d_bc = ssm_dims(cfg)
             total += nb * batch * (s.d_conv - 1) * (d_in + d_bc) * dt
             total += nb * batch * nh * s.head_dim * s.d_state * 4   # f32
+    if cfg.family == "audio":
+        # the decoder's cross-attention K/V over the encoder output
+        total += cfg.n_layers * batch * cfg.enc_seq * cfg.kv_dim * 2 * dt
     return total

@@ -47,6 +47,7 @@ def _rand(gen, shape, dtype):
     (2, 100, 300, 16, 8, 128, None, 200),
     (2, 96, 96, 8, 1, 64, None, 0),
     (8, 256, 256, 16, 16, 128, None, 0),       # group 1 (deepseek-moe-16b)
+    (2, 256, 256, 64, 8, 128, None, 0),        # group 8 (qwen2-vl-72b)
 ])
 def test_flash_attention_kernel_matches_ref(gen, dtype, B, Sq, Sk, H, Hkv, dh,
                                             window, q_offset):
@@ -67,11 +68,37 @@ def test_flash_attention_kernel_matches_ref(gen, dtype, B, Sq, Sk, H, Hkv, dh,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk", [
+    (2, 1500, 1500),      # whisper-base's encoder over its 1500 frames
+    (8, 1, 1500),         # a decode row's cross-attention
+    (8, 4, 1500),         # a 4-token prompt's cross-attention
+])
+def test_flash_attention_kernel_non_causal_matches_ref(gen, dtype, B, Sq, Sk):
+    """``causal=False`` at whisper-base's heads (8:8, dh 64): the encoder
+    and the decoder's cross-attention over the encoder's K/V."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    q = _rand(gen, (B, Sq, 8, 64), dtype)
+    k = _rand(gen, (B, Sk, 8, 64), dtype)
+    v = _rand(gen, (B, Sk, 8, 64), dtype)
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2),
+                                   causal=False).transpose(1, 2)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,C,H,Hkv,dh,window,lo,hi,holes", [
     (8, 322, 16, 8, 128, None, 256, 320, 0.0),
     (4, 64, 16, 8, 128, 64, 100, 300, 0.2),
     (3, 100, 16, 1, 64, None, 150, 400, 0.3),
     (8, 322, 16, 16, 128, None, 256, 320, 0.2),    # group 1
+    (8, 320, 64, 8, 128, None, 256, 320, 0.0),     # group 8 (qwen2-vl-72b)
 ])
 def test_decode_attention_kernel_matches_ref(gen, dtype, B, C, H, Hkv, dh,
                                              window, lo, hi, holes):
@@ -661,6 +688,111 @@ def test_moe_batcher_on_the_card_matches_the_plain_path(gen, mode):
     assert outs["cuda"] == outs["torch"]
 
 
+@pytest.mark.parametrize("mode", ["dense", "paged", "overlap", "paged-audit"])
+def test_hybrid_batcher_on_the_card_matches_the_plain_path(gen, mode):
+    """Reduced jamba (SSM layers with and without MoE, one attention layer
+    a period) at f32 on the card: the batcher through the kernels gives the
+    plain path's tokens and stats, every admission ran the SSD kernel once
+    an SSM layer and the flash kernel once an attention layer, and every
+    step the mode's decode kernel once an attention layer."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.paged_attention import ops as pa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import n_blocks, period_structure
+    from repro_torch.serving import ContinuousBatcher, Request, ServingConfig
+
+    cfg = dataclasses.replace(get_reduced("jamba-1.5-large-398b"),
+                              dtype="float32")
+    params = init_params(cfg, 0)
+    specs = period_structure(cfg)
+    n_attn = n_blocks(cfg) * sum(s.mixer == "attn" for s in specs)
+    n_ssm = n_blocks(cfg) * len(specs) - n_attn
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab, size=3 + 5 * i % 60).astype(np.int32)
+               for i in range(10)]
+    kw = {"dense": {}, "paged": dict(paged=True, page_size=8),
+          "overlap": dict(overlap=True),
+          "paged-audit": dict(paged=True, page_size=8, audit=True)}[mode]
+    counters = (fa_ops.flash_attention, da_ops.decode_attention,
+                pa_ops.paged_decode_attention, ssd_ops.ssd)
+    outs = {}
+    for impl in ("cuda", "torch"):
+        before = [c.launches for c in counters]
+        b = ContinuousBatcher(params, cfg, ServingConfig(
+            slots=4, prompt_len=64, max_len=96, chunk=4, attn_impl=impl, **kw))
+        reqs = [Request(rid=i, prompt=p, max_new=10 + i % 4)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            b.submit(r)
+        b.run()
+        assert all(r.done and len(r.out) == r.max_new for r in reqs)
+        outs[impl] = ([r.out for r in reqs], b.stats.as_dict())
+        fa, da, pa, ssd = (c.launches - n for c, n in zip(counters, before))
+        st = b.stats
+        if impl == "torch":
+            assert (fa, da, pa) == (0, 0, 0)
+        else:
+            paged = mode.startswith("paged")
+            assert (fa, ssd) == (n_attn * st.prefills, n_ssm * st.prefills)
+            assert (pa if paged else da) == n_attn * st.steps
+            assert (da if paged else pa) == 0
+    assert outs["cuda"] == outs["torch"]
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "whisper-base"])
+def test_generate_on_the_card_matches_the_plain_path(gen, arch):
+    """Reduced qwen2-vl (patch embeddings at an M-RoPE grid) and whisper
+    (stub frames through the encoder, cross-attention in every decoder
+    layer) at f32 on the card: ``generate`` through the kernels gives the
+    plain path's tokens; the flash kernel ran once a layer in the prefill
+    (whisper: encoder, self- and cross-attention) and, for whisper, once a
+    layer a decode step (cross-attention)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeConfig, generate
+
+    cfg = dataclasses.replace(get_reduced(arch), dtype="float32")
+    params = init_params(cfg, 0)
+    B, S, n_new, side = 3, 12, 9, 4
+    rng = np.random.default_rng(8)
+    toks = rng.integers(1, cfg.vocab, size=(B, S)).astype(np.int32)
+    if arch == "whisper-base":
+        extras = {"frames": _rand(gen, (B, cfg.enc_seq, cfg.d_model),
+                                  torch.float32) * 0.1}
+    else:
+        i = np.arange(side * side)
+        grid = np.stack([np.zeros_like(i), i // side, i % side])
+        text = np.broadcast_to(side * side + np.arange(S), (3, S))
+        pos = np.concatenate([grid, text], 1).astype(np.int32)
+        extras = {"extra_embeds": _rand(gen, (B, side * side, cfg.d_model),
+                                        torch.float32) * 0.02,
+                  "positions": torch.from_numpy(np.ascontiguousarray(
+                      np.broadcast_to(pos[:, None], (3, B, pos.shape[1])))).cuda()}
+    max_len = S + side * side + n_new
+    outs = {}
+    for impl in ("cuda", "torch"):
+        fa0, da0 = fa_ops.flash_attention.launches, da_ops.decode_attention.launches
+        outs[impl] = generate(params, cfg, toks, n_new=n_new, extras=extras,
+                              scfg=ServeConfig(max_len=max_len, attn_impl=impl)
+                              ).cpu()
+        fa = fa_ops.flash_attention.launches - fa0
+        da = da_ops.decode_attention.launches - da0
+        L, steps = cfg.n_layers, n_new - 1
+        if impl == "torch":
+            assert fa == da == 0
+        elif arch == "whisper-base":
+            assert fa == cfg.n_enc_layers + 2 * L + L * steps
+            assert da == L * steps
+        else:
+            assert (fa, da) == (L, L * steps)
+    assert torch.equal(outs["cuda"], outs["torch"])
+
+
 def _rel(a, b):
     """Max abs error relative to ``b``'s largest magnitude."""
     return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
@@ -692,6 +824,8 @@ def _ssd_inputs(gen, B, S, nh, hd, G, N, dtype, dt_scale=1.0,
     (4, 96, 8, 32, 1, 16, 32, 1.0),          # the reduced config
     (2, 160, 4, 32, 2, 128, 64, 1.0),
     (2, 144, 4, 64, 1, 16, 48, 1.0),
+    (2, 1024, 128, 128, 8, 128, 256, 1.0),   # jamba-1.5-large's SSM widths
+    (2, 96, 8, 128, 2, 16, 32, 1.0),         # hd 128 at N 16
 ])
 def test_ssd_scan_kernel_matches_plain(gen, dtype, B, S, nh, hd, G, N, chunk,
                                        dt_scale):
@@ -719,6 +853,7 @@ def test_ssd_scan_kernel_matches_plain(gen, dtype, B, S, nh, hd, G, N, chunk,
     (8, 1024, 32, 64, 1, 128, 256, (1e-4, 1e-2)),   # the admission shape
     (2, 700, 8, 64, 1, 128, 256, (1e-4, 1e-2)),     # ragged tail
     (4, 96, 8, 32, 1, 16, 32, (1e-3, 1e-1)),        # the reduced config
+    (2, 1024, 128, 128, 8, 128, 256, (1e-4, 1e-2)),  # jamba's SSM widths
 ])
 def test_ssd_scan_kernel_carries_the_state(gen, dtype, B, S, nh, hd, G, N,
                                            chunk, dt_range):

@@ -156,10 +156,27 @@ def test_init_params_seeded():
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "whisper-base",
                                   "qwen2-vl-72b"])
-def test_unported_families_raise(arch):
-    """jamba (hybrid, with MoE layers), whisper and qwen2-vl still raise."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(get_reduced(arch), 0, device="cpu")
+def test_last_families_build_the_reference_tree(arch):
+    """jamba (mixed hybrid periods: ``ssm`` blocks with and without a
+    ``moe``, an ``attn`` block with ``moe``), whisper (the ``encoder``
+    subtree and each decoder layer's ``ln_x``/``cross``) and qwen2-vl: the
+    port's ``init_params`` makes the reference's tree, leaf for leaf in
+    shape and dtype, and the weight bridge carries the reference's weights
+    across bit for bit."""
+    jcfg, cfg = jax_reduced(arch), get_reduced(arch)
+    host = jax.device_get(jax_init_params(jcfg, jax.random.PRNGKey(1)))
+    flat_j, tree_j = jax.tree_util.tree_flatten(host)
+    ours = init_params(cfg, 0, device="cpu")
+    flat_t, tree_t = jax.tree_util.tree_flatten(ours)
+    assert tree_j == tree_t
+    for a, b in zip(flat_j, flat_t):
+        assert tuple(a.shape) == tuple(b.shape)
+        assert str(a.dtype) == str(b.dtype).replace("torch.", "")
+    flat_b, tree_b = jax.tree_util.tree_flatten(
+        params_to_jax(params_from_jax(host, device="cpu")))
+    assert tree_b == tree_j
+    for a, b in zip(flat_j, flat_b):
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
 
 
 def test_moe_family_builds_mixtral():

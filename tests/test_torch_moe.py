@@ -344,7 +344,7 @@ def test_prefix_prefill_matches_jax(weights, suffix):
     rng = np.random.default_rng(11)
     Lp = 8
     toks = rng.integers(1, cfg.vocab, size=(2, Lp + suffix)).astype(np.int32)
-    _, pkv = prefill_kv(params, _t(toks[:, :Lp]), cfg, impl="torch")
+    _, pkv, _ = prefill_kv(params, _t(toks[:, :Lp]), cfg, impl="torch")
     got, out = prefix_prefill(params, _t(toks[:, Lp:]), pkv, cfg,
                               prefix_len=Lp, impl="torch")
     jpkv = {p: (jnp.asarray(k.numpy()), jnp.asarray(v.numpy()))

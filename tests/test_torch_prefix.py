@@ -100,7 +100,7 @@ def test_prefix_prefill_matches_jax_and_cold(models, impl, jimpl):
     rng = np.random.default_rng(2)
     B, S, Lp = 2, 13, 8
     toks = rng.integers(1, cfg.vocab, size=(B, S)).astype(np.int32)
-    cold, cold_kv = prefill_kv(params, _t(toks), cfg, impl=impl)
+    cold, cold_kv, _ = prefill_kv(params, _t(toks), cfg, impl=impl)
     pkv = {p: (k[:, :, :Lp], v[:, :, :Lp]) for p, (k, v) in cold_kv.items()}
     warm, ys = prefix_prefill(params, _t(toks[:, Lp:]), pkv, cfg,
                               prefix_len=Lp, impl=impl)
