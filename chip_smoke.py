@@ -206,6 +206,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
               launch an admission, 1 decode launch a step, overlap rounds,
               a clean audit, the page ledger, peak memory within the
               weights, the cache and 10 % of the weights.
+5k. tp      — tensor-parallel serving over logical cores of cuda:0 (a
+              pool of 16).  f32 leg: full-width qwen3-0.6b cut to 2 layers
+              (TF32 off), the requests of phases 5, 5b and 5c through their
+              dense, paged + prefix and speculative + overlap batchers at
+              ``tp`` 1, 2 and 4: tokens, admissions, chunks, dispatches and
+              syncs identical to tp=1; a tenant leased 1 core through
+              ``ServingExecutor`` and resized 1 -> 2 -> 4 -> 1 between
+              chunks (``register_remesh`` -> ``remesh``) gives an
+              uninterrupted run's tokens.  bf16 leg: phase 5's uncut
+              weights behind the dense and paged + prefix batchers at each
+              width: completions, one dispatch (plus page pushes) and one
+              sync per admission and chunk as at tp=1, ``28 x tp`` kernel
+              launches per admission (flash or prefix) and per decode step,
+              no plain attention route, peak memory above the weights
+              within tp=1's + the shards' own bytes + 10 % of the weights;
+              reports token agreement with tp=1, tokens/s, wall ms a chunk
+              and each resize's ``t_remesh``, and the host cost of the
+              shards' turns (µs a shard a sum, no device work).
 6. trace    — the first rounds of the dense, the paged, the spec, the
               Mamba-2 and the MoE path,
               all untraced first, then each under ``torch.profiler``: device
@@ -3001,6 +3019,324 @@ def serve_guarded_path(card: str, params, cfg, paged_tokens):
 
 
 # ---------------------------------------------------------------------------
+# phase 5k: tensor-parallel serving over a lease's logical cores
+# ---------------------------------------------------------------------------
+
+
+TP_WIDTHS = (1, 2, 4)
+TP_CORES = 16              # the pool a tenant leases from: cores of cuda:0
+TP_RESIZES = (2, 4, 1)     # a leased tenant's widths, one round apart
+# the plain attention routes of models/attention.py: none may run on the
+# "cuda" route, at any width
+PLAIN_ATTENTION = ("naive_attention", "chunked_flash_attention",
+                   "_decode_attn_torch", "_gather_pages", "_verify_attn_torch")
+DENSE_CONFIG = dict(slots=8, prompt_len=256, max_len=322, chunk=8)
+
+
+def _tp_modes():
+    """(label, config, requests) of phases 5, 5b and 5c."""
+    return (("dense", DENSE_CONFIG, _requests),
+            ("paged + prefix", PAGED_CONFIG, _paged_requests),
+            ("spec + overlap", SPEC_CONFIG, _spec_requests))
+
+
+def _tp_batcher(params, cfg, config, reqs, tp: int):
+    from repro_torch.serving import ContinuousBatcher, ServingConfig
+
+    batcher = ContinuousBatcher(params, cfg, ServingConfig(**config, tp=tp))
+    for r in reqs:
+        batcher.submit(r)
+    return batcher
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+    elif hasattr(tree, "untyped_storage"):
+        yield tree
+
+
+def _shard_bytes(batcher) -> int:
+    """Bytes the shards' params hold beyond the batcher's full tree: the
+    sharded leaves are views of it, and swiglu's ``wi`` is gathered once
+    into its per-shard-contiguous order."""
+    full = {t.untyped_storage().data_ptr()
+            for t in _tensors(batcher._full_params)}
+    seen, extra = set(), 0
+    for t in _tensors(batcher.params):
+        ptr = t.untyped_storage().data_ptr()
+        if ptr not in full and ptr not in seen:
+            seen.add(ptr)
+            extra += t.untyped_storage().nbytes()
+    return extra
+
+
+def _check_served(label: str, reqs, cfg) -> None:
+    for r in reqs:
+        check(r.done and not r.dropped and len(r.out) == r.max_new,
+              f"{label}: request {r.rid} gave {len(r.out)} of {r.max_new} "
+              f"tokens")
+        check(all(0 <= t < cfg.vocab for t in r.out),
+              f"{label}: request {r.rid}: token outside the vocab")
+
+
+def _agreement(tokens, ref) -> str:
+    """How far ``tokens`` follow ``ref``: requests identical, and tokens
+    equal before each request's first difference."""
+    same = sum(a == b for a, b in zip(tokens, ref))
+    lead = 0
+    for a, b in zip(tokens, ref):
+        n = 0
+        while n < min(len(a), len(b)) and a[n] == b[n]:
+            n += 1
+        lead += n
+    total = sum(len(b) for b in ref)
+    return (f"{same}/{len(ref)} requests identical, {lead}/{total} tokens "
+            f"before each request's first difference")
+
+
+def _tp_resize(card: str, label: str, params, cfg, config, reqs_fn):
+    """A tenant leased 1 core of a pool of ``TP_CORES`` logical cores of
+    cuda:0 through ``ServingExecutor``; after each of its first rounds the
+    hypervisor's ``exec_resize`` moves it to the next of ``TP_RESIZES``
+    (``register_remesh`` -> ``ContinuousBatcher.remesh``), between chunks.
+    Returns (tokens, the ``t_remesh`` of each resize)."""
+    import torch
+
+    from repro_torch.core import TenantSpec
+    from repro_torch.serving import ServingExecutor, VirtualAcceleratorPool
+
+    pool = VirtualAcceleratorPool(devices=[torch.device("cuda", 0)] * TP_CORES)
+    ex = ServingExecutor(pool)
+    ex.exec_admit(TenantSpec(name="t", requested_cores=1, artifact=None), 1,
+                  at=0.0)
+    reqs = reqs_fn(cfg)
+    batcher = _tp_batcher(params, cfg, config, reqs, 1)
+    ex.register_remesh("t", lambda mesh: batcher.remesh(mesh=mesh))
+    batcher.step()
+    for i, n in enumerate(TP_RESIZES):
+        ex.exec_resize("t", n, at=float(i + 1), mode=None)
+        check(batcher.tp == n and pool.pool.lease_of("t").n_cores == n,
+              f"{label}: the resize to {n} cores did not re-mesh the batcher")
+        batcher.step()
+    batcher.run()
+    torch.cuda.synchronize()
+    _check_served(f"{label} resize", reqs, cfg)
+    t_remesh = [e["t_remesh"] for e in ex.reconfig_log if "t_remesh" in e]
+    check(len(t_remesh) == len(TP_RESIZES)
+          and batcher.stats.remeshes == len(TP_RESIZES),
+          f"{label}: {len(t_remesh)} remeshes for {len(TP_RESIZES)} resizes")
+    log(f"  {label}: resized 1 -> " + " -> ".join(map(str, TP_RESIZES))
+        + " cores between chunks: t_remesh "
+        + ", ".join(f"{t * 1e3:.2f}" for t in t_remesh) + f" ms [{card}]")
+    return [list(r.out) for r in reqs], t_remesh
+
+
+def serve_tp_f32(card: str):
+    """Full-width qwen3-0.6b cut to 2 layers, f32 (TF32 off): phases 5, 5b
+    and 5c's requests through their batchers at each width of
+    ``TP_WIDTHS``; tokens and dispatch and sync counts identical to tp=1,
+    and a tenant resized 1 -> 2 -> 4 -> 1 between chunks gives an
+    uninterrupted run's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2,
+                              dtype="float32")
+    params = init_params(cfg, 0, device="cuda")
+    spec_tokens = None
+    for label, config, reqs_fn in _tp_modes():
+        tokens, counts = {}, {}
+        for tp in TP_WIDTHS:
+            reqs = reqs_fn(cfg)
+            stats = _tp_batcher(params, cfg, config, reqs, tp).run()
+            _check_served(f"f32 {label} tp={tp}", reqs, cfg)
+            tokens[tp] = [list(r.out) for r in reqs]
+            counts[tp] = (stats.prefills, stats.chunks, stats.dispatches,
+                          stats.host_syncs)
+        for tp in TP_WIDTHS[1:]:
+            check(tokens[tp] == tokens[1],
+                  f"f32 {label}: tp={tp} tokens differ from tp=1 ("
+                  f"{_agreement(tokens[tp], tokens[1])})")
+            check(counts[tp] == counts[1],
+                  f"f32 {label}: tp={tp} (admissions, chunks, dispatches, "
+                  f"syncs) {counts[tp]} != tp=1's {counts[1]}")
+        log(f"  f32 {label}: tokens at tp " + ", ".join(
+            map(str, TP_WIDTHS[1:])) + f" identical to tp=1 "
+            f"({sum(map(len, tokens[1]))} tokens, 16 requests); admissions, "
+            f"chunks, dispatches, syncs {counts[1]} at every width")
+        if label == "spec + overlap":
+            spec_tokens = tokens[1]
+    resized, _ = _tp_resize(card, "f32 spec + overlap", params, cfg,
+                            SPEC_CONFIG, _spec_requests)
+    check(resized == spec_tokens,
+          f"f32 resize: tokens differ from the uninterrupted run ("
+          f"{_agreement(resized, spec_tokens)})")
+    log("  f32 spec + overlap: the resized tenant's tokens equal the "
+        "uninterrupted run's")
+    del params
+    _free_device_memory()
+
+
+def serve_tp_bf16(card: str, params, cfg):
+    """Uncut qwen3-0.6b (phase 5's bf16 weights) behind the dense and the
+    paged + prefix batchers at each width of ``TP_WIDTHS``.  Gates:
+    completions; one dispatch (plus page pushes) and one host sync per
+    admission and per chunk, the same counts as tp=1; ``n_layers x tp``
+    kernel launches per admission (flash or prefix) and per decode step,
+    and no plain attention route; peak memory above the weights within
+    tp=1's + the shards' own bytes + 10 % of the weights.  Reports token
+    agreement with tp=1, tokens/s and wall ms per chunk, and the
+    ``t_remesh`` of a resized tenant."""
+    import torch
+
+    from repro_torch.models import attention
+
+    pbytes = _param_bytes(params)
+    L = cfg.n_layers
+    plain = dict.fromkeys(PLAIN_ATTENTION, 0)
+    restore = [_counting(attention, name, plain, name)
+               for name in PLAIN_ATTENTION]
+    counters = _attn_counters()
+    dense_tokens = None
+    try:
+        for label, config, reqs_fn in _tp_modes()[:2]:
+            paged = config.get("paged", False)
+            admit = (("flash_attention", "prefix_flash_attention") if paged
+                     else ("flash_attention",))
+            step = "paged_decode_attention" if paged else "decode_attention"
+            ref_tokens, ref_counts, ref_peak = None, None, 0
+            for tp in TP_WIDTHS:
+                warm = _tp_batcher(params, cfg, config,
+                                   reqs_fn(cfg, n=2, seed=1), tp)
+                warm.run()
+                del warm
+                _free_device_memory()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                reqs = reqs_fn(cfg)
+                batcher = _tp_batcher(params, cfg, config, reqs, tp)
+                for c in counters.values():
+                    c.launches = 0
+                for name in plain:
+                    plain[name] = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stats = batcher.run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                name = f"bf16 {label} tp={tp}"
+                _check_served(name, reqs, cfg)
+                launches = {k: c.launches for k, c in counters.items()}
+                pushes = batcher.page_pushes if paged else 0
+                check(stats.dispatches - pushes == stats.prefills + stats.chunks,
+                      f"{name}: dispatches != admissions + chunks + pushes")
+                check(stats.host_syncs == stats.prefills + stats.chunks,
+                      f"{name}: host syncs != one per admission and chunk")
+                counts = (stats.prefills, stats.chunks, stats.steps,
+                          stats.dispatches, stats.host_syncs)
+                if tp == 1:
+                    ref_counts = counts
+                check(counts == ref_counts,
+                      f"{name}: (admissions, chunks, steps, dispatches, "
+                      f"syncs) {counts} != tp=1's {ref_counts}")
+                n_admit = sum(launches[k] for k in admit)
+                check(n_admit == L * tp * stats.prefills,
+                      f"{name}: {n_admit} admission launches != {L} x {tp} "
+                      f"x {stats.prefills}")
+                check(launches[step] == L * tp * stats.steps,
+                      f"{name}: {launches[step]} {step} launches != {L} x "
+                      f"{tp} x {stats.steps} steps")
+                others = {k: n for k, n in launches.items()
+                          if k not in admit and k != step and n}
+                check(not others, f"{name}: other kernels ran: {others}")
+                check(not any(plain.values()),
+                      f"{name}: plain attention ran: {plain}")
+                peak = torch.cuda.max_memory_allocated() - base
+                shard = _shard_bytes(batcher)
+                cache = stats.cache_bytes
+                if tp == 1:
+                    ref_peak = peak
+                # what the shards add: their own bytes, within 10 % of the
+                # weights.  (shards + cache + 10 % alone is not met at tp=1:
+                # an admission holds its prompt's K/V as a list of layers,
+                # stacked, and seeded into rings beside the resident cache)
+                limit = ref_peak + shard + 0.1 * pbytes
+                check(peak <= limit,
+                      f"{name}: peak {_gib(peak)} above the weights > tp=1's "
+                      f"{_gib(ref_peak)} + shards' own {_gib(shard)} + 10 % "
+                      f"of the weights ({_gib(limit)})")
+                toks = [list(r.out) for r in reqs]
+                if tp == 1:
+                    ref_tokens = toks
+                    if not paged:
+                        dense_tokens = toks
+                agree = ("" if tp == 1 else
+                         f"; against tp=1: {_agreement(toks, ref_tokens)}")
+                log(f"  {name}: {stats.completed}/16 requests, "
+                    f"{stats.tokens} tokens, {stats.prefills} admissions, "
+                    f"{stats.chunks} chunks, {stats.steps} steps in "
+                    f"{wall:.3f} s: tokens/s={stats.tokens / wall:.1f}, "
+                    f"{wall * 1e3 / stats.chunks:.2f} wall ms a chunk "
+                    f"(admissions included){agree} [{card}]")
+                log(f"  {name}: launches " + ", ".join(
+                    f"{k}={launches[k]}" for k in (*admit, step))
+                    + f" (= {L} x {tp} x admissions, steps); peak "
+                    f"{_gib(peak)} above the {_gib(base)} allocated with "
+                    f"the weights ({_gib(pbytes)}): limit tp=1's "
+                    f"{_gib(ref_peak)} + shards' own {_gib(shard)} + 10 % "
+                    f"of the weights = {_gib(limit)}; shards' own + cache "
+                    f"{_gib(cache)} + 10 % of the weights = "
+                    f"{_gib(shard + cache + 0.1 * pbytes)}")
+                del batcher
+                _free_device_memory()
+        resized, _ = _tp_resize(card, "bf16 dense", params, cfg,
+                                DENSE_CONFIG, _requests)
+        log(f"  bf16 dense resized tenant against tp=1: "
+            f"{_agreement(resized, dense_tokens)} [{card}]")
+    finally:
+        for undo in restore:
+            undo()
+
+
+def tp_handoff_us(card: str, n_sums: int = 2000) -> None:
+    """Host cost of the shards' turns: ``n_sums`` sums of a one-element CPU
+    tensor through a ``ShardGroup`` at tp 2 and 4 (no device work), in µs
+    a shard a sum (each sum hands the turn on once a shard)."""
+    import torch
+
+    from repro_torch.distributed import TP_POLICY, ShardGroup, make_tp_mesh
+
+    x = torch.ones(1)
+
+    def program():
+        for _ in range(n_sums):
+            TP_POLICY(x, "attn_out")
+
+    out = []
+    for tp in TP_WIDTHS[1:]:
+        group = ShardGroup(make_tp_mesh(tp, [torch.device("cpu")] * tp))
+        group.run(program, [()] * tp)                # threads started
+        t0 = time.perf_counter()
+        group.run(program, [()] * tp)
+        us = (time.perf_counter() - t0) / (n_sums * tp) * 1e6
+        out.append(f"tp={tp} {us:.1f}")
+        group.close()
+    log(f"  the shards' turns: " + ", ".join(out) + f" µs a shard a sum "
+        f"({n_sums} sums of a one-element CPU tensor) [{card}]")
+
+
+def serve_tp_path(card: str, params, cfg) -> None:
+    serve_tp_f32(card)
+    serve_tp_bf16(card, params, cfg)
+    tp_handoff_us(card)
+
+
+# ---------------------------------------------------------------------------
 # phase 5g: the MoE family (deepseek-moe-16b, dense, paged, speculative)
 # ---------------------------------------------------------------------------
 
@@ -3937,6 +4273,10 @@ def main() -> int:
     log("phase 5f: fault guards, qwen3-0.6b behind phase 5b's batcher with "
         "the page-table audit and the watchdog, three faults injected")
     serve_guarded_path(card, params, cfg, paged_tokens)
+
+    log("phase 5k: tensor-parallel serving, qwen3-0.6b over 1, 2 and 4 "
+        "logical cores of the card, and a tenant re-meshed between chunks")
+    serve_tp_path(card, params, cfg)
 
     log("phase 5g: MoE path, full deepseek-moe-16b behind the dense, the "
         "paged (prefix cache) and the speculative (overlap) batchers")

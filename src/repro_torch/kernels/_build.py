@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -131,9 +132,19 @@ def build(force: bool = False) -> Path:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
+_LOAD_LOCK = threading.Lock()
+
+
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernels' shared library."""
+    """Build (if needed) and load the kernels' shared library.  The shards
+    of a tensor-parallel program may reach their first kernel at once, from
+    one thread each: one of them builds, the others wait for it."""
+    with _LOAD_LOCK:
+        return _load_library()
+
+
+@functools.lru_cache(maxsize=None)
+def _load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from ..common import count_launch
 from .kernel import decode_attention_kernel
 from .ref import decode_attention_ref
 
@@ -20,7 +21,7 @@ def decode_attention(q, k, v, pos, cur_pos, *, window: Optional[int] = None):
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, pos, cur_pos, window=window)
     out = decode_attention_kernel(q, k, v, pos, cur_pos, window=window)
-    decode_attention.launches += 1
+    count_launch(decode_attention)
     return out
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from ..common import count_launch
 from .kernel import flash_attention_kernel
 from .ref import flash_attention_ref
 
@@ -27,7 +28,7 @@ def flash_attention(
         return out.transpose(1, 2)
     out = flash_attention_kernel(q, k, v, causal=causal, window=window,
                                  q_offset=q_offset)
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 

@@ -11,6 +11,7 @@ counts them by route.
 
 from __future__ import annotations
 
+from ..common import count_launch
 from .kernel import ROUTES, matmul_kernel, route_of
 from .ref import matmul_ref
 
@@ -25,8 +26,7 @@ def matmul(a, b, *, out_dtype=None):
         a2, b2 = a2.contiguous(), b.contiguous()
         route = route_of(a2, b2)
         out = matmul_kernel(a2, b2, out_dtype=out_dtype, route=route)
-        matmul.launches += 1
-        matmul.route_launches[route] += 1
+        count_launch(matmul, route)
     return out.reshape(*lead, b.shape[-1])
 
 

@@ -21,6 +21,7 @@ writes the model layout in that row order by its indexing instead.
 
 from __future__ import annotations
 
+from ..common import count_launch
 from .kernel import paged_decode_attention_kernel, paged_verify_attention_kernel
 from .ref import paged_decode_attention_ref, paged_verify_attention_ref
 
@@ -33,7 +34,7 @@ def paged_decode_attention(q, k_pool, v_pool, page_table, cur_pos):
         return paged_decode_attention_ref(q, k_pool, v_pool, page_table,
                                           cur_pos)
     out = paged_decode_attention_kernel(q, k_pool, v_pool, page_table, cur_pos)
-    paged_decode_attention.launches += 1
+    count_launch(paged_decode_attention)
     return out
 
 
@@ -49,7 +50,7 @@ def paged_verify_attention(q, k_pool, v_pool, page_table, cur_pos):
         return paged_verify_attention_ref(q, k_pool, v_pool, page_table,
                                           cur_pos)
     out = paged_verify_attention_kernel(q, k_pool, v_pool, page_table, cur_pos)
-    paged_verify_attention.launches += 1
+    count_launch(paged_verify_attention)
     return out
 
 

@@ -11,6 +11,7 @@ kernel or raises.  There is no fallback between the two.
 
 from __future__ import annotations
 
+from ..common import count_launch
 from .kernel import prefix_flash_attention_kernel
 from .ref import prefix_flash_attention_ref
 
@@ -22,7 +23,7 @@ def prefix_flash_attention(q, pk, pv, k, v, *, q_offset: int = 0):
     if q.device.type == "cpu":
         return prefix_flash_attention_ref(q, pk, pv, k, v, q_offset=q_offset)
     out = prefix_flash_attention_kernel(q, pk, pv, k, v, q_offset=q_offset)
-    prefix_flash_attention.launches += 1
+    count_launch(prefix_flash_attention)
     return out
 
 

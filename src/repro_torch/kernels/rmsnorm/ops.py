@@ -9,6 +9,7 @@ and ``rmsnorm.route_launches`` counts them by route.
 
 from __future__ import annotations
 
+from ..common import count_launch
 from .kernel import ROUTES, rmsnorm_kernel, route_of
 from .ref import rmsnorm_ref
 
@@ -21,8 +22,7 @@ def rmsnorm(x, scale, *, eps: float = 1e-6):
     x2d = x.reshape(-1, shape[-1]).contiguous()
     route = route_of(x2d)
     out = rmsnorm_kernel(x2d, scale.contiguous(), eps=eps, route=route)
-    rmsnorm.launches += 1
-    rmsnorm.route_launches[route] += 1
+    count_launch(rmsnorm, route)
     return out.reshape(shape)
 
 

@@ -18,6 +18,7 @@ card (a bf16 call launches five kernels, an f32 call one), and
 
 from __future__ import annotations
 
+from ..common import count_launch
 from ...models.ssm import pad_to_chunks, ssd_chunked
 from .kernel import ROUTES, ssd_route, ssd_scan_kernel
 
@@ -32,8 +33,7 @@ def ssd(x, dt, A, Bm, Cm, *, chunk: int, return_state: bool = False):
         y, state = ssd_chunked(x, dt, A, Bm, Cm, chunk=L, return_state=True)
     else:
         y, state = ssd_scan_kernel(x, dt.float(), A.float(), Bm, Cm, chunk=L)
-        ssd.launches += 1
-        ssd.route_calls[ssd_route(x.dtype)] += 1
+        count_launch(ssd, ssd_route(x.dtype), by="route_calls")
     y = y[:, :S]
     if return_state:
         return y, state

@@ -30,8 +30,10 @@ time by them); otherwise no range is opened.
 
 Shared experts (DeepSeek-MoE) are one always-on MLP of width
 ``n_shared * shared_d_ff``, as in the reference.  The reference's
-``policy`` argument (expert-parallel sharding) is not ported: tensor
-parallelism is ROADMAP.md Queue 1 item 12.
+``policy`` argument is the train-side expert-parallel
+``ActivationPolicy``, which waits for training (ROADMAP.md Queue 1 item
+14); tensor-parallel serving refuses MoE archs, as the reference's
+``check_tp`` does.
 """
 
 from __future__ import annotations

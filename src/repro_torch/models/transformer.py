@@ -31,6 +31,13 @@ position, or the stacked :class:`PagedKVView` page pool
 position; :func:`decode_step` and :func:`verify_step` (a window of draft
 tokens in one pass) update them **in place** (the reference returns new
 caches and relies on buffer donation).
+
+``prefill``, ``prefill_kv``, ``prefix_prefill``, ``decode_step`` and
+``verify_step`` take the reference's ``policy=None`` hook: an activation
+policy applied to each layer's attention output (``"attn_out"``) and MLP
+output (``"mlp_out"``) before the residual add.  Tensor-parallel serving
+passes ``distributed.sharding.TP_POLICY``, which sums the shards' partial
+outputs there; without a policy nothing changes.
 """
 
 from __future__ import annotations
@@ -208,7 +215,14 @@ def _sinusoid(positions, d_model: int):
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
-def _ffn(lp, spec: LayerSpec, x, cfg, *, decode: bool):
+def _shard(x, policy, name: str):
+    """The activation policy's rule ``name`` on ``x`` (the identity without
+    a policy): a tensor-parallel program sums its shards' partial
+    ``"attn_out"`` and ``"mlp_out"`` here, before the residual add."""
+    return policy(x, name) if policy is not None else x
+
+
+def _ffn(lp, spec: LayerSpec, x, cfg, *, decode: bool, policy=None):
     """The layer's second half: RMS norm of the residual stream ``x``, its
     MLP or MoE, added back to ``x``.  ``decode=False`` on the prefill shape
     (grouped MoE dispatch), ``decode=True`` for a decode step or a verify
@@ -218,11 +232,12 @@ def _ffn(lp, spec: LayerSpec, x, cfg, *, decode: bool):
         y2, _ = moe_mod.moe_apply(lp["moe"], h2, cfg, decode=decode)
     else:
         y2 = mlp(lp["mlp"], h2, kind=cfg.mlp_kind)
-    return x + y2
+    return x + _shard(y2, policy, "mlp_out")
 
 
 def _apply_layer_train(lp, spec: LayerSpec, x, cfg, *, positions, impl,
-                       causal: bool = True, prefix_kv=None, enc_kv=None):
+                       causal: bool = True, prefix_kv=None, enc_kv=None,
+                       policy=None):
     """One layer, full-sequence (prefill shape).  Returns (x, state): the
     layer's (k, v) for an attention layer, its :class:`SSMState` after the
     last token for an SSM layer.  ``enc_kv`` is the layer's cross-attention
@@ -235,11 +250,11 @@ def _apply_layer_train(lp, spec: LayerSpec, x, cfg, *, positions, impl,
     else:
         y, state = ssm_mod.ssm_forward(lp["ssm"], h, cfg, impl=impl,
                                        return_state=True)
-    x = x + y
+    x = x + _shard(y, policy, "attn_out")
     if enc_kv is not None and "cross" in lp:
         x = _cross(lp, x, enc_kv, cfg, impl)
     if spec.mlp is not None:
-        x = _ffn(lp, spec, x, cfg, decode=False)
+        x = _ffn(lp, spec, x, cfg, decode=False, policy=policy)
     return x, state
 
 
@@ -251,7 +266,8 @@ def _cross(lp, x, enc_kv, cfg, impl):
 
 
 def _apply_layer_decode(lp, spec: LayerSpec, x, cfg, *, cur_pos, cache,
-                        impl, page_table, write_target, cross_kv=None):
+                        impl, page_table, write_target, cross_kv=None,
+                        policy=None):
     """One layer, single-token decode.  ``cache`` is the layer's KV view
     (attention) or :class:`SSMState` (SSM); returns (x, cache) with the
     cache updated in place.  With ``page_table`` an attention cache is a
@@ -267,11 +283,11 @@ def _apply_layer_decode(lp, spec: LayerSpec, x, cfg, *, cur_pos, cache,
     else:
         y, cache = attn_mod.decode_attention(lp["attn"], h, cache, cur_pos,
                                              cfg, impl=impl)
-    x = x + y
+    x = x + _shard(y, policy, "attn_out")
     if cross_kv is not None and "cross" in lp:
         x = _cross(lp, x, cross_kv, cfg, impl)
     if spec.mlp is not None:
-        x = _ffn(lp, spec, x, cfg, decode=True)
+        x = _ffn(lp, spec, x, cfg, decode=True, policy=policy)
     return x, cache
 
 
@@ -412,7 +428,8 @@ def _cross_kv(params, enc_out, cfg):
     return out
 
 
-def _prefill_layers(params, x, cfg, *, positions, impl, cross=None):
+def _prefill_layers(params, x, cfg, *, positions, impl, cross=None,
+                    policy=None):
     """Run the embedded prompt ``x`` (B, S, d) through every layer.
     Returns (last-token logits, {str(p): (k, v)} with k/v (nb, B, S, Hkv,
     dh) in absolute-position order for the attention positions, {str(p):
@@ -432,7 +449,7 @@ def _prefill_layers(params, x, cfg, *, positions, impl, cross=None):
                 enc_kv = (cross[str(p)][0][b], cross[str(p)][1][b])
             x, state = _apply_layer_train(
                 _index(params["blocks"][p], b), spec, x, cfg,
-                positions=positions, impl=impl, enc_kv=enc_kv)
+                positions=positions, impl=impl, enc_kv=enc_kv, policy=policy)
             if spec.mixer == "attn":
                 ys[str(p)].append(state)
                 continue
@@ -456,7 +473,8 @@ def _positions(x, positions):
     return positions
 
 
-def prefill_kv(params, tokens, cfg, *, positions=None, impl: str = "cuda"):
+def prefill_kv(params, tokens, cfg, *, positions=None, impl: str = "cuda",
+               policy=None):
     """Run the full prompt, returning (last-token logits, {str(p): (k, v)},
     {str(p): SSMState}): k/v (nb, B, S, Hkv, dh) in absolute-position
     order — what paged admission packs into pool pages directly (the
@@ -469,11 +487,12 @@ def prefill_kv(params, tokens, cfg, *, positions=None, impl: str = "cuda"):
         raise ValueError("prefill_kv needs an attention layer: an SSM-only "
                          "arch has no K/V to page; use prefill")
     return _prefill_layers(params, embed(params["embed"], tokens), cfg,
-                           positions=_positions(tokens, positions), impl=impl)
+                           positions=_positions(tokens, positions), impl=impl,
+                           policy=policy)
 
 
 def prefill(params, tokens, cfg, *, max_len: int, positions=None,
-            extra_embeds=None, enc_out=None, impl: str = "cuda"):
+            extra_embeds=None, enc_out=None, impl: str = "cuda", policy=None):
     """Run the full prompt, returning (last-token logits, seeded Caches).
 
     tokens:       (B, S_txt) int32.
@@ -494,7 +513,7 @@ def prefill(params, tokens, cfg, *, max_len: int, positions=None,
     positions = _positions(x, positions)
     cross = _cross_kv(params, enc_out, cfg) if enc_out is not None else None
     logits, ys, ssm = _prefill_layers(params, x, cfg, positions=positions,
-                                      impl=impl, cross=cross)
+                                      impl=impl, cross=cross, policy=policy)
     kv = {p: seed_kv_cache(cfg, k, v, max_len=max_len, seq_positions=positions)
           for p, (k, v) in ys.items()}
     return logits, Caches(kv=kv, ssm={p: seed_ssm_state(st)
@@ -503,7 +522,7 @@ def prefill(params, tokens, cfg, *, max_len: int, positions=None,
 
 
 def prefix_prefill(params, tokens, prefix_kv, cfg, *, prefix_len: int,
-                   impl: str = "cuda"):
+                   impl: str = "cuda", policy=None):
     """Suffix prefill against a cached prompt prefix (shared-prefix
     admission): run only the uncached tail of the prompt, attending to the
     per-layer prefix K/V gathered from the paged pool.
@@ -541,7 +560,8 @@ def prefix_prefill(params, tokens, prefix_kv, cfg, *, prefix_len: int,
             pk, pv = prefix_kv[str(p)]
             x, kv = _apply_layer_train(
                 _index(params["blocks"][p], b), spec, x, cfg,
-                positions=positions, impl=impl, prefix_kv=(pk[b], pv[b]))
+                positions=positions, impl=impl, prefix_kv=(pk[b], pv[b]),
+                policy=policy)
             ys[str(p)].append(kv)
     x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
     logits = logits_fn(params, x[:, -1:, :], cfg)[:, 0]
@@ -551,7 +571,7 @@ def prefix_prefill(params, tokens, prefix_kv, cfg, *, prefix_len: int,
 
 
 def decode_step(params, tokens, caches: Caches, cur_pos, cfg, *,
-                impl: str = "cuda", page_table=None):
+                impl: str = "cuda", page_table=None, policy=None):
     """One decode step.  tokens: (B,) int32; cur_pos: (B,) int32 absolute
     position.  Returns (logits (B, Vp), caches) — the same Caches object,
     its KV and SSM tensors updated in place.
@@ -579,14 +599,16 @@ def decode_step(params, tokens, caches: Caches, cur_pos, cfg, *,
                 _index(params["blocks"][p], b), spec, x, cfg, cur_pos=cur_pos,
                 cache=_block_cache(stacked, b), impl=impl,
                 page_table=page_table, write_target=target,
-                cross_kv=None if ck is None else (ck[0][b], ck[1][b]))
+                cross_kv=None if ck is None else (ck[0][b], ck[1][b]),
+                policy=policy)
     x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
     logits = logits_fn(params, x, cfg)[:, 0]
     return logits, caches
 
 
 def verify_step(params, tokens, caches: Caches, cur_pos, cfg, *,
-                impl: str = "cuda", page_table=None, write_limit=None):
+                impl: str = "cuda", page_table=None, write_limit=None,
+                policy=None):
     """Score a window of W candidate tokens in one pass (draft-and-verify).
 
     tokens: (B, W) int32, the slot's last committed token followed by W-1
@@ -642,9 +664,9 @@ def verify_step(params, tokens, caches: Caches, cur_pos, cfg, *,
                 y, _ = attn_mod.verify_decode_attention(
                     lp["attn"], h, view, cur_pos, cfg, impl=impl,
                     write_limit=write_limit)
-            x = x + y
+            x = x + _shard(y, policy, "attn_out")
             if spec.mlp is not None:
-                x = _ffn(lp, spec, x, cfg, decode=True)
+                x = _ffn(lp, spec, x, cfg, decode=True, policy=policy)
     x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
     return logits_fn(params, x, cfg), caches
 

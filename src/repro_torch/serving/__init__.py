@@ -2,7 +2,8 @@
 admission, with optional speculative decode and admission/decode overlap:
 engine steps, continuous batcher, config, page ledger and prefix cache;
 and tenancy, the hypervisor's serving adapter (leased logical cores, the
-two-stage compiler, live-state migration between chunks)."""
+two-stage compiler, live-state migration between chunks, tensor-parallel
+re-meshing of a live batcher)."""
 
 from .batcher import BatcherStats, ContinuousBatcher, Request
 from .config import ServingConfig, config_from_legacy_kwargs
@@ -26,6 +27,7 @@ from .engine import (
     make_prefill_step,
     make_spec_decode_chunk,
     select_token,
+    tp_program,
 )
 from .kv_cache import (
     PagedKVPool,
@@ -56,7 +58,7 @@ __all__ = [
     "make_admit_step", "make_cached_admit_step", "make_decode_chunk",
     "make_page_push", "make_paged_admit_step", "make_paged_decode_chunk",
     "make_paged_spec_decode_chunk", "make_prefill_step",
-    "make_spec_decode_chunk", "select_token",
+    "make_spec_decode_chunk", "select_token", "tp_program",
     "PagedKVPool", "PageQuotaError", "cache_len", "kv_cache_bytes",
     "page_bytes", "paged_kv_cache_bytes", "pages_for", "seed_kv_cache",
     "seed_ssm_state", "tree_bytes",

@@ -75,8 +75,19 @@ with nothing to repair costs no extra sync.  ``inject_stall`` and
 ``inject_kv_corruption`` are seeded-chaos hooks for tests and
 ``chip_smoke.py``.
 
-Tensor parallelism raises ``NotImplementedError`` at construction until the
-ROADMAP item that ports it lands.
+**Tensor parallelism** (``ServingConfig(tp=N)``): the model's attention
+heads and MLP hidden features are split over N logical cores of the
+batcher's device (a flat mesh, ``distributed.sharding``), each shard
+running the unchanged single-device program on its own params, its own KV
+cache of ``Hkv / N`` heads and its own replica of the slot, page and draft
+state, in lockstep with two sums a layer (``engine.tp_program``).  A
+dispatch is still one call of a step and a host sync one fetch, of shard
+0's outputs; every host-side write into replicated device state (admission
+inputs aside, which every shard reads) goes to each replica.
+:meth:`ContinuousBatcher.remesh` moves a live batcher to another width
+between two chunks, token-identically; the hypervisor drives it through
+``ServingExecutor.register_remesh``.  As in the reference, only
+pure-attention dense-MLP text archs shard (``check_tp``).
 """
 
 from __future__ import annotations
@@ -91,6 +102,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, tree_to_device
+from ..distributed.sharding import (
+    TP_POLICY, PerShard, ShardGroup, check_tp, make_tp_mesh, mesh_device,
+    permute_params_for_tp, tp_cache_specs, tp_gather, tp_local_cfg,
+    tp_param_specs, tp_replicas, tp_shards, tp_tree_bytes,
+)
 from ..models.attention import check_attn_impl
 from ..models.transformer import (
     Caches, init_caches, init_paged_caches, period_structure,
@@ -114,15 +130,29 @@ from .engine import (
     make_paged_decode_chunk,
     make_paged_spec_decode_chunk,
     make_spec_decode_chunk,
+    tp_program,
 )
 from .kv_cache import PagedKVPool, PageQuotaError, pages_for, tree_bytes
 from .prefix_cache import PrefixCache, PrefixNode
 
-# ServingConfig modes this slice does not run yet, with the ROADMAP item
-# (ROADMAP.md, Queue 1) that ports each
-_UNPORTED = (
-    ("tp > 1", lambda c: c.tp > 1, "item 12 (tensor parallel)"),
-)
+
+
+def _one(x):
+    """Shard 0's value of a :class:`PerShard`, else ``x`` itself: what the
+    host fetches and reads (every replica holds the same values)."""
+    return x[0] if isinstance(x, PerShard) else x
+
+
+def _each(x, fn):
+    """``fn`` on every shard's replica of ``x`` (or on ``x`` at tp=1): the
+    fan-out of a host-side write into replicated device state."""
+    if isinstance(x, PerShard):
+        return PerShard(fn(t) for t in x)
+    return fn(x)
+
+
+def _replicas(x) -> list:
+    return list(x) if isinstance(x, PerShard) else [x]
 
 
 class _Fetch:
@@ -328,13 +358,18 @@ class ContinuousBatcher:
 
     ``device`` (default ``"cuda"``) is where the caches live and the steps
     run; ``params`` are moved there.  Without a GPU, pass ``device="cpu"``.
-    The legacy keyword constructor (``ContinuousBatcher(params, cfg,
-    slots=4, ...)``) still works and emits a ``DeprecationWarning``.
+    ``policy`` is the model's activation policy (single-device only);
+    ``mesh`` is the flat device array a ``tp > 1`` config shards over
+    (``VirtualAcceleratorPool.tp_mesh_for``; default ``tp`` logical cores of
+    ``device``), whose entries must all be ``device``.  The legacy keyword
+    constructor (``ContinuousBatcher(params, cfg, slots=4, ...)``) still
+    works and emits a ``DeprecationWarning``.
     """
 
     def __init__(self, params, cfg, config: Optional[ServingConfig] = None,
                  *, device="cuda", clock: Optional[Callable[[], float]] = None,
-                 telemetry: Optional[Telemetry] = None, **legacy):
+                 telemetry: Optional[Telemetry] = None, policy=None,
+                 mesh=None, **legacy):
         if config is None:
             offending = ", ".join(sorted(legacy)) if legacy else "<none>"
             warnings.warn(
@@ -347,18 +382,34 @@ class ContinuousBatcher:
             raise TypeError(
                 f"pass either a ServingConfig or legacy kwargs, not both "
                 f"(got config and {sorted(legacy)})")
+        # tensor parallelism: the reference's refusals (no head axis to
+        # split) come first; each shard's cache is made at its own width
+        # and the rest of the device state replicated at the end
+        self.tp = int(config.tp)
+        if self.tp > 1:
+            if policy is not None:
+                raise ValueError(
+                    "tp>1 installs its own TPShardPolicy; custom activation "
+                    "policies are single-device")
+            check_tp(cfg, self.tp)
         if cfg.family in ("vlm", "audio"):
             raise ValueError(
                 f"ContinuousBatcher serves token prompts only; a {cfg.family} "
                 f"prompt carries patch embeddings or encoder frames: serve "
                 f"it with repro_torch.serving.generate(..., extras=...)")
-        for name, enabled, item in _UNPORTED:
-            if enabled(config):
-                raise NotImplementedError(
-                    f"ServingConfig {name} is not ported yet: ROADMAP.md "
-                    f"Queue 1 {item}")
         self.device = resolve_device(device)
-        self.params = tree_to_device(params, self.device)
+        if mesh is not None:
+            mesh_device(mesh, self.device)
+            width = len(np.asarray(mesh, dtype=object))
+            if width != self.tp:
+                raise ValueError(
+                    f"mesh is tp={width} wide but ServingConfig.tp={self.tp}")
+        # the un-permuted, unsplit tree: what every width shards from
+        self._full_params = tree_to_device(params, self.device)
+        self.params = self._full_params
+        self._user_policy = policy
+        self._policy = policy
+        self._group: Optional[ShardGroup] = None
         self.cfg = cfg
         self.config = config
         slots = config.slots
@@ -401,6 +452,9 @@ class ContinuousBatcher:
         elif prefix_cache:
             self.prefix = PrefixCache(config.page_size)
         self.pages: Optional[PageState] = None
+        # at tp > 1 each shard's cache holds its own Hkv / tp heads from the
+        # start: no cache of the whole model is made
+        local = tp_local_cfg(cfg, self.tp)
         if self.paged:
             self.page_size = max(1, config.page_size)
             self.max_pages = pages_for(config.max_len, self.page_size)
@@ -412,19 +466,20 @@ class ContinuousBatcher:
             self._page_limit = min(config.page_quota, self.n_pages) \
                 if config.page_quota is not None else self.n_pages
             self.kv_pool = PagedKVPool(self.n_pages, self.page_size)
-            self.caches: Caches = init_paged_caches(
-                cfg, slots, self.n_pages, self.page_size, device=self.device)
-            if not self.caches.kv:
+            caches = [init_paged_caches(local, slots, self.n_pages,
+                                        self.page_size, device=self.device)
+                      for _ in range(self.tp)]
+            if not caches[0].kv:
                 raise ValueError("paged mode needs at least one attn layer")
             self.pages = init_page_state(slots, self.n_pages, self.max_pages,
                                          quota=self._page_limit,
                                          device=self.device)
-            self._admit_fn = make_paged_admit_step(cfg, self.scfg)
             self._push_fn = make_page_push()
         else:
-            self.caches = init_caches(cfg, slots, config.max_len,
-                                      device=self.device)
-            self._admit_fn = make_admit_step(cfg, self.scfg)
+            caches = [init_caches(local, slots, config.max_len,
+                                  device=self.device)
+                      for _ in range(self.tp)]
+        self.caches: Caches = caches[0] if self.tp == 1 else PerShard(caches)
         # speculative decode: the chunk unit becomes a draft-and-verify
         # window; the drafter history is device state beside the caches
         self._spec = bool(config.speculative)
@@ -440,7 +495,7 @@ class ContinuousBatcher:
         self._track = self.telemetry.track
         self.stats = BatcherStats(registry=self.telemetry.registry,
                                   tenant=self.telemetry.tenant,
-                                  cache_bytes=tree_bytes(self.caches))
+                                  cache_bytes=self._cache_bytes())
         # fault guards: watchdog_s bounds the wall time of one chunk
         # dispatch+sync (None = off); audit=True cross-checks the fetched
         # page tables against the no-double-mapping invariant every chunk
@@ -459,6 +514,57 @@ class ContinuousBatcher:
         # residency at the survivors so restarted requests stop thrashing
         # the ones still making progress; recover one slot per clean round
         self._resident_cap = slots
+        if self.tp > 1:
+            self._shard_over(mesh if mesh is not None
+                             else make_tp_mesh(self.tp,
+                                               [self.device] * self.tp))
+            self.state = tp_replicas(self.state, self.tp)
+            if self.paged:
+                self.pages = tp_replicas(self.pages, self.tp)
+            if self._spec:
+                self.draft = tp_replicas(self.draft, self.tp)
+        self._build_programs()
+
+    def _cache_bytes(self) -> int:
+        """Bytes of the logical cache tree (``BatcherStats.cache_bytes``)."""
+        if isinstance(self.caches, PerShard):
+            return tp_tree_bytes(self.caches,
+                                 tp_cache_specs(self.cfg, paged=self.paged))
+        return tree_bytes(self.caches)
+
+    # -- programs: single-device, or tp shards in lockstep ---------------
+    def _program(self, make, *args):
+        """The step ``make(cfg, scfg, *args)``: as built at tp=1, or run
+        over the batcher's shards (:func:`~.engine.tp_program`)."""
+        if self._group is None:
+            return make(self.cfg, self.scfg, *args, policy=self._policy)
+        return tp_program(
+            lambda local: make(local, self.scfg, *args, policy=TP_POLICY),
+            self.cfg, self._group)
+
+    def _build_programs(self) -> None:
+        self._admit_fn = self._program(
+            make_paged_admit_step if self.paged else make_admit_step)
+
+    def _shard_over(self, mesh) -> None:
+        """Use ``mesh`` (tp > 1 logical cores of the batcher's device): a
+        shard group, the TP policy, and the params split by
+        ``tp_param_specs`` from the kept full tree (views; swiglu's ``wi``
+        is gathered once into its per-shard-contiguous order)."""
+        self._group = ShardGroup(mesh)
+        self._policy = TP_POLICY
+        self.params = tp_shards(
+            permute_params_for_tp(self._full_params, self.cfg, self.tp),
+            tp_param_specs(self.cfg), self.tp)
+        gen = _one(self._gen)
+        self._gen = PerShard([gen] + [self._clone_generator(gen)
+                                      for _ in range(self.tp - 1)])
+
+    def _clone_generator(self, gen: torch.Generator) -> torch.Generator:
+        """A generator in ``gen``'s state: every replica samples alike."""
+        out = torch.Generator(device=self.device)
+        out.set_state(gen.get_state())
+        return out
 
     # -- request intake ------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -510,8 +616,9 @@ class ContinuousBatcher:
         if not self.paged:
             raise ValueError("page limits only apply to paged batchers")
         self._page_limit = max(0, min(int(n_pages), self.n_pages))
-        self.pages = self.pages._replace(quota=torch.tensor(
-            self._page_limit, dtype=torch.int32, device=self.device))
+        self.pages = _each(self.pages, lambda pg: pg._replace(
+            quota=torch.tensor(self._page_limit, dtype=torch.int32,
+                               device=self.device)))
         if self.prefix is not None:
             est = self.stats.pages_in_use + self._admitted_pages_since_sync
             if est > self._page_limit:
@@ -528,36 +635,116 @@ class ContinuousBatcher:
         waits for everything queued on the stream (an in-flight chunk, its
         packed fetch, an admission or page push behind it): a resize that
         lands between chunks never reads or moves a tensor a queued kernel
-        still writes."""
+        still writes.  At tp > 1 the tree is the whole logical one, as the
+        reference's global arrays are: the shards' caches joined on their
+        head axis (a new tensor), shard 0's replica of the rest."""
         if self.device.type == "cuda":
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
             done.synchronize()
-        out = {"caches": self.caches, "slots": self.state}
+        return self._logical_state()
+
+    def _logical_state(self) -> Dict[str, Any]:
+        caches = self.caches
+        if isinstance(caches, PerShard):
+            caches = tp_gather(caches, tp_cache_specs(self.cfg,
+                                                      paged=self.paged))
+        out = {"caches": caches, "slots": _one(self.state)}
         if self.paged:
-            out["pages"] = self.pages
+            out["pages"] = _one(self.pages)
         if self._spec:
-            out["draft"] = self.draft
+            out["draft"] = _one(self.draft)
         return out
 
     def adopt_state(self, state: Dict[str, Any]) -> None:
-        """Adopt a migrated state tree; decode resumes at the same token.
-        The params and the sampling generator stay where they are, so the
-        tree must lie on the batcher's device (on one card every logical
-        core is that device)."""
-        dev, here = state["slots"].active.device, self.state.active.device
+        """Adopt a migrated (logical) state tree; decode resumes at the same
+        token.  At tp > 1 it is split over the shards again.  The params
+        and the sampling generator stay where they are, so the tree must lie
+        on the batcher's device (on one card every logical core is that
+        device)."""
+        dev = state["slots"].active.device
+        here = _one(self.state).active.device
         if dev != here:
             raise ValueError(
                 f"migrated state lies on {dev}, the batcher's params on "
-                f"{here}; moving a live batcher to another device "
-                f"needs remesh, which is not ported yet (ROADMAP.md Queue 1 "
-                f"item 12)")
+                f"{here}; a live batcher changes its cores through remesh, "
+                f"over the logical cores of its own device (across cards: "
+                f"ROADMAP.md Queue 1 item 18)")
+        if self._group is not None:
+            self._place_state(state)
+            return
         self.caches = state["caches"]
         self.state = state["slots"]
         if self.paged:
             self.pages = state["pages"]
         if self._spec:
             self.draft = state["draft"]
+
+    def _place_state(self, state: Dict[str, Any]) -> None:
+        """Lay a logical state tree out over the shards: the KV head axis
+        split into each shard's contiguous cache (``tp_cache_specs``), slot,
+        page and draft state replicated, one replica a shard, so
+        steady-state chunks never move a byte between them."""
+        tp = self.tp
+        self.caches = tp_shards(state["caches"],
+                                tp_cache_specs(self.cfg, paged=self.paged),
+                                tp, copy=True)
+        self.state = tp_replicas(state["slots"], tp)
+        if self.paged:
+            self.pages = tp_replicas(state["pages"], tp)
+        if self._spec:
+            self.draft = tp_replicas(state["draft"], tp)
+
+    def remesh(self, tp: Optional[int] = None, *, mesh=None) -> None:
+        """Live-migrate this batcher onto a new TP width.
+
+        The hypervisor's elastic-resize path: snapshot the device state as
+        its logical tree (:meth:`live_state`), swap in the new mesh and
+        shard group, split the params again from the kept full tree (the
+        swiglu pack re-permuted, since the column permutation depends on
+        tp) and adopt the state back, split over the new shards.  State
+        *values* are untouched, so the decode stream is token-identical
+        across the move; resident requests, queued requests and the
+        drafter history all ride along.  ``mesh`` is a flat device array
+        (``VirtualAcceleratorPool.tp_mesh_for``) whose entries are all
+        the batcher's device; its width is the new tp.
+        """
+        if mesh is not None:
+            mesh_device(mesh, self.device)
+            new_tp = len(np.asarray(mesh, dtype=object))
+            if tp is not None and int(tp) != new_tp:
+                raise ValueError(
+                    f"tp={tp} conflicts with the mesh width {new_tp}")
+        elif tp is None:
+            raise ValueError("remesh needs a tp width or a mesh")
+        else:
+            new_tp = int(tp)
+        if new_tp < 1:
+            raise ValueError(f"tp must be >= 1, got {new_tp}")
+        if new_tp > 1:
+            if self._user_policy is not None:
+                raise ValueError(
+                    "tp>1 installs its own TPShardPolicy; custom activation "
+                    "policies are single-device")
+            check_tp(self.cfg, new_tp)
+        state = self.live_state()
+        if self._group is not None:
+            self._group.close()
+        self.config = dataclasses.replace(self.config, tp=new_tp)
+        self.tp = new_tp
+        if new_tp > 1:
+            self._shard_over(mesh if mesh is not None
+                             else make_tp_mesh(new_tp,
+                                               [self.device] * new_tp))
+        else:
+            self._group = None
+            self._policy = self._user_policy
+            self.params = self._full_params
+            self._gen = _one(self._gen)
+        self._build_programs()
+        self.adopt_state(state)
+        self.stats.remeshes += 1
+        self._tracer.instant("remesh", self._track, args={"tp": new_tp})
 
     def _evict_cached(self, n: int) -> int:
         """Reclaim up to ``n`` pages from the prefix cache (LRU, refcount-0
@@ -635,8 +822,8 @@ class ContinuousBatcher:
         width = 1 << (len(pids) - 1).bit_length() if len(pids) > 1 else 1
         vec = np.full((width,), -1, dtype=np.int32)
         vec[: len(pids)] = pids
-        self.pages = self._push_fn(self.pages,
-                                   torch.from_numpy(vec).to(self.device))
+        ids = torch.from_numpy(vec).to(self.device)
+        self.pages = _each(self.pages, lambda pg: self._push_fn(pg, ids))
         self.stats.dispatches += 1
         self.page_pushes += 1
 
@@ -653,15 +840,16 @@ class ContinuousBatcher:
         with ``pid`` (default: an out-of-range id), simulating a flipped bit
         in the table; another slot's physical id forges a double mapping.
         One unguarded host read of the row, then one in-place write on the
-        device, between steps.  ``audit=True`` detects and self-heals either
-        on the next chunk's sync."""
+        device (on every shard's replica), between steps.  ``audit=True``
+        detects and self-heals either on the next chunk's sync."""
         if not self.paged:
             raise ValueError("page corruption applies to paged batchers")
-        row = self.pages.table[slot].cpu().numpy()
+        row = _one(self.pages).table[slot].cpu().numpy()
         mapped = np.nonzero(row >= 0)[0]
         j = int(mapped[0]) if mapped.size else 0
         bad = int(pid) if pid is not None else self.n_pages + 7
-        self.pages.table[slot, j] = bad
+        for pg in _replicas(self.pages):
+            pg.table[slot, j] = bad
 
     def _host_release_slot(self, slot: int) -> None:
         """Host-side analogue of the in-chunk finish path: deactivate
@@ -669,21 +857,28 @@ class ContinuousBatcher:
         the free stack, clearing its table row.  Cache-owned (pinned) pages
         are left to the refcount ledger; quarantined and out-of-range ids
         are never pushed."""
-        active = self.state.active.clone()
-        active[slot] = False
-        self.state = self.state._replace(active=active)
+        def deactivate(st):
+            active = st.active.clone()
+            active[slot] = False
+            return st._replace(active=active)
+
+        def clear_row(pg):
+            table, pinned = pg.table.clone(), pg.pinned.clone()
+            table[slot] = -1
+            pinned[slot] = 0
+            return pg._replace(table=table, pinned=pinned)
+
+        self.state = _each(self.state, deactivate)
         if not self.paged:
             return
-        fetched = _Fetch(torch.cat([self.pages.table[slot],
-                                    self.pages.pinned[slot:slot + 1]])).wait()
+        pg0 = _one(self.pages)
+        fetched = _Fetch(torch.cat([pg0.table[slot],
+                                    pg0.pinned[slot:slot + 1]])).wait()
         self.stats.host_syncs += 1
         row, pin = fetched[:-1], int(fetched[-1])
         pids = [int(p) for p in row[pin:]
                 if 0 <= p < self.n_pages and int(p) not in self._quarantined]
-        table, pinned = self.pages.table.clone(), self.pages.pinned.clone()
-        table[slot] = -1
-        pinned[slot] = 0
-        self.pages = self.pages._replace(table=table, pinned=pinned)
+        self.pages = _each(self.pages, clear_row)
         if pids:
             self._push_pages(pids)
             self.stats.pages_in_use = max(
@@ -758,8 +953,9 @@ class ContinuousBatcher:
                             device=dev)
         cols = torch.tensor([e[1] for e in entries], dtype=torch.long,
                             device=dev)
-        self.pages = self.pages._replace(table=self.pages.table.index_put(
-            (rows, cols), torch.tensor(-1, dtype=torch.int32, device=dev)))
+        neg = torch.tensor(-1, dtype=torch.int32, device=dev)
+        self.pages = _each(self.pages, lambda pg: pg._replace(
+            table=pg.table.index_put((rows, cols), neg)))
         self.stats.audit_repairs += len(entries)
         self._tracer.instant("audit_repair", self._track,
                              args={"entries": len(entries)})
@@ -783,7 +979,7 @@ class ContinuousBatcher:
         # dead, and the page itself is fine (the *table* was corrupt), so
         # orphans go back on the free stack: corruption never shrinks the
         # pool beyond the quarantined pages.
-        pg = self.pages
+        pg = _one(self.pages)
         fetched = _Fetch(torch.cat([pg.table.reshape(-1), pg.free,
                                     pg.free_top.reshape(1)])).wait()
         self.stats.host_syncs += 1
@@ -986,7 +1182,7 @@ class ContinuousBatcher:
         self.stats.admit_scatter_bytes += int(
             self.stats.cache_bytes * nb / max(self.B, 1)
         )
-        rec = {"kind": "dense", "joins": joins, "fetch": _Fetch(nxt)}
+        rec = {"kind": "dense", "joins": joins, "fetch": _Fetch(_one(nxt))}
         if defer:
             return [rec]
         self._finish_admit(rec)
@@ -1038,7 +1234,7 @@ class ContinuousBatcher:
         args = (self.params, {"tokens": t(toks)}, self.caches, self.state,
                 self.pages, t(slots), t(pos0), t(budget), t(eos), t(real))
         if k:
-            fn = make_cached_admit_step(self.cfg, self.scfg, k)
+            fn = self._program(make_cached_admit_step, k)
             nxt, self.caches, self.state, self.pages, out_rows = fn(
                 *args, t(pids), t(pin))
         else:
@@ -1051,7 +1247,7 @@ class ContinuousBatcher:
             / max(self.B * self.prompt_len, 1)
         )
         # first tokens and written rows come back packed: one fetch
-        fetch = _Fetch(torch.cat([nxt[:, None], out_rows], dim=1))
+        fetch = _Fetch(torch.cat([_one(nxt)[:, None], _one(out_rows)], dim=1))
         return {"kind": "paged", "joins": group, "k": k, "fetch": fetch,
                 "rows": rows}
 
@@ -1130,9 +1326,11 @@ class ContinuousBatcher:
             ns[j] = len(tail)
         dev = self.device
         idx = torch.from_numpy(slots).to(dev)
-        self.draft = DraftState(
-            hist=self.draft.hist.index_put((idx,), torch.from_numpy(rows).to(dev)),
-            n=self.draft.n.index_put((idx,), torch.from_numpy(ns).to(dev)))
+        rows_t = torch.from_numpy(rows).to(dev)
+        ns_t = torch.from_numpy(ns).to(dev)
+        self.draft = _each(self.draft, lambda d: DraftState(
+            hist=d.hist.index_put((idx,), rows_t),
+            n=d.n.index_put((idx,), ns_t)))
 
     # -- chunk sizing: adaptive to queue pressure ------------------------
     def _pick_chunk(self, active: List[int]) -> int:
@@ -1160,38 +1358,42 @@ class ContinuousBatcher:
         W = self._draft_window if self._spec else 1
         ctr = None
         if self._spec and self.paged:
-            chunk = make_paged_spec_decode_chunk(
-                self.cfg, self.scfg, T, W, self._draft_ngram, self.page_size)
+            chunk = self._program(make_paged_spec_decode_chunk, T, W,
+                                  self._draft_ngram, self.page_size)
             (self.caches, self.state, self.pages, self.draft, toks, emitted,
              poisoned, ctr) = chunk(self.params, self.caches, self.state,
                                     self.pages, self.draft)
         elif self._spec:
-            chunk = make_spec_decode_chunk(self.cfg, self.scfg, T, W,
-                                           self._draft_ngram)
+            chunk = self._program(make_spec_decode_chunk, T, W,
+                                  self._draft_ngram)
             (self.caches, self.state, self.draft, toks, emitted,
              poisoned) = chunk(self.params, self.caches, self.state,
                                self.draft)
         elif self.paged:
-            chunk = make_paged_decode_chunk(self.cfg, self.scfg, T,
-                                            self.page_size)
+            chunk = self._program(make_paged_decode_chunk, T,
+                                  self.page_size)
             (self.caches, self.state, self.pages, toks, emitted, poisoned,
              ctr) = chunk(self.params, self.caches, self.state, self.pages,
                           self._gen)
         else:
-            chunk = make_decode_chunk(self.cfg, self.scfg, T)
+            chunk = self._program(make_decode_chunk, T)
             self.caches, self.state, toks, emitted, poisoned = chunk(
                 self.params, self.caches, self.state, self._gen)
         # one packed int32 vector so the chunk costs one fetch: tokens,
         # emitted, poisoned, then (paged) active, free_top, the counters and
         # (audit) the page table; the copy is the table as this chunk left
-        # it, before any admission behind the chunk writes it
+        # it, before any admission behind the chunk writes it.  At tp > 1
+        # every output is shard 0's (the replicas are identical)
+        toks, emitted, poisoned, ctr = map(_one, (toks, emitted, poisoned,
+                                                  ctr))
         parts = [toks.reshape(-1), emitted.to(torch.int32).reshape(-1),
                  poisoned.to(torch.int32)]
         if self.paged:
-            parts += [self.state.active.to(torch.int32),
-                      self.pages.free_top.reshape(1), ctr]
+            pg0 = _one(self.pages)
+            parts += [_one(self.state).active.to(torch.int32),
+                      pg0.free_top.reshape(1), ctr]
             if self._audit:
-                parts.append(self.pages.table.reshape(-1))
+                parts.append(pg0.table.reshape(-1))
         fetch = _Fetch(torch.cat(parts))
         self.stats.steps += T * W
         self.stats.chunks += 1

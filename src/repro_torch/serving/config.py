@@ -6,12 +6,15 @@ cross-field rules, checked at construction against the port's
 attention impls are ``"cuda"`` (the kernels, the default), ``"torch"`` (the
 counterpart of ``"xla"``) and ``"naive"``.
 
-Tensor parallelism, which is not ported yet, keeps its field and value
-rules here, so a config means the same in both packages;
-``ContinuousBatcher`` raises ``NotImplementedError`` for ``tp > 1`` at
-construction, naming the ROADMAP item that ports it.  The paged pool, the
-prefix cache, speculative decode, overlap and the fault guards (watchdog,
-page-table audit) run.
+``tp`` is the tensor-parallel width: the number of logical cores of the
+batcher's device its decode is sharded over (``distributed.sharding``).
+It runs with every impl, the kernels included: the reference refuses
+``tp > 1`` unless ``attn_impl="xla"``, because its Pallas kernels were
+single-device under ``shard_map``, while each of the port's kernels
+computes the same function on a shard's head counts (the group ratio is
+kept), so ``"cuda"`` runs them per shard (ROADMAP.md Queue 3).  The paged
+pool, the prefix cache, speculative decode, overlap and the fault guards
+(watchdog, page-table audit) run at every width.
 
 The legacy kwargs constructor is kept as a thin deprecation shim::
 
@@ -44,9 +47,8 @@ class ServingConfig:
     ``reserve_pages``), shared-prefix cache (``prefix_cache``), speculative
     decode (``speculative``, ``draft_window``, ``draft_ngram``,
     ``draft_hist``) and admission/decode overlap (``overlap``) as in
-    ``repro.serving.config``.  The remaining fields mirror the reference's
-    fault guards and tensor-parallel options; their value rules are checked
-    here, their modes are not ported yet.
+    ``repro.serving.config``, and so are the fault guards (``watchdog_s``,
+    ``audit``) and the tensor-parallel width ``tp``.
     """
 
     slots: int
@@ -70,7 +72,7 @@ class ServingConfig:
     draft_ngram: int = 2
     draft_hist: int = 64
     overlap: bool = False
-    # tensor-parallel width
+    # tensor-parallel width: logical cores of the batcher's device
     tp: int = 1
 
     def __post_init__(self):
@@ -87,10 +89,6 @@ class ServingConfig:
             raise ValueError(f"chunk must be >= 1, got {self.chunk}")
         if self.tp < 1:
             raise ValueError(f"tp must be >= 1, got {self.tp}")
-        if self.tp > 1 and self.attn_impl != "torch":
-            raise ValueError(
-                f"tp={self.tp} requires attn_impl='torch' (the "
-                f"{self.attn_impl!r} kernels are single-device)")
         check_attn_impl(self.attn_impl, "dense")
         if self.paged:
             check_attn_impl(self.attn_impl, "paged")

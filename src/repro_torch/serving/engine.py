@@ -14,6 +14,9 @@ Where JAX jits these programs with ``donate_argnums`` so XLA updates the
 ring-buffer KV in place, the port updates the caches **in place** directly
 (``index_put_`` on views of the stacked cache); PyTorch runs eagerly, so the
 reference's ``ProgramRegistry`` of compiled programs has no counterpart.
+Every ``make_*`` takes the reference's ``policy=None`` (the model's
+activation-policy hook), and :func:`tp_program` runs one of them
+tensor-parallel over a :class:`~repro_torch.distributed.ShardGroup`.
 
 Invariant: a slot that deactivates mid-chunk (EOS or token budget) keeps
 decoding with its position frozen — it overwrites its *own* ring slot with
@@ -100,7 +103,7 @@ def select_token(logits, mask, scfg: ServeConfig,
 # ---------------------------------------------------------------------------
 
 
-def make_prefill_step(cfg, scfg: ServeConfig):
+def make_prefill_step(cfg, scfg: ServeConfig, *, policy=None):
     """prefill_step(params, batch) -> (last-token logits, Caches).
 
     batch: {"tokens": (B, S) int32} + the family's extras: the VLM's
@@ -117,7 +120,7 @@ def make_prefill_step(cfg, scfg: ServeConfig):
             kw["enc_out"] = encoder_forward(params, batch["frames"], cfg,
                                             impl=scfg.attn_impl)
         return prefill(params, batch["tokens"], cfg, max_len=scfg.max_len,
-                       impl=scfg.attn_impl, **kw)
+                       impl=scfg.attn_impl, policy=policy, **kw)
 
     return prefill_step
 
@@ -155,7 +158,7 @@ def init_slot_state(batch: int, *, device="cuda") -> SlotState:
     )
 
 
-def make_decode_chunk(cfg, scfg: ServeConfig, n_steps: int):
+def make_decode_chunk(cfg, scfg: ServeConfig, n_steps: int, *, policy=None):
     """decode_chunk(params, caches, state, generator=None) ->
     (caches, state, tokens (T, B), emitted (T, B), poisoned (B,)).
 
@@ -181,7 +184,8 @@ def make_decode_chunk(cfg, scfg: ServeConfig, n_steps: int):
         toks, emitted = [], []
         for _ in range(n_steps):
             logits, caches = decode_step(params, st.tokens, caches, st.cur_pos,
-                                         cfg, impl=scfg.attn_impl)
+                                         cfg, impl=scfg.attn_impl,
+                                         policy=policy)
             bad = st.active & ~torch.isfinite(logits).all(dim=-1)
             active = st.active & ~bad
             nxt = select_token(logits, mask, scfg, generator)
@@ -211,7 +215,7 @@ def _merge_fresh(resident, fresh, idx) -> None:
             o[:, idx] = n.to(o.dtype)
 
 
-def make_admit_step(cfg, scfg: ServeConfig):
+def make_admit_step(cfg, scfg: ServeConfig, *, policy=None):
     """admit_step(params, batch, caches, state, slots, pos0, budget, eos) ->
     (first_tokens (n,), caches, state).
 
@@ -227,7 +231,7 @@ def make_admit_step(cfg, scfg: ServeConfig):
     identical rows (the batcher pads a partial bucket by repeating row 0):
     which duplicate write wins is then irrelevant.
     """
-    prefill_step = make_prefill_step(cfg, scfg)
+    prefill_step = make_prefill_step(cfg, scfg, policy=policy)
 
     def admit_step(params, batch, caches: Caches, state: SlotState,
                    slots, pos0, budget, eos):
@@ -334,7 +338,7 @@ def _free_finished_pages(table, free, free_top, finished, pinned):
 
 
 def make_paged_decode_chunk(cfg, scfg: ServeConfig, n_steps: int,
-                            page_size: int):
+                            page_size: int, *, policy=None):
     """decode_chunk(params, caches, state, pages, generator=None) ->
     (caches, state, pages, tokens (T, B), emitted (T, B), poisoned (B,),
     ctr (4,) int32).
@@ -396,7 +400,7 @@ def make_paged_decode_chunk(cfg, scfg: ServeConfig, n_steps: int,
             logits, caches = decode_step(params, st.tokens, caches,
                                          st.cur_pos, cfg,
                                          impl=scfg.attn_impl,
-                                         page_table=table)
+                                         page_table=table, policy=policy)
             bad = active & ~torch.isfinite(logits).all(dim=-1)
             active = active & ~bad
             nxt = select_token(logits, mask, scfg, generator)
@@ -497,7 +501,7 @@ def _dup_row0(real, vals):
     return torch.where(real[:, None], vals, vals[0:1])
 
 
-def make_paged_admit_step(cfg, scfg: ServeConfig):
+def make_paged_admit_step(cfg, scfg: ServeConfig, *, policy=None):
     """admit_step(params, batch, caches, state, pages, slots, pos0, budget,
     eos, real, pin) -> (first_tokens (n,), caches, state, pages, rows).
 
@@ -524,7 +528,8 @@ def make_paged_admit_step(cfg, scfg: ServeConfig):
         n, S = tokens.shape
         # the prompt's K/V in absolute-position order, ready to pack
         logits, fresh, fresh_ssm = prefill_kv(params, tokens, cfg,
-                                              impl=scfg.attn_impl)
+                                              impl=scfg.attn_impl,
+                                              policy=policy)
         mask = scfg.logit_mask(cfg, logits.device)
         if mask is not None:
             logits = logits + mask.to(logits.dtype)
@@ -554,7 +559,8 @@ def make_paged_admit_step(cfg, scfg: ServeConfig):
     return admit_step
 
 
-def make_cached_admit_step(cfg, scfg: ServeConfig, n_prefix_pages: int):
+def make_cached_admit_step(cfg, scfg: ServeConfig, n_prefix_pages: int, *,
+                           policy=None):
     """admit_step(params, batch, caches, state, pages, slots, pos0, budget,
     eos, real, prefix_pids, pin) -> (first_tokens, caches, state, pages,
     rows) — shared-prefix admission.
@@ -593,7 +599,8 @@ def make_cached_admit_step(cfg, scfg: ServeConfig, n_prefix_pages: int):
         prefix_kv = {p: (gather(view.k), gather(view.v))
                      for p, view in caches.kv.items()}
         logits, ys = prefix_prefill(params, tokens, prefix_kv, cfg,
-                                    prefix_len=Lp, impl=scfg.attn_impl)
+                                    prefix_len=Lp, impl=scfg.attn_impl,
+                                    policy=policy)
         del prefix_kv
         mask = scfg.logit_mask(cfg, logits.device)
         if mask is not None:
@@ -780,7 +787,7 @@ def _spec_window_bad(logits, st: SlotState, active):
 
 
 def make_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
-                           window: int, ngram: int):
+                           window: int, ngram: int, *, policy=None):
     """spec_chunk(params, caches, state, draft) ->
     (caches, state, draft, tokens (Tw, B, W), emitted (Tw, B, W),
     poisoned (B,)).
@@ -810,7 +817,8 @@ def make_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
             q_toks = torch.cat([st.tokens[:, None], drafts], dim=1)
             logits, caches = verify_step(params, q_toks, caches, st.cur_pos,
                                          cfg, impl=scfg.attn_impl,
-                                         write_limit=st.remaining)
+                                         write_limit=st.remaining,
+                                         policy=policy)
             bad = _spec_window_bad(logits, st, st.active)
             if mask is not None:
                 logits = logits + mask.to(logits.dtype)
@@ -831,7 +839,8 @@ def make_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
 
 
 def make_paged_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
-                                 window: int, ngram: int, page_size: int):
+                                 window: int, ngram: int, page_size: int, *,
+                                 policy=None):
     """spec_chunk(params, caches, state, pages, draft) ->
     (caches, state, pages, draft, tokens (Tw, B, W), emitted, poisoned,
     ctr (4,) int32).
@@ -910,7 +919,7 @@ def make_paged_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
             q_toks = torch.cat([st.tokens[:, None], drafts], dim=1)
             logits, caches = verify_step(params, q_toks, caches, st.cur_pos,
                                          cfg, impl=scfg.attn_impl,
-                                         page_table=table)
+                                         page_table=table, policy=policy)
             bad = _spec_window_bad(logits, st, active)
             if mask is not None:
                 logits = logits + mask.to(logits.dtype)
@@ -936,6 +945,45 @@ def make_paged_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
                 poisoned, ctr)
 
     return spec_chunk
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel programs
+# ---------------------------------------------------------------------------
+
+
+def tp_program(build_local, cfg, group):
+    """One tensor-sharded serving program: the counterpart of the
+    reference's ``_tp_program`` (a fully-manual ``shard_map`` of the
+    single-device program).
+
+    ``build_local(local_cfg)`` returns the program built by the *same*
+    ``make_*`` the single-device path uses, on the shard-local model
+    (``distributed.sharding.tp_local_cfg``: heads and ``d_ff`` divided by
+    tp), with ``policy=TP_POLICY``.  The returned callable takes the
+    single-device program's arguments, each either a
+    :class:`~repro_torch.distributed.PerShard` (params per
+    ``tp_param_specs``, caches per ``tp_cache_specs``, each shard's replica
+    of the slot, page and draft state, its generator) or one value every
+    shard reads (token batches, slot indices), and runs the ``group``'s
+    shards in lockstep: each updates its own cache and replicas in place,
+    and the policy's two sums a layer keep every replicated output
+    identical across shards.  It returns the program's output tuple with
+    each entry a ``PerShard``; the caller fetches shard 0's.  One call is
+    one dispatch, as at tp=1.
+    """
+    from ..distributed.sharding import PerShard, tp_local_cfg
+
+    fn = build_local(tp_local_cfg(cfg, group.tp))
+
+    def program(*args):
+        shard_args = [[a[r] if isinstance(a, PerShard) else a for a in args]
+                      for r in range(group.tp)]
+        outs = group.run(fn, shard_args)
+        return tuple(PerShard(o[i] for o in outs)
+                     for i in range(len(outs[0])))
+
+    return program
 
 
 # ---------------------------------------------------------------------------

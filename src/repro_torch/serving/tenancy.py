@@ -25,9 +25,15 @@ Port of ``repro.serving.tenancy``.  The paper's stack maps onto one card so:
                               devices, co-resident tenants summed
 
 Where the reference builds a ``jax.sharding.Mesh``, the port returns a numpy
-object array of ``torch.device`` of the same shape; nothing here uses
-``torch.distributed``.  Tensor parallelism (``remesh``) is not ported
-(ROADMAP.md Queue 1 item 12), so live state is never sharded.
+object array of ``torch.device`` of the same shape (axes ``("data",
+"model")`` for :meth:`VirtualAcceleratorPool.mesh_for`, ``("tp",)`` for
+``tp_mesh_for``); nothing here uses ``torch.distributed``.  A lease's
+logical cores on one card are one device, so placing state by
+``state_specs`` checks each spec against the lease's width, as a
+``NamedSharding`` would, and moves no byte; a tensor-parallel batcher
+splits its own state over the lease's cores
+(``ContinuousBatcher.remesh``, driven by :meth:`ServingExecutor.
+register_remesh`).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from ..core.events import RequestRecord
 from ..core.hrp import HRPError, Lease, ResourcePool
 from ..core.hypervisor import Hypervisor, TenantSpec
 from ..device import resolve_device, tree_to_device
+from ..distributed.sharding import P, spec_map
 from ..obs import Telemetry
 from .kv_cache import kv_cache_bytes, paged_kv_cache_bytes
 
@@ -184,6 +191,50 @@ def _example(spec: Any, device: torch.device) -> Any:
     return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
 
 
+#: the axis names of :meth:`VirtualAcceleratorPool.mesh_for`'s array, as the
+#: reference names its ``Mesh``
+MESH_AXES = ("data", "model")
+
+
+def check_state_specs(tree, specs, mesh: np.ndarray) -> None:
+    """Raise ValueError where placing ``tree`` by ``specs`` (a tree of
+    :class:`~repro_torch.distributed.P` leaves) over ``mesh``'s
+    ``("data", "model")`` axes would fail as ``jax.device_put`` with a
+    ``NamedSharding`` fails: an unknown or repeated axis, more spec entries
+    than the leaf has dimensions, or a dimension its axes do not divide."""
+    sizes = dict(zip(MESH_AXES, np.asarray(mesh, dtype=object).shape))
+
+    def check(spec: P, leaf) -> None:
+        if not isinstance(leaf, torch.Tensor):
+            return
+        if len(spec) > leaf.dim():
+            raise ValueError(
+                f"spec {spec!r} has {len(spec)} entries for a leaf of rank "
+                f"{leaf.dim()}")
+        seen = set()
+        for dim, axes in enumerate(spec):
+            if axes is None:
+                continue
+            names = axes if isinstance(axes, tuple) else (axes,)
+            n = 1
+            for name in names:
+                if name not in sizes:
+                    raise ValueError(
+                        f"spec {spec!r} names axis {name!r}; the lease's "
+                        f"mesh has axes {MESH_AXES}")
+                if name in seen:
+                    raise ValueError(f"spec {spec!r} uses axis {name!r} twice")
+                seen.add(name)
+                n *= sizes[name]
+            if leaf.shape[dim] % n:
+                raise ValueError(
+                    f"spec {spec!r} splits dimension {dim} of a leaf of shape "
+                    f"{tuple(leaf.shape)} {n} ways; {n} does not divide "
+                    f"{leaf.shape[dim]}")
+
+    spec_map(check, specs, tree)
+
+
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -260,13 +311,13 @@ class TwoStageCompiler:
         """Resize ``tenant`` to ``n_cores``; return (program, migrated state,
         timing breakdown).  Raises if the static stage didn't cover
         ``n_cores`` (the paper's design rule: IFPs are pre-generated for
-        every allocatable core count).  The copies are enqueued on the
-        stream, not waited for; on one card every logical core is the same
-        device and no byte moves."""
-        if state_specs is not None:
-            raise NotImplementedError(
-                "sharded live state needs tensor parallelism, which is not "
-                "ported yet: ROADMAP.md Queue 1 item 12")
+        every allocatable core count).  ``state_specs`` (a tree of
+        :class:`~repro_torch.distributed.P`) places the tree by spec over
+        the lease's ``("data", "model")`` array: each spec is checked
+        against the lease's width (:func:`check_state_specs`), and the tree
+        goes to the lease's device.  The copies are enqueued on the stream,
+        not waited for; on one card every logical core is the same device
+        and no byte moves."""
         t0 = self._clock()
         lease = self.pool.resize(tenant, n_cores)
         prog = self.lookup(key, n_cores)
@@ -278,8 +329,10 @@ class TwoStageCompiler:
         t1 = self._clock()
         migrated = live_state
         if live_state is not None:
-            migrated = tree_to_device(live_state,
-                                    self.pool.mesh_for(lease).flat[0])
+            mesh = self.pool.mesh_for(lease)
+            if state_specs is not None:
+                check_state_specs(live_state, state_specs, mesh)
+            migrated = tree_to_device(live_state, mesh.flat[0])
         t2 = self._clock()
         timing = {
             "t_lookup": t1 - t0,
@@ -406,8 +459,9 @@ class ServingExecutor:
         """Where the tenant's lease-driven device changes land: when the
         hypervisor resizes the lease of a tenant managed outside the program
         cache (``artifact=None``), ``exec_resize`` hands the callback the
-        flat device array of the new lease (``tp_mesh_for``).  The port's
-        batcher has no ``remesh`` yet (ROADMAP.md Queue 1 item 12)."""
+        flat device array of the new lease (``tp_mesh_for``), typically
+        ``lambda mesh: batcher.remesh(mesh=mesh)``: a lease of n cores
+        shards the tenant's decode n ways, re-meshed between two chunks."""
         self._remesh_cbs[tenant] = fn
 
     def register_fault_sink(self, tenant: str,

@@ -167,17 +167,15 @@ def _quarantine_partition(b):
 
 
 def test_guards_build_in_the_port(models):
-    """watchdog_s and audit=True are ported: the batcher builds with both
-    and only tp > 1 is still refused."""
+    """watchdog_s and audit=True are ported: the batcher builds with both,
+    at tp=1 and at tp=2 (tensor parallelism is ported too)."""
     _, params = models
     _, cfg = _configs()
-    b = ContinuousBatcher(params, cfg, ServingConfig(
-        **BASE, paged=True, page_size=8, watchdog_s=1.0, audit=True),
-        device="cpu")
-    assert b._audit and b._watchdog_s == 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        ContinuousBatcher(params, cfg, ServingConfig(
-            **BASE, tp=2, attn_impl="torch"), device="cpu")
+    for tp in (1, 2):
+        b = ContinuousBatcher(params, cfg, ServingConfig(
+            **BASE, paged=True, page_size=8, watchdog_s=1.0, audit=True,
+            tp=tp, attn_impl="torch"), device="cpu")
+        assert b._audit and b._watchdog_s == 1.0 and b.tp == tp
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])

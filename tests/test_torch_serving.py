@@ -200,7 +200,6 @@ BAD_CONFIGS = {
     "max_len<=prompt_len": dict(max_len=8),
     "chunk=0": dict(chunk=0),
     "tp=0": dict(tp=0),
-    "tp>1 with kernels": dict(tp=2, attn_impl="KERNEL"),
     "unknown impl": dict(attn_impl="flash"),
     "page_size=0": dict(paged=True, page_size=0, attn_impl="ORACLE"),
     "n_pages=0": dict(paged=True, n_pages=0, attn_impl="ORACLE"),
@@ -227,23 +226,45 @@ def test_serving_config_rejects_what_jax_rejects(case):
         ServingConfig(**_impl(kw, {"KERNEL": "cuda", "ORACLE": "torch"}))
 
 
+# rules the port deliberately drops (ROADMAP.md Queue 3): the reference
+# refuses, the port builds
+PORT_ALLOWS = {
+    # the port's kernels compute the same function on a shard's heads
+    "tp>1 with kernels": dict(tp=2, attn_impl="KERNEL"),
+}
+
+
+@pytest.mark.parametrize("case", list(PORT_ALLOWS))
+def test_serving_config_accepts_what_jax_refuses(case):
+    kw = PORT_ALLOWS[case]
+    with pytest.raises(ValueError):
+        JaxServingConfig(**_impl(kw, {"KERNEL": "pallas", "ORACLE": "xla"}))
+    config = ServingConfig(**_impl(kw, {"KERNEL": "cuda", "ORACLE": "torch"}))
+    assert config.tp == 2 and config.attn_impl == "cuda"
+
+
 def test_serving_config_defaults_to_the_kernels():
     assert ServingConfig(**BASE).attn_impl == "cuda"
     assert ServeConfig(max_len=8).attn_impl == "cuda"
 
 
-UNPORTED = {
+TP_MODES = {
     "tp": dict(tp=2, attn_impl="torch"),
+    "tp with kernels": dict(tp=2),
 }
 
 
-@pytest.mark.parametrize("mode", list(UNPORTED))
-def test_unported_modes_raise_naming_roadmap(models, mode):
+@pytest.mark.parametrize("mode", list(TP_MODES))
+def test_tp_builds_on_the_cpu(models, mode):
+    """Tensor parallelism is ported: a tp=2 batcher builds on the CPU, with
+    two shards' params, caches of half the kv heads each and a replica of
+    the slot state a shard (``tests/test_torch_tp_serving.py`` serves)."""
     _, params = models
     _, cfg = _configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        ContinuousBatcher(params, cfg, ServingConfig(**BASE, **UNPORTED[mode]),
+    b = ContinuousBatcher(params, cfg, ServingConfig(**BASE, **TP_MODES[mode]),
                           device="cpu")
+    assert b.tp == 2 and len(b.params) == len(b.caches) == len(b.state) == 2
+    assert all(c.kv["0"].k.shape[3] == cfg.n_kv_heads // 2 for c in b.caches)
 
 
 @pytest.mark.parametrize("mode", ["paged", "paged+prefix_cache"])

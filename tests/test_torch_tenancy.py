@@ -525,15 +525,25 @@ def test_tree_to_device_keeps_structure():
     assert meta["box"].t.device.type == "meta"
 
 
-def test_sharded_state_specs_are_not_ported():
+def test_state_specs_place_by_the_lease_width():
+    """``state_specs`` place the live tree by spec over the lease's
+    ("data", "model") array: a spec its width divides moves the tree to the
+    lease's device, one it does not divide is refused as the reference's
+    NamedSharding refuses it."""
+    from repro_torch.distributed import P
+
     pool = _vpool(4)
     comp = TwoStageCompiler(pool)
     comp.static_compile("k", lambda x: x, (TensorSpec((2,), torch.float32),),
-                        lease_sizes=[2])
+                        lease_sizes=[2, 4])
     pool.lease("t", 1)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        comp.reconfigure("t", "k", 2, live_state={"a": torch.ones(1)},
-                         state_specs={"a": "sharded"})
+    state = {"a": torch.ones(2, 3)}
+    _, moved, _ = comp.reconfigure("t", "k", 2, live_state=state,
+                                   state_specs={"a": P("data")})
+    assert torch.equal(moved["a"], state["a"]) and moved["a"].device == CPU
+    with pytest.raises(ValueError, match="does not divide"):
+        comp.reconfigure("t", "k", 4, live_state=state,
+                         state_specs={"a": P("data")})
 
 
 def _serving_script(pkg):
