@@ -70,7 +70,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
               hd 128, G 8, N 128, also with slow decay) and at hd 128, N 16,
               each in f32 and bf16; their bf16 times (and qwen2-vl's and
               whisper's decode) logged beside the bound and SDPA (none for
-              the SSD).
+              the SSD).  Training: the flash kernel's log-sum-exp
+              (``return_lse=True``, f32 (B, Sq, H)) against the plain
+              version's and the reference's blockwise units at the training
+              shape (8 x 512, 16:8, dh 128), windowed, q_offset, ragged, GQA
+              8:1 at dh 64, non-causal and rows without a valid key (-1e30),
+              in f32 and bf16; ``FlashAttentionFn``'s dq, dk, dv against
+              autograd of naive attention in the reference test's four
+              cases at dh 128 (relative to the largest gradient: 2e-4 f32,
+              2e-2 bf16); then the kernel with its LSE, the torch backward
+              and forward + backward (beside SDPA's, a yardstick) timed at
+              the training shape (``train_times``).
 4. model    — full-width qwen3-0.6b cut to 2 layers, f32: prefill + 4 decode
               steps with attn_impl="cuda" against attn_impl="torch"; the
               same decode on a shuffled paged pool (``page_table=``); one
@@ -92,6 +102,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
               difference (see ``check_moe_model``).  A prefill of 2 x 256
               tokens and 4 decode steps each; the flash and decode kernels
               launched once a layer on the cuda route only.
+4e. train   — full-width qwen3-0.6b and deepseek-moe-16b, each cut to 2
+              layers, f32: the loss and gradients of ``make_loss_fn`` with
+              attn_impl="flash" (the kernel under ``FlashAttentionFn``)
+              against "torch" (each leaf within 1e-4 of its largest), then
+              one ``make_train_step`` step each at lr 4e-5 (loss, aux and
+              grad norm within 1e-5, params within rtol 1e-3 + atol 1e-4);
+              the flash kernel launched once an attention layer a pass.
 4d. families — after phase 6, one model at a time: qwen2-vl-72b at full
               width, 2 layers in f32, then 16 layers in bf16 (weights made
               once, kept for 5h); whisper-base whole in f32 and bf16; one
@@ -224,6 +241,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
               reports token agreement with tp=1, tokens/s, wall ms a chunk
               and each resize's ``t_remesh``, and the host cost of the
               shards' turns (µs a shard a sum, no device work).
+5l. train   — after phase 6's serving traces: qwen3-0.6b uncut, bf16
+              params, f32 moments, attn_impl="flash", lr 1e-3, on step 0's
+              ``data.make_batch(seq_len=512, batch=8, seed=0)``: (a) 10
+              steps, the loss finite and falling; (b) grad_accum=2 against
+              (a)'s first step; (c) remat="full": the same first loss, a
+              lower peak; (d) quantize_opt=True: the peak lower by at least
+              half the moments' (8 - 2.03) B a parameter; (e) 5 steps, an
+              ``AsyncCheckpointer`` save, a restore into fresh tensors bit
+              for bit and the next step's loss against (a)'s sixth.  Prints
+              tokens/s, ms a step, peak memory beside params + grads +
+              moments, and the flash launches (28 a step a microbatch, 56
+              under full remat); then a window of 3 steps untraced and
+              under ``torch.profiler`` (device and host activity): busy
+              time, idle share, device time split into the flash forward,
+              the flash backward in torch (the ``flash.backward`` range of
+              ``FlashAttentionFn.backward``), cuBLAS and the rest.
 6. trace    — the first rounds of the dense, the paged, the spec, the
               Mamba-2 and the MoE path,
               all untraced first, then each under ``torch.profiler``: device
@@ -258,7 +291,8 @@ SSD scan (on views of one xBC tensor), matmul (the tenant program's
 shape and a decode-shaped one), paged decode and rmsnorm (the tenant
 program's (2048, 1024)) kernels, their plain versions and their
 PyTorch calls at the main paths' bf16 shapes (phase 3's timings without
-its correctness cases), against
+its correctness cases, the training rows of ``train_times`` where the
+tree's flash wrapper takes ``return_lse``), against
 the ``src/repro_torch`` beside the script: a copy in another checkout
 times that checkout's kernels, so two trees compare in turns in one chip
 call.  Prints one JSON line ``{"kernel_times": ...}``.
@@ -644,6 +678,94 @@ def family_times(gen, rng):
     return [row for row, _ in rows]
 
 
+def train_times(gen):
+    """The flash kernel at the training shape (8 x 512, 16:8, dh 128, bf16)
+    with its log-sum-exp, beside the plain version (with LSE) and SDPA's
+    forward; the torch backward (``_flash_bwd``) alone on the kernel's
+    output and LSE; and forward + backward through ``FlashAttentionFn``,
+    through autograd of ``naive_attention`` (plain) and of SDPA (a
+    yardstick only).  Empty for a tree whose flash wrapper has no
+    ``return_lse`` (an older tree under ``--kernel-times``)."""
+    import inspect
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    if "return_lse" not in inspect.signature(ops.flash_attention).parameters:
+        return []
+    from repro_torch.models.attention import (
+        _flash_bwd, flash_attention_train, naive_attention)
+
+    bf16 = torch.bfloat16
+    B, S, H, Hkv, dh = TRAIN_B, TRAIN_S, 16, 8, 128
+    q = _rand(gen, (B, S, H, dh), bf16)
+    k = _rand(gen, (B, S, Hkv, dh), bf16)
+    v = _rand(gen, (B, S, Hkv, dh), bf16)
+    sets = copies_over_l2([q, k, v])
+    lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
+    pairs = S * (S + 1) // 2
+    qkvo = 2 * (2 * B * S * H * dh + 2 * B * S * Hkv * dh)
+    lse_bytes = 4 * B * S * H
+    fwd_flops = 4.0 * dh * pairs * B * H
+    bms, by = bound_ms(qkvo + lse_bytes, fwd_flops)
+    fwd = dict(
+        name="flash_attention +lse, train 8 x 512",
+        ms=device_ms(lambda a, b, c: ops.flash_attention(
+            a, b, c, return_lse=True), sets),
+        plain_ms=device_ms(lambda a, b, c: ref.flash_attention_ref(
+            a.transpose(1, 2), b.transpose(1, 2), c.transpose(1, 2),
+            return_lse=True), sets),
+        library_ms=device_ms(lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, is_causal=True, enable_gqa=True), lib_sets),
+        bound_ms=bms, bound_by=by)
+
+    out, lse = ops.flash_attention(q, k, v, return_lse=True)
+    do = _rand(gen, (B, S, H, dh), bf16)
+    bsets = copies_over_l2([q, k, v, out, lse, do])
+    # backward: read q, k, v, out, dO and the LSE, write dq, dk, dv; the
+    # products recompute QK^T and make dV, dP, dQ, dK: 10 dh a pair
+    bwd_bytes = qkvo + 2 * B * S * H * dh + lse_bytes
+    bms, by = bound_ms(bwd_bytes, 2.5 * fwd_flops)
+    bwd = dict(
+        name="flash backward (torch _flash_bwd), train 8 x 512",
+        ms=device_ms(lambda a, b, c, o, l, d: _flash_bwd(
+            a, b, c, o, l, d, causal=True, window=None, q_offset=0,
+            block_k=512), bsets, iters=10),
+        plain_ms=None, library_ms=None, bound_ms=bms, bound_by=by)
+
+    def grad_sets(layout):
+        return [tuple(t.clone().requires_grad_(True) for t in s[:3])
+                + (s[5],) for s in (
+                    [tuple(t.transpose(1, 2).contiguous() for t in s)
+                     for s in bsets] if layout else bsets)]
+
+    def fb(fn):
+        def run(a, b, c, d):
+            torch.autograd.grad(fn(a, b, c), (a, b, c), d)
+        return run
+
+    bms, by = bound_ms(qkvo + bwd_bytes + 2 * lse_bytes, 3.5 * fwd_flops)
+    both = dict(
+        name="flash forward + backward (FlashAttentionFn), train 8 x 512",
+        ms=device_ms(fb(lambda a, b, c: flash_attention_train(a, b, c)),
+                     grad_sets(False), iters=10),
+        plain_ms=device_ms(fb(lambda a, b, c: naive_attention(
+            a, b, c, causal=True)), grad_sets(False), iters=10),
+        library_ms=device_ms(fb(lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, is_causal=True, enable_gqa=True)), grad_sets(True),
+            iters=10),
+        bound_ms=bms, bound_by=by)
+    for row in (fwd, bwd, both):
+        row.update(route="cuda" if row is fwd else "torch",
+                   source="src/repro_torch/csrc/flash_attention.cu"
+                   if row is fwd else "src/repro_torch/models/attention.py",
+                   replaces="src/repro/kernels/flash_attention/kernel.py:99"
+                   if row is fwd else "src/repro/models/attention.py:309")
+    return [fwd, bwd, both]
+
+
 def _log_time_row(row, card: str) -> None:
     library = ("none" if row["library_ms"] is None
                else f"{row['library_ms'] * 1e3:.2f} us")
@@ -651,8 +773,10 @@ def _log_time_row(row, card: str) -> None:
              else "")
     if "floor_ms" in row:
         extra += f", {row['floor_ms'] * 1e3:.2f} us one-element fill"
+    plain = ("none" if row["plain_ms"] is None
+             else f"{row['plain_ms'] * 1e3:.2f} us")
     log(f"  {row['name']}: {row['ms'] * 1e3:.2f} us kernel, "
-        f"{row['plain_ms'] * 1e3:.2f} us plain, {library} library{extra}, "
+        f"{plain} plain, {library} library{extra}, "
         f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}) [{card}]")
 
 
@@ -713,6 +837,7 @@ def kernel_times(card: str) -> int:
                        _rand(gen, (1024,), bf16))
     rows = [flash, decode, prefix, verify, ssd, mm, mm_decode, paged, rms]
     rows += group1_times(gen, rng)
+    rows += train_times(gen)
     for row in rows:
         _log_time_row(row, card)
     print(json.dumps({"kernel_times": {"root": str(ROOT), "card": card,
@@ -4017,6 +4142,465 @@ def _hybrid_phases(card: str) -> None:
 
 
 # the SSD scan's bf16 passes, in launch order
+
+# ---------------------------------------------------------------------------
+# training: the flash kernel's log-sum-exp, FlashAttentionFn, the train step
+# (phase 4e), full-width training (phase 5l) and its trace
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 8, 512          # phase 5l's batch: 8 rows of 512 tokens
+TRAIN_LR = 1e-3                    # phase 5l: constant, on a fixed batch
+# phase 4e: one AdamW step moves an element by about +-lr whatever its
+# gradient's size (m_hat / sqrt(v_hat) = sign(g) at the first step), so a
+# gradient at rounding level whose sign parts the two routes parts the
+# params by 2 lr; at this lr that stays inside the reference test's atol
+# (1e-4; tests/test_attention.py::TestFlashVJP::test_train_step_with_flash_impl)
+CHECK_LR = 4e-5
+GRAD_CASES = ((True, None, 0), (False, None, 0), (True, 16, 0), (True, None, 32))
+
+
+def check_flash_lse(gen):
+    """The flash kernel's log-sum-exp (``return_lse=True``) against the
+    plain version's (``ref.flash_attention_ref``) and, for its units,
+    against the reference's blockwise ``_flash_fwd_lse`` in torch, with
+    the output on every row that has a valid key: the training shape
+    (8 x 512, 16:8, dh 128), windowed, q_offset > 0, ragged, GQA 8:1 at dh
+    64, non-causal, and rows without a valid key (-1e30 in both), each in
+    f32 (<= F32_TOL) and bf16 (<= BF16_TOL).  Returns the worst LSE error."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops, ref
+    from repro_torch.models.attention import _flash_fwd_lse
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, S, H, Hkv, dh = (TRAIN_B, TRAIN_S) + (16, 8, 128)
+    cases = [("train 8x512 16:8", B, S, S, H, Hkv, dh, {}),
+             ("window=64", 2, S, S, H, Hkv, dh, dict(window=64)),
+             ("q_offset=200", 2, 100, 300, H, Hkv, dh, dict(q_offset=200)),
+             ("ragged Sq=Sk=77", 3, 77, 77, H, Hkv, dh, {}),
+             ("gqa 8:1 dh=64", 2, 96, 96, 8, 1, 64, {}),
+             ("non-causal", 2, 130, 200, H, Hkv, dh, dict(causal=False)),
+             ("rows without keys", 2, 96, 40, H, Hkv, dh, dict(window=16))]
+    worst = 0.0
+    for dtype, tag, tol in ((f32, "f32", F32_TOL), (bf16, "bf16", BF16_TOL)):
+        for name, b, sq, sk, h, hkv, d, kw in cases:
+            causal = kw.get("causal", True)
+            window, q_offset = kw.get("window"), kw.get("q_offset", 0)
+            q = _rand(gen, (b, sq, h, d), dtype)
+            k = _rand(gen, (b, sk, hkv, d), dtype)
+            v = _rand(gen, (b, sk, hkv, d), dtype)
+            out, lse = ops.flash_attention(q, k, v, causal=causal,
+                                           window=window, q_offset=q_offset,
+                                           return_lse=True)
+            want, want_lse = ref.flash_attention_ref(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=causal, window=window, q_offset=q_offset,
+                return_lse=True)
+            want, want_lse = want.transpose(1, 2), want_lse.transpose(1, 2)
+            _, blk_lse = _flash_fwd_lse(q.float(), k.float(), v.float(),
+                                        causal=causal, window=window,
+                                        q_offset=q_offset, block_k=512)
+            torch.cuda.synchronize()
+            live = want_lse > -1e29                       # (B, Sq, H)
+            err = (lse - want_lse).abs().max().item()
+            units = (blk_lse - want_lse).abs().max().item()
+            out_err = ((out.float() - want.float()).abs().amax(-1)
+                       * live).max().item()
+            worst = max(worst, err)
+            log(f"  flash lse {name:<20} {tag:<4} lse err={err:.3e} "
+                f"(blockwise units {units:.3e}) out err={out_err:.3e} on "
+                f"{int(live.sum())} of {live.numel()} rows (tol {tol:g})")
+            check(lse.dtype == torch.float32 and lse.shape == (b, sq, h),
+                  f"flash lse {name} {tag}: {lse.dtype} {tuple(lse.shape)}")
+            check(bool(torch.isfinite(lse).all()), f"flash lse {name}: non-finite")
+            check(err <= tol and units <= F32_TOL,
+                  f"flash lse {name} {tag}: error {err}, units {units}")
+            check(out_err <= tol, f"flash lse {name} {tag}: out error {out_err}")
+            if not bool(live.all()):
+                check(bool((lse[~live] == -1e30).all()),
+                      f"flash lse {name} {tag}: a row without keys is not -1e30")
+    return worst
+
+
+def check_flash_grads(gen):
+    """``FlashAttentionFn`` (the kernel's forward with its LSE, the torch
+    backward) against autograd through ``naive_attention`` on f32 copies of
+    the same inputs, in the reference test's four cases (causal;
+    non-causal; window 16; q_offset 32) at dh 128, 2 x 96 rows, 4:2 heads,
+    key blocks of 40 (a padded tail).  The loss is sum(out^2).  Error: max
+    |dq, dk, dv - reference| over the reference's largest magnitude, <= 2e-4
+    in f32 (the reference test's tolerance) and <= BF16_TOL in bf16 (the
+    output and the gradients are rounded to bf16).  Returns the worst."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.attention import flash_attention_train, naive_attention
+
+    worst = {}
+    n0 = ops.flash_attention.launches
+    for dtype, tag, tol in ((torch.float32, "f32", 2e-4),
+                            (torch.bfloat16, "bf16", BF16_TOL)):
+        for causal, window, q_offset in GRAD_CASES:
+            B, Sq, H, Hkv, dh = 2, 96, 4, 2, 128
+            Sk = Sq + q_offset
+            base = [_rand(gen, (B, s, h, dh), dtype)
+                    for s, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv))]
+            ins = [t.clone().requires_grad_(True) for t in base]
+            out = flash_attention_train(*ins, causal=causal, window=window,
+                                        q_offset=q_offset, block_k=40)
+            got = torch.autograd.grad((out.float() ** 2).sum(), ins)
+            refs = [t.float().requires_grad_(True) for t in base]
+            want_out = naive_attention(*refs, causal=causal, window=window,
+                                       q_offset=q_offset)
+            want = torch.autograd.grad((want_out ** 2).sum(), refs)
+            torch.cuda.synchronize()
+            errs = [((g.float() - w).abs().max() / w.abs().max()).item()
+                    for g, w in zip(got, want)]
+            label = f"causal={causal} window={window} q_offset={q_offset}"
+            log(f"  FlashAttentionFn {tag:<4} {label:<38} rel err dq "
+                f"{errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e} (tol {tol:g})")
+            check(all(e <= tol for e in errs),
+                  f"FlashAttentionFn {tag} {label}: gradient error {errs}")
+            worst[tag] = max(worst.get(tag, 0.0), *errs)
+    check(ops.flash_attention.launches - n0 == 2 * len(GRAD_CASES),
+          "FlashAttentionFn did not launch the kernel once a forward")
+    return worst
+
+
+def _leaf_rel_err(a, b) -> float:
+    """max |a - b| over max |b| of one leaf (0 for an all-zero ``b``)."""
+    d = (a.float() - b.float()).abs().max().item()
+    m = b.float().abs().max().item()
+    return d / m if m > 0 else d
+
+
+def check_train_routes(card: str, arch: str, *, n_layers: int = 2, B: int = 4,
+                       S: int = 256):
+    """Phase 4e: ``arch`` at full width cut to ``n_layers``, f32 (TF32 off):
+    the loss and gradients of ``attn_impl="flash"`` (the kernel) against
+    ``"torch"`` before the update (each leaf's error relative to its largest
+    magnitude <= F32_TOL), then one ``make_train_step`` step of each at
+    ``CHECK_LR``: loss, aux and grad norm within 1e-5 relative, updated
+    params within rtol 1e-3, atol 1e-4; the flash kernel launched once an
+    attention layer a pass."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import (
+        TrainerConfig, batch_to_torch, make_loss_fn, make_train_step,
+        value_and_grad)
+    from repro_torch.tree import flatten_with_path
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                              dtype="float32")
+    params = init_params(cfg, 0, device="cuda")
+    opt = adamw_init(params)
+    batch = batch_to_torch(make_batch(cfg, seq_len=S, batch=B, step=0), "cuda")
+    n_attn, _ = _layer_counts(cfg)
+    tcfgs = {impl: TrainerConfig(attn_impl=impl, lr=CHECK_LR, loss_chunk=128)
+             for impl in ("torch", "flash")}
+
+    (_, m_t), g_t = value_and_grad(make_loss_fn(cfg, tcfgs["torch"]), params,
+                                   batch)
+    fa_ops.flash_attention.launches = 0
+    (_, m_f), g_f = value_and_grad(make_loss_fn(cfg, tcfgs["flash"]), params,
+                                   batch)
+    torch.cuda.synchronize()
+    check(fa_ops.flash_attention.launches == n_attn,
+          f"{arch} train: {fa_ops.flash_attention.launches} flash launches "
+          f"in a pass, expected {n_attn}")
+    worst_g, worst_key = 0.0, ""
+    for (key, a), (_, b) in zip(flatten_with_path(g_f), flatten_with_path(g_t)):
+        e = _leaf_rel_err(a, b)
+        if e > worst_g:
+            worst_g, worst_key = e, key
+    del g_t, g_f
+    log(f"  {arch} {n_layers} layers f32, {B} x {S}: loss flash "
+        f"{float(m_f['loss']):.6f} torch {float(m_t['loss']):.6f}, aux "
+        f"{float(m_f['aux']):.6f} / {float(m_t['aux']):.6f}; gradients: worst "
+        f"leaf {worst_key} at {worst_g:.3e} of its largest (tol {F32_TOL:g})")
+    check(worst_g <= F32_TOL, f"{arch} train: gradient error {worst_g} "
+          f"at {worst_key}")
+
+    out = {}
+    for impl in ("torch", "flash"):
+        p_new, _, m = make_train_step(cfg, tcfgs[impl])(params, opt, batch)
+        if impl == "torch":
+            out = (p_new, m)
+            continue
+        p_ref, m_ref = out
+        for key in ("loss", "aux", "grad_norm"):
+            a, b = float(m[key]), float(m_ref[key])
+            check(abs(a - b) <= 1e-5 * max(abs(b), 1e-6),
+                  f"{arch} train step: {key} {a} vs {b}")
+        worst_p = 0.0
+        for (key, a), (_, b) in zip(flatten_with_path(p_new),
+                                    flatten_with_path(p_ref)):
+            d = ((a.float() - b.float()).abs()
+                 - 1e-3 * b.float().abs()).max().item()
+            worst_p = max(worst_p, d)
+            check(d <= 1e-4, f"{arch} train step: {key} parts by {d} beyond "
+                  f"rtol 1e-3")
+        log(f"  {arch} train step at lr {CHECK_LR:g}: grad_norm "
+            f"{float(m['grad_norm']):.6f} / {float(m_ref['grad_norm']):.6f}, "
+            f"params within rtol 1e-3 + {worst_p:.2e} (atol 1e-4) [{card}]")
+    del params, opt, out
+    _free_device_memory()
+
+
+def _train_leg(step_fn, params, opt, batch, n_steps: int, *, on_step=None):
+    """``n_steps`` of ``step_fn`` from (params, opt) on ``batch``: returns
+    (params, opt, losses, grad norms, wall s of the steps after the first,
+    peak device memory).  ``on_step(i, params, opt)`` runs after step i."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, t1 = [], [], None
+    for i in range(n_steps):
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if i == 0:
+            t1 = time.perf_counter()
+        if on_step is not None:
+            on_step(i + 1, params, opt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1 if n_steps > 1 else float("nan")
+    return params, opt, losses, norms, wall, torch.cuda.max_memory_allocated()
+
+
+def serve_train_path(card: str):
+    """Phase 5l: qwen3-0.6b uncut, bf16 params, f32 moments,
+    ``attn_impl="flash"``, on ``make_batch(seq_len=512, batch=8, seed=0)``
+    (step 0's batch, fixed): (a) 10 steps, the loss finite and falling;
+    (b) ``grad_accum=2`` against (a)'s first step; (c) ``remat="full"``:
+    loss equal to (a)'s first, peak memory below (a)'s; (d)
+    ``quantize_opt=True``: peak memory lower by about the moments' (8 -
+    2.03) B a parameter; (e) 5 steps as (a)'s, an ``AsyncCheckpointer``
+    save after the fifth, restored into fresh tensors bit for bit, and the
+    next step's loss from it against (a)'s sixth.  Flash launches = 28 x
+    steps x microbatches (x 2 under full remat).  Returns (the flash
+    launches of (a), params, cfg, batch) for the trace."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import AsyncCheckpointer, restore
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import (
+        TrainerConfig, batch_to_torch, make_train_step)
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    cfg = get_config("qwen3-0.6b")
+    L = cfg.n_layers
+    params0 = init_params(cfg, 0, device="cuda")
+    batch = batch_to_torch(make_batch(cfg, seq_len=TRAIN_S, batch=TRAIN_B,
+                                      step=0, seed=0), "cuda")
+    n_param = sum(t.numel() for _, t in flatten_with_path(params0))
+    pbytes = _param_bytes(params0)
+    tokens = TRAIN_B * TRAIN_S
+
+    def step_fn(**kw):
+        return make_train_step(cfg, TrainerConfig(
+            attn_impl="flash", lr=TRAIN_LR, loss_chunk=128, **kw))
+
+    # warm-up: cuBLAS handles and lazily loaded kernels out of the legs
+    make_train_step(cfg, TrainerConfig(attn_impl="flash", loss_chunk=128))(
+        params0, adamw_init(params0), batch)
+    _free_device_memory()
+
+    n_a = 10
+    fa_ops.flash_attention.launches = 0
+    base = torch.cuda.memory_allocated()
+    _, _, loss_a, norm_a, wall_a, peak_a = _train_leg(
+        step_fn(), params0, adamw_init(params0), batch, n_a)
+    fa_a = fa_ops.flash_attention.launches
+    state_bytes = pbytes + 8 * n_param            # params + f32 m and v
+    log(f"  (a) {n_a} steps of {TRAIN_B} x {TRAIN_S} on one batch: loss "
+        f"{loss_a[0]:.4f} -> {loss_a[-1]:.4f}, grad norm {norm_a[0]:.3f} -> "
+        f"{norm_a[-1]:.3f}; {(n_a - 1) * tokens / wall_a:,.0f} tokens/s, "
+        f"{wall_a / (n_a - 1) * 1e3:.1f} ms a step; peak {_gib(peak_a)} "
+        f"({_gib(peak_a - base)} above the params and batch held before "
+        f"it); params {_gib(pbytes)} + grads {_gib(pbytes)} + f32 moments "
+        f"{_gib(8 * n_param)} = {_gib(state_bytes + pbytes)}; flash launches "
+        f"{fa_a} (= {L} x {n_a}) [{card}]")
+    check(all(np.isfinite(loss_a)), f"(a) non-finite loss {loss_a}")
+    check(loss_a[-1] < loss_a[0], f"(a) the loss did not fall: {loss_a}")
+    check(fa_a == L * n_a, f"(a) flash launches {fa_a} != {L} x {n_a}")
+
+    fa_ops.flash_attention.launches = 0
+    _, _, loss_b, norm_b, _, peak_b = _train_leg(
+        step_fn(grad_accum=2), params0, adamw_init(params0), batch, 1)
+    fa_b = fa_ops.flash_attention.launches
+    db = abs(loss_b[0] - loss_a[0]) / loss_a[0]
+    dn = abs(norm_b[0] - norm_a[0]) / norm_a[0]
+    log(f"  (b) grad_accum=2: loss {loss_b[0]:.5f} vs {loss_a[0]:.5f} "
+        f"(rel {db:.2e}), grad norm {norm_b[0]:.4f} vs {norm_a[0]:.4f} (rel "
+        f"{dn:.2e}), tol {BF16_TOL:g}; peak {_gib(peak_b)}")
+    check(db <= BF16_TOL and dn <= BF16_TOL, "(b) grad_accum=2 parts from (a)")
+    check(fa_b == L * 2, f"(b) flash launches {fa_b} != {L} x 2")
+
+    fa_ops.flash_attention.launches = 0
+    _, _, loss_c, norm_c, _, peak_c = _train_leg(
+        step_fn(remat="full"), params0, adamw_init(params0), batch, 1)
+    fa_c = fa_ops.flash_attention.launches
+    dn = abs(norm_c[0] - norm_a[0]) / norm_a[0]
+    log(f"  (c) remat=full: loss {loss_c[0]:.5f} vs {loss_a[0]:.5f}, grad "
+        f"norm rel {dn:.2e}; peak {_gib(peak_c)} vs (a)'s {_gib(peak_a)}; "
+        f"flash launches {fa_c} (= 2 x {L}: each layer's forward runs again "
+        f"in the backward)")
+    check(loss_c[0] == loss_a[0], "(c) remat=full changed the loss")
+    check(dn <= BF16_TOL, "(c) remat=full parts the grad norm from (a)")
+    check(peak_c < peak_a, "(c) remat=full did not lower the peak")
+    check(fa_c == 2 * L, f"(c) flash launches {fa_c} != 2 x {L}")
+
+    opt_q = adamw_init(params0, quantize=True)
+    qbytes = sum(t.numel() * t.element_size()
+                 for _, t in flatten_with_path((opt_q.m, opt_q.v)))
+    _, _, loss_d, _, _, peak_d = _train_leg(
+        step_fn(quantize_opt=True), params0, opt_q, batch, 1)
+    del opt_q
+    saved = peak_a - peak_d
+    want = 8 * n_param - qbytes
+    log(f"  (d) quantize_opt: loss {loss_d[0]:.5f}; peak {_gib(peak_d)}, "
+        f"{_gib(saved)} below (a)'s; the moments' own saving {_gib(want)} "
+        f"({qbytes / n_param:.3f} B a parameter against 8)")
+    # at the backward's peak one set of moments is alive; at the update's,
+    # the old and the new: the saving is one to two times the moments'
+    check(saved >= 0.5 * want,
+          f"(d) quantized moments saved {saved} bytes, expected about {want}")
+
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt = AsyncCheckpointer(str(ckpt_dir))
+    held = {}
+
+    def save_at_5(i, params, opt):
+        if i == 5:
+            t0 = time.perf_counter()
+            ckpt.save_async(5, {"params": params, "opt": opt})
+            held["snapshot_s"] = time.perf_counter() - t0
+            held["state"] = {"params": params, "opt": opt}
+
+    fa_ops.flash_attention.launches = 0
+    _train_leg(step_fn(), params0, adamw_init(params0), batch, 5,
+               on_step=save_at_5)
+    t0 = time.perf_counter()
+    ckpt.wait()
+    write_s = time.perf_counter() - t0
+    like = tree_map(torch.empty_like, held["state"])
+    t0 = time.perf_counter()
+    got = restore(str(ckpt_dir), like)
+    restore_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        flatten_with_path(got), flatten_with_path(held["state"])))
+    check(same, "(e) the restored state is not bit-equal to step 5's")
+    del held["state"], like
+    _, _, loss_e, _, _, _ = _train_leg(step_fn(), got["params"], got["opt"],
+                                       batch, 1)
+    fa_e = fa_ops.flash_attention.launches
+    de = abs(loss_e[0] - loss_a[5]) / loss_a[5]
+    log(f"  (e) AsyncCheckpointer at step 5 ({_gib(state_bytes)}): snapshot "
+        f"{held['snapshot_s']:.2f} s on the caller's thread, write finished "
+        f"{write_s:.2f} s after the fifth step, restore {restore_s:.2f} s, "
+        f"bit-equal; the next loss {loss_e[0]:.5f} vs the uninterrupted "
+        f"run's {loss_a[5]:.5f} (rel {de:.2e}, tol {BF16_TOL:g}); flash "
+        f"launches {fa_e} (= {L} x 6)")
+    check(de <= BF16_TOL, "(e) the resumed step parts from the uninterrupted")
+    check(fa_e == L * 6, f"(e) flash launches {fa_e} != {L} x 6")
+    del got
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    _free_device_memory()
+    return fa_a, params0, cfg, batch
+
+
+def trace_train_window(card: str, params, cfg, batch, n_steps: int = 3):
+    """Phase 6 (training): ``n_steps`` of phase 5l's step, untraced (after
+    one window that warms the allocator), then under ``torch.profiler``
+    (device and host activity): device busy time,
+    the idle share against the untraced wall time, and device time split
+    into the flash forward (its kernels), the flash backward in torch (the
+    kernels of ops inside ``FlashAttentionFn.backward``'s
+    ``flash.backward`` range), the optimizer (clip and AdamW, the
+    ``train.optimizer`` range of ``training.make_train_step``), cuBLAS and
+    the rest (elementwise, reductions, copies).  Fails unless the flash
+    kernel and the backward range ran."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import TrainerConfig, make_train_step
+
+    step = make_train_step(cfg, TrainerConfig(attn_impl="flash", lr=TRAIN_LR,
+                                              loss_chunk=128))
+
+    def window():
+        p, o = params, adamw_init(params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            p, o, _ = step(p, o, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    window()          # regrows the allocator's cache emptied after 5l
+    clean = window()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced = window()
+    spans, by_class = [], {}
+    bwd = "flash backward (torch)"
+    scopes = {"flash.backward": bwd,
+              "train.optimizer": "optimizer (clip + AdamW)"}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CPU:
+            scope = evt.cpu_parent
+            while scope is not None and scope.name not in scopes:
+                scope = scope.cpu_parent
+            if scope is not None:
+                cls = scopes[scope.name]
+                for k in evt.kernels:
+                    by_class[cls] = by_class.get(cls, 0.0) + k.duration
+                    old = _kernel_class(k.name)
+                    by_class[old] = by_class.get(old, 0.0) - k.duration
+            continue
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or evt.name in scopes):
+            continue
+        start, end = evt.time_range.start, evt.time_range.end
+        if end <= start:
+            continue
+        spans.append((start, end))
+        cls = _kernel_class(evt.name)
+        by_class[cls] = by_class.get(cls, 0.0) + (end - start)
+    if not spans:
+        log("  train window: device time not measured: the profiler saw no "
+            "CUDA kernels")
+        return
+    busy = _union_ms(spans)
+    log(f"  train window, {n_steps} steps of {TRAIN_B} x {TRAIN_S}: "
+        f"{len(spans)} device kernels, device busy {busy:.1f} ms "
+        f"({busy / n_steps:.1f} a step); wall {clean:.3f} s untraced "
+        f"({traced:.3f} s traced) -> device idle share "
+        f"{1 - busy * 1e-3 / clean:.3f} [{card}]")
+    total = sum(by_class.values())
+    for cls, us in sorted(by_class.items(), key=lambda kv: -kv[1]):
+        log(f"    {cls:<42} {us * 1e-3:9.2f} ms  {us / total:6.1%} of "
+            f"kernel time")
+    check(by_class.get("flash_attention", 0) > 0,
+          "train window: the flash kernel did not run")
+    check(by_class.get(bwd, 0) > 0,
+          "train window: no device time in the flash backward range")
+
+
 SSD_KERNELS = ("ssd_cumsum_kernel", "ssd_cb_kernel", "ssd_chunk_state_kernel",
                "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
 # the first match names the class (the SSD's f32 route is ssd_f32_kernel);
@@ -4237,6 +4821,12 @@ def main() -> int:
         "jamba-1.5-large (bf16):")
     for row in family_times(gen, np.random.default_rng(8)):
         _log_time_row(row, card)
+    log("  training: the flash kernel's log-sum-exp and FlashAttentionFn's "
+        "gradients, then their times at the training shape (bf16):")
+    check_flash_lse(gen)
+    check_flash_grads(gen)
+    for row in train_times(gen):
+        _log_time_row(row, card)
     torch.cuda.empty_cache()
 
     log("phase 4: model (cuda kernels) against the plain path")
@@ -4250,6 +4840,11 @@ def main() -> int:
         check_moe_model(card, arch, n_layers=2, dtype="float32")
     check_moe_model(card, "deepseek-moe-16b")
     check_moe_model(card, "mixtral-8x22b", n_layers=2)
+
+    log("phase 4e: train step at full width, 2 layers f32, the flash "
+        "kernel's route against the plain path")
+    check_train_routes(card, "qwen3-0.6b")
+    check_train_routes(card, "deepseek-moe-16b")
 
     log("phase 5: main path, qwen3-0.6b behind ContinuousBatcher")
     launches, (params, cfg) = serve_main_path(card)
@@ -4312,6 +4907,16 @@ def main() -> int:
             f"step ({steps} steps), beside the {floor_ms:.2f} ms floor to "
             f"read the routed experts once [{card}]")
     del dparams
+    _free_device_memory()
+
+    log("phase 5l: training, qwen3-0.6b uncut (bf16 params, f32 moments, "
+        "the flash kernel), 8 x 512 tokens a step")
+    train_launches, tparams, tcfg, tbatch = serve_train_path(card)
+    log("phase 6 (training): where a training step's time goes")
+    trace_train_window(card, tparams, tcfg, tbatch)
+    del tparams, tbatch
+    _free_device_memory()
+    log(f"  flash launches on the training path (a): {train_launches}")
 
     family_phases(card)
 

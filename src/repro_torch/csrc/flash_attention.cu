@@ -37,6 +37,16 @@
 // >= Sq are never written, cols >= Sk are masked), so unlike the TPU kernel
 // no multiple of the tile is required.  Masked scores take -1e30 as on the
 // TPU, so the result matches the reference's masking arithmetic.
+//
+// The log-sum-exp for training: given a non-null `lse` (f32, (B, Sq, H),
+// the model layout), each route also writes m + log(l) of every row, in the
+// units of the reference's _flash_fwd_lse (repro/models/attention.py:242):
+// scores scaled by 1/sqrt(DH), natural log.  The f32 route keeps m in those
+// units already; the bf16 route keeps the unscaled row max (its exponent is
+// 2^(s c - m c), c = log2e / sqrt(DH)), so m / sqrt(DH) is written.  A row
+// with no valid key keeps m = -1e30 and writes -1e30 + log(l), which is
+// -1e30 in f32, as the reference's does.  Serving passes a null pointer and
+// the kernels skip the write.
 
 #include "attn_common.cuh"
 #include "attn_mma.cuh"
@@ -50,8 +60,9 @@ using bf16 = __nv_bfloat16;
 template <int DH>
 __global__ void __launch_bounds__(TILE_NT) fa_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk, int H,
-    int Hkv, int causal, int has_window, int window, int q_offset) {
+    const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+    int Sq, int Sk, int H, int Hkv, int causal, int has_window, int window,
+    int q_offset) {
   extern __shared__ float smem[];
   const Tiles<DH> t(smem);
 
@@ -85,13 +96,22 @@ __global__ void __launch_bounds__(TILE_NT) fa_kernel(
     online_tile<DH>(t, tx, ty, k_lo, q_lo, sm, attend, st);
   }
   store_rows<float, DH>(o, b, Sq, H, h, row0, tx, ty, st);
+  if (lse != nullptr && tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + ty + 16 * i;
+      if (row < Sq)
+        lse[((long long)b * Sq + row) * H + h] = st.m[i] + logf(fmaxf(st.l[i], 1e-30f));
+    }
+  }
 }
 
 template <int DH>
 __global__ void __launch_bounds__(MMA_NT) fa_mma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Sk, int H,
-    int Hkv, int causal, int has_window, int window, int q_offset) {
+    const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+    int Sq, int Sk, int H, int Hkv, int causal, int has_window, int window,
+    int q_offset) {
   constexpr int LD = mma_ld<DH>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);   // MMA_BQ x LD, then O
@@ -151,12 +171,23 @@ __global__ void __launch_bounds__(MMA_NT) fa_mma_kernel(
   cp_async_wait<0>();                 // Q still in flight when no tile ran
   __syncthreads();
   st.store(Qs, o, b, Sq, H, h, row0, warp, lane);
+  // the four lanes of a quad hold the same m and l of rows g and g + 8
+  if (lse != nullptr && (lane & 3) == 0) {
+    const float inv_sqrt = 1.f / sqrtf((float)DH);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + warp * 16 + (lane >> 2) + 8 * i;
+      const float m = st.m[i] <= NEG_INF ? NEG_INF : st.m[i] * inv_sqrt;
+      if (row < Sq)
+        lse[((long long)b * Sq + row) * H + h] = m + logf(fmaxf(st.l[i], 1e-30f));
+    }
+  }
 }
 
 template <int DH>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int Sq, int Sk, int H, int Hkv, int causal, int has_window,
-               int window, int q_offset, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, void* lse,
+               int B, int Sq, int Sk, int H, int Hkv, int causal,
+               int has_window, int window, int q_offset, cudaStream_t stream) {
   constexpr size_t smem = tile_smem_bytes<DH>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       fa_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -164,15 +195,16 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid((Sq + BQ - 1) / BQ, H, B);
   fa_kernel<DH><<<grid, TILE_NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, Hkv,
-      causal, has_window, window, q_offset);
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), Sq, Sk, H, Hkv, causal, has_window, window,
+      q_offset);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                int Sq, int Sk, int H, int Hkv, int causal, int has_window,
-                int window, int q_offset, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, int Sq, int Sk, int H, int Hkv, int causal,
+                int has_window, int window, int q_offset, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<DH>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       fa_mma_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -180,30 +212,31 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   dim3 grid(H, B, (Sq + MMA_BQ - 1) / MMA_BQ);
   fa_mma_kernel<DH><<<grid, MMA_NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, Hkv,
-      causal, has_window, window, q_offset);
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), Sq, Sk, H, Hkv, causal, has_window, window,
+      q_offset);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-    int H, int Hkv, int dh, int causal, int has_window, int window, int q_offset,
-    int is_bf16, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int Sq, int Sk, int H, int Hkv, int dh, int causal, int has_window,
+    int window, int q_offset, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     switch (dh) {
-      case 32: return launch_bf16<32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
-      case 64: return launch_bf16<64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
-      case 128: return launch_bf16<128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
+      case 32: return launch_bf16<32>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
+      case 64: return launch_bf16<64>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
+      case 128: return launch_bf16<128>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }
   switch (dh) {
-    case 32: return launch_f32<32>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
-    case 64: return launch_f32<64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
-    case 128: return launch_f32<128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
+    case 32: return launch_f32<32>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
+    case 64: return launch_f32<64>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
+    case 128: return launch_f32<128>(q, k, v, o, lse, B, Sq, Sk, H, Hkv, causal, has_window, window, q_offset, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

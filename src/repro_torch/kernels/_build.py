@@ -34,9 +34,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # floats as c_float; each
 # returns cudaGetLastError() right after its launch
 SIGNATURES = {
-    # q, k, v, out, B, Sq, Sk, H, Hkv, dh, causal, has_window, window,
-    # q_offset, is_bf16, stream
-    "repro_flash_attention": [_P, _P, _P, _P] + [_I] * 11 + [_P],
+    # q, k, v, out, lse (null: not written), B, Sq, Sk, H, Hkv, dh, causal,
+    # has_window, window, q_offset, is_bf16, stream
+    "repro_flash_attention": [_P] * 5 + [_I] * 11 + [_P],
     # q, k, v, pos, cur, part_acc, part_ml, out, B, C, H, Hkv, dh,
     # n_split, split_len, has_window, window, is_bf16, stream
     "repro_decode_attention": [_P] * 8 + [_I] * 10 + [_P],

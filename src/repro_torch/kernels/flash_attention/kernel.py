@@ -6,8 +6,10 @@ The kernel reads the model layout (B, S, H, dh) directly, so no transposes
 are made around it, and it masks ragged Sq and Sk itself.  bf16 inputs run
 on the tensor cores (``csrc/attn_mma.cuh``), f32 inputs in full f32 on the
 CUDA cores (``csrc/attn_common.cuh``): a dispatch on dtype inside the one
-C entry point.  This module builds nothing when imported: the library is
-built at the first launch.
+C entry point.  With ``return_lse=True`` the kernel also writes each row's
+log-sum-exp (f32, (B, Sq, H), scaled scores, natural log): the residual of
+the training backward (``models.attention.FlashAttentionFn``).  This module
+builds nothing when imported: the library is built at the first launch.
 """
 
 from __future__ import annotations
@@ -54,21 +56,25 @@ def check_inputs(q, k, v) -> None:
 
 def flash_attention_kernel(
     q, k, v, *, causal: bool = True, window: Optional[int] = None,
-    q_offset: int = 0,
+    q_offset: int = 0, return_lse: bool = False,
 ):
     """q: (B, Sq, H, dh); k, v: (B, Sk, Hkv, dh) on the card → (B, Sq, H, dh)
-    in q's dtype, launched on the current stream without synchronising."""
+    in q's dtype, and with ``return_lse`` also the (B, Sq, H) f32
+    log-sum-exp, launched on the current stream without synchronising."""
     check_inputs(q, k, v)
     B, Sq, H, dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             B, Sq, Sk, H, Hkv, dh, int(causal), int(window is not None),
             int(window or 0), int(q_offset), int(q.dtype == torch.bfloat16),
             stream)
     check(status, "repro_flash_attention")
-    return out
+    return (out, lse) if return_lse else out

@@ -15,9 +15,12 @@ from ..common import NEG_INF
 
 def flash_attention_ref(
     q, k, v, *, causal: bool = True, window: Optional[int] = None,
-    q_offset: int = 0,
+    q_offset: int = 0, return_lse: bool = False,
 ):
-    """q: (B, H, Sq, dh); k, v: (B, Hkv, Sk, dh).  Returns (B, H, Sq, dh).
+    """q: (B, H, Sq, dh); k, v: (B, Hkv, Sk, dh).  Returns (B, H, Sq, dh),
+    and with ``return_lse`` also the (B, H, Sq) f32 log-sum-exp of the
+    scaled, masked scores (a row with no valid key gives -1e30, as the
+    reference's ``_flash_fwd_lse`` does).
 
     Materialized-scores reference in f32 — what the CUDA kernel is held
     against, and what a CPU tensor runs instead of the kernel.
@@ -38,7 +41,10 @@ def flash_attention_ref(
         mask &= ki > qi - window
     s = torch.where(mask[None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vx.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vx.float()).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out
 
 
 def flash_attention_mma_ref(

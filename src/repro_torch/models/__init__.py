@@ -1,15 +1,19 @@
 """PyTorch model zoo: nested-dict parameter trees, stacked blocks, every
 family of the reference: pure attention (dense MLP or Mixture-of-Experts),
-SSM (Mamba-2), hybrid (Jamba), VLM (Qwen2-VL) and audio (Whisper)."""
+SSM (Mamba-2), hybrid (Jamba), VLM (Qwen2-VL) and audio (Whisper); the
+serving entry points and the training forward and chunked loss."""
 
 from .transformer import (
     Caches,
+    FwdOut,
     LayerSpec,
     decode_step,
     encoder_forward,
+    forward,
     init_caches,
     init_paged_caches,
     init_params,
+    lm_loss,
     logits_fn,
     n_blocks,
     period_len,
@@ -21,9 +25,9 @@ from .transformer import (
 from .ssm import SSMState, init_ssm_state, ssm_decode, ssm_forward
 
 __all__ = [
-    "Caches", "LayerSpec", "decode_step", "encoder_forward", "init_caches",
-    "init_paged_caches",
-    "init_params", "logits_fn", "n_blocks", "period_len", "period_structure",
+    "Caches", "FwdOut", "LayerSpec", "decode_step", "encoder_forward",
+    "forward", "init_caches", "init_paged_caches",
+    "init_params", "lm_loss", "logits_fn", "n_blocks", "period_len", "period_structure",
     "prefill", "prefix_prefill", "SSMState", "init_ssm_state", "ssm_decode",
     "ssm_forward", "verify_step",
 ]

@@ -2,8 +2,8 @@
 paged KV-cache decode + prefix-context prefill + encoder-decoder
 cross-attention.
 
-Counterpart of ``repro.models.attention`` for the serving modes the port
-runs.  Three compute paths, selected by ``impl``:
+Counterpart of ``repro.models.attention`` for the serving and training modes
+the port runs.  Four compute paths, selected by ``impl``:
 
 * ``"cuda"``  — the hand-written kernels: prefill through
   ``repro_torch.kernels.flash_attention``, dense decode through
@@ -15,6 +15,16 @@ runs.  Three compute paths, selected by ``impl``:
 * ``"torch"`` — chunked online-softmax attention in plain PyTorch (a loop
   over KV blocks), the counterpart of the reference's ``"xla"`` oracle.
 * ``"naive"`` — materialised-scores einsum.
+* ``"flash"`` — the training path's differentiable prefill:
+  :class:`FlashAttentionFn`, whose forward is the prefill kernel writing
+  each row's log-sum-exp beside the output (a CPU tensor takes
+  :func:`_flash_fwd_lse`, the reference's blockwise forward) and whose
+  backward (:func:`_flash_bwd`) is the reference's ``_fa_vjp_bwd`` in
+  torch: a blockwise recompute of the probabilities from the saved LSE.
+  The reference's backward is pure JAX, so this is its port, not a
+  stand-in for a kernel.  The reference cannot differentiate through its
+  Pallas kernels (``jax.grad`` of a ``pallas_call`` fails in its JVP
+  rule), so training refuses ``"cuda"`` and runs ``"flash"``.
 
 Cross-attention (:func:`cross_attention`, the audio family's decoder over
 the encoder's K/V) is the same non-causal attention: ``"cuda"`` sends it
@@ -40,29 +50,33 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..device import resolve_device, torch_dtype
 from ..kernels.common import NEG_INF
 from .layers import apply_mrope, apply_rope, init_dense, init_rmsnorm, rmsnorm
+from .moe import _profiled
 
 
 # ---------------------------------------------------------------------------
 # Capability table: which attn impl is legal for which execution mode
 # ---------------------------------------------------------------------------
 #
-# Only the modes the port runs so far are listed; the other (train)
-# arrives with the ROADMAP item that ports it, and asking for it raises as
-# an unknown mode.  The rows mirror the reference's (``"torch"`` stands for
-# its ``"xla"``, ``"cuda"`` for its ``"pallas"``).  verify: multi-query
-# draft verification (speculative decode); ``"cuda"`` launches the paged
-# multi-query kernel on the page pool and runs the plain multi-query path
-# on dense rings, where the reference has no kernel either.
+# The rows mirror the reference's (``"torch"`` stands for its ``"xla"``,
+# ``"cuda"`` for its ``"pallas"``).  train: differentiable prefill (the
+# training step); ``"cuda"`` is left out, as the reference's ``"pallas"``
+# cannot be differentiated (see the module docstring), and ``"flash"``
+# carries the kernel there.  verify: multi-query draft verification
+# (speculative decode); ``"cuda"`` launches the paged multi-query kernel on
+# the page pool and runs the plain multi-query path on dense rings, where
+# the reference has no kernel either.
 
 ATTN_CAPABILITIES = {
+    "train": ("flash", "torch", "naive"),
     "dense": ("cuda", "torch", "naive"),
     "paged": ("cuda", "torch"),
     "prefix": ("cuda", "torch", "naive"),
-    "sliding_window": ("cuda", "torch", "naive"),
+    "sliding_window": ("cuda", "torch", "naive", "flash"),
     "verify": ("cuda", "torch"),
 }
 
@@ -211,6 +225,166 @@ def chunked_flash_attention(
 
 
 # ---------------------------------------------------------------------------
+# Flash attention for training: a torch.autograd.Function
+# ---------------------------------------------------------------------------
+#
+# The counterpart of the reference's ``flash_attention_vjp`` (a
+# ``jax.custom_vjp``): the forward saves only (q, k, v, out, LSE) and the
+# backward recomputes each key block's probabilities from the LSE, so
+# attention memory through the backward is O(S·block), not O(S²).
+
+
+def _flash_fwd_lse(q, k, v, *, causal: bool, window: Optional[int],
+                   q_offset: int, block_k: int):
+    """The reference's ``_flash_fwd_lse`` in torch: an online softmax over
+    key blocks of ``block_k`` (k and v padded with zeros to a whole block),
+    f32 throughout.  q: (B,Sq,H,dh); k, v: (B,Sk,Hkv,dh).  Returns (out
+    (B,Sq,H,dh) in q's dtype, lse (B,Sq,H) f32: m + log(l) of the scores
+    scaled by 1/sqrt(dh))."""
+    B, Sq, H, dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    block_k = min(block_k, Sk)
+    n_blocks = (Sk + block_k - 1) // block_k
+    pad = n_blocks * block_k - Sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    dev = q.device
+    qg = (q.float() / math.sqrt(dh)).reshape(B, Sq, Hkv, group, dh)
+    qi = torch.arange(Sq, dtype=torch.int32, device=dev) + q_offset
+    m = torch.full((B, Sq, Hkv, group), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((B, Sq, Hkv, group), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Sq, Hkv, group, dh), dtype=torch.float32,
+                      device=dev)
+    for blk in range(n_blocks):
+        lo = blk * block_k
+        kc = k[:, lo:lo + block_k].float()
+        vc = v[:, lo:lo + block_k].float()
+        s = torch.einsum("bqgid,bkgd->bqgik", qg, kc)
+        mask = _block_mask(qi, lo, block_k, Sk, causal, window)
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        scale = torch.exp(m - m_new)
+        l = l * scale + p.sum(dim=-1)
+        acc = acc * scale[..., None] + torch.einsum("bqgik,bkgd->bqgid", p, vc)
+        m = m_new
+    l_safe = torch.clamp(l, min=1e-30)
+    out = (acc / l_safe[..., None]).reshape(B, Sq, H, dh).to(q.dtype)
+    return out, (m + torch.log(l_safe)).reshape(B, Sq, H)
+
+
+def _block_mask(qi, lo: int, bk: int, Sk: int, causal: bool,
+                window: Optional[int]):
+    """(Sq, bk) validity of keys [lo, lo + bk) for query positions ``qi``:
+    inside Sk, causal, inside the window."""
+    ki = lo + torch.arange(bk, dtype=torch.int32, device=qi.device)
+    mask = (ki[None, :] < Sk).expand(qi.shape[0], bk)
+    if causal:
+        mask = mask & (ki[None, :] <= qi[:, None])
+    if window is not None:
+        mask = mask & (ki[None, :] > qi[:, None] - window)
+    return mask
+
+
+def _flash_bwd(q, k, v, out, lse, do, *, causal: bool,
+               window: Optional[int], q_offset: int, block_k: int):
+    """The reference's ``_fa_vjp_bwd`` in torch: for each key block the
+    probabilities are recomputed from ``lse`` (B,Sq,H), f32 throughout,
+    with D = rowsum(dO·O).  Returns (dq, dk, dv) in the dtypes of q, k, v.
+
+    The query heads of a kv head are laid out as the rows of one matrix,
+    (B, Hkv, group·Sq, dh) with row i·Sq + q for head i of the group, so
+    each of the five products is one batched matmul over (B, Hkv) and dk,
+    dv sum over the group as they contract over the rows.  The last key
+    block is cut at Sk where the reference pads it with zero keys and cuts
+    their rows off dk and dv: a zero key adds nothing to dq, so the sums
+    are the same."""
+    B, Sq, H, dh = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    bk = min(block_k, Sk)
+    sm = 1.0 / math.sqrt(dh)
+
+    def rows(t, width):
+        return (t.float().reshape(B, Sq, Hkv, group, width)
+                .permute(0, 2, 3, 1, 4).reshape(B, Hkv, group * Sq, width))
+
+    qr, dor = rows(q, dh), rows(do, dh)
+    lse_r = rows(lse[..., None], 1)
+    D = torch.sum(dor * rows(out, dh), dim=-1, keepdim=True)   # (B,Hkv,gSq,1)
+    qs = qr * sm
+    kt = k.float().transpose(1, 2)                       # (B,Hkv,Sk,dh)
+    vt = v.float().transpose(1, 2)
+    qi = torch.arange(Sq, dtype=torch.int32, device=q.device) + q_offset
+    dq = torch.zeros_like(qr)
+    dk = torch.empty_like(kt)
+    dv = torch.empty_like(vt)
+    for lo in range(0, Sk, bk):
+        hi = min(lo + bk, Sk)
+        kc, vc = kt[:, :, lo:hi], vt[:, :, lo:hi]
+        keep = _block_mask(qi, lo, hi - lo, Sk, causal, window).repeat(group, 1)
+        s = torch.matmul(qs, kc.transpose(-1, -2))       # (B,Hkv,gSq,n)
+        p = s.masked_fill_(~keep, NEG_INF).sub_(lse_r).exp_()   # recomputed probs
+        dv[:, :, lo:hi] = torch.matmul(p.transpose(-1, -2), dor)
+        dp = torch.matmul(dor, vc.transpose(-1, -2))
+        ds = dp.sub_(D).mul_(p).mul_(sm)
+        dq += torch.matmul(ds, kc)
+        dk[:, :, lo:hi] = torch.matmul(ds.transpose(-1, -2), qr)
+    dq = (dq.reshape(B, Hkv, group, Sq, dh).permute(0, 3, 1, 2, 4)
+          .reshape(B, Sq, H, dh))
+    return (dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype),
+            dv.transpose(1, 2).to(v.dtype))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention.  Forward: the prefill kernel with its
+    log-sum-exp on a CUDA tensor (``kernels.flash_attention.ops``, which
+    counts the launch and raises on what the kernel does not take), the
+    plain :func:`_flash_fwd_lse` on a CPU tensor; backward:
+    :func:`_flash_bwd` from the saved (q, k, v, out, lse)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, block_k):
+        if q.device.type == "cpu":
+            out, lse = _flash_fwd_lse(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset, block_k=block_k)
+        else:
+            from ..kernels.flash_attention import ops as fa_ops
+
+            out, lse = fa_ops.flash_attention(
+                q, k, v, causal=causal, window=window, q_offset=q_offset,
+                return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, q_offset, block_k)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, q_offset, block_k = ctx.args
+        # a profiler range while a profiler records (chip_smoke.py phase 6
+        # splits the training window's device time by it)
+        with _profiled("flash.backward"):
+            dq, dk, dv = _flash_bwd(q, k, v, out, lse, do, causal=causal,
+                                    window=window, q_offset=q_offset,
+                                    block_k=block_k)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_train(q, k, v, *, causal: bool = True,
+                          window: Optional[int] = None, q_offset: int = 0,
+                          block_k: int = 512):
+    """Differentiable flash attention (blockwise-recompute backward).
+    q: (B,Sq,H,dh); k, v: (B,Sk,Hkv,dh) -> (B,Sq,H,dh)."""
+    return FlashAttentionFn.apply(q, k, v, causal, window, q_offset,
+                                  min(block_k, k.shape[1]))
+
+
+# ---------------------------------------------------------------------------
 # Full layers
 # ---------------------------------------------------------------------------
 
@@ -242,7 +416,7 @@ def self_attention(
 
             out = pfx_ops.prefix_flash_attention(
                 q, pk.to(k.dtype), pv.to(v.dtype), k, v, q_offset=q_offset)
-        elif impl in ("torch", "naive"):
+        elif impl in ("torch", "naive", "flash"):
             k_att = torch.cat([pk.to(k.dtype), k], dim=1)
             v_att = torch.cat([pv.to(v.dtype), v], dim=1)
             if impl == "naive":
@@ -266,6 +440,11 @@ def self_attention(
         out = chunked_flash_attention(
             q, k, v, causal=causal, window=cfg.sliding_window,
             q_offset=q_offset, block_k=block_k)
+    elif impl == "flash":
+        # the autograd.Function: O(S·block) memory through the backward
+        out = flash_attention_train(
+            q, k, v, causal=causal, window=cfg.sliding_window,
+            q_offset=q_offset, block_k=block_k)
     else:
         raise ValueError(f"unknown attn impl {impl!r}")
     B, S, _, _ = q.shape
@@ -285,7 +464,8 @@ def cross_attention(params, x, enc_kv, cfg, *, impl: str = "cuda"):
         out = fa_ops.flash_attention(q, k, v, causal=False)
     elif impl == "naive":
         out = naive_attention(q, k, v, causal=False)
-    elif impl == "torch":
+    elif impl in ("torch", "flash"):
+        # "flash" too, as the reference sends every route but "naive" here
         out = chunked_flash_attention(q, k, v, causal=False)
     else:
         raise ValueError(f"unknown attn impl {impl!r}")

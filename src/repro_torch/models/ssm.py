@@ -5,9 +5,10 @@ algorithm**: the sequence is cut into chunks of length L; within a chunk the
 recurrence is a masked quadratic form, and the (hd, N) state per head is
 carried from chunk to chunk.  ``impl="cuda"`` runs it through the
 hand-written kernel (``repro_torch.kernels.ssd_scan``: a CPU tensor takes
-the plain version, a CUDA tensor launches the kernel); ``"torch"`` and
-``"naive"`` run :func:`ssd_chunked`, the plain PyTorch oracle, as the
-reference's ``"xla"`` route runs its ``ssd_chunked``.
+the plain version, a CUDA tensor launches the kernel); ``"torch"``,
+``"naive"`` and the training path's ``"flash"`` run :func:`ssd_chunked`,
+the plain PyTorch oracle (differentiable by autograd), as the reference's
+every other route runs its ``ssd_chunked``.
 
 Decode is the O(1) recurrent update ``state = state·exp(dt·A) +
 dt·x⊗B``, ``y = C·state + D·x``.  :func:`ssm_decode` writes the new state
@@ -244,7 +245,10 @@ def ssm_forward(params, x, cfg, *, impl: str = "cuda",
 
         y, final_state = ssd_ops.ssd(xs, dt, A, Bm, Cm, chunk=s.chunk,
                                      return_state=True)
-    elif impl in ("torch", "naive"):
+    elif impl in ("torch", "naive", "flash"):
+        # every route but the kernel's, as in the reference (ssm.py:232);
+        # "flash" is the training path's name, and the scan has no
+        # backward kernel in either package
         y, final_state = ssd_chunked(xs, dt, A, Bm, Cm, chunk=s.chunk,
                                      return_state=True)
     else:

@@ -32,6 +32,11 @@ position; :func:`decode_step` and :func:`verify_step` (a window of draft
 tokens in one pass) update them **in place** (the reference returns new
 caches and relies on buffer donation).
 
+Training runs :func:`forward` (the whole sequence, differentiable, each
+period of layers under the ``remat`` policy) and :func:`lm_loss` (the
+cross-entropy over sequence chunks); ``repro_torch.training`` builds the
+step from them.
+
 ``prefill``, ``prefill_kv``, ``prefix_prefill``, ``decode_step`` and
 ``verify_step`` take the reference's ``policy=None`` hook: an activation
 policy applied to each layer's attention output (``"attn_out"``) and MLP
@@ -43,6 +48,7 @@ outputs there; without a policy nothing changes.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -226,22 +232,25 @@ def _ffn(lp, spec: LayerSpec, x, cfg, *, decode: bool, policy=None):
     """The layer's second half: RMS norm of the residual stream ``x``, its
     MLP or MoE, added back to ``x``.  ``decode=False`` on the prefill shape
     (grouped MoE dispatch), ``decode=True`` for a decode step or a verify
-    window (dense MoE), as the reference picks them."""
+    window (dense MoE), as the reference picks them.  Returns (x, the MoE
+    load-balance loss: 0.0 for an MLP and on the dense MoE path)."""
     h2 = rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
+    aux = 0.0
     if spec.mlp == "moe":
-        y2, _ = moe_mod.moe_apply(lp["moe"], h2, cfg, decode=decode)
+        y2, aux = moe_mod.moe_apply(lp["moe"], h2, cfg, decode=decode)
     else:
         y2 = mlp(lp["mlp"], h2, kind=cfg.mlp_kind)
-    return x + _shard(y2, policy, "mlp_out")
+    return x + _shard(y2, policy, "mlp_out"), aux
 
 
 def _apply_layer_train(lp, spec: LayerSpec, x, cfg, *, positions, impl,
                        causal: bool = True, prefix_kv=None, enc_kv=None,
                        policy=None):
-    """One layer, full-sequence (prefill shape).  Returns (x, state): the
-    layer's (k, v) for an attention layer, its :class:`SSMState` after the
-    last token for an SSM layer.  ``enc_kv`` is the layer's cross-attention
-    K/V over the encoder (audio decoder layers)."""
+    """One layer, full-sequence (train and prefill shape).  Returns (x,
+    aux, state): the MoE load-balance loss (0.0 without a MoE), and the
+    layer's (k, v) for an attention layer or its :class:`SSMState` after
+    the last token for an SSM layer.  ``enc_kv`` is the layer's
+    cross-attention K/V over the encoder (audio decoder layers)."""
     h = rmsnorm(lp["ln1"], x, eps=cfg.norm_eps)
     if spec.mixer == "attn":
         y, state = attn_mod.self_attention(
@@ -253,9 +262,10 @@ def _apply_layer_train(lp, spec: LayerSpec, x, cfg, *, positions, impl,
     x = x + _shard(y, policy, "attn_out")
     if enc_kv is not None and "cross" in lp:
         x = _cross(lp, x, enc_kv, cfg, impl)
+    aux = 0.0
     if spec.mlp is not None:
-        x = _ffn(lp, spec, x, cfg, decode=False, policy=policy)
-    return x, state
+        x, aux = _ffn(lp, spec, x, cfg, decode=False, policy=policy)
+    return x, aux, state
 
 
 def _cross(lp, x, enc_kv, cfg, impl):
@@ -287,22 +297,114 @@ def _apply_layer_decode(lp, spec: LayerSpec, x, cfg, *, cur_pos, cache,
     if cross_kv is not None and "cross" in lp:
         x = _cross(lp, x, cross_kv, cfg, impl)
     if spec.mlp is not None:
-        x = _ffn(lp, spec, x, cfg, decode=True, policy=policy)
+        x, _ = _ffn(lp, spec, x, cfg, decode=True, policy=policy)
     return x, cache
 
 
-def encoder_forward(params, frames, cfg, *, impl: str = "cuda"):
+def encoder_forward(params, frames, cfg, *, impl: str = "cuda",
+                    remat: str = "none"):
     """Audio encoder over stub frame embeddings (B, S_enc, d): sinusoidal
     positions, then ``n_enc_layers`` non-causal attention + MLP layers and
-    the encoder's final norm."""
+    the encoder's final norm.  ``remat`` checkpoints each layer for
+    training (:func:`_remat_wrap`)."""
     enc = params["encoder"]
     S = frames.shape[1]
     pos = torch.arange(S, dtype=torch.int32, device=frames.device)[None, :]
     x = frames + _sinusoid(pos, cfg.d_model).to(frames.dtype)
+
+    def body(x, b):
+        return _apply_layer_train(_index(enc["blocks"][0], b), _ENC_SPEC, x,
+                                  cfg, positions=pos, impl=impl,
+                                  causal=False)[0]
+
+    body_w = _remat_wrap(body, remat)
     for b in range(cfg.n_enc_layers):
-        x, _ = _apply_layer_train(_index(enc["blocks"][0], b), _ENC_SPEC, x,
-                                  cfg, positions=pos, impl=impl, causal=False)
+        x = body_w(x, b)
     return rmsnorm(enc["final_norm"], x, eps=cfg.norm_eps)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpoint of ``remat="dots"``: keep the outputs of the
+    products without a batch dimension (``aten.mm`` / ``aten.addmm``: the
+    projections, the MLP, the LM head), recompute everything else, as the
+    reference's ``dots_with_no_batch_dims_saveable`` does."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, remat: str):
+    """``fn`` under the training path's activation checkpoint: ``"none"``
+    keeps it as it is, ``"full"`` saves only its inputs and recomputes the
+    rest in the backward, ``"dots"`` also keeps the outputs of its matrix
+    products (:func:`_dots_policy`).  The reference checkpoints a period's
+    body; so does :func:`forward`."""
+    if remat == "none":
+        return fn
+    import torch.utils.checkpoint as ckpt
+
+    if remat == "full":
+        return lambda *args: ckpt.checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        ctx = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                _dots_policy)
+        return lambda *args: ckpt.checkpoint(fn, *args, use_reentrant=False,
+                                             context_fn=ctx)
+    raise ValueError(f"unknown remat policy {remat!r}; expected none, dots "
+                     f"or full")
+
+
+# ---------------------------------------------------------------------------
+# Forward (train) and the chunked loss
+# ---------------------------------------------------------------------------
+
+
+class FwdOut(NamedTuple):
+    hidden: torch.Tensor
+    aux: torch.Tensor          # MoE load-balance loss (0 for non-MoE)
+
+
+def forward(params, tokens, cfg, *, positions=None, extra_embeds=None,
+            enc_out=None, impl: str = "torch", policy=None,
+            remat: str = "none", causal: bool = True) -> FwdOut:
+    """Full-sequence forward to the final hidden states, differentiable.
+
+    tokens:       (B, S_txt) int32.
+    extra_embeds: (B, S_vis, d) patch embeddings prepended to the token
+                  embeddings (VLM stub frontend); ``positions`` is then
+                  (3, B, S_vis + S_txt) M-RoPE ids.
+    enc_out:      (B, S_enc, d) encoder output (audio): every decoder
+                  layer's cross-attention K/V is made from it.
+
+    Each period of layers runs under ``remat`` (:func:`_remat_wrap`), the
+    reference's checkpoint of its ``lax.scan`` body.  ``impl`` as in
+    :data:`~repro_torch.models.attention.ATTN_CAPABILITIES`' ``"train"``
+    row when gradients are taken.  Returns :class:`FwdOut` (hidden, the
+    layers' summed MoE load-balance loss)."""
+    specs = period_structure(cfg)
+    x = _embed_prompt(params, tokens, cfg, extra_embeds)
+    positions = _positions(x, positions)
+
+    def body(x, aux, b):
+        for p, spec in enumerate(specs):
+            lp = _index(params["blocks"][p], b)
+            enc_kv = None
+            if enc_out is not None:
+                enc_kv = attn_mod.encode_cross_kv(lp["cross"], enc_out, cfg)
+            x, aux_p, _ = _apply_layer_train(
+                lp, spec, x, cfg, positions=positions, impl=impl,
+                enc_kv=enc_kv, causal=causal, policy=policy)
+            aux = aux + aux_p
+        return x, aux
+
+    body_w = _remat_wrap(body, remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for b in range(n_blocks(cfg)):
+        x, aux = body_w(x, aux, b)
+    x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
+    return FwdOut(hidden=x, aux=aux)
 
 
 # ---------------------------------------------------------------------------
@@ -316,6 +418,30 @@ def unembed_weight(params, cfg):
 
 def logits_fn(params, hidden, cfg):
     return hidden @ unembed_weight(params, cfg).T
+
+
+def lm_loss(params, hidden, labels, cfg, *, chunk: int = 1024,
+            policy=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy of (B, S) ``labels`` under ``hidden``'s logits, labels
+    < 0 ignored, over chunks of ``chunk`` positions so the (B, S, V) logits
+    are never made at once in the forward (autograd keeps each chunk's f32
+    logits for the backward).  Returns (sum of the losses f32, count of
+    valid labels int32).  ``policy`` is accepted for the reference's
+    signature; the port shards no logits."""
+    w = unembed_weight(params, cfg)               # (Vp, d)
+    S = hidden.shape[1]
+    ck = min(chunk, S)
+    sums, counts = [], []
+    for lo in range(0, S, ck):
+        h, lab = hidden[:, lo:lo + ck], labels[:, lo:lo + ck]
+        logits = (h @ w.T).float()                # (B, ck, Vp)
+        lz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            lab.clamp(min=0).long()[..., None])[..., 0]
+        valid = lab >= 0
+        sums.append(torch.where(valid, lz - gold, 0.0).sum())
+        counts.append(valid.sum())
+    return torch.stack(sums).sum(), torch.stack(counts).sum().to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -447,7 +573,7 @@ def _prefill_layers(params, x, cfg, *, positions, impl, cross=None,
             enc_kv = None
             if cross is not None:
                 enc_kv = (cross[str(p)][0][b], cross[str(p)][1][b])
-            x, state = _apply_layer_train(
+            x, _, state = _apply_layer_train(
                 _index(params["blocks"][p], b), spec, x, cfg,
                 positions=positions, impl=impl, enc_kv=enc_kv, policy=policy)
             if spec.mixer == "attn":
@@ -558,7 +684,7 @@ def prefix_prefill(params, tokens, prefix_kv, cfg, *, prefix_len: int,
     for b in range(n_blocks(cfg)):
         for p, spec in enumerate(specs):
             pk, pv = prefix_kv[str(p)]
-            x, kv = _apply_layer_train(
+            x, _, kv = _apply_layer_train(
                 _index(params["blocks"][p], b), spec, x, cfg,
                 positions=positions, impl=impl, prefix_kv=(pk[b], pv[b]),
                 policy=policy)
@@ -666,14 +792,14 @@ def verify_step(params, tokens, caches: Caches, cur_pos, cfg, *,
                     write_limit=write_limit)
             x = x + _shard(y, policy, "attn_out")
             if spec.mlp is not None:
-                x = _ffn(lp, spec, x, cfg, decode=True, policy=policy)
+                x, _ = _ffn(lp, spec, x, cfg, decode=True, policy=policy)
     x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
     return logits_fn(params, x, cfg), caches
 
 
 __all__ = [
-    "Caches", "LayerSpec", "decode_step", "encoder_forward", "init_caches",
-    "init_paged_caches", "init_params", "logits_fn", "n_blocks", "period_len",
-    "period_structure", "prefill", "prefill_kv", "prefix_prefill",
-    "unembed_weight", "verify_step",
+    "Caches", "FwdOut", "LayerSpec", "decode_step", "encoder_forward",
+    "forward", "init_caches", "init_paged_caches", "init_params", "lm_loss",
+    "logits_fn", "n_blocks", "period_len", "period_structure", "prefill",
+    "prefill_kv", "prefix_prefill", "unembed_weight", "verify_step",
 ]

@@ -1,0 +1,132 @@
+"""AdamW with optional block-quantized (8-bit) first and second moments.
+
+Counterpart of ``repro.optim.adamw`` (lines 34-130), as plain functions
+over the parameter tree rather than ``torch.optim.AdamW``, so every f32
+operation stands in the reference's order:
+
+    state  = adamw_init(params, quantize=...)
+    params, state = adamw_update(grads, state, params, lr=..., ...)
+
+Memory modes: f32 moments (8 B a parameter of optimizer state), or
+``quantize=True``: int8 block-quantized m and v (1 B + 4 B a 256-block
+each, about 2.03 B a parameter), dequantized, updated and requantized each
+step, the second moment quantized in sqrt-space.  The state is a
+:class:`AdamWState` of the reference's field names, so a checkpoint's keys
+(``['opt'].m['embed']['w'].q``) match in both packages.  Both functions
+return new tensors and leave their arguments as they were.
+
+The ZeRO state specs (``opt_state_specs``) shard over a mesh of several
+cards and wait for ROADMAP.md Queue 1 item 18.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Tuple
+
+import torch
+
+from ..distributed.compression import dequantize_int8, quantize_int8
+from ..tree import leaves, tree_map
+
+QBLOCK = 256
+
+
+class QTensor(NamedTuple):
+    """Block-quantized tensor: q (nb, QBLOCK) int8, scale (nb, 1) f32.  The
+    shape is the parameter's at the same place in the tree."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+def _q(x) -> QTensor:
+    q, s = quantize_int8(x, block=QBLOCK)
+    return QTensor(q=q, scale=s)
+
+
+def _dq(qt: QTensor, shape):
+    return dequantize_int8(qt.q, qt.scale, shape, block=QBLOCK)
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor      # 0-d int32
+    m: Any                  # tree of f32 tensors or QTensors
+    v: Any
+
+
+def adamw_init(params, *, quantize: bool = False) -> AdamWState:
+    """Zero moments on each parameter's device; ``step`` on the first
+    parameter's."""
+    def z(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    make = (lambda p: _q(z(p))) if quantize else z
+    dev = leaves(params)[0].device
+    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                      m=tree_map(make, params), v=tree_map(make, params))
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32, the leaves added in
+    the reference's order."""
+    total = 0
+    for x in leaves(tree):
+        xf = x.float()
+        total = total + torch.sum(xf * xf)
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled to a global norm of at most ``max_norm``, the norm
+    before clipping)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+
+
+def adamw_update(
+    grads,
+    state: AdamWState,
+    params,
+    *,
+    lr,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+    quantized: bool = False,
+) -> Tuple[Any, AdamWState]:
+    """One AdamW step.  ``lr`` may be a float or a 0-d tensor."""
+    step = state.step + 1
+    s = step.float()
+    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                      device=s.device), s)
+    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                      device=s.device), s)
+
+    def one(p, g, m, v):
+        g = g.float()
+        if quantized:
+            m_f = _dq(m, p.shape)
+            v_f = torch.square(_dq(v, p.shape))     # v stored in sqrt-space
+        else:
+            m_f, v_f = m, v
+        m_new = b1 * m_f + (1 - b1) * g
+        v_new = b2 * v_f + (1 - b2) * torch.square(g)
+        m_hat = m_new / c1
+        v_hat = v_new / c2
+        upd = m_hat / (torch.sqrt(v_hat) + eps) + weight_decay * p.float()
+        p_new = (p.float() - lr * upd).to(p.dtype)
+        if quantized:
+            return p_new, _q(m_new), _q(torch.sqrt(v_new))
+        return p_new, m_new, v_new
+
+    out = tree_map(lambda p, g, m, v: one(p, g, m, v), params, grads,
+                   state.m, state.v)
+    # ``out`` has a (p, m, v) triple at each leaf position of ``params``
+    pick = lambda i: tree_map(lambda _, o: o[i], params, out)  # noqa: E731
+    return pick(0), AdamWState(step=step, m=pick(1), v=pick(2))
+
+
+__all__ = ["AdamWState", "QBLOCK", "QTensor", "adamw_init", "adamw_update",
+           "clip_by_global_norm", "global_norm"]

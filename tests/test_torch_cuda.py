@@ -1268,3 +1268,150 @@ def test_paged_batcher_resize_between_chunks_on_the_card(gen):
     assert "t_migrate" in ex.reconfig_log[-1]
     b.run()
     assert [r.out for r in got] == [r.out for r in ref_reqs]
+
+
+# ---------------------------------------------------------------------------
+# training: the flash kernel's log-sum-exp, FlashAttentionFn, the train step
+# and the checkpoint store on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,dh,window,q_offset,causal", [
+    (8, 512, 512, 16, 8, 128, None, 0, True),   # the training shape
+    (2, 512, 512, 16, 8, 128, 64, 0, True),
+    (2, 100, 300, 16, 8, 128, None, 200, True),
+    (3, 77, 77, 16, 8, 128, None, 0, True),
+    (2, 96, 96, 8, 1, 64, None, 0, True),
+    (2, 130, 200, 16, 8, 128, None, 0, False),
+    (2, 96, 40, 16, 8, 32, 16, 0, True),        # rows without a key
+])
+def test_flash_kernel_lse_matches_ref(gen, dtype, B, Sq, Sk, H, Hkv, dh,
+                                      window, q_offset, causal):
+    """The kernel's (B, Sq, H) f32 log-sum-exp against the plain version's
+    (-1e30 for a row without a valid key) within the dtype's tolerance,
+    its output as without the LSE, and one launch counted."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    q = _rand(gen, (B, Sq, H, dh), dtype)
+    k = _rand(gen, (B, Sk, Hkv, dh), dtype)
+    v = _rand(gen, (B, Sk, Hkv, dh), dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = ops.flash_attention.launches
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    assert ops.flash_attention.launches == before + 1
+    plain = ops.flash_attention(q, k, v, **kw)
+    _, want = ref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2), return_lse=True, **kw)
+    want = want.transpose(1, 2)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (B, Sq, H)
+    assert torch.equal(out, plain)
+    assert (lse - want).abs().max().item() <= TOL[dtype]
+    dead = want <= -1e29
+    assert torch.equal(dead, lse <= -1e29)
+    assert bool((lse[dead] == -1e30).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window,q_offset", [
+    (True, None, 0), (False, None, 0), (True, 16, 0), (True, None, 32)])
+def test_flash_attention_fn_grads_match_naive_on_the_card(gen, dtype, causal,
+                                                          window, q_offset):
+    """dq, dk, dv of sum(out^2) through FlashAttentionFn (the kernel's
+    forward, the torch backward) against autograd of naive attention on f32
+    copies, relative to the largest gradient: 2e-4 in f32 (the reference
+    test's tolerance), 2e-2 in bf16."""
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models.attention import flash_attention_train, naive_attention
+
+    B, Sq, H, Hkv, dh = 2, 96, 4, 2, 128
+    Sk = Sq + q_offset
+    base = [_rand(gen, (B, s, h, dh), dtype)
+            for s, h in ((Sq, H), (Sk, Hkv), (Sk, Hkv))]
+    ins = [t.clone().requires_grad_(True) for t in base]
+    before = ops.flash_attention.launches
+    out = flash_attention_train(*ins, causal=causal, window=window,
+                                q_offset=q_offset, block_k=40)
+    assert ops.flash_attention.launches == before + 1
+    got = torch.autograd.grad((out.float() ** 2).sum(), ins)
+    refs = [t.float().requires_grad_(True) for t in base]
+    want = torch.autograd.grad((naive_attention(
+        *refs, causal=causal, window=window, q_offset=q_offset) ** 2).sum(),
+        refs)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        assert ((g.float() - w).abs().max() / w.abs().max()).item() <= tol
+
+
+def test_flash_kernel_refuses_what_it_does_not_take_in_training(gen):
+    """No fallback: a non-contiguous q or a head dim outside (32, 64, 128)
+    raises through FlashAttentionFn too."""
+    from repro_torch.models.attention import flash_attention_train
+
+    q = _rand(gen, (2, 16, 4, 64), torch.float32)
+    kv = _rand(gen, (2, 16, 2, 64), torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_train(q[:, ::2], kv[:, ::2], kv[:, ::2])
+    q48 = _rand(gen, (2, 16, 4, 48), torch.float32)
+    kv48 = _rand(gen, (2, 16, 2, 48), torch.float32)
+    with pytest.raises(ValueError, match="dh=48"):
+        flash_attention_train(q48, kv48, kv48)
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_train_step_flash_matches_torch_on_the_card(gen, remat):
+    """Reduced qwen3-0.6b at f32: one make_train_step step with
+    attn_impl="flash" (the kernel) against "torch": loss and grad norm
+    within 1e-5 relative, params within rtol 1e-3 + atol 1e-4 (at lr 3e-4,
+    the reference test's tolerance); the kernel launched once a layer, twice
+    under remat (the backward runs each layer's forward again)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data import make_batch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import TrainerConfig, batch_to_torch, make_train_step
+    from repro_torch.tree import flatten_with_path
+
+    cfg = dataclasses.replace(get_reduced("qwen3-0.6b"), dtype="float32")
+    params = init_params(cfg, 0, device="cuda")
+    batch = batch_to_torch(make_batch(cfg, seq_len=64, batch=4, step=0,
+                                      reduced=True), "cuda")
+    out = {}
+    for impl in ("torch", "flash"):
+        before = ops.flash_attention.launches
+        step = make_train_step(cfg, TrainerConfig(attn_impl=impl,
+                                                  loss_chunk=16, remat=remat))
+        out[impl] = step(params, adamw_init(params), batch)
+        launched = ops.flash_attention.launches - before
+        want = 0 if impl == "torch" else cfg.n_layers * (1 if remat == "none" else 2)
+        assert launched == want, (impl, launched)
+    (pt, _, mt), (pf, _, mf) = out["torch"], out["flash"]
+    for key in ("loss", "grad_norm"):
+        assert float(mf[key]) == pytest.approx(float(mt[key]), rel=1e-5)
+    for (key, a), (_, b) in zip(flatten_with_path(pf), flatten_with_path(pt)):
+        assert torch.allclose(a, b, rtol=1e-3, atol=1e-4), key
+
+
+def test_checkpoint_round_trip_on_the_card(gen, tmp_path):
+    """bf16 params and a quantized AdamW state on the card: saved async
+    (snapshot to host memory on the caller's thread) and restored onto the
+    card bit for bit."""
+    from repro_torch.checkpoint import AsyncCheckpointer, restore
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import flatten_with_path, tree_map
+
+    cfg = get_reduced("qwen3-0.6b")
+    state = {"params": init_params(cfg, 0, device="cuda")}
+    state["opt"] = adamw_init(state["params"], quantize=True)
+    w = AsyncCheckpointer(str(tmp_path))
+    w.save_async(1, state)
+    w.wait()
+    got = restore(str(tmp_path), tree_map(torch.empty_like, state))
+    for (ka, a), (_, b) in zip(flatten_with_path(got), flatten_with_path(state)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype, ka
+        assert torch.equal(a, b), ka

@@ -519,12 +519,17 @@ def test_paged_rejects_naive_at_construction():
 def test_capability_table_covers_every_mode():
     from repro.models.attention import ATTN_CAPABILITIES as JAX_CAPS
 
-    names = {"cuda": "pallas", "torch": "xla", "naive": "naive"}
+    names = {"cuda": "pallas", "torch": "xla", "naive": "naive",
+             "flash": "flash"}
     for mode, impls in ATTN_CAPABILITIES.items():
         for impl in impls:
             assert check_attn_impl(impl, mode) == impl
-        assert {names[i] for i in impls} == \
-            {i for i in JAX_CAPS[mode] if i in names.values()}, mode
+        want = {i for i in JAX_CAPS[mode] if i in names.values()}
+        if mode == "train":
+            # a deliberate difference (ROADMAP.md Queue 3): the reference's
+            # "pallas" cannot be differentiated, so the port refuses "cuda"
+            want.discard("pallas")
+        assert {names[i] for i in impls} == want, mode
     with pytest.raises(ValueError, match="unknown attention mode"):
         check_attn_impl("torch", "teleport")
 

@@ -345,6 +345,8 @@ def test_port_sources_import_no_jax_or_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    for pkg in ("training", "optim", "checkpoint", "data"):
+        assert any(p.parent.name == pkg for p in files), pkg
     for path in files:
         hits = _FORBIDDEN.findall(path.read_text())
         assert not hits, f"{path.relative_to(ROOT)} imports {hits}"
@@ -360,6 +362,11 @@ def test_importing_the_whole_port_loads_no_jax():
         " or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
         "assert 'repro_torch.models.moe' in sys.modules\n"
+        "for name in ('training.steps', 'optim.adamw', 'optim.schedules',\n"
+        "             'checkpoint.store', 'data.synthetic',\n"
+        "             'distributed.compression', 'launch.train'):\n"
+        "    assert 'repro_torch.' + name in sys.modules, name\n"
+        "assert 'ml_dtypes' not in sys.modules\n"
         "print('ok', len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
