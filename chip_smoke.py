@@ -257,6 +257,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
               time, idle share, device time split into the flash forward,
               the flash backward in torch (the ``flash.backward`` range of
               ``FlashAttentionFn.backward``), cuBLAS and the rest.
+5m. cells   — last, after phases 4d-5j: (a) the dry-run
+              (``repro_torch.launch.dryrun.run_cell``) of one cell a
+              family (``SWEEP_CELLS``: every kind among them) at full width
+              on meta tensors over pod16x16 and pod2x16x16, a line a cell;
+              gates: every cell traces, 0 < useful_flops_ratio < 1.25, the
+              skips are the 7 full-attention archs at long_500k.  (b) three
+              full-width qwen3-0.6b cells on cuda:0 (``CARD_CELLS``: the
+              reference's shapes with seq_len kept and batch cut):
+              prefill_32k (batch 1, "cuda"), decode_32k (batch 8, "cuda",
+              a seeded 32,768-slot cache, every slot valid), train_4k
+              (batch 2, "flash", remat full).  Each: the analyzer's FLOPs
+              and bytes of the same program on the same route
+              (``Cell.analyze``), the median ms of 10 calls after 2
+              warm-ups (CUDA events), t_compute, t_memory, bound and
+              t_bound at chips = 1, t_bound / ms, MFU, the cell's own peak
+              memory (its argument bytes + what its calls add above all
+              allocated before them) beside the analyzer's peak live, the
+              attention kernel's launches a call (28, 28, 56) and its time
+              alone at the cell's shape beside its bound.  Gates: flash at
+              1 x 32,768 on the last 512 query rows against its plain
+              version (BF16_TOL); the decode kernel on layer 0 of the
+              cell's cache against its plain version in f32 (BF16_TOL of
+              the largest output); the decode step in f32 (the same
+              seeds), the kernel's route against "torch" (MODEL_TOL and
+              every token); the bf16 step's two routes against "torch" in
+              f32 on the bf16 cell's inputs, the kernel's within
+              MOE_SPREAD x the plain route's distance (at least
+              BF16_TOL); one f32 train step at 2 x 4,096, flash against
+              torch, loss and grad norm within 1e-5.  A ``cells`` JSON
+              log line holds the rows.
 6. trace    — the first rounds of the dense, the paged, the spec, the
               Mamba-2 and the MoE path,
               all untraced first, then each under ``torch.profiler``: device
@@ -294,8 +324,9 @@ PyTorch calls at the main paths' bf16 shapes (phase 3's timings without
 its correctness cases, the training rows of ``train_times`` where the
 tree's flash wrapper takes ``return_lse``), against
 the ``src/repro_torch`` beside the script: a copy in another checkout
-times that checkout's kernels, so two trees compare in turns in one chip
-call.  Prints one JSON line ``{"kernel_times": ...}``.
+whose wrappers have ``cost`` times that checkout's kernels, so two trees
+compare in turns in one chip call.  Prints one JSON line
+``{"kernel_times": ...}``.
 
     python3 chip_smoke.py --ssd-faults
 
@@ -378,6 +409,14 @@ def bound_ms(n_bytes: float, flops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def kernel_bound(wrapper, *args, **kwargs):
+    """``bound_ms`` of one call of a kernel's wrapper from the kernel's own
+    ``cost`` (``kernels/*/ops.py``: the useful work and the bytes read and
+    written once), the one source the dry-run counts from too."""
+    flops, n_bytes = wrapper.cost(*args, **kwargs)
+    return bound_ms(n_bytes, flops)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -452,8 +491,6 @@ def time_flash(q, k, v, causal: bool = True):
 
     from repro_torch.kernels.flash_attention import ops, ref
 
-    B, Sq, H, dh = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
     sets = copies_over_l2([q, k, v])
     kernel = device_ms(
         lambda a, b, c: ops.flash_attention(a, b, c, causal=causal), sets)
@@ -465,11 +502,7 @@ def time_flash(q, k, v, causal: bool = True):
     library = device_ms(
         lambda a, b, c: F.scaled_dot_product_attention(
             a, b, c, is_causal=causal, enable_gqa=True), lib_sets)
-    # the (row, col) pairs attended: causal (Sq = Sk) or all
-    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
-    n_bytes = 2 * (2 * B * Sq * H * dh + 2 * B * Sk * Hkv * dh)  # q, out, k, v
-    flops = 4.0 * dh * pairs * B * H            # QK^T and PV
-    bms, by = bound_ms(n_bytes, flops)
+    bms, by = kernel_bound(ops.flash_attention, q, k, v, causal=causal)
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention/kernel.py:99",
@@ -564,12 +597,9 @@ def time_decode(q, k, v, pos, cur_t):
 
     from repro_torch.kernels.decode_attention import ops, ref
 
-    B, H, dh = q.shape
-    C, Hkv = k.shape[1], k.shape[2]
     sets = copies_over_l2([q, k, v, pos, cur_t])
     kernel = device_ms(lambda *a: ops.decode_attention(*a), sets)
     plain = device_ms(lambda *a: ref.decode_attention_ref(*a), sets)
-    valid = (pos >= 0) & (pos <= cur_t[:, None])
 
     def lib_args(s):
         qq, kk, vv, pp, cc = s
@@ -581,12 +611,8 @@ def time_decode(q, k, v, pos, cur_t):
         lambda a, b, c, m: F.scaled_dot_product_attention(
             a, b, c, attn_mask=m, enable_gqa=True),
         [lib_args(s) for s in sets])
-    n_valid = int(valid.sum().item())          # slots this data attends to
-    n_bytes = (2 * B * H * dh * 2              # q in, out
-               + n_valid * Hkv * dh * 2 * 2    # valid K and V rows
-               + B * C * 4 + B * 4)            # pos, cur
-    flops = 4.0 * dh * H * n_valid             # q·k and p·v per q head
-    bms, by = bound_ms(n_bytes, flops)
+    # the slots this data attends to: the valid K/V rows
+    bms, by = kernel_bound(ops.decode_attention, q, k, v, pos, cur_t)
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention/kernel.py:76",
@@ -705,11 +731,10 @@ def train_times(gen):
     v = _rand(gen, (B, S, Hkv, dh), bf16)
     sets = copies_over_l2([q, k, v])
     lib_sets = [tuple(t.transpose(1, 2).contiguous() for t in s) for s in sets]
-    pairs = S * (S + 1) // 2
-    qkvo = 2 * (2 * B * S * H * dh + 2 * B * S * Hkv * dh)
+    # the bounds: the kernel's cost
+    fwd_flops, qkvo = ops.flash_attention.cost(q, k, v)
     lse_bytes = 4 * B * S * H
-    fwd_flops = 4.0 * dh * pairs * B * H
-    bms, by = bound_ms(qkvo + lse_bytes, fwd_flops)
+    bms, by = kernel_bound(ops.flash_attention, q, k, v, return_lse=True)
     fwd = dict(
         name="flash_attention +lse, train 8 x 512",
         ms=device_ms(lambda a, b, c: ops.flash_attention(
@@ -788,8 +813,9 @@ def kernel_times(card: str) -> int:
     beside this script, without the correctness cases: a copy of the
     script placed in another checkout (e.g. the parent commit unpacked
     with ``git archive``) times that checkout's kernels, so two trees
-    compare in turns within one chip call.  It calls only the ``ops`` and
-    ``ref`` functions every tree since the matmul kernel's port has."""
+    compare in turns within one chip call.  It calls the ``ops`` and
+    ``ref`` functions and the wrappers' ``cost``, so the other tree's
+    wrappers must have ``cost`` too."""
     import torch
 
     gen = torch.Generator(device="cuda")
@@ -954,7 +980,7 @@ def time_paged_decode(q, kp, vp, tab, cur_t):
 
     from repro_torch.kernels.paged_attention import ops, ref
 
-    B, H, dh = q.shape
+    B, _, dh = q.shape
     P, ps, Hkv = kp.shape[0] - 1, kp.shape[1], kp.shape[2]
     maxp = tab.shape[1]
     sets = copies_over_l2([q, kp, vp, tab, cur_t])
@@ -975,14 +1001,8 @@ def time_paged_decode(q, kp, vp, tab, cur_t):
             enable_gqa=True)
 
     library = device_ms(library_call, sets)
-    pos = torch.arange(L, device="cuda")
-    n_valid = int(((tab >= 0)[:, pos // ps] & (pos[None, :] <= cur_t[:, None]))
-                  .sum().item())              # (slot, key) pairs attended
-    n_bytes = (2 * B * H * dh * 2                       # q in, out
-               + n_valid * Hkv * dh * 2 * 2             # valid K and V rows
-               + B * maxp * 4 + B * 4)                  # table, cur_pos
-    flops = 4.0 * dh * H * n_valid
-    bms, by = bound_ms(n_bytes, flops)
+    # the (slot, key) pairs attended: the valid K/V rows
+    bms, by = kernel_bound(ops.paged_decode_attention, q, kp, vp, tab, cur_t)
     return dict(name="paged_decode_attention", route="cuda",
                 source="src/repro_torch/csrc/paged_decode_attention.cu",
                 replaces="src/repro/kernels/paged_attention/kernel.py:91",
@@ -1047,8 +1067,8 @@ def time_prefix(q, pk, pv, k, v):
 
     from repro_torch.kernels.prefix_attention import ops, ref
 
-    B, Sq, H, dh = q.shape
-    Lp, Hkv = pk.shape[1], pk.shape[2]
+    Sq = q.shape[1]
+    Lp = pk.shape[1]
     sets = copies_over_l2([q, pk, pv, k, v])
     kernel = device_ms(lambda *a: ops.prefix_flash_attention(*a), sets)
     plain = device_ms(lambda *a: ref.prefix_flash_attention_ref(*a), sets)
@@ -1066,10 +1086,7 @@ def time_prefix(q, pk, pv, k, v):
         lambda a, b, c: F.scaled_dot_product_attention(
             a, b, c, attn_mask=mask, enable_gqa=True),
         [lib_args(s) for s in sets])
-    n_bytes = 2 * (2 * B * Sq * H * dh + 2 * B * (Lp + Sq) * Hkv * dh)
-    pairs = Sq * Lp + Sq * (Sq + 1) // 2        # prefix + causal suffix
-    flops = 4.0 * dh * pairs * B * H
-    bms, by = bound_ms(n_bytes, flops)
+    bms, by = kernel_bound(ops.prefix_flash_attention, q, pk, pv, k, v)
     return dict(name="prefix_flash_attention", route="cuda",
                 source="src/repro_torch/csrc/prefix_flash_attention.cu",
                 replaces="src/repro/kernels/prefix_attention/kernel.py:94",
@@ -1186,7 +1203,7 @@ def time_verify(q, kp, vp, tab, cur_t):
 
     from repro_torch.kernels.paged_attention import ops, ref
 
-    B, W, H, dh = q.shape
+    B, W, _, dh = q.shape
     P, ps, Hkv = kp.shape[0] - 1, kp.shape[1], kp.shape[2]
     maxp = tab.shape[1]
     sets = copies_over_l2([q, kp, vp, tab, cur_t])
@@ -1211,14 +1228,7 @@ def time_verify(q, kp, vp, tab, cur_t):
     # bytes: q, out, the K/V rows some query of the window attends (the
     # last query's valid rows, which hold every other query's), the table
     # and cur_pos
-    valid = ((tab >= 0)[:, pos // ps][:, None, :]
-             & (pos[None, None, :] <= (cur_t[:, None] + wi[None, :])[:, :, None]))
-    n_valid = int(valid.sum().item())          # (slot, w, key) pairs
-    n_rows = int(valid[:, -1].sum().item())    # (slot, key) rows
-    n_bytes = (2 * B * W * H * dh * 2                       # q in, out
-               + n_rows * Hkv * dh * 2 * 2                  # K and V rows
-               + B * maxp * 4 + B * 4)                      # table, cur_pos
-    flops = 4.0 * dh * H * n_valid
+    flops, n_bytes = ops.paged_verify_attention.cost(q, kp, vp, tab, cur_t)
     bms, by = bound_ms(n_bytes, flops)
     log(f"  verify main: {n_bytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP")
     return dict(name="paged_verify_attention", route="cuda",
@@ -1427,18 +1437,12 @@ def time_ssd(args, chunk):
                        sets)
     plain = device_ms(lambda *a: ssd_chunked(*a, chunk=L, return_state=True),
                       sets)
-    # bytes: x, dt, A, B, C read once (bf16 x, B, C; f32 dt, A), y written
-    # once (bf16), the f32 final state written once
-    n_bytes = (2 * B * S * nh * hd * 2 + B * S * nh * 4 + nh * 4
-               + 2 * B * S * G * N * 2 + B * nh * hd * N * 4)
-    # operations: the causal (row, col) pairs of each chunk: C.B^T once per
-    # group, its product with x per head; the state read and update per head
-    nc, pairs = S // L, L * (L + 1) // 2
-    flops = 2.0 * B * nc * (G * pairs * N
-                            + nh * (pairs * hd + 2 * L * N * hd))
+    # bytes: x, dt, A, B, C read once, y and the f32 final state written
+    # once; operations: the causal (row, col) pairs of each chunk
+    flops, n_bytes = ops.ssd.cost(*args, chunk=L)
     bms, by = bound_ms(n_bytes, flops)
-    log(f"  ssd B={B} S={S} nh={nh} hd={hd} G={G} N={N}: {n_bytes / 1e6:.2f} "
-        f"MB, {flops / 1e9:.2f} GFLOP")
+    log(f"  ssd B={B} S={S} nh={nh} hd={hd} G={G} N={N}: "
+        f"{n_bytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP")
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan/kernel.py:85",
@@ -1522,7 +1526,7 @@ def time_rmsnorm(x, s):
 
     from repro_torch.kernels.rmsnorm import ops, ref
 
-    T, d = x.shape
+    d = x.shape[-1]
     sets = copies_over_l2([x, s])
     kernel = device_ms(lambda x, s: ops.rmsnorm(x, s), sets)
     plain = device_ms(lambda x, s: ref.rmsnorm_ref(x, s), sets)
@@ -1532,9 +1536,7 @@ def time_rmsnorm(x, s):
     copy = device_ms(lambda x, s: x.clone(), sets)
     one = torch.zeros(1, device=x.device)
     floor = device_ms(lambda x, s: one.fill_(1.0), sets)
-    n_bytes = 2 * T * d * 2 + d * 2          # x read, y written, scale read
-    flops = 4.0 * T * d                      # square, sum, two products
-    bms, by = bound_ms(n_bytes, flops)
+    bms, by = kernel_bound(ops.rmsnorm, x, s)
     return dict(name="rmsnorm", route="cuda",
                 source="src/repro_torch/csrc/rmsnorm.cu",
                 replaces="src/repro/kernels/rmsnorm/kernel.py:36",
@@ -1622,13 +1624,11 @@ def time_matmul(a, b):
 
     from repro_torch.kernels.matmul import ops, ref
 
-    (M, K), N = a.shape, b.shape[1]
     sets = copies_over_l2([a, b])
     kernel = device_ms(lambda a, b: ops.matmul(a, b), sets, iters=20)
     plain = device_ms(lambda a, b: ref.matmul_ref(a, b), sets, iters=20)
     library = device_ms(lambda a, b: torch.matmul(a, b), sets, iters=20)
-    n_bytes = (M * K + K * N + M * N) * 2     # a, b read, c written (bf16)
-    flops = 2.0 * M * N * K
+    flops, n_bytes = ops.matmul.cost(a, b)
     bms, by = bound_ms(n_bytes, flops)
     log(f"  matmul main: {n_bytes / 1e6:.2f} MB, {flops / 1e9:.2f} GFLOP; "
         f"kernel {kernel / library:.1f}x torch.matmul's time")
@@ -4601,6 +4601,419 @@ def trace_train_window(card: str, params, cfg, batch, n_steps: int = 3):
           "train window: no device time in the flash backward range")
 
 
+# ---------------------------------------------------------------------------
+# phase 5m: the cell matrix on meta, and three full-width qwen3-0.6b cells
+# on the card against their roofline
+# ---------------------------------------------------------------------------
+
+
+# the dry-run's full sweep traces 33 programs (a few minutes of host time:
+# PERF.md), so the card's run traces one cell a family, every kind among
+# them, and checks the 7 skips of the other
+SWEEP_CELLS = (("qwen3-0.6b", "train_4k"), ("deepseek-moe-16b", "decode_32k"),
+               ("mamba2-370m", "long_500k"),
+               ("jamba-1.5-large-398b", "decode_32k"),
+               ("qwen2-vl-72b", "decode_32k"), ("whisper-base", "prefill_32k"))
+FULL_ATTENTION = ("command-r-plus-104b", "qwen3-0.6b", "starcoder2-7b",
+                  "qwen3-32b", "deepseek-moe-16b", "qwen2-vl-72b",
+                  "whisper-base")
+# (shape, one-card batch, route): each cell's seq_len kept, its batch cut
+CARD_CELLS = (("prefill_32k", 1, "cuda"), ("decode_32k", 8, "cuda"),
+              ("train_4k", 2, "flash"))
+CELL_CALLS = 10                # timed calls a cell, after two warm-up calls
+CELL_REF_ROWS = 512            # prefill's gate: the last query rows
+
+
+def cell_sweep(card: str) -> None:
+    """Phase 5m (a): the dry-run of ``SWEEP_CELLS`` at full width on meta
+    tensors (``repro_torch.launch.dryrun.run_cell``, traced once, laid out
+    over pod16x16 and pod2x16x16), one line a cell; gates: every cell
+    traces, 0 < useful_flops_ratio < 1.25, and the skips of the 40 are the
+    7 full-attention archs at long_500k, as ``cell_status`` says."""
+    from repro_torch.configs import ARCHS, SHAPES, cell_status
+    from repro_torch.launch import dryrun
+
+    skips = {(a, s) for a in ARCHS for s in SHAPES
+             if not cell_status(a, s)[0]}
+    check(skips == {(a, "long_500k") for a in FULL_ATTENTION},
+          f"cell_status skips {sorted(skips)}")
+    out = ROOT / "build" / "dryrun_torch"
+    t0 = time.perf_counter()
+    for arch, shape in SWEEP_CELLS:
+        traced = {}
+        one, two = (dryrun.run_cell(arch, shape, multi_pod=mp, out_dir=str(out),
+                                    skip_existing=False, traced=traced)
+                    for mp in (False, True))
+        check(one["ok"] and two["ok"] and not one.get("skipped"),
+              f"dry-run {arch} {shape}: {one.get('error') or two.get('error')}")
+        roof = one["roofline"]
+        check(0 < roof["useful_flops_ratio"] < 1.25,
+              f"dry-run {arch} {shape}: useful_flops_ratio "
+              f"{roof['useful_flops_ratio']}")
+        log(f"  sweep {arch} {shape}: {roof['hlo_flops']:.4e} FLOP, "
+            f"{roof['hlo_bytes']:.4e} B, bound {roof['bound']}, t_bound "
+            f"{one['t_bound'] * 1e3:.3f} ms on 256 chips, useful "
+            f"{roof['useful_flops_ratio']:.3f}, args/device "
+            f"{_gib(one['argument_bytes_per_device'])} (pod16x16) "
+            f"{_gib(two['argument_bytes_per_device'])} (pod2x16x16), traced "
+            f"in {one['trace_s']:.1f} s")
+    log(f"  sweep of {len(SWEEP_CELLS)} cells in {time.perf_counter() - t0:.1f}"
+        f" s; {len(skips)} cells skipped by design (long_500k on the "
+        f"full-attention archs)")
+
+
+def _median_ms(fn, n: int = CELL_CALLS) -> tuple:
+    """(median, all) ms of ``n`` calls of ``fn`` after two warm-up calls,
+    each bracketed by CUDA events on the current stream."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), times
+
+
+def _card_cell(card: str, shape_name: str, batch: int, route: str):
+    """One full-width qwen3-0.6b cell on cuda:0 with its batch cut to
+    ``batch``: the analyzer's count of the same program on the same route
+    (meta tensors, the kernels through their ``cost``), then the median
+    ms a call, launches, peak memory, and the roofline at chips = 1.
+    Returns (row, cell, its arguments on the card)."""
+    import torch
+
+    from repro_torch.configs import SHAPES
+    from repro_torch.distributed.op_analysis import Roofline
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch.cells import argument_bytes_per_device, build_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tree import leaves
+
+    full = SHAPES[shape_name]
+    shape = dataclasses.replace(full, global_batch=batch)
+    cell = build_cell("qwen3-0.6b", shape, make_host_mesh(device="cuda"),
+                      attn_impl=route)
+    cost = cell.analyze()
+    roof = Roofline(chips=1, hlo_flops=cost.flops, hlo_bytes=cost.bytes,
+                    collective_bytes=None, model_flops=cell.model_flops)
+    args_bytes = argument_bytes_per_device(cell, cost)
+    log(f"  {shape_name} (batch {full.global_batch} -> {batch}, seq_len "
+        f"{shape.seq_len} kept), route {route!r}: analyzer {cost.flops:.4e} "
+        f"FLOP, {cost.bytes:.4e} B ({cost.ops} aten ops traced in "
+        f"{cost.trace_s:.1f} s; kernels "
+        f"{ {k: v[0] for k, v in cost.kernels.items()} })")
+    _free_device_memory()
+    args = cell.materialize("cuda", seed=0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    kernel = fa_ops.flash_attention if shape.kind != "decode" else da_ops.decode_attention
+    L = cell.cfg.n_layers
+    want = {"prefill": L, "decode": L, "train": 2 * L}[shape.kind]
+    kernel.launches = 0
+    out = cell.run(*args)
+    torch.cuda.synchronize()
+    # the floor no program can beat, whatever it fuses: every argument it
+    # reads read once, every output it makes (not an argument updated in
+    # place) written once, and the model's matmul FLOPs
+    held = {t.untyped_storage().data_ptr() for t in leaves(args)
+            if isinstance(t, torch.Tensor)}
+    out_bytes = sum(t.numel() * t.element_size() for t in leaves(out)
+                    if isinstance(t, torch.Tensor)
+                    and t.untyped_storage().data_ptr() not in held)
+    del out
+    floor_ms, floor_by = bound_ms(args_bytes + out_bytes, cell.model_flops)
+    check(kernel.launches == want, f"{shape_name}: {kernel.launches} "
+          f"{kernel.__name__} launches a call, expected {want}")
+    check(cost.kernels.get(kernel.__name__, [0])[0] == want,
+          f"{shape_name}: the analyzer counted "
+          f"{cost.kernels.get(kernel.__name__)} {kernel.__name__} calls")
+    torch.cuda.reset_peak_memory_stats()
+    ms, times = _median_ms(lambda: cell.run(*args))
+    peak = torch.cuda.max_memory_allocated()
+    # the cell's own peak: its arguments plus what its calls added above
+    # everything allocated before them (earlier phases' tensors included)
+    own = args_bytes + peak - base
+    mfu = cell.model_flops / (ms * 1e-3 * BF16_FLOPS_PER_S)
+    row = dict(cell=shape_name, batch=batch, seq_len=shape.seq_len,
+               route=route, ms=ms, ms_min=min(times), ms_max=max(times),
+               flops=cost.flops, bytes=cost.bytes, t_compute_ms=roof.t_compute * 1e3,
+               t_memory_ms=roof.t_memory * 1e3, bound=roof.bound,
+               t_bound_ms=roof.t_bound * 1e3, bound_share=roof.t_bound * 1e3 / ms,
+               output_bytes=out_bytes, floor_ms=floor_ms, floor_by=floor_by,
+               floor_share=floor_ms / ms, model_flops=cell.model_flops, mfu=mfu, peak_bytes=peak,
+               base_bytes=base, own_peak_bytes=own, argument_bytes=args_bytes,
+               peak_live_bytes=cost.peak_live_bytes, launches=want)
+    log(f"  {shape_name}: {ms:.3f} ms a call (median of {len(times)}, "
+        f"{min(times):.3f}-{max(times):.3f}); t_compute {row['t_compute_ms']:.3f}"
+        f" ms, t_memory {row['t_memory_ms']:.3f} ms, bound {roof.bound}, "
+        f"t_bound {row['t_bound_ms']:.3f} ms = {row['bound_share']:.3f} of the "
+        f"call (the eager program's own count, not a floor); floor "
+        f"{floor_ms:.3f} ms ({floor_by}: {_gib(args_bytes)} read + "
+        f"{_gib(out_bytes)} written once, model FLOPs) = "
+        f"{row['floor_share']:.3f} of the call; MFU {mfu:.4f} ({cell.model_flops:.4e} model FLOP); peak "
+        f"{_gib(peak)} ({_gib(base)} allocated before the calls): the "
+        f"cell's own {_gib(own)} ({_gib(args_bytes)} of arguments + "
+        f"{_gib(peak - base)}) against the analyzer's "
+        f"{_gib(cost.peak_live_bytes)} peak live; {want} {kernel.__name__} "
+        f"launches a call [{card}]")
+    return row, cell, args
+
+
+def _gate_prefill(card: str, cell, args) -> None:
+    """The flash kernel at the prefill cell's attention shape (1 x 32,768,
+    16:8, dh 128, causal, bf16, seeded inputs) against its plain version on
+    the last ``CELL_REF_ROWS`` query rows over all keys (the plain version
+    over all 32,768 rows would hold 68.7 GB of scores a layer); and the
+    cell's logits finite."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    cfg, S = cell.cfg, cell.shape.seq_len
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    B = cell.shape.global_batch
+    q = _rand(gen, (B, S, cfg.n_heads, cfg.d_head), torch.bfloat16)
+    k = _rand(gen, (B, S, cfg.n_kv_heads, cfg.d_head), torch.bfloat16)
+    v = _rand(gen, (B, S, cfg.n_kv_heads, cfg.d_head), torch.bfloat16)
+    got = ops.flash_attention(q, k, v)[:, -CELL_REF_ROWS:]
+    want = ref.flash_attention_ref(
+        q[:, -CELL_REF_ROWS:].transpose(1, 2), k.transpose(1, 2),
+        v.transpose(1, 2), q_offset=S - CELL_REF_ROWS).transpose(1, 2)
+    err = _err(got, want)
+    log(f"  prefill gate: flash at {B} x {S}, last {CELL_REF_ROWS} rows "
+        f"against the plain version: max_abs_err={err:.3e} (tol {BF16_TOL:g})")
+    check(err <= BF16_TOL, f"prefill cell: flash error {err} > {BF16_TOL}")
+    logits, _ = cell.run(*args)
+    check(bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          "prefill cell: non-finite logits")
+    check(logits.shape == (B, cfg.vocab_padded), f"prefill cell: logits "
+          f"{tuple(logits.shape)}")
+
+
+def _decode_logits(cell, args, impl: str):
+    """(tokens, logits) of one step of the decode cell's program on
+    ``args`` with the attention route ``impl``."""
+    import torch
+
+    from repro_torch.serving import ServeConfig, make_serve_step
+
+    step = make_serve_step(cell.cfg, ServeConfig(max_len=cell.shape.seq_len,
+                                                 attn_impl=impl))
+    with torch.no_grad():
+        n, logits, _ = step(*args)
+    return n, logits[:, :cell.cfg.vocab].float()
+
+
+def _gate_decode(card: str, cell, args) -> tuple:
+    """The decode cell in bf16 (the timed cell).  Gate: the decode kernel
+    on layer 0 of the cell's 32,768-slot cache (every slot valid), with a
+    seeded query, against its plain version on the same inputs in f32,
+    within ``BF16_TOL`` of the plain output's largest magnitude.  Then one
+    step of the cell's program on the kernel's route and on ``"torch"``:
+    their logits and tokens are returned for :func:`_gate_decode_f32`,
+    which holds both against the f32 program on the same inputs.
+    Returns (dtypes of the params' leaves, of the caches' leaves, the two
+    routes' (tokens, logits) on the host)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops, ref
+    from repro_torch.tree import leaves
+
+    cfg = cell.cfg
+    B = cell.shape.global_batch
+    kv = args[2].kv["0"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    q = _rand(gen, (B, cfg.n_heads, cfg.d_head), kv.k.dtype)
+    got = ops.decode_attention(q, kv.k[0], kv.v[0], kv.pos[0], args[3])
+    want = ref.decode_attention_ref(q.float(), kv.k[0], kv.v[0], kv.pos[0],
+                                    args[3])
+    rel, err = _rel_err(got, want), _err(got, want)
+    log(f"  decode gate, kernel: decode_attention bf16 on layer 0 of the "
+        f"cell's cache ({B} x {kv.k.shape[2]} slots, {cfg.n_heads}:"
+        f"{cfg.n_kv_heads}, dh {cfg.d_head}) against its plain version in "
+        f"f32: max |err| {rel:.3e} of the largest output "
+        f"({want.abs().max().item():.3e}; _err {err:.3e}), tol {BF16_TOL:g}"
+        f" [{card}]")
+    check(rel <= BF16_TOL, f"decode cell: the kernel's error {rel} of the "
+          f"largest output > {BF16_TOL}")
+    del got, want
+    routes = {impl: tuple(t.cpu() for t in _decode_logits(cell, args, impl))
+              for impl in ("cuda", "torch")}
+    diff = (routes["cuda"][1] - routes["torch"][1]).abs().max().item()
+    log(f"  decode step, bf16: cuda against torch: max |logit diff| "
+        f"{diff:.3e} ({diff / routes['torch'][1].abs().max().item():.3e} of "
+        f"the largest), tokens equal on "
+        f"{int((routes['cuda'][0] == routes['torch'][0]).sum())}/{B} rows")
+    return ([t.dtype for t in leaves(args[0])],
+            [t.dtype for t in leaves(args[2]) if isinstance(t, torch.Tensor)],
+            routes)
+
+
+def _gate_decode_f32(card: str, cell, bf16) -> None:
+    """The decode cell in f32 after the bf16 cell is freed (the same seeds,
+    a 60 GB cache).  Gate 1: the kernel's f32 route against ``"torch"``,
+    phase 4's rule (logits within ``MODEL_TOL``, every token equal).  Then
+    every param and cache leaf is rounded in place to its dtype in the bf16
+    cell, which makes it the bf16 cell's inputs exactly (both draw f32 and
+    cast), and ``"torch"`` in f32 on them is the reference of the two bf16
+    routes of :func:`_gate_decode` (``bf16``).  Gate 2: the kernel's route
+    within ``MOE_SPREAD`` x the plain route's distance to it (at least
+    ``BF16_TOL``), both relative to its largest logit, as phase 4c holds
+    the MoE kernels; each route's distance and tokens are logged."""
+    import torch
+
+    from repro_torch.tree import leaves
+
+    cell32 = dataclasses.replace(cell, cfg=dataclasses.replace(
+        cell.cfg, dtype="float32"))
+    args = cell32.materialize("cuda", seed=0)
+    n_k, l_k = _decode_logits(cell32, args, "cuda")
+    n_t, l_t = _decode_logits(cell32, args, "torch")
+    err = (l_k - l_t).abs().max().item()
+    log(f"  decode gate, f32 (the same seeds, "
+        f"{_gib(_param_bytes(args[2]))} of cache): max |logit diff| "
+        f"{err:.3e} (tol {MODEL_TOL:g}), tokens equal on "
+        f"{int((n_k == n_t).sum())}/{len(n_k)} rows [{card}]")
+    check(err <= MODEL_TOL, f"decode cell f32: logits differ by {err}")
+    check(bool((n_k == n_t).all()), "decode cell f32: tokens differ")
+    del n_k, l_k, n_t, l_t
+    param_dtypes, cache_dtypes, routes = bf16
+    caches = [t for t in leaves(args[2]) if isinstance(t, torch.Tensor)]
+    for ts, dts in ((leaves(args[0]), param_dtypes), (caches, cache_dtypes)):
+        check(len(ts) == len(dts), "decode cell: the f32 and bf16 cells' "
+              "trees differ")
+        for t, dt in zip(ts, dts):
+            if t.is_floating_point() and dt != t.dtype:
+                for blk in (t if t.dim() > 2 else [t]):   # a layer at a time
+                    blk.copy_(blk.to(dt))
+    n_ref, l_ref = (t.cpu() for t in _decode_logits(cell32, args, "torch"))
+    del args
+    _free_device_memory()
+    scale = l_ref.abs().max().item()
+    dist = {impl: (l - l_ref).abs().max().item() / scale
+            for impl, (_, l) in routes.items()}
+    bound = MOE_SPREAD * max(dist["torch"], BF16_TOL)
+    for impl, (n, _) in routes.items():
+        log(f"  decode step, bf16 {impl!r} against f32 on the bf16 inputs: "
+            f"max |logit diff| {dist[impl]:.3e} of the largest "
+            f"({scale:.3e}), tokens equal on {int((n == n_ref).sum())}/"
+            f"{len(n)} rows [{card}]")
+    log(f"  decode gate, bf16 step: cuda {dist['cuda']:.3e} <= "
+        f"{MOE_SPREAD:g} x max(torch {dist['torch']:.3e}, {BF16_TOL:g}) = "
+        f"{bound:.3e}")
+    check(dist["cuda"] <= bound, f"decode cell bf16: the kernel's route is "
+          f"{dist['cuda']} from f32, bound {bound}")
+
+
+def _kernel_alone(card: str, cell, args) -> dict:
+    """The cell's attention kernel alone at the cell's shape: its device
+    time (``device_ms``; inputs of two layers or two copies, over the L2)
+    beside its bound from its ``cost``."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    cfg, shape = cell.cfg, cell.shape
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "decode":
+        kv = args[2].kv["0"]
+        import torch
+
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(12)
+        q = _rand(gen, (B, cfg.n_heads, cfg.d_head), kv.k.dtype)
+        sets = [(q, kv.k[i], kv.v[i], kv.pos[i], args[3]) for i in (0, 1)]
+        wrapper, kw = da_ops.decode_attention, {}
+    else:
+        import torch
+
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(12)
+        dt = args[0]["embed"]["w"].dtype
+        sets = copies_over_l2([
+            _rand(gen, (B, S, cfg.n_heads, cfg.d_head), dt),
+            _rand(gen, (B, S, cfg.n_kv_heads, cfg.d_head), dt),
+            _rand(gen, (B, S, cfg.n_kv_heads, cfg.d_head), dt)])
+        wrapper = fa_ops.flash_attention
+        kw = {"return_lse": True} if shape.kind == "train" else {}
+    ms = device_ms(lambda *a: wrapper(*a, **kw), sets, iters=10)
+    bms, by = kernel_bound(wrapper, *sets[0], **kw)
+    log(f"  {wrapper.__name__} alone at the {shape.name} cell's shape: "
+        f"{ms:.3f} ms a call, bound {bms:.3f} ms ({by}) = {bms / ms:.3f} of "
+        f"it [{card}]")
+    return {"kernel": wrapper.__name__, "kernel_ms": ms, "kernel_bound_ms": bms,
+            "kernel_bound_by": by}
+
+
+def _gate_train(card: str) -> None:
+    """The train cell's step in f32 (TF32 off) at its one-card shape (2 x
+    4,096, full depth, remat full, its batch): one step on ``"flash"``
+    against ``"torch"`` from the same params and batch, loss and grad norm
+    within phase 4e's 1e-5 relative."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.cells import trainer_defaults
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import batch_to_torch, make_train_step
+
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), dtype="float32")
+    params = init_params(cfg, 0, device="cuda")
+    opt = adamw_init(params)
+    batch = batch_to_torch(make_batch(cfg, seq_len=4096, batch=2, step=0),
+                           "cuda")
+    out = {}
+    for impl in ("torch", "flash"):
+        tcfg = dataclasses.replace(trainer_defaults(cfg, None, attn_impl=impl),
+                                   lr=CHECK_LR)
+        _, _, m = make_train_step(cfg, tcfg)(params, opt, batch)
+        out[impl] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        del m
+        _free_device_memory()
+    for key in ("loss", "grad_norm"):
+        a, b = out["flash"][key], out["torch"][key]
+        log(f"  train gate (f32, 2 x 4096): {key} flash {a:.7f} torch {b:.7f}"
+            f" ({abs(a - b) / abs(b):.2e} relative, tol 1e-5) [{card}]")
+        check(abs(a - b) <= 1e-5 * abs(b), f"train cell: {key} {a} vs {b}")
+    del params, opt, batch
+    _free_device_memory()
+
+
+def serve_cells(card: str) -> list:
+    """Phase 5m: the sweep on meta, then the three full-width qwen3-0.6b
+    cells of ``CARD_CELLS`` on the card, each gated."""
+    log("  (a) the dry-run sweep on meta tensors, full width")
+    cell_sweep(card)
+    log("  (b) full-width qwen3-0.6b cells on cuda:0, bf16")
+    rows = []
+    for shape_name, batch, route in CARD_CELLS:
+        row, cell, args = _card_cell(card, shape_name, batch, route)
+        row.update(_kernel_alone(card, cell, args))
+        if shape_name == "prefill_32k":
+            _gate_prefill(card, cell, args)
+        elif shape_name == "decode_32k":
+            bf16 = _gate_decode(card, cell, args)
+        rows.append(row)
+        del args
+        _free_device_memory()
+        if shape_name == "decode_32k":
+            _gate_decode_f32(card, cell, bf16)
+            _free_device_memory()
+    _gate_train(card)
+    log("  cells " + json.dumps({"card": card, "cells": rows}))
+    return rows
+
+
 SSD_KERNELS = ("ssd_cumsum_kernel", "ssd_cb_kernel", "ssd_chunk_state_kernel",
                "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
 # the first match names the class (the SSD's f32 route is ssd_f32_kernel);
@@ -4919,6 +5332,11 @@ def main() -> int:
     log(f"  flash launches on the training path (a): {train_launches}")
 
     family_phases(card)
+
+    log("phase 5m: the cell matrix (the dry-run on meta) and three "
+        "full-width qwen3-0.6b cells timed against their roofline")
+    serve_cells(card)
+    _free_device_memory()
 
     for row in rows:
         # each kernel's launches on the path that runs it: flash on the

@@ -27,6 +27,11 @@ over distinct devices is refused (ROADMAP.md Queue 1 item 18).
 
 A :class:`P` is the port's ``PartitionSpec``: a tuple holding, per
 dimension, the mesh axis it is split over or ``None``.
+
+The module also holds the reference's train-side specs (``param_specs``,
+``train_batch_specs``, ``cache_specs``, ``batch_shard``) as a layout over a
+mesh description (``launch.mesh``), which the dry-run reads to count the
+bytes each device would hold.
 """
 
 from __future__ import annotations
@@ -35,11 +40,12 @@ import contextlib
 import dataclasses
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..kernels.common import cost_sinks, record_collective
 from ..models.attention import KVCacheView, PagedKVView
 from ..models.transformer import Caches, period_structure
 
@@ -49,12 +55,15 @@ BARRIER_TIMEOUT_S = 600.0
 
 class P(tuple):
     """``PartitionSpec`` stand-in: ``P(None, None, "tp")`` splits axis 2
-    over the ``"tp"`` mesh axis; ``P()`` is replicated."""
+    over the ``"tp"`` mesh axis; ``P()`` is replicated; an entry may be a
+    tuple of axes (``("pod", "data")``), and a tuple of one axis is that
+    axis, as in JAX's ``PartitionSpec``."""
 
     __slots__ = ()
 
     def __new__(cls, *axes):
-        return super().__new__(cls, axes)
+        return super().__new__(cls, (
+            a[0] if isinstance(a, tuple) and len(a) == 1 else a for a in axes))
 
     def __repr__(self) -> str:
         return "P" + tuple.__repr__(self)
@@ -381,6 +390,214 @@ def tp_tree_bytes(shards: Sequence, spec_tree) -> int:
 
 
 # ---------------------------------------------------------------------------
+# The training layout over a production mesh, as specs only
+# ---------------------------------------------------------------------------
+#
+# The reference's train-side specs (``repro.distributed.sharding`` :61-232,
+# :371-414): parameters tensor-parallel over "model" on their width and
+# FSDP over "data" on the other dimension, replicated over "pod"; batches
+# over ("pod", "data"); KV caches over heads, or over their length where
+# the kv heads do not divide "model".  Here they describe a layout: the
+# dry-run lays a traced program's arguments out over a mesh description
+# (``launch.mesh``) to count the bytes each device would hold.  No tensor is
+# placed by them; running a program over several cards is item 18.  They
+# read only ``mesh.shape`` (axis name -> size) and ``mesh.axis_names``.
+
+
+def mesh_axis_size(mesh, name: str) -> int:
+    return int(mesh.shape[name]) if name in mesh.axis_names else 1
+
+
+def data_axes(mesh) -> Tuple[str, ...]:
+    """Axes the global batch is sharded over."""
+    return ("pod", "data") if "pod" in mesh.axis_names else ("data",)
+
+
+def batch_shard(mesh, batch: int):
+    """Largest prefix of the data axes that divides ``batch`` (None if the
+    batch cannot be sharded at all, e.g. a batch of 1)."""
+    axes = []
+    prod = 1
+    for a in data_axes(mesh):
+        if batch % (prod * mesh_axis_size(mesh, a)) == 0:
+            axes.append(a)
+            prod *= mesh_axis_size(mesh, a)
+        else:
+            break
+    return tuple(axes) if axes else None
+
+
+class _Div:
+    """Divisibility-gated axis chooser for one mesh.  ``fsdp=False`` keeps
+    parameters off the "data" axis (the serving layout); ``moe_ep=False``
+    shards each expert's width instead of the experts."""
+
+    def __init__(self, mesh, *, fsdp: bool = True, moe_ep: bool = True):
+        self.model = mesh_axis_size(mesh, "model")
+        self.data = mesh_axis_size(mesh, "data")
+        self.fsdp = fsdp
+        self.moe_ep = moe_ep
+
+    def m(self, dim: int):
+        return "model" if dim % self.model == 0 else None
+
+    def d(self, dim: int):
+        if not self.fsdp:
+            return None
+        return "data" if dim % self.data == 0 else None
+
+
+def _spec_attn(cfg, dv: _Div, *, cross: bool = False) -> Dict[str, Any]:
+    p = {
+        "wq": P(dv.d(cfg.d_model), dv.m(cfg.q_dim)),
+        "wk": P(dv.d(cfg.d_model), dv.m(cfg.kv_dim)),
+        "wv": P(dv.d(cfg.d_model), dv.m(cfg.kv_dim)),
+        "wo": P(dv.m(cfg.q_dim), dv.d(cfg.d_model)),
+    }
+    if cfg.qk_norm and not cross:
+        p["q_norm"] = {"scale": P(None)}
+        p["k_norm"] = {"scale": P(None)}
+    return p
+
+
+def _spec_mlp(cfg, dv: _Div, d_ff: int, *, kind: Optional[str] = None):
+    kind = cfg.mlp_kind if kind is None else kind
+    wi_out = 2 * d_ff if kind == "swiglu" else d_ff
+    return {"wi": P(dv.d(cfg.d_model), dv.m(wi_out)),
+            "wo": P(dv.m(d_ff), dv.d(cfg.d_model))}
+
+
+def _spec_moe(cfg, dv: _Div) -> Dict[str, Any]:
+    m = cfg.moe
+    p: Dict[str, Any] = {"router": P(dv.d(cfg.d_model), None)}
+    if m.n_experts % dv.model == 0 and dv.moe_ep:
+        # expert parallelism: the experts over "model"
+        p["wi"] = P("model", dv.d(cfg.d_model), None)
+        p["wo"] = P("model", None, dv.d(cfg.d_model))
+    else:
+        # each expert's width over "model"
+        p["wi"] = P(None, dv.d(cfg.d_model), dv.m(2 * m.expert_d_ff))
+        p["wo"] = P(None, dv.m(m.expert_d_ff), dv.d(cfg.d_model))
+    if m.n_shared_experts:
+        p["shared"] = _spec_mlp(
+            cfg, dv, m.n_shared_experts * (m.shared_d_ff or m.expert_d_ff),
+            kind="swiglu")
+    return p
+
+
+def _spec_ssm(cfg, dv: _Div) -> Dict[str, Any]:
+    s = cfg.ssm
+    d_in = s.d_inner(cfg.d_model)
+    nh = s.n_ssm_heads(cfg.d_model)
+    gn = s.n_groups * s.d_state
+    return {
+        "wz": P(dv.d(cfg.d_model), dv.m(d_in)),
+        "wx": P(dv.d(cfg.d_model), dv.m(d_in)),
+        "wb": P(dv.d(cfg.d_model), dv.m(gn)),
+        "wc": P(dv.d(cfg.d_model), dv.m(gn)),
+        "wdt": P(dv.d(cfg.d_model), dv.m(nh)),
+        "conv_w": P(None, None),
+        "A_log": P(None),
+        "D": P(None),
+        "dt_bias": P(None),
+        "norm": {"scale": P(None)},
+        "out_proj": P(dv.m(d_in), dv.d(cfg.d_model)),
+    }
+
+
+def _spec_layer(cfg, dv: _Div, spec, *, cross: bool) -> Dict[str, Any]:
+    p: Dict[str, Any] = {"ln1": {"scale": P(None)}}
+    if spec.mixer == "attn":
+        p["attn"] = _spec_attn(cfg, dv)
+    else:
+        p["ssm"] = _spec_ssm(cfg, dv)
+    if cross:
+        p["ln_x"] = {"scale": P(None)}
+        p["cross"] = _spec_attn(cfg, dv, cross=True)
+    if spec.mlp is not None:
+        p["ln2"] = {"scale": P(None)}
+        if spec.mlp == "moe":
+            p["moe"] = _spec_moe(cfg, dv)
+        else:
+            p["mlp"] = _spec_mlp(cfg, dv, cfg.d_ff)
+    return p
+
+
+def _add_leading(tree):
+    """Stacked-block params get an unsharded leading (block) axis."""
+    return spec_map(lambda s: P(None, *s), tree)
+
+
+def param_specs(cfg, mesh, *, fsdp: bool = True,
+                moe_ep: bool = True) -> Dict[str, Any]:
+    """Spec tree structurally matching ``models.init_params(cfg)``.
+    Embedding tables are vocab-sharded over "model" with the feature dim
+    replicated, as the reference's are."""
+    from ..models.transformer import LayerSpec
+
+    dv = _Div(mesh, fsdp=fsdp, moe_ep=moe_ep)
+    cross = cfg.family == "audio"
+    embed_spec = P(dv.m(cfg.vocab_padded), None)
+    out: Dict[str, Any] = {
+        "embed": {"w": embed_spec},
+        "final_norm": {"scale": P(None)},
+        "blocks": [_add_leading(_spec_layer(cfg, dv, s, cross=cross))
+                   for s in period_structure(cfg)],
+    }
+    if not cfg.tie_embeddings:
+        out["lm_head"] = {"w": embed_spec}
+    if cfg.family == "audio":
+        enc = LayerSpec(mixer="attn", mlp="mlp")
+        out["encoder"] = {
+            "blocks": [_add_leading(_spec_layer(cfg, dv, enc, cross=False))],
+            "final_norm": {"scale": P(None)},
+        }
+    return out
+
+
+def train_batch_specs(cfg, mesh, *, batch: int) -> Dict[str, P]:
+    ba = batch_shard(mesh, batch)
+    specs = {"tokens": P(ba, None), "labels": P(ba, None)}
+    if cfg.family == "vlm":
+        specs["extra_embeds"] = P(ba, None, None)            # (B, Sv, d)
+        specs["positions"] = P(None, ba, None)               # (3, B, S)
+    if cfg.family == "audio":
+        specs["frames"] = P(ba, None, None)                  # (B, S_enc, d)
+    return specs
+
+
+def cache_specs(cfg, mesh, *, batch: int) -> Caches:
+    """Spec tree structurally matching ``models.init_caches``: kv heads
+    over "model" where they divide it, else the cache length; the batch
+    over the data axes where it divides them."""
+    from ..models.ssm import SSMState
+
+    dv = _Div(mesh)
+    ba = batch_shard(mesh, batch)
+    specs = period_structure(cfg)
+    kv: Dict[str, Any] = {}
+    ssm: Dict[str, Any] = {}
+    kv_heads_ok = cfg.n_kv_heads % dv.model == 0
+    for p, sp in enumerate(specs):
+        if sp.mixer == "attn":
+            if kv_heads_ok:
+                kvspec, pspec = P(None, ba, None, "model", None), P(None, ba, None)
+            else:
+                kvspec, pspec = P(None, ba, "model", None, None), P(None, ba, "model")
+            kv[str(p)] = KVCacheView(k=kvspec, v=kvspec, pos=pspec)
+        else:
+            nh = cfg.ssm.n_ssm_heads(cfg.d_model)
+            ssm[str(p)] = SSMState(conv=P(None, ba, None, None),
+                                   ssm=P(None, ba, dv.m(nh), None, None))
+    cross = None
+    if cfg.family == "audio":
+        cross = {str(p): (P(None, ba, None, None, None),
+                          P(None, ba, None, None, None))
+                 for p in range(len(specs))}
+    return Caches(kv=kv, ssm=ssm, cross=cross)
+
+
+# ---------------------------------------------------------------------------
 # The runtime: one thread a shard, taking turns from one sum to the next
 # ---------------------------------------------------------------------------
 
@@ -388,17 +605,21 @@ def tp_tree_bytes(shards: Sequence, spec_tree) -> int:
 def _thread_context(device: torch.device):
     """A context factory that puts a worker thread in the caller's state:
     grad and inference mode, and on the card the caller's current device
-    and stream, so every shard enqueues on one stream in host order."""
+    and stream, so every shard enqueues on one stream in host order; under
+    ``op_static.analyze`` its op counter too, which is per thread."""
     grad = torch.is_grad_enabled()
     inference = torch.is_inference_mode_enabled()
     stream = (torch.cuda.current_stream(device) if device.type == "cuda"
               else None)
+    sinks = cost_sinks()
 
     @contextlib.contextmanager
     def enter():
         with contextlib.ExitStack() as stack:
             stack.enter_context(torch.inference_mode(inference))
             stack.enter_context(torch.set_grad_enabled(grad))
+            for sink in sinks:
+                stack.enter_context(sink.thread_mode())
             if stream is not None:
                 stack.enter_context(torch.cuda.device(stream.device))
                 stack.enter_context(torch.cuda.stream(stream))
@@ -469,7 +690,12 @@ class ShardGroup:
             turn.set()
 
     def all_reduce(self, rank: int, x: torch.Tensor) -> torch.Tensor:
-        """The sum of every shard's ``x``, the same tensor for all."""
+        """The sum of every shard's ``x``, the same tensor for all.  Each
+        shard's call counts its own wire bytes of a ring all-reduce,
+        2 size (N - 1) / N, to the open cost sinks (``op_static``)."""
+        n_bytes = x.numel() * x.element_size()
+        record_collective("all-reduce", 2.0 * n_bytes * (self.tp - 1) / self.tp,
+                          n_bytes)
         self._parts[rank] = x
         if rank == self.tp - 1:
             parts, self._parts = self._parts, [None] * self.tp
@@ -538,8 +764,9 @@ class ShardGroup:
 
 __all__ = [
     "BARRIER_TIMEOUT_S", "P", "PerShard", "ShardGroup", "TPShardPolicy",
-    "TP_POLICY", "check_tp", "make_tp_mesh", "mesh_device",
+    "TP_POLICY", "batch_shard", "cache_specs", "check_tp", "data_axes",
+    "make_tp_mesh", "mesh_axis_size", "mesh_device", "param_specs",
     "permute_params_for_tp", "spec_map", "tp_cache_specs", "tp_gather",
     "tp_local_cfg", "tp_param_specs", "tp_replicas", "tp_shards",
-    "tp_supported", "tp_tree_bytes",
+    "tp_supported", "tp_tree_bytes", "train_batch_specs",
 ]

@@ -3,14 +3,16 @@
 The route follows the tensor's device: a CPU tensor takes the plain version
 (:mod:`.ref`), a CUDA tensor launches the kernel or raises.  There is no
 fallback between the two.  ``decode_attention.launches`` counts kernel
-launches.
+launches.  A ``meta`` tensor launches nothing: the wrapper returns an empty
+output and adds :func:`decode_attention_cost` to the open cost sinks
+(``distributed.op_static``).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-from ..common import count_launch
+from ..common import count_launch, record_kernel
 from .kernel import decode_attention_kernel
 from .ref import decode_attention_ref
 
@@ -18,6 +20,10 @@ from .ref import decode_attention_ref
 def decode_attention(q, k, v, pos, cur_pos, *, window: Optional[int] = None):
     """q: (B, H, dh); k/v: (B, C, Hkv, dh); pos: (B, C); cur_pos: (B,).
     Returns (B, H, dh)."""
+    if q.device.type == "meta":
+        record_kernel(decode_attention, decode_attention_cost(
+            q, k, v, pos, cur_pos, window=window))
+        return q.new_empty(q.shape)
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, pos, cur_pos, window=window)
     out = decode_attention_kernel(q, k, v, pos, cur_pos, window=window)
@@ -25,4 +31,31 @@ def decode_attention(q, k, v, pos, cur_pos, *, window: Optional[int] = None):
     return out
 
 
+def valid_slots(pos, cur_pos, window: Optional[int] = None):
+    """(B, C) slots a decode row attends to: filled, at or before its
+    position, inside the window."""
+    valid = (pos >= 0) & (pos <= cur_pos[:, None])
+    if window is not None:
+        valid &= pos > cur_pos[:, None] - window
+    return valid
+
+
+def decode_attention_cost(q, k, v, pos, cur_pos, *,
+                          window: Optional[int] = None):
+    """(flops, bytes) of one call over the valid K/V rows only: q·k and p·v,
+    4 dh a valid slot a query head; q read and out written once, each valid
+    K and V row read once, pos and cur_pos read once.  On ``meta`` tensors,
+    where no position is known, every slot counts (a full cache, as the
+    decode cells hold)."""
+    B, H, dh = q.shape
+    C, Hkv = k.shape[1], k.shape[2]
+    n_valid = (B * C if pos.device.type == "meta"
+               else int(valid_slots(pos, cur_pos, window).sum().item()))
+    n_bytes = (2 * B * H * dh * q.element_size()
+               + 2 * n_valid * Hkv * dh * k.element_size()
+               + B * C * pos.element_size() + B * cur_pos.element_size())
+    return 4.0 * dh * H * n_valid, n_bytes
+
+
 decode_attention.launches = 0
+decode_attention.cost = decode_attention_cost

@@ -171,12 +171,16 @@ def init_params(cfg, seed: int = 0, *, device="cuda") -> Dict[str, Any]:
     Same tree, shapes and dtypes as ``repro.models.init_params``; the values
     come from a ``torch.Generator`` seeded with ``seed`` and differ from
     JAX's (tests move JAX's weights across with ``weights.params_from_jax``).
+    On ``device="meta"`` the tree holds shapes and dtypes only (no
+    generator exists for meta tensors, and none is needed).
     """
     dev = resolve_device(device)
     specs = period_structure(cfg)
     nb = n_blocks(cfg)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
     params: Dict[str, Any] = {
         "embed": init_embedding(gen, cfg.vocab_padded, cfg.d_model, cfg.dtype,
                                 device=dev),

@@ -1,5 +1,6 @@
 """Optimizer and LR schedules of the training path: counterpart of
-``repro.optim`` (the ZeRO state specs wait for ROADMAP.md item 18)."""
+``repro.optim``, with the ZeRO state specs as a layout over a mesh
+description."""
 
 from .adamw import (
     QBLOCK,
@@ -9,11 +10,12 @@ from .adamw import (
     adamw_update,
     clip_by_global_norm,
     global_norm,
+    opt_state_specs,
 )
 from .schedules import SCHEDULES, constant, warmup_cosine, warmup_linear
 
 __all__ = [
     "AdamWState", "QBLOCK", "QTensor", "adamw_init", "adamw_update",
-    "clip_by_global_norm", "global_norm",
+    "clip_by_global_norm", "global_norm", "opt_state_specs",
     "SCHEDULES", "constant", "warmup_cosine", "warmup_linear",
 ]

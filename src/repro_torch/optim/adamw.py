@@ -15,8 +15,8 @@ step, the second moment quantized in sqrt-space.  The state is a
 (``['opt'].m['embed']['w'].q``) match in both packages.  Both functions
 return new tensors and leave their arguments as they were.
 
-The ZeRO state specs (``opt_state_specs``) shard over a mesh of several
-cards and wait for ROADMAP.md Queue 1 item 18.
+``opt_state_specs`` lays the state out over a mesh description (the
+dry-run's ZeRO layout, ``launch.mesh``); no tensor is placed by it.
 """
 
 from __future__ import annotations
@@ -128,5 +128,37 @@ def adamw_update(
     return pick(0), AdamWState(step=step, m=pick(1), v=pick(2))
 
 
+# ---------------------------------------------------------------------------
+# State specs (ZeRO: the moments mirror the param specs)
+# ---------------------------------------------------------------------------
+
+
+def opt_state_specs(p_specs, *, quantize: bool = False, params=None,
+                    mesh=None):
+    """Spec tree matching :func:`adamw_init`'s state, the reference's
+    ``opt_state_specs``.  f32 moments mirror the param specs (ZeRO falls
+    out of the FSDP specs).  Quantized moments are (n_blocks, QBLOCK) int8
+    + (n_blocks, 1) scales, the block axis over "data" only where the
+    leaf's block count divides it; that needs ``params`` (meta tensors
+    will do) and ``mesh``."""
+    from ..distributed.sharding import P
+
+    if quantize:
+        if params is None:
+            raise ValueError("opt_state_specs(quantize=True) needs params=")
+        data = (int(mesh.shape["data"])
+                if mesh is not None and "data" in mesh.axis_names else 1)
+
+        def qspec_for(p):
+            nb = -(-(p.numel() if p.dim() else 1) // QBLOCK)
+            ax = "data" if (data > 1 and nb % data == 0) else None
+            return QTensor(q=P(ax, None), scale=P(ax, None))
+
+        mspec = tree_map(qspec_for, params)
+    else:
+        mspec = p_specs
+    return AdamWState(step=P(), m=mspec, v=mspec)
+
+
 __all__ = ["AdamWState", "QBLOCK", "QTensor", "adamw_init", "adamw_update",
-           "clip_by_global_norm", "global_norm"]
+           "clip_by_global_norm", "global_norm", "opt_state_specs"]

@@ -25,6 +25,7 @@ from .engine import (
     make_paged_decode_chunk,
     make_paged_spec_decode_chunk,
     make_prefill_step,
+    make_serve_step,
     make_spec_decode_chunk,
     select_token,
     tp_program,
@@ -58,7 +59,7 @@ __all__ = [
     "make_admit_step", "make_cached_admit_step", "make_decode_chunk",
     "make_page_push", "make_paged_admit_step", "make_paged_decode_chunk",
     "make_paged_spec_decode_chunk", "make_prefill_step",
-    "make_spec_decode_chunk", "select_token", "tp_program",
+    "make_serve_step", "make_spec_decode_chunk", "select_token", "tp_program",
     "PagedKVPool", "PageQuotaError", "cache_len", "kv_cache_bytes",
     "page_bytes", "paged_kv_cache_bytes", "pages_for", "seed_kv_cache",
     "seed_ssm_state", "tree_bytes",

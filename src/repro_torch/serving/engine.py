@@ -125,6 +125,28 @@ def make_prefill_step(cfg, scfg: ServeConfig, *, policy=None):
     return prefill_step
 
 
+def make_serve_step(cfg, scfg: ServeConfig, *, policy=None):
+    """serve_step(params, tokens (B,), caches, cur_pos (B,), key=None) ->
+    (next_tokens (B,) int32, logits (B, Vp), caches).
+
+    One decode step, the counterpart of the reference's ``make_serve_step``
+    (the decode cells' program): the vocab-padding mask is added to the
+    returned logits before the token is selected.  ``key`` stands where the
+    reference takes a PRNG key: a ``torch.Generator`` for sampling, or None.
+    The caches are updated in place and returned as the same object."""
+
+    def serve_step(params, tokens, caches: Caches, cur_pos,
+                   key: Optional[torch.Generator] = None):
+        logits, caches = decode_step(params, tokens, caches, cur_pos, cfg,
+                                     impl=scfg.attn_impl, policy=policy)
+        mask = scfg.logit_mask(cfg, logits.device)
+        if mask is not None:
+            logits = logits + mask.to(logits.dtype)
+        return select_token(logits, None, scfg, key), logits, caches
+
+    return serve_step
+
+
 # ---------------------------------------------------------------------------
 # Chunked decode with on-device slot bookkeeping
 # ---------------------------------------------------------------------------

@@ -31,6 +31,8 @@ import torch
 
 import repro.core as jcore
 import repro_torch.core as tcore
+from test_torch_train_parity import one_torch_thread  # noqa: F401 (a module fixture)
+
 from repro.configs import get_reduced as jax_reduced
 from repro.core.hrp import HRPError as JaxHRPError
 from repro.models import init_params as jax_init_params

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_train_parity import one_torch_thread  # noqa: F401 (a module fixture)
+
 from repro.kernels.decode_attention import ops as jda_ops
 from repro.kernels.decode_attention import ref as jda_ref
 from repro.kernels.flash_attention import ops as jfa_ops

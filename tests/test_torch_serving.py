@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_train_parity import one_torch_thread  # noqa: F401 (a module fixture)
+
 from repro.configs import get_reduced as jax_reduced
 from repro.models import init_params as jax_init_params
 from repro.serving import ContinuousBatcher as JaxBatcher

@@ -17,6 +17,8 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec
 
+from test_torch_train_parity import one_torch_thread  # noqa: F401 (a module fixture)
+
 from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import get_config as jax_config
 from repro.configs import get_reduced as jax_reduced

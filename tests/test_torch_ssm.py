@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_train_parity import one_torch_thread  # noqa: F401 (a module fixture)
+
 from repro.configs import get_reduced as jax_reduced
 from repro.kernels.ssd_scan import ops as jax_ssd_ops
 from repro.kernels.ssd_scan.ref import ssd_naive as jax_ssd_naive

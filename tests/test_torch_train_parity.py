@@ -46,7 +46,7 @@ def one_torch_thread():
     """One intra-op thread for the module's tests, restored after it: their
     tensors are small, and with several test workers on the machine's
     cores each worker's spinning thread pool slowed them many times over.
-    Every file of the training tests imports this fixture."""
+    Every CPU ``test_torch_*.py`` file imports this fixture."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield

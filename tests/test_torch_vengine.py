@@ -37,6 +37,8 @@ import torch.nn.functional as F
 
 import repro.core as jcore
 import repro_torch.core as tcore
+from test_torch_train_parity import one_torch_thread  # noqa: F401 (a module fixture)
+
 from repro.core import allocator as jalloc
 from repro.core import ifp as jifp
 from repro.core import latency_sim as jsim
