@@ -287,6 +287,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
               BF16_TOL); one f32 train step at 2 x 4,096, flash against
               torch, loss and grad norm within 1e-5.  A ``cells`` JSON
               log line holds the rows.
+5n. spmd    — after 5m: runtime SPMD (``distributed.spmd``) over gloo
+              ranks of one process group that share the card (NCCL refuses
+              two ranks on one card), spawned by
+              ``launch.spmd.run_ranks`` after phase 2 built the kernels
+              (ranks only load the library), full-width qwen3-0.6b, each
+              leg against the single process's ``make_prefill_step`` and
+              ``make_serve_step`` on the same weights (bf16 from the seed,
+              and the same values in f32): (a) (data 2, model 3), 6 ranks,
+              ``param_shardings(fsdp=False)``: 8 kv heads do not divide 3,
+              so the cache's 3,072 slots are split 1,024 a rank, the
+              vocab (152,064) and the MLP are split over "model", batch 4
+              prompts of 512 tokens, 2 a data rank, 16 decode steps; f32
+              every token equal and logits within MODEL_TOL, then bf16
+              (the first step's logits within BF16_TOL of the largest
+              logit, the share of tokens equal printed); (b) (data 1,
+              model 2), 2 ranks, the head-aligned branch, the f32 gate;
+              (c) on (b)'s ranks, a ("pod" 2) mesh: one pod's gradients
+              (2 x 256 tokens, bf16, the flash route) through
+              ``pod_psum_compressed`` equal bit for bit to
+              ``pod_psum_compressed_ref`` on both pods' gradients in one
+              process, then one ``compress_pods`` train step whose loss is
+              the pods' mean.  Each serving leg: the flash kernel 28 times
+              in each rank's prefill and the decode kernel 28 times a step
+              on every rank (counts set to 0 just before); wall ms a step
+              beside the single process's, host ms in collectives a step,
+              bytes each rank sends a step by collective (ring wire
+              bytes), each rank's reckoned memory and peak allocated.
+              Phase 3 also holds the decode kernel's stats route
+              (``return_stats=True``) against its plain version and the
+              merge of three length shards against the whole ring
+              (``check_decode_stats``), and times it.
 6. trace    — the first rounds of the dense, the paged, the spec, the
               Mamba-2 and the MoE path,
               all untraced first, then each under ``torch.profiler``: device
@@ -618,6 +649,73 @@ def time_decode(q, k, v, pos, cur_t):
                 replaces="src/repro/kernels/decode_attention/kernel.py:76",
                 ms=kernel, plain_ms=plain, bound_ms=bms, bound_by=by,
                 library_ms=library)
+
+
+def check_decode_stats(gen, card: str) -> None:
+    """The decode kernel's stats route (``return_stats=True``: each row's
+    running max ``m`` and denominator ``l``) against its plain version, and
+    three length shards of one ring merged as phase 5n's ranks merge them
+    against the kernel over the whole ring.  The shards' ``pos`` come from
+    the global ring (a wrapped one: slot c holds the newest p <= cur with p
+    % C == c); one shard holds no valid slot for some rows, one row none
+    anywhere (the mean of V over all C slots)."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops, ref
+
+    rng = np.random.default_rng(1)
+    B, C, H, Hkv, dh = 8, 3 * 128, 16, 8, 128
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+        q = _rand(gen, (B, H, dh), dtype)
+        k = _rand(gen, (B, C, Hkv, dh), dtype)
+        v = _rand(gen, (B, C, Hkv, dh), dtype)
+        cur_np = rng.integers(C + 10, 3 * C, size=B)     # wrapped rings
+        cur_np[1] = 100                                  # shards 2, 3 empty
+        pos_np = _ring_pos(rng, B, C, cur_np, holes=0.1)
+        pos_np[2] = -1                                   # no valid slot
+        pos = torch.from_numpy(pos_np).cuda()
+        cur = torch.as_tensor(cur_np.astype(np.int32)).cuda()
+        out, m, l = ops.decode_attention(q, k, v, pos, cur, return_stats=True)
+        want, wm, wl = ref.decode_attention_ref(q, k, v, pos, cur,
+                                                return_stats=True)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        err_m = ((m - wm).abs() / wm.abs().clamp_min(1.0)).max().item()
+        err_l = ((l - wl).abs() / wl).max().item()
+        log(f"  decode stats {tag}: out {err:.3e} (tol {tol:g}), m "
+            f"{err_m:.3e}, l {err_l:.3e} relative (tol {F32_TOL:g})")
+        check(err <= tol and err_m <= F32_TOL and err_l <= F32_TOL,
+              f"decode stats {tag}: out {err}, m {err_m}, l {err_l}")
+        check(bool((m[2] == -1e30).all()) and bool((l[2] == C).all()),
+              f"decode stats {tag}: a row without a valid slot has m "
+              f"{m[2].tolist()}, l {l[2].tolist()}")
+        parts = [ops.decode_attention(q, *(t.chunk(3, dim=1)[i].contiguous()
+                                           for t in (k, v, pos)), cur,
+                                      return_stats=True) for i in range(3)]
+        merged = ref.decode_attention_merge_ref(*zip(*parts))
+        whole = ops.decode_attention(q, k, v, pos, cur)
+        torch.cuda.synchronize()
+        err = (merged.float() - whole.float()).abs().max().item()
+        log(f"  decode 3-shard merge {tag}: max_abs_err={err:.3e} against "
+            f"the whole ring (tol {tol:g})")
+        check(err <= tol, f"decode 3-shard merge {tag}: {err} > {tol}")
+    # the stats route's time beside the plain call at the serving shape
+    B, C = 8, 322
+    cur_np = rng.integers(256, 320, size=B)
+    args = (_rand(gen, (B, H, dh), torch.bfloat16),
+            _rand(gen, (B, C, Hkv, dh), torch.bfloat16),
+            _rand(gen, (B, C, Hkv, dh), torch.bfloat16),
+            torch.from_numpy(_ring_pos(rng, B, C, cur_np)).cuda(),
+            torch.as_tensor(cur_np.astype(np.int32)).cuda())
+    sets = copies_over_l2(list(args))
+    plain_ms = device_ms(lambda *a: ops.decode_attention(*a), sets)
+    stats_ms = device_ms(lambda *a: ops.decode_attention(*a, return_stats=True),
+                         sets)
+    plain2_ms = device_ms(lambda *a: ops.decode_attention(*a), sets)
+    log(f"  decode stats route: {stats_ms:.5f} ms beside the plain route's "
+        f"{plain_ms:.5f} / {plain2_ms:.5f} ms (B 8, C 322, 16:8, bf16) "
+        f"[{card}]")
 
 
 def group1_times(gen, rng):
@@ -5014,6 +5112,411 @@ def serve_cells(card: str) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 5n: runtime SPMD over a gloo process group of ranks sharing the card
+# ---------------------------------------------------------------------------
+
+SPMD_TIMEOUT_S = 480.0
+CUDA_CONTEXT_BYTES = 0.5 * 2**30    # a rank's CUDA context, reckoned
+
+
+def spmd_job(cfg, device: str = "cuda", *, batch: int = 4, prompt: int = 512,
+             max_len: int = 3072, steps: int = 16, train_seq: int = 256):
+    """Phase 5n's sizes and config, passed to every rank (a spawned rank
+    imports this script afresh, so nothing here may live in a global that
+    a rehearsal patches)."""
+    return dict(cfg=cfg, device=device, batch=batch, prompt=prompt,
+                max_len=max_len, steps=steps, train_seq=train_seq, seed=0)
+
+
+def _spmd_weights(job, dtype: str):
+    """The weights every rank and the single-process reference make from
+    the seed: bf16 from ``init_params``, cast to f32 for the f32 runs, so
+    both dtypes hold the same values."""
+    import torch
+
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(job["cfg"], dtype="bfloat16")
+    params = init_params(cfg, job["seed"], device=job["device"])
+    if dtype == "float32":
+        params = tree_map(lambda t: t.float(), params)
+    return params
+
+
+def _spmd_prompts(job):
+    import torch
+
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, job["cfg"].vocab, size=(job["batch"], job["prompt"]),
+                        dtype=np.int32)
+    return torch.from_numpy(toks).to(job["device"])
+
+
+def _tree_nbytes(tree) -> int:
+    from repro_torch.tree import leaves
+
+    return sum(t.numel() * t.element_size() for t in leaves(tree)
+               if hasattr(t, "element_size"))
+
+
+def _serve_run(job, cfg, params, toks, *, policy=None, mesh=None):
+    """A prefill and ``job["steps"]`` greedy serve steps through
+    ``make_prefill_step`` and ``make_serve_step`` on the kernels' route,
+    each step timed (host clock around a synchronised step): the whole
+    batch's tokens a step and, on rank 0 of a mesh or without one, the
+    logits; the flash launches of the prefill and the decode launches of
+    each step, counted from 0 just before; each step's collectives."""
+    import torch
+
+    from repro_torch.distributed.spmd import gather_batch
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.serving.engine import (
+        ServeConfig, make_prefill_step, make_serve_step)
+
+    cuda = job["device"] == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    def whole(x):
+        if mesh is None:
+            return x
+        return gather_batch(x, mesh, policy.batch_axes)
+
+    keep_logits = mesh is None or mesh.coords == (0,) * len(mesh.coords)
+    scfg = ServeConfig(max_len=job["max_len"], attn_impl="cuda")
+    out = {"tokens": [], "logits": [], "ms": [], "coll_ms": [], "wire": [],
+           "decode_launches": []}
+    with torch.no_grad():
+        fa.flash_attention.launches = 0
+        logits0, caches = make_prefill_step(cfg, scfg, policy=policy)(
+            params, {"tokens": toks})
+        sync()
+        out["flash_launches"] = fa.flash_attention.launches
+        tok = torch.argmax(logits0[..., :cfg.vocab], -1).to(torch.int32)
+        first = whole(logits0)           # a collective: every rank joins
+        out["first"] = first.float().cpu() if keep_logits else None
+        out["t0"] = whole(tok).cpu()
+        cur = torch.full((tok.shape[0],), toks.shape[1], dtype=torch.int32,
+                         device=toks.device)
+        step = make_serve_step(cfg, scfg, policy=policy)
+        for i in range(job["steps"]):
+            if policy is not None:
+                policy.log.reset()
+            da.decode_attention.launches = 0
+            sync()
+            t0 = time.perf_counter()
+            tok, logits, caches = step(params, tok, caches, cur + i)
+            sync()
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["decode_launches"].append(da.decode_attention.launches)
+            if policy is not None:
+                out["coll_ms"].append(policy.log.seconds * 1e3)
+                out["wire"].append(dict(policy.log.wire))
+            out["tokens"].append(whole(tok).cpu())
+            lg = whole(logits)
+            if keep_logits:
+                out["logits"].append(lg.float().cpu())
+    out["cache_bytes"] = _tree_nbytes(caches)
+    return out
+
+
+def _spmd_rank(rank: int, world: int, job):
+    """One rank of phase 5n: legs (a) or (b) serve on ``job["shape"]``;
+    leg (c) trains on a ("pod" 2) mesh."""
+    import torch
+
+    from repro_torch.distributed.spmd import (
+        make_policy, param_shardings, shard_batch)
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = job["device"] == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    out = {"rank": rank}
+    if "shape" in job:
+        mesh = make_host_mesh(job["shape"], device=job["device"])
+        out["coords"] = mesh.coords
+        for dt in job["dtypes"]:
+            cfg = dataclasses.replace(job["cfg"], dtype=dt)
+            pol = make_policy(cfg, mesh, batch=job["batch"], fsdp=False)
+            params = param_shardings(cfg, mesh, _spmd_weights(job, dt),
+                                     fsdp=False)
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            toks = shard_batch(_spmd_prompts(job), mesh, pol.batch_axes)
+            res = _serve_run(job, cfg, params, toks, policy=pol, mesh=mesh)
+            res.update(kv_len_sharded=pol.kv_len_sharded,
+                       vocab_parallel=pol.vocab_parallel,
+                       gathers_layers=pol.gathers_layers,
+                       param_bytes=_tree_nbytes(params))
+            if cuda:
+                res["peak_bytes"] = torch.cuda.max_memory_allocated()
+            out[dt] = res
+            del params
+    if job.get("pods"):
+        out["train"] = _spmd_pod_train(job)
+    return out
+
+
+def _spmd_pod_train(job):
+    """Leg (c): one rank a pod.  The pod's gradients through
+    ``pod_psum_compressed`` against ``pod_psum_compressed_ref`` on both
+    pods' gradients in this process (each leaf all-gathered), bit for bit;
+    then one ``compress_pods`` train step, whose loss is the pods' mean."""
+    import torch
+
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.distributed.compression import (
+        pod_psum_compressed, pod_psum_compressed_ref)
+    from repro_torch.distributed.spmd import CollectiveLog, mesh_all_gather
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import (
+        TrainerConfig, batch_to_torch, make_train_step)
+    from repro_torch.training.steps import make_loss_fn, value_and_grad
+    from repro_torch.tree import leaves, tree_map
+
+    pods = make_host_mesh((2,), axes=("pod",), device=job["device"])
+    cfg = dataclasses.replace(job["cfg"], dtype="bfloat16")
+    params = _spmd_weights(job, "bfloat16")
+    batch = batch_to_torch(make_batch(cfg, seq_len=job["train_seq"], batch=4,
+                                      step=0, seed=0), device=job["device"])
+    pod = pods.coord("pod")
+    batch = {k: v[2 * pod:2 * pod + 2] for k, v in batch.items()}
+    tcfg = TrainerConfig(compress_pods=True, attn_impl="flash", lr=1e-4)
+    (_, metrics), grads = value_and_grad(make_loss_fn(cfg, tcfg), params,
+                                         batch)
+    zeros = tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
+                                           device=g.device), grads)
+    log_c = CollectiveLog()
+    sync = torch.cuda.synchronize if job["device"] == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    red, _ = pod_psum_compressed(grads, zeros, mesh=pods, log=log_c)
+    sync()
+    psum_ms = (time.perf_counter() - t0) * 1e3
+    del zeros
+    mismatched = 0
+    for g, r in zip(leaves(grads), leaves(red)):
+        both = mesh_all_gather(g[None], pods, "pod", 0)
+        want, _ = pod_psum_compressed_ref(
+            [both[0], both[1]], [torch.zeros(g.shape, device=g.device)] * 2)
+        mismatched += int(not torch.equal(want, r))
+    local_losses = mesh_all_gather(metrics["loss"].float().reshape(1), pods,
+                                   "pod", 0).cpu()
+    n_leaves, wire = len(leaves(red)), dict(log_c.wire)
+    del grads, red
+    step = make_train_step(cfg, tcfg, mesh=pods)
+    sync()
+    t0 = time.perf_counter()
+    new, _, m = step(params, adamw_init(params), batch)
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    return {"mismatched_leaves": mismatched, "leaves": n_leaves,
+            "psum_ms": psum_ms, "psum_host_ms": log_c.seconds * 1e3,
+            "psum_wire": wire, "local_losses": local_losses,
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "step_ms": step_ms,
+            "finite": all(bool(torch.isfinite(t).all()) for t in leaves(new))}
+
+
+def _spmd_reckon(job, shape, dtype: str) -> float:
+    """Bytes a serving rank should hold: its parameter blocks, its cache
+    block, one gathered layer (none in this layout: the params are off the
+    "data" axis and the attention weights, which do not divide "model",
+    are whole on every rank) and a CUDA context."""
+    from repro_torch.distributed.sharding import cache_specs, param_specs
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models import init_caches, init_params
+
+    cfg = dataclasses.replace(job["cfg"], dtype=dtype)
+    mesh = MeshSpec(("data", "model"), shape)
+
+    def split(spec):
+        n = 1
+        for ax in spec:
+            for a in (ax if isinstance(ax, tuple) else (ax,)):
+                n *= mesh.shape.get(a, 1) if a else 1
+        return n
+
+    def per_rank(specs, tree):
+        from repro_torch.launch.cells import _spec_leaves
+
+        return sum(t.numel() * t.element_size() / split(sp)
+                   for sp, t in _spec_leaves(specs, tree))
+
+    params = per_rank(param_specs(cfg, mesh, fsdp=False),
+                      init_params(cfg, device="meta"))
+    caches = per_rank(cache_specs(cfg, mesh, batch=job["batch"]),
+                      init_caches(cfg, job["batch"], job["max_len"],
+                                  device="meta"))
+    return params + caches + CUDA_CONTEXT_BYTES
+
+
+def _spmd_legs(job, shape, dtypes, *, pods: bool = False):
+    from repro_torch.launch.spmd import run_ranks
+
+    world = int(np.prod(shape))
+    t0 = time.perf_counter()
+    res = run_ranks(_spmd_rank, world,
+                    args=(dict(job, shape=shape, dtypes=dtypes, pods=pods),),
+                    timeout=SPMD_TIMEOUT_S)
+    log(f"  {world} ranks on {shape}: spawned, ran and joined in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def spmd_phase(card: str, job=None) -> None:
+    """Phase 5n: legs (a) length-sharded decode on (data 2, model 3), (b)
+    the head-aligned (data 1, model 2) branch, (c) a compressed train
+    step over ("pod" 2); each rank a process of one gloo group on the
+    card.  ``job`` (``spmd_job``) defaults to full-width qwen3-0.6b."""
+    from repro_torch.configs import get_config
+
+    job = job or spmd_job(get_config("qwen3-0.6b"))
+    cuda = job["device"] == "cuda"
+    cfg = job["cfg"]
+    steps, layers = job["steps"], cfg.n_layers
+    ref = {}
+    for dt in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=dt)
+        params = _spmd_weights(job, dt)
+        ref[dt] = _serve_run(job, c, params, _spmd_prompts(job))
+        del params
+        if cuda:
+            _free_device_memory()
+    single_ms = float(np.median(ref["bfloat16"]["ms"][1:]))
+    single_f32_ms = float(np.median(ref["float32"]["ms"][1:]))
+
+    for label, shape, dtypes, pods in (
+            ("(a) length-sharded", (2, 3), ("float32", "bfloat16"), False),
+            ("(b) head-aligned", (1, 2), ("float32",), True)):
+        for dt in dtypes:
+            need = _spmd_reckon(job, shape, dt)
+            log(f"  {label} {dt}: each rank reckoned <= {need / 2**30:.3f} "
+                f"GiB (parameter and cache blocks + a "
+                f"{CUDA_CONTEXT_BYTES / 2**30:.1f} GiB context)")
+        res = _spmd_legs(job, shape, dtypes, pods=pods)
+        for dt in dtypes:
+            rows = [r[dt] for r in res]
+            r0 = rows[0]
+            if shape == (2, 3):
+                check(r0["kv_len_sharded"] and r0["vocab_parallel"]
+                      and not r0["gathers_layers"],
+                      f"{label}: the layout is not length-sharded, "
+                      f"vocab-parallel and gather-free")
+            else:
+                check(not r0["kv_len_sharded"], f"{label}: length-sharded")
+            _spmd_check_tokens(label + " " + dt, rows, ref[dt],
+                               ref["float32"], f32=dt == "float32")
+            for i, r in enumerate(rows):
+                if cuda:
+                    check(r["flash_launches"] == layers
+                          and all(n == layers for n in r["decode_launches"]),
+                          f"{label} {dt}: rank {i} launched flash "
+                          f"{r['flash_launches']} times in the prefill and "
+                          f"decode {r['decode_launches']} a step, not "
+                          f"{layers}")
+            ms = float(np.median([np.median(r["ms"][1:]) for r in rows]))
+            coll = float(np.median([np.median(r["coll_ms"][1:])
+                                    for r in rows]))
+            wire = {k: v for k, v in rows[0]["wire"][-1].items()}
+            single = single_ms if dt == "bfloat16" else single_f32_ms
+            log(f"  {label} {dt}: {ms:.2f} ms a serve step (median of ranks' "
+                f"medians, steps 2-{steps}) beside the single process's "
+                f"{single:.2f} ms; {coll:.2f} ms of host time in collectives "
+                f"a step; bytes each rank sends a step "
+                f"{json.dumps({k: int(v) for k, v in wire.items()})} "
+                f"(ring wire bytes) [{card}]")
+            if cuda:
+                peak = max(r["peak_bytes"] for r in rows)
+                log(f"  {label} {dt}: peak allocated a rank "
+                    f"{peak / 2**30:.3f} GiB + its context, reckoned "
+                    f"{_spmd_reckon(job, shape, dt) / 2**30:.3f} GiB "
+                    f"(parameter blocks {r0['param_bytes'] / 2**30:.3f} GiB, "
+                    f"cache block {r0['cache_bytes'] / 2**30:.3f} GiB) "
+                    f"[{card}]")
+        if pods:
+            _spmd_check_pods(card, [r["train"] for r in res])
+
+
+def _logit_dist(a, b) -> float:
+    """max |a - b| over the real vocab (finite in ``b``), over max |b|."""
+    import torch
+
+    fin = torch.isfinite(b)
+    return ((a[fin] - b[fin]).abs().max() / b[fin].abs().max()).item()
+
+
+def _spmd_check_tokens(label, rows, ref, ref_f32, *, f32: bool) -> None:
+    """f32: every token equal to the single process's and the logits
+    within MODEL_TOL.  bf16: the prefill's logits and the first step's (on
+    the rows whose input token agrees) within max(BF16_TOL, MOE_SPREAD x the
+    single process's own bf16 distance from f32 on the same weights), as
+    phase 5m holds a bf16 route; the share of equal tokens printed."""
+    import torch
+
+    toks = torch.stack(rows[0]["tokens"])
+    want = torch.stack(ref["tokens"])
+    for rank, r in enumerate(rows[1:], 1):
+        check(torch.equal(torch.stack(r["tokens"]), toks),
+              f"{label}: rank {rank} holds other tokens than rank 0")
+    share = float((toks == want).float().mean())
+    if f32:
+        err = 0.0
+        for a, b in zip(rows[0]["logits"], ref["logits"]):
+            fin = torch.isfinite(b)          # -inf on the padded vocab
+            check(torch.equal(torch.isfinite(a), fin),
+                  f"{label}: the vocab mask differs")
+            err = max(err, (a[fin] - b[fin]).abs().max().item())
+        log(f"  {label}: tokens {int((toks == want).sum())}/{toks.numel()} "
+            f"equal to the single process's, logits max_abs_err={err:.3e} "
+            f"(tol {MODEL_TOL:g})")
+        check(share == 1.0, f"{label}: tokens differ from the single-process "
+                            f"run ({share:.3f} equal)")
+        check(err <= MODEL_TOL, f"{label}: logits {err} > {MODEL_TOL}")
+        return
+    own = _logit_dist(ref["first"], ref_f32["first"])
+    tol = max(BF16_TOL, MOE_SPREAD * own)
+    first = _logit_dist(rows[0]["first"], ref["first"])
+    same = rows[0]["t0"] == ref["t0"]
+    step = (_logit_dist(rows[0]["logits"][0][same], ref["logits"][0][same])
+            if bool(same.any()) else float("nan"))
+    log(f"  {label}: the prefill's logits {first:.3e} and the first step's "
+        f"{step:.3e} ({int(same.sum())} rows with the same input token) of "
+        f"the largest logit from the single process's bf16 run; its own "
+        f"bf16 distance from f32 {own:.3e} (tol {tol:.3e}); "
+        f"{int((toks == want).sum())}/{toks.numel()} tokens equal "
+        f"({share:.4f})")
+    check(first <= tol, f"{label}: bf16 prefill logits {first} > {tol}")
+    check(not bool(same.any()) or step <= tol,
+          f"{label}: bf16 first-step logits {step} > {tol}")
+
+
+def _spmd_check_pods(card, rows) -> None:
+    for i, r in enumerate(rows):
+        check(r["mismatched_leaves"] == 0,
+              f"(c) pod {i}: pod_psum_compressed differs from its plain "
+              f"version on {r['mismatched_leaves']} of {r['leaves']} leaves")
+        want = float(r["local_losses"].mean())
+        check(abs(r["loss"] - want) <= 1e-6 * abs(want),
+              f"(c) pod {i}: loss {r['loss']} is not the pods' mean {want}")
+        check(r["finite"], f"(c) pod {i}: non-finite params after the step")
+    r = rows[0]
+    log(f"  (c) compressed train step: pod_psum_compressed equals its plain "
+        f"version on all {r['leaves']} leaves of both pods; loss "
+        f"{r['loss']:.6f} = the mean of {r['local_losses'].tolist()}; "
+        f"grad norm {r['grad_norm']:.4f}; pod_psum_compressed "
+        f"{r['psum_ms']:.1f} ms ({r['psum_host_ms']:.1f} ms in collectives, "
+        f"{json.dumps({k: int(v) for k, v in r['psum_wire'].items()})} bytes "
+        f"sent), the step {r['step_ms']:.1f} ms [{card}]")
+
+
 SSD_KERNELS = ("ssd_cumsum_kernel", "ssd_cb_kernel", "ssd_chunk_state_kernel",
                "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
 # the first match names the class (the SSD's f32 route is ssd_f32_kernel);
@@ -5226,6 +5729,7 @@ def main() -> int:
     rows = [check_flash(gen), check_decode(gen), check_paged_decode(gen),
             check_paged_verify(gen), check_prefix(gen), check_ssd(gen),
             check_rmsnorm(gen), check_matmul(gen)]
+    check_decode_stats(gen, card)
     log("  the five attention kernels at group 1 (H = Hkv = 16, dh 128, "
         "bf16), deepseek-moe-16b's heads:")
     for row in group1_times(gen, np.random.default_rng(7)):
@@ -5336,6 +5840,12 @@ def main() -> int:
     log("phase 5m: the cell matrix (the dry-run on meta) and three "
         "full-width qwen3-0.6b cells timed against their roofline")
     serve_cells(card)
+    _free_device_memory()
+
+    log("phase 5n: runtime SPMD, full-width qwen3-0.6b over gloo ranks "
+        "sharing the card: (a) length-sharded decode on (data 2, model 3), "
+        "(b) head-aligned on (1, 2), (c) a compressed train step on (pod 2)")
+    spmd_phase(card)
     _free_device_memory()
 
     for row in rows:

@@ -27,7 +27,11 @@
 //   l_s, 1e-30), cast to q's dtype.  The partials live in f32 scratch the
 //   wrapper allocates: acc (B, H, n_split, dh) and (m, l) (B, H, n_split, 2).
 //   It is launched as a programmatic dependent launch (cudaLaunchKernelEx),
-//   so its launch overlaps the split pass's tail.
+//   so its launch overlaps the split pass's tail.  On request (ml_out not
+//   null) it also writes each (batch row, q head)'s m* and denominator
+//   sum_s e^(m_s - m*) l_s to ml_out (B, H, 2): the statistics with which
+//   a cache whose length is sharded over several ranks merges their
+//   outputs (distributed/spmd.py), in the same NEG_INF convention.
 // * K/V tiles of BC = 32 slots are staged in shared memory in their own
 //   dtype (bf16 stays bf16) with 16-byte cp.async, double-buffered so tile
 //   t + 1 loads while tile t computes: ~34 KB of shared memory a block at
@@ -171,19 +175,30 @@ __global__ void __launch_bounds__(NT) dec_split_kernel(
 // pass 2: one block of dh threads per (q head, batch row), merging the
 // splits (attn_common.cuh's decode_merge).  Launched as a programmatic
 // dependent of the split pass, so its blocks may start while the split
-// pass drains.
+// pass drains.  With ml_out, thread 0 then writes the row's m* (the
+// largest m_s) and its denominator, which decode_merge left in w[n_split].
 template <typename T>
 __global__ void dec_merge_kernel(const float* __restrict__ part_acc,
                                  const float* __restrict__ part_ml,
-                                 T* __restrict__ o, int H, int DH, int n_split) {
+                                 T* __restrict__ o, float* __restrict__ ml_out,
+                                 int H, int DH, int n_split) {
   decode_merge(part_acc, part_ml, o, H, DH, n_split);
+  if (ml_out != nullptr && threadIdx.x == 0) {
+    extern __shared__ float wsh[];    // decode_merge's weights, then the denominator
+    const long long row = (long long)blockIdx.y * H + blockIdx.x;
+    float m_star = -CUDART_INF_F;
+    for (int s = 0; s < n_split; ++s)
+      m_star = fmaxf(m_star, part_ml[(row * n_split + s) * 2]);
+    ml_out[row * 2] = m_star;
+    ml_out[row * 2 + 1] = wsh[n_split];
+  }
 }
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, const void* pos,
-           const void* cur, void* part_acc, void* part_ml, void* o, int B,
-           int C, int H, int Hkv, int n_split, int split_len, int has_window,
-           int window, cudaStream_t stream) {
+           const void* cur, void* part_acc, void* part_ml, void* o,
+           void* ml_out, int B, int C, int H, int Hkv, int n_split,
+           int split_len, int has_window, int window, cudaStream_t stream) {
   // once per instantiation (the port drives one card): room for MAX_GROUP
   static const cudaError_t attr = cudaFuncSetAttribute(
       dec_split_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -201,18 +216,19 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
                           sizeof(float) * (size_t)(n_split + 1), stream,
                           static_cast<const float*>(part_acc),
                           static_cast<const float*>(part_ml),
-                          static_cast<T*>(o), H, (int)DH, n_split);
+                          static_cast<T*>(o), static_cast<float*>(ml_out),
+                          H, (int)DH, n_split);
 }
 
 template <typename T>
 int launch_dh(const void* q, const void* k, const void* v, const void* pos,
-              const void* cur, void* part_acc, void* part_ml, void* o, int B,
-              int C, int H, int Hkv, int dh, int n_split, int split_len,
-              int has_window, int window, cudaStream_t stream) {
+              const void* cur, void* part_acc, void* part_ml, void* o,
+              void* ml_out, int B, int C, int H, int Hkv, int dh, int n_split,
+              int split_len, int has_window, int window, cudaStream_t stream) {
   switch (dh) {
-    case 32: return launch<T, 32>(q, k, v, pos, cur, part_acc, part_ml, o, B, C, H, Hkv, n_split, split_len, has_window, window, stream);
-    case 64: return launch<T, 64>(q, k, v, pos, cur, part_acc, part_ml, o, B, C, H, Hkv, n_split, split_len, has_window, window, stream);
-    case 128: return launch<T, 128>(q, k, v, pos, cur, part_acc, part_ml, o, B, C, H, Hkv, n_split, split_len, has_window, window, stream);
+    case 32: return launch<T, 32>(q, k, v, pos, cur, part_acc, part_ml, o, ml_out, B, C, H, Hkv, n_split, split_len, has_window, window, stream);
+    case 64: return launch<T, 64>(q, k, v, pos, cur, part_acc, part_ml, o, ml_out, B, C, H, Hkv, n_split, split_len, has_window, window, stream);
+    case 128: return launch<T, 128>(q, k, v, pos, cur, part_acc, part_ml, o, ml_out, B, C, H, Hkv, n_split, split_len, has_window, window, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -221,11 +237,12 @@ int launch_dh(const void* q, const void* k, const void* v, const void* pos,
 
 // part_acc: f32 (B, H, n_split, dh) and part_ml: f32 (B, H, n_split, 2),
 // scratch the caller allocates; splits of split_len slots (a multiple of
-// BC), each holding at least one of the C slots
+// BC), each holding at least one of the C slots; ml_out: f32 (B, H, 2) or
+// null (not written)
 extern "C" int repro_decode_attention(
     const void* q, const void* k, const void* v, const void* pos, const void* cur,
-    void* part_acc, void* part_ml, void* o, int B, int C, int H, int Hkv,
-    int dh, int n_split, int split_len, int has_window, int window,
+    void* part_acc, void* part_ml, void* o, void* ml_out, int B, int C, int H,
+    int Hkv, int dh, int n_split, int split_len, int has_window, int window,
     int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H % Hkv != 0 || H / Hkv > MAX_GROUP) return (int)cudaErrorInvalidValue;
@@ -234,9 +251,10 @@ extern "C" int repro_decode_attention(
       || (long long)n_split * split_len < C)
     return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    return launch_dh<__nv_bfloat16>(q, k, v, pos, cur, part_acc, part_ml, o, B,
-                                    C, H, Hkv, dh, n_split, split_len,
-                                    has_window, window, s);
-  return launch_dh<float>(q, k, v, pos, cur, part_acc, part_ml, o, B, C, H,
-                          Hkv, dh, n_split, split_len, has_window, window, s);
+    return launch_dh<__nv_bfloat16>(q, k, v, pos, cur, part_acc, part_ml, o,
+                                    ml_out, B, C, H, Hkv, dh, n_split,
+                                    split_len, has_window, window, s);
+  return launch_dh<float>(q, k, v, pos, cur, part_acc, part_ml, o, ml_out, B,
+                          C, H, Hkv, dh, n_split, split_len, has_window,
+                          window, s);
 }

@@ -23,15 +23,16 @@ the replicated state, taking turns from one sum to the next inside
 :class:`TPShardPolicy`.  A "mesh" is the flat numpy array
 of ``torch.device`` that ``VirtualAcceleratorPool.tp_mesh_for`` returns;
 on one card its entries are logical cores of the same device, and a mesh
-over distinct devices is refused (ROADMAP.md Queue 1 item 18).
+over distinct devices is refused (ROADMAP.md Queue 1 item 18 part b).
 
 A :class:`P` is the port's ``PartitionSpec``: a tuple holding, per
 dimension, the mesh axis it is split over or ``None``.
 
 The module also holds the reference's train-side specs (``param_specs``,
 ``train_batch_specs``, ``cache_specs``, ``batch_shard``) as a layout over a
-mesh description (``launch.mesh``), which the dry-run reads to count the
-bytes each device would hold.
+mesh (``launch.mesh``), which the dry-run reads to count the bytes each
+device would hold and ``distributed.spmd`` follows to place each rank's
+blocks.
 """
 
 from __future__ import annotations
@@ -201,7 +202,7 @@ def mesh_device(mesh, expected=None) -> torch.device:
             f"a tensor-parallel mesh over distinct devices "
             f"({', '.join(sorted(map(str, devs)))}) is not ported: the "
             f"port shards over the logical cores of one device; tensor "
-            f"parallelism across cards is ROADMAP.md Queue 1 item 18")
+            f"parallelism across cards is ROADMAP.md Queue 1 item 18 part b")
     return next(iter(devs))
 
 
@@ -232,7 +233,13 @@ def permute_params_for_tp(params, cfg, tp: int):
     counts)."""
     if tp <= 1 or cfg.mlp_kind != "swiglu":
         return params
-    perm = _swiglu_tp_perm(cfg.d_ff, tp)
+    return permute_wi(params, _swiglu_tp_perm(cfg.d_ff, tp))
+
+
+def permute_wi(params, perm):
+    """``params`` with every MLP's ``wi`` columns taken in the order
+    ``perm`` (one gathered copy each, on its device); every other leaf is
+    the input's tensor."""
     out = dict(params)
     out["blocks"] = [dict(layer) for layer in params["blocks"]]
     for layer in out["blocks"]:
@@ -397,11 +404,11 @@ def tp_tree_bytes(shards: Sequence, spec_tree) -> int:
 # :371-414): parameters tensor-parallel over "model" on their width and
 # FSDP over "data" on the other dimension, replicated over "pod"; batches
 # over ("pod", "data"); KV caches over heads, or over their length where
-# the kv heads do not divide "model".  Here they describe a layout: the
-# dry-run lays a traced program's arguments out over a mesh description
-# (``launch.mesh``) to count the bytes each device would hold.  No tensor is
-# placed by them; running a program over several cards is item 18.  They
-# read only ``mesh.shape`` (axis name -> size) and ``mesh.axis_names``.
+# the kv heads do not divide "model".  The dry-run lays a traced program's
+# arguments out by them over a mesh description (``launch.mesh``) to count
+# the bytes each device would hold; ``distributed.spmd`` places each rank's
+# blocks by them on a process mesh.  They read only ``mesh.shape`` (axis
+# name -> size) and ``mesh.axis_names``.
 
 
 def mesh_axis_size(mesh, name: str) -> int:
@@ -766,7 +773,7 @@ __all__ = [
     "BARRIER_TIMEOUT_S", "P", "PerShard", "ShardGroup", "TPShardPolicy",
     "TP_POLICY", "batch_shard", "cache_specs", "check_tp", "data_axes",
     "make_tp_mesh", "mesh_axis_size", "mesh_device", "param_specs",
-    "permute_params_for_tp", "spec_map", "tp_cache_specs", "tp_gather",
-    "tp_local_cfg", "tp_param_specs", "tp_replicas", "tp_shards",
-    "tp_supported", "tp_tree_bytes", "train_batch_specs",
+    "permute_params_for_tp", "permute_wi", "spec_map", "tp_cache_specs",
+    "tp_gather", "tp_local_cfg", "tp_param_specs", "tp_replicas",
+    "tp_shards", "tp_supported", "tp_tree_bytes", "train_batch_specs",
 ]

@@ -37,9 +37,10 @@ SIGNATURES = {
     # q, k, v, out, lse (null: not written), B, Sq, Sk, H, Hkv, dh, causal,
     # has_window, window, q_offset, is_bf16, stream
     "repro_flash_attention": [_P] * 5 + [_I] * 11 + [_P],
-    # q, k, v, pos, cur, part_acc, part_ml, out, B, C, H, Hkv, dh,
-    # n_split, split_len, has_window, window, is_bf16, stream
-    "repro_decode_attention": [_P] * 8 + [_I] * 10 + [_P],
+    # q, k, v, pos, cur, part_acc, part_ml, out, ml_out (null: not
+    # written), B, C, H, Hkv, dh, n_split, split_len, has_window, window,
+    # is_bf16, stream
+    "repro_decode_attention": [_P] * 9 + [_I] * 10 + [_P],
     # q, k_pool, v_pool, table, cur, part_acc, part_ml, out, B, H, Hkv, dh,
     # n_pages, page_size, max_pages, n_split, pages_per_split, is_bf16,
     # stream

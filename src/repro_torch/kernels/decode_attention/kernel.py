@@ -6,7 +6,10 @@ The kernel reads the model layout (q (B, H, dh), k/v (B, C, Hkv, dh))
 directly.  It splits the cache axis across blocks (flash-decoding): the
 split pass writes unnormalised partials to f32 scratch this wrapper
 allocates, and a merge pass combines them; :func:`plan_splits` picks the
-split in plain Python.  This module builds nothing when imported: the
+split in plain Python.  With ``return_stats=True`` the merge pass also
+writes each (row, q head)'s running max ``m`` and denominator ``l``
+(f32), with which a cache whose length is sharded over several ranks
+merges their outputs.  This module builds nothing when imported: the
 library is built at the first launch.
 """
 
@@ -71,10 +74,12 @@ def check_inputs(q, k, v, pos, cur_pos) -> None:
 
 
 def decode_attention_kernel(q, k, v, pos, cur_pos, *,
-                            window: Optional[int] = None):
+                            window: Optional[int] = None,
+                            return_stats: bool = False):
     """q: (B, H, dh); k/v: (B, C, Hkv, dh); pos: (B, C) int32; cur_pos: (B,)
     int32, all on the card → (B, H, dh) in q's dtype, launched on the current
-    stream without synchronising."""
+    stream without synchronising.  With ``return_stats`` → (out, m, l), m
+    and l f32 (B, H)."""
     check_inputs(q, k, v, pos, cur_pos)
     B, H, dh = q.shape
     C, Hkv = k.shape[1], k.shape[2]
@@ -84,14 +89,18 @@ def decode_attention_kernel(q, k, v, pos, cur_pos, *,
                            device=q.device)
     part_ml = torch.empty((B, H, n_split, 2), dtype=torch.float32,
                           device=q.device)
+    ml = (torch.empty((B, H, 2), dtype=torch.float32, device=q.device)
+          if return_stats else None)
     lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = lib.repro_decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
             cur_pos.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-            out.data_ptr(), B, C, H, Hkv, dh, n_split, split_len,
-            int(window is not None), int(window or 0),
-            int(q.dtype == torch.bfloat16), stream)
+            out.data_ptr(), None if ml is None else ml.data_ptr(), B, C, H,
+            Hkv, dh, n_split, split_len, int(window is not None),
+            int(window or 0), int(q.dtype == torch.bfloat16), stream)
     check(status, "repro_decode_attention")
-    return out
+    if ml is None:
+        return out
+    return out, ml[..., 0], ml[..., 1]

@@ -12,21 +12,33 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from ..common import count_launch, record_kernel
 from .kernel import decode_attention_kernel
 from .ref import decode_attention_ref
 
 
-def decode_attention(q, k, v, pos, cur_pos, *, window: Optional[int] = None):
+def decode_attention(q, k, v, pos, cur_pos, *, window: Optional[int] = None,
+                     return_stats: bool = False):
     """q: (B, H, dh); k/v: (B, C, Hkv, dh); pos: (B, C); cur_pos: (B,).
-    Returns (B, H, dh)."""
+    Returns (B, H, dh); with ``return_stats``, (out, m, l): each (row, q
+    head)'s running max of its scaled scores (masked slots score NEG_INF)
+    and its denominator ``sum exp(s - m)``, f32 (B, H), so that shards of
+    the cache's length merge as ``distributed.spmd`` does."""
     if q.device.type == "meta":
         record_kernel(decode_attention, decode_attention_cost(
             q, k, v, pos, cur_pos, window=window))
-        return q.new_empty(q.shape)
+        out = q.new_empty(q.shape)
+        if not return_stats:
+            return out
+        stat = q.new_empty(q.shape[:2], dtype=torch.float32)
+        return out, stat, stat.new_empty(stat.shape)
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, pos, cur_pos, window=window)
-    out = decode_attention_kernel(q, k, v, pos, cur_pos, window=window)
+        return decode_attention_ref(q, k, v, pos, cur_pos, window=window,
+                                    return_stats=return_stats)
+    out = decode_attention_kernel(q, k, v, pos, cur_pos, window=window,
+                                  return_stats=return_stats)
     count_launch(decode_attention)
     return out
 

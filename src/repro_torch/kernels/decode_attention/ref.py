@@ -13,9 +13,13 @@ import torch
 from ..common import NEG_INF
 
 
-def decode_attention_ref(q, k, v, pos, cur_pos, *, window: Optional[int] = None):
+def decode_attention_ref(q, k, v, pos, cur_pos, *, window: Optional[int] = None,
+                         return_stats: bool = False):
     """q: (B, H, dh); k/v: (B, C, Hkv, dh); pos: (B, C) absolute positions
-    (-1 = empty slot); cur_pos: (B,).  Returns (B, H, dh)."""
+    (-1 = empty slot); cur_pos: (B,).  Returns (B, H, dh); with
+    ``return_stats``, (out, m, l): the row's max scaled score ``m``
+    (NEG_INF where no slot is valid) and ``l = sum exp(s - m)`` over its C
+    slots, f32 (B, H), as the kernel's merge pass writes them."""
     B, H, dh = q.shape
     Hkv = k.shape[2]
     group = H // Hkv
@@ -27,7 +31,26 @@ def decode_attention_ref(q, k, v, pos, cur_pos, *, window: Optional[int] = None)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bgik,bkgd->bgid", w, v.float())
-    return out.reshape(B, H, dh).to(q.dtype)
+    out = out.reshape(B, H, dh).to(q.dtype)
+    if not return_stats:
+        return out
+    m = s.amax(dim=-1)
+    l = torch.exp(s - m[..., None]).sum(dim=-1)
+    return out, m.reshape(B, H), l.reshape(B, H)
+
+
+def decode_attention_merge_ref(outs, ms, ls):
+    """The merge of a cache's length shards, in one process: each shard's
+    normalised output (B, H, dh) and its ``(m, l)`` (``return_stats``)
+    combine as ``sum_r e^(m_r - m*) l_r out_r / sum_r e^(m_r - m*) l_r``
+    with ``m* = max_r m_r``, in f32, cast to the outputs' dtype.  A shard
+    with no valid slot weighs ``e^(-1e30 - m*) = 0``; a row with no valid
+    slot anywhere has ``m_r = -1e30`` on every shard, so it gets the mean
+    of V over every shard's slots, as over the whole cache."""
+    m = torch.stack([x.float() for x in ms])                  # (R, B, H)
+    w = torch.exp(m - m.amax(dim=0)) * torch.stack([x.float() for x in ls])
+    num = (w[..., None] * torch.stack([o.float() for o in outs])).sum(0)
+    return (num / w.sum(0)[..., None]).to(outs[0].dtype)
 
 
 def decode_attention_split_ref(q, k, v, pos, cur_pos, *, split_len: int,

@@ -5,8 +5,13 @@ Counterpart of ``repro.launch.cells``.  A *cell* bundles what the dry-run
 and the card's cells read:
 
     program          the step callable (train_step / prefill_step /
-                     serve_step), built with ``policy=None``: the runtime
-                     sharding policy is ROADMAP.md item 18
+                     serve_step); the serving steps of the families
+                     ``distributed.spmd.make_policy`` covers are built
+                     under it (``policy``), so on a mesh description
+                     their trace records each collective a device would
+                     issue, and on a process mesh they run one rank's
+                     share; train cells and the other families run
+                     without a policy
     abstract_args    the arguments as ``meta`` tensors (shapes and dtypes,
                      no memory), the reference's ``ShapeDtypeStruct``s
     in_specs         the arguments' layout over ``mesh`` (``P`` trees)
@@ -35,6 +40,7 @@ from ..device import resolve_device, torch_dtype
 from ..distributed.sharding import (
     P, batch_shard, cache_specs, param_specs, train_batch_specs,
 )
+from ..distributed.spmd import make_policy, policy_supported
 from ..models import init_caches, init_params
 from ..optim import adamw_init, opt_state_specs
 from ..serving.engine import ServeConfig, make_prefill_step, make_serve_step
@@ -57,6 +63,7 @@ class Cell:
     note: str = ""
     reduced: bool = False
     tcfg: Optional[TrainerConfig] = None     # train cells' trainer config
+    policy: Any = None                       # distributed.spmd.ActivationPolicy
 
     def analyze(self):
         """The program's cost on the abstract arguments
@@ -241,9 +248,11 @@ def build_cell(
 
     scfg = ServeConfig(max_len=S, attn_impl=attn_impl)
     c_specs = cache_specs(cfg, mesh, batch=B)
+    policy = (make_policy(cfg, mesh, batch=B, fsdp=fsdp)
+              if policy_supported(cfg) is None else None)
 
     if shape.kind == "prefill":
-        program = make_prefill_step(cfg, scfg)
+        program = make_prefill_step(cfg, scfg, policy=policy)
         batch_abs = abstract_batch(cfg, shape, with_labels=False,
                                    reduced=reduced)
         b_specs = train_batch_specs(cfg, mesh, batch=B)
@@ -254,11 +263,11 @@ def build_cell(
             out_specs=(_logits_spec(cfg, mesh, ba), c_specs),
             donate_argnums=(),
             model_flops=2.0 * n_active * shape.tokens,
-            cfg=cfg, reduced=reduced,
+            cfg=cfg, reduced=reduced, policy=policy,
         )
 
     # decode: serve_step(params, tokens, caches, cur_pos, key)
-    program = make_serve_step(cfg, scfg)
+    program = make_serve_step(cfg, scfg, policy=policy)
     caches_abs = init_caches(cfg, B, S, device="meta")
     tok_abs = _meta((B,), torch.int32)
     pos_abs = _meta((B,), torch.int32)
@@ -269,7 +278,7 @@ def build_cell(
         out_specs=(P(ba), _logits_spec(cfg, mesh, ba), c_specs),
         donate_argnums=(2,),
         model_flops=2.0 * n_active * B,
-        cfg=cfg, reduced=reduced,
+        cfg=cfg, reduced=reduced, policy=policy,
         note="the sampling key is a torch.Generator or None, no tensor",
     )
 

@@ -3,10 +3,9 @@ each program once on ``meta`` tensors, count its cost, lay its arguments
 out over each mesh, and report its roofline terms on H100 peaks.
 
 Counterpart of ``repro.launch.dryrun``.  The reference lowers and compiles
-one SPMD program a cell and mesh on 512 host devices; the port has no SPMD
-program (running over several cards is ROADMAP.md item 18), so each cell's
-global program is traced once (``distributed.op_static``) and laid out
-over each mesh description (``launch.mesh``):
+one SPMD program a cell and mesh on 512 host devices; the port traces each
+cell's global program on meta tensors (``distributed.op_static``) and lays
+it out over each mesh description (``launch.mesh``):
 
 * ``argument_bytes_per_device`` — each argument's bytes over the mesh axes
   its spec splits it across (the reference's ``argument_size_in_bytes``);
@@ -16,8 +15,12 @@ over each mesh description (``launch.mesh``):
 * ``roofline`` — ``op_analysis.Roofline.as_dict()`` at the mesh's chips;
 * ``per_device_estimate`` — the arguments per device plus the global
   program's peak temporaries split evenly, labelled as such;
-* ``collectives`` — null: no collective exists without an SPMD program
-  (item 18).
+* ``collectives`` — what one device's share of the program would send:
+  the serving cells of the families ``distributed.spmd.make_policy``
+  covers are built under it, and on a mesh description each of its hooks
+  records its collective's ring wire bytes a device (by op and by site);
+  null, with ``collectives_reason``, for train cells and the other
+  families.
 
 Each record goes to ``<out>/<arch>__<shape>__<mesh>.json`` (default
 ``build/dryrun_torch/``, git-ignored).  Usage:
@@ -44,9 +47,13 @@ from ..tree import leaves
 from .cells import argument_bytes_per_device, build_cell
 from .mesh import make_production_mesh
 
-COLLECTIVES_REASON = ("no SPMD program: the global program is traced for one "
-                      "card and laid out over the mesh; collectives over "
-                      "several cards are ROADMAP.md Queue 1 item 18")
+def collectives_reason(cell) -> str:
+    """Why a cell records no collectives."""
+    if cell.shape.kind == "train":
+        return ("the train step runs under no policy over data and model "
+                "axes: training there is ROADMAP.md Queue 1's next item")
+    return (f"make_policy does not cover {cell.cfg.name}: the policy for its "
+            f"family is ROADMAP.md Queue 1's next item")
 
 
 #: the kernels' route of each kind of cell: training differentiates the
@@ -97,6 +104,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
         cell = build_cell(arch, shape_name, mesh, attn_impl=attn_impl,
                           remat=remat, fsdp=fsdp, moe_ep=moe_ep)
         key = (arch, shape_name, attn_impl, remat)
+        if cell.policy is not None:
+            # the recorded collectives are the mesh's own: trace it again
+            key += (mesh_tag,)
         if traced is not None and key in traced:
             # the program is the mesh's own; its arguments and their count
             # are the first mesh's
@@ -108,8 +118,23 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
                 traced[key] = (cell.abstract_args, st)
         trace_s = st.trace_s
         chips = mesh.size
+        coll = None
+        if cell.policy is not None:
+            coll = {
+                "per_device_wire_bytes": st.collective_bytes,
+                "by_op_bytes": st.collective_by_op,
+                "by_op_count": st.collective_count,
+                "by_site_bytes": dict(cell.policy.log.wire),
+                "by_site_count": dict(cell.policy.log.count),
+                "basis": "ring wire bytes one device sends (all-reduce 2 S "
+                         "(n - 1) / n, all-gather (n - 1) S of an S-byte "
+                         "block), recorded by the policy's hooks on the "
+                         "mesh description",
+            }
         roof = Roofline(chips=chips, hlo_flops=st.flops, hlo_bytes=st.bytes,
-                        collective_bytes=None, model_flops=cell.model_flops)
+                        collective_bytes=(None if coll is None
+                                          else st.collective_bytes * chips),
+                        model_flops=cell.model_flops)
         args_dev = argument_bytes_per_device(cell, st)
         args_global = sum(t.numel() * t.element_size()
                           for t in leaves(cell.abstract_args)
@@ -135,8 +160,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
                 "basis": "the global program's counts / chips (an even split)",
             },
             "kernels": st.kernels,
-            "collectives": None,
-            "collectives_reason": COLLECTIVES_REASON,
+            "collectives": coll,
+            "collectives_reason": (None if coll is not None
+                                   else collectives_reason(cell)),
             "roofline": roof.as_dict(),
             "t_bound": roof.t_bound,
         })

@@ -498,12 +498,19 @@ class KVCacheView(NamedTuple):
 
 
 def decode_attention(params, x, cache: KVCacheView, cur_pos, cfg, *,
-                     impl: str = "cuda"):
+                     impl: str = "cuda", policy=None):
     """x: (B, 1, D); cur_pos: (B,) int32 absolute position of the new token.
 
     Writes the new token's K/V at slot ``cur_pos % C`` **in place** (ring
     buffer ≡ plain buffer when C == max_len) and returns (out (B,1,D), the
     same cache views).
+
+    Under a policy whose cache length is sharded over "model"
+    (``distributed.spmd.ActivationPolicy`` with ``kv_len_sharded``) the
+    cache holds this rank's block of slots: the write goes through
+    ``policy.kv_slot_update`` (only the rank that owns the slot writes it),
+    attention over the rank's slots returns its ``(m, l)`` beside its
+    output, and ``policy.merge_attention`` merges the ranks' outputs.
     """
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(params, x, cfg, positions=cur_pos[:, None])
@@ -511,29 +518,52 @@ def decode_attention(params, x, cache: KVCacheView, cur_pos, cfg, *,
     # RoPE computes in f32: cast to the cache dtype BEFORE the slot write
     k_new = k_new.to(cache.k.dtype)
     v_new = v_new.to(cache.v.dtype)
-    slot = (cur_pos % C).long()                                # (B,)
-    bidx = torch.arange(B, device=x.device)
-    cache.k.index_put_((bidx, slot), k_new[:, 0])
-    cache.v.index_put_((bidx, slot), v_new[:, 0])
-    cache.pos.index_put_((bidx, slot), cur_pos.to(torch.int32))
+    len_sharded = getattr(policy, "kv_len_sharded", False)
+    if len_sharded:
+        policy.kv_slot_update(cache, k_new[:, 0], v_new[:, 0], cur_pos)
+    else:
+        slot = (cur_pos % C).long()                            # (B,)
+        bidx = torch.arange(B, device=x.device)
+        cache.k.index_put_((bidx, slot), k_new[:, 0])
+        cache.v.index_put_((bidx, slot), v_new[:, 0])
+        cache.pos.index_put_((bidx, slot), cur_pos.to(torch.int32))
+    # a mesh description's cache is the whole ring: nothing to merge
+    stats = len_sharded and policy.merges_length_shards
 
     if impl == "cuda":
         from ..kernels.decode_attention import ops as da_ops
 
         out = da_ops.decode_attention(
             q[:, 0], cache.k, cache.v, cache.pos, cur_pos,
-            window=cfg.sliding_window)[:, None]
+            window=cfg.sliding_window, return_stats=stats)
     elif impl in ("torch", "naive"):
-        out = _decode_attn_torch(q, cache.k, cache.v, cache.pos, cur_pos, cfg)
+        out = _decode_attn_torch(q, cache.k, cache.v, cache.pos, cur_pos,
+                                 cfg, return_stats=stats)
+        out = (out[0][:, 0],) + out[1:] if stats else out[:, 0]
     else:
         raise ValueError(f"unknown attn impl {impl!r}")
+    if len_sharded:
+        out = (policy.merge_attention(*out) if stats
+               else policy.merge_attention(out))
     y = out.reshape(B, 1, cfg.q_dim) @ params["wo"]
     return y, cache
 
 
-def _decode_attn_torch(q, k, v, pos, cur_pos, cfg):
+def _refuse_len_sharded(policy, what: str) -> None:
+    """The reference's refusal: the length-sharded slot write
+    (``kv_slot_update``) serves dense decode rings only."""
+    if getattr(policy, "kv_len_sharded", False):
+        raise NotImplementedError(
+            f"{what} does not support a length-sharded KV cache")
+
+
+def _decode_attn_torch(q, k, v, pos, cur_pos, cfg, *,
+                       return_stats: bool = False):
     """Counterpart of the reference's ``_decode_attn_xla``.
-    q: (B,1,H,dh); k/v: (B,C,Hkv,dh); pos: (B,C); cur_pos: (B,).
+    q: (B,1,H,dh); k/v: (B,C,Hkv,dh); pos: (B,C); cur_pos: (B,).  Returns
+    (B,1,H,dh); with ``return_stats``, (out, m, l): each row's max score
+    ``m`` (NEG_INF where no slot is valid) and ``l = sum exp(s - m)``, f32
+    (B, H), the decode kernel's statistics.
 
     As in the reference, q is scaled by 1/sqrt(dh) in q's dtype *before*
     the dot product (the kernel and ``ref.py`` scale the f32 scores
@@ -547,9 +577,18 @@ def _decode_attn_torch(q, k, v, pos, cur_pos, cfg):
     if cfg.sliding_window is not None:
         valid &= pos > (cur_pos[:, None] - cfg.sliding_window)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
+    if return_stats:
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        w = p / l
+    else:
+        w = torch.softmax(s, dim=-1)
     out = torch.einsum("bgik,bkgd->bgid", w.to(v.dtype).float(), v.float())
-    return out.reshape(B, 1, H, dh).to(q.dtype)
+    out = out.reshape(B, 1, H, dh).to(q.dtype)
+    if not return_stats:
+        return out
+    return out, m.reshape(B, H), l.reshape(B, H)
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, *, dtype=None,
@@ -636,7 +675,8 @@ def paged_write_target(page_table, cur_pos, page_size: int, n_pages: int):
 
 
 def paged_decode_attention(params, x, cache: PagedKVView, cur_pos, page_table,
-                           cfg, write_target, *, impl: str = "cuda"):
+                           cfg, write_target, *, impl: str = "cuda",
+                           policy=None):
     """Single-token decode against a paged pool.
 
     x: (B, 1, D); cur_pos: (B,) int32 absolute position of the new token;
@@ -649,8 +689,11 @@ def paged_decode_attention(params, x, cache: PagedKVView, cur_pos, page_table,
     step by the caller: it is the same for every layer.  ``impl="cuda"``
     walks the page table inside the kernel; ``"torch"`` gathers the slot's pages into a
     (B, max_pages*ps, Hkv, dh) view first (the reference's XLA oracle).
-    Returns (out (B, 1, D), the same cache view).
+    Returns (out (B, 1, D), the same cache view).  A length-sharded
+    ``policy`` is refused, as the reference refuses it: its slot write is
+    for dense rings only.
     """
+    _refuse_len_sharded(policy, "paged decode")
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(params, x, cfg, positions=cur_pos[:, None])
     k_new = k_new.to(cache.k.dtype)
@@ -705,7 +748,8 @@ def _gather_pages(cache: PagedKVView, page_table, cfg):
 
 
 def verify_decode_attention(params, x, cache: KVCacheView, cur_pos, cfg, *,
-                            impl: str = "cuda", write_limit=None):
+                            impl: str = "cuda", write_limit=None,
+                            policy=None):
     """Multi-query decode attention for draft verification on dense rings.
 
     x: (B, W, D) hidden states of the W window tokens; cur_pos: (B,)
@@ -724,8 +768,10 @@ def verify_decode_attention(params, x, cache: KVCacheView, cur_pos, cfg, *,
     There is no dense multi-query kernel, in the reference as here: both
     ``"cuda"`` and ``"torch"`` run :func:`_verify_attn_torch` (on the card
     when the tensors are there), the reference's own route for
-    ``"pallas"`` on dense caches.
+    ``"pallas"`` on dense caches.  A length-sharded ``policy`` is refused,
+    as in the reference.
     """
+    _refuse_len_sharded(policy, "verify decode")
     if cfg.sliding_window:
         raise ValueError("verify decode does not support sliding-window archs")
     if impl not in ("cuda", "torch"):
@@ -782,7 +828,8 @@ def _verify_attn_torch(q, k, v, valid):
 
 
 def paged_verify_attention(params, x, cache: PagedKVView, cur_pos, page_table,
-                           cfg, write_target, *, impl: str = "cuda"):
+                           cfg, write_target, *, impl: str = "cuda",
+                           policy=None):
     """Multi-query decode attention for draft verification on the page pool.
 
     x: (B, W, D); cur_pos: (B,) first window position; page_table as in
@@ -799,6 +846,7 @@ def paged_verify_attention(params, x, cache: PagedKVView, cur_pos, page_table,
     (:mod:`repro_torch.kernels.paged_attention`); ``"torch"`` is the gather
     oracle.  Returns (out (B, W, D), the same cache view).
     """
+    _refuse_len_sharded(policy, "paged decode")
     B, W, _ = x.shape
     pos_w = cur_pos.to(torch.int32)[:, None] + torch.arange(
         W, dtype=torch.int32, device=x.device)[None, :]            # (B, W)

@@ -31,9 +31,10 @@ time by them); otherwise no range is opened.
 Shared experts (DeepSeek-MoE) are one always-on MLP of width
 ``n_shared * shared_d_ff``, as in the reference.  The reference's
 ``policy`` argument is the train-side expert-parallel
-``ActivationPolicy``, which waits for training (ROADMAP.md Queue 1 item
-14); tensor-parallel serving refuses MoE archs, as the reference's
-``check_tp`` does.
+``ActivationPolicy`` with its ``"moe_ecap"`` rule; the port's
+``distributed.spmd.make_policy`` does not cover MoE yet (ROADMAP.md Queue
+1's next item after item 18 part a), and tensor-parallel serving refuses
+MoE archs, as the reference's ``check_tp`` does.
 """
 
 from __future__ import annotations

@@ -39,10 +39,19 @@ step from them.
 
 ``prefill``, ``prefill_kv``, ``prefix_prefill``, ``decode_step`` and
 ``verify_step`` take the reference's ``policy=None`` hook: an activation
-policy applied to each layer's attention output (``"attn_out"``) and MLP
-output (``"mlp_out"``) before the residual add.  Tensor-parallel serving
-passes ``distributed.sharding.TP_POLICY``, which sums the shards' partial
-outputs there; without a policy nothing changes.
+policy called on activations by the reference's rule names (``"hidden"``
+and ``"hidden_decode"`` after the embedding, ``"attn_out"`` and
+``"mlp_out"`` on each layer's outputs before the residual add,
+``"residual"`` after it, and ``"logits"`` on the serving steps' logits).
+Tensor-parallel serving passes ``distributed.sharding.TP_POLICY``, which
+sums the shards' partial outputs at ``"attn_out"`` and ``"mlp_out"``.
+The SPMD policy (``distributed.spmd.ActivationPolicy``, on one rank of a
+mesh) also has ``embed`` (the vocab-parallel lookup), ``layer`` (the
+gathers at the start of each layer), ``layer_cfg`` (the rank's heads) and
+the length-sharded decode cache (``models.attention.decode_attention``);
+``prefill``, ``prefill_kv`` and ``decode_step`` on dense caches run under
+it, and the paged, prefix and verify paths refuse it.  Without a policy
+nothing changes.
 """
 
 from __future__ import annotations
@@ -232,6 +241,43 @@ def _shard(x, policy, name: str):
     return policy(x, name) if policy is not None else x
 
 
+def _embed(params, tokens, policy):
+    """The vocab-parallel lookup when the policy has one (an SPMD rank);
+    the plain take otherwise."""
+    if policy is not None and hasattr(policy, "embed"):
+        return policy.embed(params["embed"]["w"], tokens)
+    return embed(params["embed"], tokens)
+
+
+def _layer(params, p: int, b: int, policy):
+    """Block ``b`` of period position ``p``'s stacked params, through the
+    SPMD policy's per-layer gathers where it has them."""
+    lp = _index(params["blocks"][p], b)
+    if policy is not None and hasattr(policy, "layer"):
+        return policy.layer(lp, p)
+    return lp
+
+
+def _layer_cfg(cfg, policy):
+    """The config each layer runs with: the rank's heads under an SPMD
+    policy that splits them, else ``cfg``."""
+    if policy is not None and hasattr(policy, "layer_cfg"):
+        return policy.layer_cfg(cfg)
+    return cfg
+
+
+def _dense_spmd_only(policy, what: str) -> None:
+    """The SPMD policy runs prefill, prefill_kv and dense decode; a
+    length-sharded one reaches the reference's own refusal in the
+    attention function instead."""
+    if (policy is not None and hasattr(policy, "layer")
+            and not getattr(policy, "kv_len_sharded", False)):
+        raise NotImplementedError(
+            f"{what} under distributed.spmd.ActivationPolicy is not ported: "
+            f"the paged, prefix and verify programs under make_policy are "
+            f"ROADMAP.md Queue 1's next item")
+
+
 def _ffn(lp, spec: LayerSpec, x, cfg, *, decode: bool, policy=None):
     """The layer's second half: RMS norm of the residual stream ``x``, its
     MLP or MoE, added back to ``x``.  ``decode=False`` on the prefill shape
@@ -244,7 +290,10 @@ def _ffn(lp, spec: LayerSpec, x, cfg, *, decode: bool, policy=None):
         y2, aux = moe_mod.moe_apply(lp["moe"], h2, cfg, decode=decode)
     else:
         y2 = mlp(lp["mlp"], h2, kind=cfg.mlp_kind)
-    return x + _shard(y2, policy, "mlp_out"), aux
+    y2 = _shard(y2, policy, "mlp_out")
+    if not decode:
+        y2 = _shard(y2, policy, "residual")
+    return x + y2, aux
 
 
 def _apply_layer_train(lp, spec: LayerSpec, x, cfg, *, positions, impl,
@@ -263,7 +312,7 @@ def _apply_layer_train(lp, spec: LayerSpec, x, cfg, *, positions, impl,
     else:
         y, state = ssm_mod.ssm_forward(lp["ssm"], h, cfg, impl=impl,
                                        return_state=True)
-    x = x + _shard(y, policy, "attn_out")
+    x = x + _shard(_shard(y, policy, "attn_out"), policy, "residual")
     if enc_kv is not None and "cross" in lp:
         x = _cross(lp, x, enc_kv, cfg, impl)
     aux = 0.0
@@ -293,10 +342,10 @@ def _apply_layer_decode(lp, spec: LayerSpec, x, cfg, *, cur_pos, cache,
     elif page_table is not None:
         y, cache = attn_mod.paged_decode_attention(
             lp["attn"], h, cache, cur_pos, page_table, cfg, write_target,
-            impl=impl)
+            impl=impl, policy=policy)
     else:
         y, cache = attn_mod.decode_attention(lp["attn"], h, cache, cur_pos,
-                                             cfg, impl=impl)
+                                             cfg, impl=impl, policy=policy)
     x = x + _shard(y, policy, "attn_out")
     if cross_kv is not None and "cross" in lp:
         x = _cross(lp, x, cross_kv, cfg, impl)
@@ -388,17 +437,19 @@ def forward(params, tokens, cfg, *, positions=None, extra_embeds=None,
     row when gradients are taken.  Returns :class:`FwdOut` (hidden, the
     layers' summed MoE load-balance loss)."""
     specs = period_structure(cfg)
-    x = _embed_prompt(params, tokens, cfg, extra_embeds)
+    x = _shard(_embed_prompt(params, tokens, cfg, extra_embeds, policy),
+               policy, "hidden")
     positions = _positions(x, positions)
+    lcfg = _layer_cfg(cfg, policy)
 
     def body(x, aux, b):
         for p, spec in enumerate(specs):
-            lp = _index(params["blocks"][p], b)
+            lp = _layer(params, p, b, policy)
             enc_kv = None
             if enc_out is not None:
                 enc_kv = attn_mod.encode_cross_kv(lp["cross"], enc_out, cfg)
             x, aux_p, _ = _apply_layer_train(
-                lp, spec, x, cfg, positions=positions, impl=impl,
+                lp, spec, x, lcfg, positions=positions, impl=impl,
                 enc_kv=enc_kv, causal=causal, policy=policy)
             aux = aux + aux_p
         return x, aux
@@ -526,10 +577,10 @@ def _block_cache(view, b: int):
     return type(view)(*(t[b] for t in view))
 
 
-def _embed_prompt(params, tokens, cfg, extra_embeds):
+def _embed_prompt(params, tokens, cfg, extra_embeds, policy=None):
     """Token embeddings, after the VLM's patch embeddings when given; the
     audio family adds sinusoidal positions."""
-    x = embed(params["embed"], tokens)
+    x = _embed(params, tokens, policy)
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     if cfg.family == "audio":
@@ -569,16 +620,18 @@ def _prefill_layers(params, x, cfg, *, positions, impl, cross=None,
     ``cross`` is :func:`_cross_kv`'s output (audio)."""
     specs = period_structure(cfg)
     nb = n_blocks(cfg)
+    lcfg = _layer_cfg(cfg, policy)
     ys: Dict[str, List] = {str(p): [] for p, spec in enumerate(specs)
                            if spec.mixer == "attn"}
     ssm: Dict[str, SSMState] = {}
+    x = _shard(x, policy, "hidden")
     for b in range(nb):
         for p, spec in enumerate(specs):
             enc_kv = None
             if cross is not None:
                 enc_kv = (cross[str(p)][0][b], cross[str(p)][1][b])
             x, _, state = _apply_layer_train(
-                _index(params["blocks"][p], b), spec, x, cfg,
+                _layer(params, p, b, policy), spec, x, lcfg,
                 positions=positions, impl=impl, enc_kv=enc_kv, policy=policy)
             if spec.mixer == "attn":
                 ys[str(p)].append(state)
@@ -590,7 +643,8 @@ def _prefill_layers(params, x, cfg, *, positions, impl, cross=None,
             for dst, src in zip(ssm[str(p)], state):
                 dst[b].copy_(src)
     x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
-    logits = logits_fn(params, x[:, -1:, :], cfg)[:, 0]
+    logits = _shard(logits_fn(params, x[:, -1:, :], cfg)[:, 0], policy,
+                    "logits")
     kv = {p: (torch.stack([k for k, _ in ys[p]]),
               torch.stack([v for _, v in ys[p]])) for p in ys}
     return logits, kv, ssm
@@ -616,7 +670,7 @@ def prefill_kv(params, tokens, cfg, *, positions=None, impl: str = "cuda",
     if all(s.mixer != "attn" for s in period_structure(cfg)):
         raise ValueError("prefill_kv needs an attention layer: an SSM-only "
                          "arch has no K/V to page; use prefill")
-    return _prefill_layers(params, embed(params["embed"], tokens), cfg,
+    return _prefill_layers(params, _embed(params, tokens, policy), cfg,
                            positions=_positions(tokens, positions), impl=impl,
                            policy=policy)
 
@@ -639,12 +693,15 @@ def prefill(params, tokens, cfg, *, max_len: int, positions=None,
     """
     from ..serving.kv_cache import seed_kv_cache, seed_ssm_state
 
-    x = _embed_prompt(params, tokens, cfg, extra_embeds)
+    x = _embed_prompt(params, tokens, cfg, extra_embeds, policy)
     positions = _positions(x, positions)
     cross = _cross_kv(params, enc_out, cfg) if enc_out is not None else None
     logits, ys, ssm = _prefill_layers(params, x, cfg, positions=positions,
                                       impl=impl, cross=cross, policy=policy)
-    kv = {p: seed_kv_cache(cfg, k, v, max_len=max_len, seq_positions=positions)
+    # a length-sharded cache holds this rank's block of ring slots
+    block = policy.kv_block(cfg, max_len) if hasattr(policy, "kv_block") else None
+    kv = {p: seed_kv_cache(cfg, k, v, max_len=max_len, seq_positions=positions,
+                           block=block)
           for p, (k, v) in ys.items()}
     return logits, Caches(kv=kv, ssm={p: seed_ssm_state(st)
                                       for p, st in ssm.items()},
@@ -680,7 +737,8 @@ def prefix_prefill(params, tokens, prefix_kv, cfg, *, prefix_len: int,
     if cfg.family in ("audio", "vlm"):
         raise ValueError(
             f"prefix_prefill does not support the {cfg.family} family")
-    x = embed(params["embed"], tokens)
+    _dense_spmd_only(policy, "prefix_prefill")
+    x = _shard(embed(params["embed"], tokens), policy, "hidden")
     B, S, _ = x.shape
     positions = prefix_len + torch.arange(S, dtype=torch.int32,
                                           device=x.device)[None, :]
@@ -710,12 +768,15 @@ def decode_step(params, tokens, caches: Caches, cur_pos, cfg, *,
     (:func:`init_paged_caches`); the table is read-only here — page
     allocation happens in the caller (the chunk loop or admission)."""
     specs = period_structure(cfg)
-    x = embed(params["embed"], tokens)[:, None, :]     # (B, 1, d)
+    x = _embed(params, tokens, policy)[:, None, :]     # (B, 1, d)
     if cfg.family == "audio":
         x = x + _sinusoid(cur_pos[:, None], cfg.d_model).to(x.dtype)
+    x = _shard(x, policy, "hidden_decode")
+    lcfg = _layer_cfg(cfg, policy)
     cross = caches.cross or {}
     target = None
     if page_table is not None:
+        _dense_spmd_only(policy, "paged decode_step")
         # every layer writes the same (page, offset): compute it once
         pool = next(iter(caches.kv.values())).k          # (nb, P+1, ps, ...)
         target = attn_mod.paged_write_target(
@@ -726,13 +787,13 @@ def decode_step(params, tokens, caches: Caches, cur_pos, cfg, *,
             stacked = (caches.kv if spec.mixer == "attn" else caches.ssm)[str(p)]
             ck = cross.get(str(p))
             x, _ = _apply_layer_decode(
-                _index(params["blocks"][p], b), spec, x, cfg, cur_pos=cur_pos,
+                _layer(params, p, b, policy), spec, x, lcfg, cur_pos=cur_pos,
                 cache=_block_cache(stacked, b), impl=impl,
                 page_table=page_table, write_target=target,
                 cross_kv=None if ck is None else (ck[0][b], ck[1][b]),
                 policy=policy)
     x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
-    logits = logits_fn(params, x, cfg)[:, 0]
+    logits = _shard(logits_fn(params, x, cfg)[:, 0], policy, "logits")
     return logits, caches
 
 
@@ -772,7 +833,9 @@ def verify_step(params, tokens, caches: Caches, cur_pos, cfg, *,
             f"verify_step does not support the {cfg.family} family")
     if cfg.sliding_window:
         raise ValueError("verify_step does not support sliding-window archs")
-    x = embed(params["embed"], tokens)                 # (B, W, d)
+    _dense_spmd_only(policy, "verify_step")
+    x = _shard(embed(params["embed"], tokens), policy,
+               "hidden_decode")                        # (B, W, d)
     target = None
     if page_table is not None:
         pool = next(iter(caches.kv.values())).k          # (nb, P+1, ps, ...)
@@ -789,11 +852,11 @@ def verify_step(params, tokens, caches: Caches, cur_pos, cfg, *,
             if page_table is not None:
                 y, _ = attn_mod.paged_verify_attention(
                     lp["attn"], h, view, cur_pos, page_table, cfg, target,
-                    impl=impl)
+                    impl=impl, policy=policy)
             else:
                 y, _ = attn_mod.verify_decode_attention(
                     lp["attn"], h, view, cur_pos, cfg, impl=impl,
-                    write_limit=write_limit)
+                    write_limit=write_limit, policy=policy)
             x = x + _shard(y, policy, "attn_out")
             if spec.mlp is not None:
                 x, _ = _ffn(lp, spec, x, cfg, decode=True, policy=policy)

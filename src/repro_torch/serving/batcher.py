@@ -669,7 +669,7 @@ class ContinuousBatcher:
                 f"migrated state lies on {dev}, the batcher's params on "
                 f"{here}; a live batcher changes its cores through remesh, "
                 f"over the logical cores of its own device (across cards: "
-                f"ROADMAP.md Queue 1 item 18)")
+                f"ROADMAP.md Queue 1 item 18 part b)")
         if self._group is not None:
             self._place_state(state)
             return

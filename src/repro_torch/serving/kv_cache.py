@@ -23,7 +23,8 @@ def cache_len(cfg, max_len: int) -> int:
     return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
 
 
-def seed_kv_cache(cfg, k, v, *, max_len: int, seq_positions=None) -> KVCacheView:
+def seed_kv_cache(cfg, k, v, *, max_len: int, seq_positions=None,
+                  block=None) -> KVCacheView:
     """Seed a decode cache from prefill K/V.
 
     k, v: (nb, B, S, Hkv, dh) — stacked over blocks.
@@ -31,17 +32,27 @@ def seed_kv_cache(cfg, k, v, *, max_len: int, seq_positions=None) -> KVCacheView
     can continue writing at cur_pos % C without any copy.  Only the last C
     positions are kept (for sliding-window archs C = window; older K/V is
     dead weight by definition of the mask).
+
+    ``block=(lo, hi)`` seeds only ring slots ``[lo, hi)``: a cache whose
+    length is sharded over ranks (``distributed.spmd``), each rank's block
+    made without the whole ring.
     """
     nb, B, S, Hkv, dh = k.shape
     C = cache_len(cfg, max_len)
     keep = min(S, C)
     pos = torch.arange(S - keep, S, device=k.device)   # absolute positions kept
     slots = pos % C                                      # ring slots
-    ck = torch.zeros((nb, B, C, Hkv, dh), dtype=k.dtype, device=k.device)
-    cv = torch.zeros((nb, B, C, Hkv, dh), dtype=v.dtype, device=v.device)
-    cpos = torch.full((nb, B, C), -1, dtype=torch.int32, device=k.device)
-    ck[:, :, slots] = k[:, :, S - keep:]
-    cv[:, :, slots] = v[:, :, S - keep:]
+    kk, vv = k[:, :, S - keep:], v[:, :, S - keep:]
+    lo, hi = (0, C) if block is None else block
+    if block is not None:
+        mine = (slots >= lo) & (slots < hi)
+        pos, slots = pos[mine], slots[mine] - lo
+        kk, vv = kk[:, :, mine], vv[:, :, mine]
+    ck = torch.zeros((nb, B, hi - lo, Hkv, dh), dtype=k.dtype, device=k.device)
+    cv = torch.zeros((nb, B, hi - lo, Hkv, dh), dtype=v.dtype, device=v.device)
+    cpos = torch.full((nb, B, hi - lo), -1, dtype=torch.int32, device=k.device)
+    ck[:, :, slots] = kk
+    cv[:, :, slots] = vv
     cpos[:, :, slots] = pos.to(torch.int32)
     return KVCacheView(k=ck, v=cv, pos=cpos)
 

@@ -29,10 +29,17 @@ refused: the reference's ``"pallas"`` cannot be differentiated (its
 ``pallas_call`` has no JVP rule that ``jax.grad`` can use), so its only
 differentiable fast path is ``"flash"``, and so is the port's.
 
-``compress_pods`` (the int8 cross-pod all-reduce) needs a mesh of several
-cards with a ``"pod"`` axis; without one the reference takes its own
-uncompressed branch, and so does the port.  With one it raises: the
-cross-card path waits for ROADMAP.md Queue 1 item 18.
+Over the ``"pod"`` axis of a process mesh (``launch.mesh.make_host_mesh``
+inside a ``torch.distributed`` group, one rank a pod) each rank takes the
+batch rows of its pod, computes their gradients, and the pods' gradients
+are combined: with ``compress_pods`` by ``distributed.compression.
+pod_psum_compressed`` (the reference's per-pod branch under its
+``shard_map``), otherwise by an f32 mean, the all-reduce the reference's
+GSPMD program makes; the metrics are the pods' means.  Every rank then
+takes the same clip and AdamW step on its replica of the params.  Without
+a ``"pod"`` axis the reference takes its own uncompressed branch, and so
+does the port, as it does on a mesh description (the dry-run's production
+meshes), where ``compress_pods`` raises.
 """
 
 from __future__ import annotations
@@ -190,24 +197,74 @@ def _has_pod_axis(mesh) -> bool:
     return "pod" in names and int(mesh.shape["pod"]) > 1
 
 
+def _pod_mesh(mesh, compress: bool) -> bool:
+    """Whether the step combines gradients over the "pod" axis of a process
+    mesh.  On a mesh description the step is the global program (the
+    reference's GSPMD branch), except that the compressed all-reduce needs
+    the pods' processes: it raises, as do a process mesh that splits
+    another axis too."""
+    if mesh is None or not _has_pod_axis(mesh):
+        return False
+    if not getattr(mesh, "is_process_mesh", False):
+        if not compress:
+            return False
+        raise NotImplementedError(
+            "a 'pod' mesh axis needs a process group: build the mesh with "
+            "launch.mesh.make_host_mesh inside torch.distributed, one rank "
+            "a pod (across cards: ROADMAP.md Queue 1 item 18 part b)")
+    others = [a for a in mesh.axis_names if a != "pod" and mesh.shape[a] > 1]
+    if others:
+        raise NotImplementedError(
+            f"the train step shards over the 'pod' axis only, not over "
+            f"{others}: training under the data and model axes is ROADMAP.md "
+            f"Queue 1's next item")
+    return True
+
+
 def make_train_step(cfg, tcfg: TrainerConfig, *, policy=None, mesh=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics): metrics ``loss``, ``aux``, ``tokens``, ``grad_norm``, ``lr``.
 
-    Raises ``NotImplementedError`` for ``compress_pods`` over a mesh with a
-    ``"pod"`` axis of more than one member (ROADMAP.md item 18)."""
-    if tcfg.compress_pods and mesh is not None and _has_pod_axis(mesh):
+    With a process mesh whose "pod" axis has several ranks, ``batch`` is
+    this rank's pod's rows and the gradients are combined over the pods
+    (the module docstring).  Raises ``NotImplementedError`` for
+    ``compress_pods`` on a "pod" mesh that is only a description, and for
+    a process mesh that also splits "data" or "model"."""
+    pods = _pod_mesh(mesh, tcfg.compress_pods)
+    if getattr(policy, "live", False) and (policy.model > 1
+                                           or policy.gathers_layers):
         raise NotImplementedError(
-            "compress_pods over a 'pod' mesh axis needs the cross-card "
-            "all-reduce (ROADMAP.md Queue 1 item 18)")
+            "the train step under an ActivationPolicy that splits 'data' or "
+            "'model' needs collectives autograd can differentiate: ROADMAP.md "
+            "Queue 1's next item")
     loss_fn = make_loss_fn(cfg, tcfg, policy=policy)
     lr_fn = tcfg.lr_fn()
 
-    def compute_grads(params, batch):
+    def local_grads(params, batch):
         if tcfg.grad_accum > 1:
             return _accumulate_grads(loss_fn, params, batch, tcfg.grad_accum)
         (_, metrics), g = value_and_grad(loss_fn, params, batch)
         return g, metrics
+
+    def pod_grads(params, batch):
+        from ..distributed.compression import pod_psum_compressed
+        from ..distributed.spmd import mesh_all_reduce
+
+        g, metrics = local_grads(params, batch)
+        n = int(mesh.shape["pod"])
+        if tcfg.compress_pods:
+            zeros = tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                                   device=x.device), g)
+            g, _ = pod_psum_compressed(g, zeros, mesh=mesh, axis="pod")
+        else:
+            g = tree_map(lambda x: mesh_all_reduce(x.float(), mesh, "pod") / n,
+                         g)
+        metrics = {k: mesh_all_reduce(torch.as_tensor(v).float(), mesh,
+                                      "pod") / n
+                   for k, v in metrics.items()}
+        return g, metrics
+
+    compute_grads = pod_grads if pods else local_grads
 
     def train_step(params, opt_state, batch):
         grads, metrics = compute_grads(params, batch)

@@ -319,9 +319,29 @@ def test_dryrun_writes_a_full_width_record(tmp_path, capsys):
                 "per_device_estimate", "static_per_device", "roofline",
                 "collectives", "collectives_reason", "t_bound", "wall_s"):
         assert key in rec, key
-    assert rec["collectives"] is None and "item 18" in rec["collectives_reason"]
+    # the serving cell under make_policy: 8 kv heads do not divide 16, so
+    # the cache's length is split over "model"; per layer the FSDP blocks
+    # of wq, wk, wv, wo and the MLP's two are gathered over "data" and the
+    # four attention blocks over "model" (10 all-gathers), the MLP output
+    # is summed and the merge takes a MAX and a SUM (3 all-reduces); once a
+    # step the embedding sum and the logits gather
+    coll = rec["collectives"]
+    assert rec["collectives_reason"] is None
+    assert coll["by_op_count"] == {"all-gather": 28 * 10 + 1,
+                                   "all-reduce": 28 * 3 + 1}
+    assert coll["by_site_count"] == {
+        "embed": 1, "gather-data": 28 * 6, "gather-model": 28 * 4,
+        "mlp_out": 28, "attn-merge-max": 28, "attn-merge-sum": 28,
+        "logits": 1}
+    assert coll["per_device_wire_bytes"] == pytest.approx(
+        sum(coll["by_op_bytes"].values()))
+    # the logits: 8 rows a device (128 over "data" 16) of 152,064 bf16,
+    # each device holding 1/16 of the vocab
+    assert coll["by_site_bytes"]["logits"] == 15 * 8 * 152064 * 2 / 16
     roof = rec["roofline"]
     assert roof["chips"] == 256 and roof["bound"] in ("compute", "memory")
+    assert roof["collective_bytes"] == pytest.approx(
+        256 * coll["per_device_wire_bytes"])
     assert 0 < roof["useful_flops_ratio"] < 1.25
     # 28 layers of a 128 x 32768 cache (bf16, 8 kv heads of 128) and the
     # weights, laid out over 16 x 16: the cache's length over "model" (8
@@ -329,6 +349,10 @@ def test_dryrun_writes_a_full_width_record(tmp_path, capsys):
     cache = 28 * 2 * 128 * 32768 * 8 * 128 * 2
     assert rec["peak_live_bytes"] > cache
     assert cache / 256 < rec["argument_bytes_per_device"] < cache / 256 + 2**30
+    other = dryrun.run_cell("mamba2-370m", "decode_32k", multi_pod=False,
+                            out_dir=str(tmp_path))
+    assert other["collectives"] is None
+    assert "next item" in other["collectives_reason"]
     skip = dryrun.run_cell("qwen3-0.6b", "long_500k", multi_pod=True,
                            out_dir=str(tmp_path))
     assert skip["skipped"] and skip["ok"] and "quadratic" in skip["reason"]

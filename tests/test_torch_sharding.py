@@ -204,7 +204,7 @@ def test_mesh_rules():
         tsh.make_tp_mesh(4, [CPU] * 2)
     with pytest.raises(ValueError, match="flat"):
         tsh.mesh_device(np.array([[CPU, CPU]], dtype=object))
-    with pytest.raises(ValueError, match="Queue 1 item 18"):
+    with pytest.raises(ValueError, match="Queue 1 item 18 part b"):
         tsh.mesh_device(tsh.make_tp_mesh(2, [CPU, torch.device("meta")]))
 
 

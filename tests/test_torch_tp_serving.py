@@ -375,7 +375,7 @@ def test_tp_refuses_a_custom_policy_and_distinct_devices(models):
     with pytest.raises(ValueError, match="custom activation policies"):
         ContinuousBatcher(params, cfg, _sc(ServingConfig, tp=2),
                           device="cpu", policy=lambda x, name: x)
-    with pytest.raises(ValueError, match="Queue 1 item 18"):
+    with pytest.raises(ValueError, match="Queue 1 item 18 part b"):
         ContinuousBatcher(params, cfg, _sc(ServingConfig, tp=2), device="cpu",
                           mesh=tsh.make_tp_mesh(2, [CPU, torch.device("meta")]))
     with pytest.raises(ValueError, match="mesh is tp=3 wide"):

@@ -212,7 +212,10 @@ def test_cuda_route_is_refused_for_training_as_the_reference_cannot_train_pallas
 
 def test_compressed_pod_all_reduce_waits_for_a_pod_mesh():
     """Without a mesh that has a "pod" axis the reference takes its own
-    uncompressed branch, and so does the port; over one it raises."""
+    uncompressed branch, and so does the port; over a "pod" mesh without a
+    process group (a description) it raises.  The step over a process
+    mesh's "pod" axis is held against the reference in
+    ``test_torch_spmd.py``."""
     from repro_torch.training import make_train_step
 
     cfg, _ = configs("qwen3-0.6b")
@@ -223,7 +226,7 @@ def test_compressed_pod_all_reduce_waits_for_a_pod_mesh():
         axis_names = ("pod", "data")
         shape = {"pod": 2, "data": 1}
 
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(NotImplementedError, match="needs a process group"):
         make_train_step(cfg, tcfg, mesh=PodMesh())
 
 
