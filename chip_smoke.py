@@ -318,6 +318,42 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (``return_stats=True``) against its plain version and the
               merge of three length shards against the whole ring
               (``check_decode_stats``), and times it.
+5o. spmd families — after 5n: the policy for the other families
+              (``make_policy`` for MoE, SSM, hybrid, VLM and audio) over
+              gloo ranks spawned as in 5n, each leg against the single
+              process's ``make_prefill_step`` and ``make_serve_step`` on
+              the same weights (bf16 from the seed, Mamba-2's dt and A
+              draws on every SSM layer, cast to f32 for the f32 runs;
+              ``param_shardings(fsdp=False)``), 4 prompts (2 a data rank
+              where data is 2) and 8 greedy steps: (a) mamba2-370m uncut
+              on (data 2, model 2), 16 of 32 SSM heads a rank, its one
+              group of B and C whole on every rank, f32 then bf16; (b)
+              deepseek-moe-16b at full width cut to 4 layers on (1, 2),
+              32 experts a rank (``moe_ep``) and then expert-TP, 8 of 16
+              kv heads a rank; (c) one full-width jamba-1.5-large period
+              on (1, 2), 64 SSM heads and 4 of 8 groups a rank, 4 of 8 kv
+              heads, the experts over "model", holding as many of the 16
+              experts as the single process and then two ranks building
+              theirs fit (the reckoning is printed); (d) whisper-base
+              uncut on (2, 2) at generate's shapes (4-token prompts over
+              1,500 stub frames, ``max_len`` 448), the encoder and the
+              cross-attention on 4 of 8 heads, f32 then bf16; (e)
+              qwen2-vl-72b at full width cut to 2 layers on (1, 3): 8 kv
+              heads do not divide 3, so the cache's length is split, the
+              vocab and ``d_ff`` are, M-RoPE positions (64 patches and
+              448 tokens).  Prompts of 512 positions and ``max_len``
+              1,536 elsewhere.  Each leg's gates: f32 tokens all equal
+              and logits within MODEL_TOL, bf16 as 5n holds it; every
+              rank's layout (its heads or the cache's length, its SSM
+              heads and groups, its experts); on every rank, counted from
+              0 just before, the flash kernel once an attention layer a
+              prefill (whisper: the encoder's and the cross-attention's
+              too, and the cross-attention's once a layer a step), the
+              decode kernel once an attention layer a step and the SSD
+              kernel once an SSM layer a prefill.  Logs wall ms a step
+              beside the single process's, host ms in collectives, bytes
+              each rank sends a step by site, each rank's reckoned and
+              peak memory, and the phase's wall seconds.
 6. trace    — the first rounds of the dense, the paged, the spec, the
               Mamba-2 and the MoE path,
               all untraced first, then each under ``torch.profiler``: device
@@ -358,6 +394,10 @@ the ``src/repro_torch`` beside the script: a copy in another checkout
 whose wrappers have ``cost`` times that checkout's kernels, so two trees
 compare in turns in one chip call.  Prints one JSON line
 ``{"kernel_times": ...}``.
+
+    python3 chip_smoke.py --spmd-families
+
+runs phases 1, 2 and 5o only (no result lines).
 
     python3 chip_smoke.py --ssd-faults
 
@@ -5161,20 +5201,29 @@ def _tree_nbytes(tree) -> int:
                if hasattr(t, "element_size"))
 
 
-def _serve_run(job, cfg, params, toks, *, policy=None, mesh=None):
-    """A prefill and ``job["steps"]`` greedy serve steps through
-    ``make_prefill_step`` and ``make_serve_step`` on the kernels' route,
-    each step timed (host clock around a synchronised step): the whole
-    batch's tokens a step and, on rank 0 of a mesh or without one, the
-    logits; the flash launches of the prefill and the decode launches of
-    each step, counted from 0 just before; each step's collectives."""
+def _serve_run(job, cfg, params, batch, *, policy=None, mesh=None):
+    """A prefill of ``batch`` (a prompt tensor, or the family's batch
+    dict: tokens and extras) and ``job["steps"]`` greedy serve steps
+    through ``make_prefill_step`` and ``make_serve_step`` on the kernels'
+    route, each step timed (host clock around a synchronised step): the
+    whole batch's tokens a step and, on rank 0 of a mesh or without one,
+    the logits; the flash and SSD launches of the prefill and the decode
+    and flash launches of each step, counted from 0 just before; each
+    step's collectives."""
     import torch
 
     from repro_torch.distributed.spmd import gather_batch
     from repro_torch.kernels.decode_attention import ops as da
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.serving.engine import (
         ServeConfig, make_prefill_step, make_serve_step)
+
+    if isinstance(batch, torch.Tensor):
+        batch = {"tokens": batch}
+    toks = batch["tokens"]
+    S = toks.shape[1] + (batch["extra_embeds"].shape[1]
+                         if "extra_embeds" in batch else 0)
 
     cuda = job["device"] == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -5187,30 +5236,34 @@ def _serve_run(job, cfg, params, toks, *, policy=None, mesh=None):
     keep_logits = mesh is None or mesh.coords == (0,) * len(mesh.coords)
     scfg = ServeConfig(max_len=job["max_len"], attn_impl="cuda")
     out = {"tokens": [], "logits": [], "ms": [], "coll_ms": [], "wire": [],
-           "decode_launches": []}
+           "decode_launches": [], "step_flash_launches": []}
     with torch.no_grad():
         fa.flash_attention.launches = 0
+        ssd_ops.ssd.launches = 0
         logits0, caches = make_prefill_step(cfg, scfg, policy=policy)(
-            params, {"tokens": toks})
+            params, batch)
         sync()
         out["flash_launches"] = fa.flash_attention.launches
+        out["ssd_launches"] = ssd_ops.ssd.launches
         tok = torch.argmax(logits0[..., :cfg.vocab], -1).to(torch.int32)
         first = whole(logits0)           # a collective: every rank joins
         out["first"] = first.float().cpu() if keep_logits else None
         out["t0"] = whole(tok).cpu()
-        cur = torch.full((tok.shape[0],), toks.shape[1], dtype=torch.int32,
+        cur = torch.full((tok.shape[0],), S, dtype=torch.int32,
                          device=toks.device)
         step = make_serve_step(cfg, scfg, policy=policy)
         for i in range(job["steps"]):
             if policy is not None:
                 policy.log.reset()
             da.decode_attention.launches = 0
+            fa.flash_attention.launches = 0
             sync()
             t0 = time.perf_counter()
             tok, logits, caches = step(params, tok, caches, cur + i)
             sync()
             out["ms"].append((time.perf_counter() - t0) * 1e3)
             out["decode_launches"].append(da.decode_attention.launches)
+            out["step_flash_launches"].append(fa.flash_attention.launches)
             if policy is not None:
                 out["coll_ms"].append(policy.log.seconds * 1e3)
                 out["wire"].append(dict(policy.log.wire))
@@ -5325,11 +5378,14 @@ def _spmd_pod_train(job):
             "finite": all(bool(torch.isfinite(t).all()) for t in leaves(new))}
 
 
-def _spmd_reckon(job, shape, dtype: str) -> float:
+def _spmd_reckon(job, shape, dtype: str, moe_ep: bool = True) -> float:
     """Bytes a serving rank should hold: its parameter blocks, its cache
     block, one gathered layer (none in this layout: the params are off the
     "data" axis and the attention weights, which do not divide "model",
-    are whole on every rank) and a CUDA context."""
+    are whole on every rank) and a CUDA context.  The cache block is
+    ``cache_specs``', which keeps an SSM conv window and the audio cross
+    K/V whole where a rank holds only its channels or heads: an upper
+    bound there."""
     from repro_torch.distributed.sharding import cache_specs, param_specs
     from repro_torch.launch.mesh import MeshSpec
     from repro_torch.models import init_caches, init_params
@@ -5350,7 +5406,7 @@ def _spmd_reckon(job, shape, dtype: str) -> float:
         return sum(t.numel() * t.element_size() / split(sp)
                    for sp, t in _spec_leaves(specs, tree))
 
-    params = per_rank(param_specs(cfg, mesh, fsdp=False),
+    params = per_rank(param_specs(cfg, mesh, fsdp=False, moe_ep=moe_ep),
                       init_params(cfg, device="meta"))
     caches = per_rank(cache_specs(cfg, mesh, batch=job["batch"]),
                       init_caches(cfg, job["batch"], job["max_len"],
@@ -5515,6 +5571,297 @@ def _spmd_check_pods(card, rows) -> None:
         f"{r['psum_ms']:.1f} ms ({r['psum_host_ms']:.1f} ms in collectives, "
         f"{json.dumps({k: int(v) for k, v in r['psum_wire'].items()})} bytes "
         f"sent), the step {r['step_ms']:.1f} ms [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# phase 5o: the SPMD policy for the MoE, SSM, hybrid, VLM and audio families
+# ---------------------------------------------------------------------------
+
+FAMILY_PROMPT, FAMILY_STEPS, FAMILY_MAX_LEN = 512, 8, 1536
+JAMBA_HELD = (4, 2)           # leg (c): the most of these experts that fit
+
+
+def _jamba_held(card: str) -> int:
+    """How many of jamba's 16 experts leg (c) holds: the most of
+    :data:`JAMBA_HELD` for which the single process's f32 period and then
+    two ranks building theirs fit in 92 % of the card.  A rank makes the
+    whole bf16 period (half the f32 bytes), takes its bf16 blocks (a
+    quarter) and casts them to f32 in place (a half, as the bf16 blocks
+    go), so two ranks building at once hold about 1.5 times the f32
+    period; the single process holds the f32 period and its activations
+    (2 GiB reckoned)."""
+    import torch
+
+    from repro_torch.models import init_params
+
+    budget = 0.92 * torch.cuda.mem_get_info()[1]
+    for held in JAMBA_HELD:
+        cfg = _jamba_period(held)
+        f32 = _param_bytes(init_params(cfg, device="meta"))
+        single = f32 + 2 * 2**30
+        ranks = 1.5 * f32 + 2 * CUDA_CONTEXT_BYTES
+        fits = max(single, ranks) <= budget
+        log(f"  (c) {held} of 16 experts: the f32 period {_gib(f32)}, the "
+            f"single process {_gib(single)}, two ranks building theirs "
+            f"{_gib(ranks)}, against {_gib(budget)} (92 % of the card): "
+            f"{'fits' if fits else 'does not fit'} [{card}]")
+        if fits:
+            return held
+    raise RuntimeError("phase 5o: no jamba period fits on the card")
+
+
+def _jamba_period(held: int):
+    from repro_torch.configs import get_config
+
+    full = get_config("jamba-1.5-large-398b")
+    return dataclasses.replace(full, n_layers=HYBRID_LAYERS, dtype="float32",
+                               moe=dataclasses.replace(full.moe,
+                                                       n_experts=held))
+
+
+def family_leg(letter: str, cfg, shape, *, dtypes=("float32",),
+               eps=(True,), n_text=FAMILY_PROMPT, max_len=FAMILY_MAX_LEN,
+               device="cuda"):
+    """One leg of phase 5o: a job (``spmd_job``'s keys) with its letter,
+    its mesh's shape, dtypes, MoE layouts (``moe_ep``) and prompt shape
+    (4 prompts of ``n_text`` tokens, seeded by the letter)."""
+    return dict(spmd_job(cfg, device, max_len=max_len, steps=FAMILY_STEPS),
+                leg=letter, shape=shape, dtypes=dtypes, eps=eps,
+                n_text=n_text, batch_seed=30 + ord(letter) - ord("a"))
+
+
+def _family_legs(card: str):
+    """Phase 5o's legs, grouped by the mesh their ranks run on (one spawn
+    a mesh)."""
+    from repro_torch.configs import get_config
+
+    leg = family_leg
+    a = leg("a", get_config("mamba2-370m"), (2, 2),
+            dtypes=("float32", "bfloat16"))
+    b = leg("b", dataclasses.replace(get_config("deepseek-moe-16b"),
+                                     n_layers=4), (1, 2), eps=(True, False))
+    c = leg("c", _jamba_period(_jamba_held(card)), (1, 2))
+    # whisper at generate's shapes: 4-token prompts over 1,500 frames
+    d = leg("d", get_config("whisper-base"), (2, 2),
+            dtypes=("float32", "bfloat16"), n_text=4, max_len=448)
+    # 64 patches and 448 text tokens: 512 positions
+    e = leg("e", dataclasses.replace(get_config("qwen2-vl-72b"), n_layers=2),
+            (1, 3), n_text=FAMILY_PROMPT - VLM_SIDE ** 2)
+    return [((2, 2), [a, d]), ((1, 2), [b, c]), ((1, 3), [e])]
+
+
+def _cast_in_place(tree, dtype) -> None:
+    """Every floating leaf of a params tree cast to ``dtype``, one leaf at
+    a time, each old leaf freed as its copy replaces it."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in list(items):
+        if isinstance(v, (dict, list)):
+            _cast_in_place(v, dtype)
+        elif v.is_floating_point() and v.dtype != dtype:
+            tree[k] = v.to(dtype)
+
+
+def _family_weights(leg, dtype: str, mesh=None, moe_ep: bool = True):
+    """The leg's weights from its seed, the same values in every process:
+    bf16 from ``init_params`` (each SSM layer's ``dt_bias`` and ``A_log``
+    as Mamba-2 draws them, so the heads differ), then on a mesh this
+    rank's blocks (``param_shardings(fsdp=False)``, the whole tree freed),
+    cast to ``dtype`` a leaf at a time."""
+    import torch
+
+    from repro_torch.device import torch_dtype
+    from repro_torch.distributed.spmd import param_shardings
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(leg["cfg"], dtype="bfloat16")
+    params = init_params(cfg, leg["seed"], device=leg["device"])
+    if cfg.ssm is not None:
+        mamba2_dt_init({"blocks": [b for b in params["blocks"] if "ssm" in b]},
+                       leg["seed"])
+    if mesh is not None:
+        params = param_shardings(cfg, mesh, params, fsdp=False, moe_ep=moe_ep)
+    if dtype != "bfloat16":
+        _cast_in_place(params, torch_dtype(dtype))
+    if leg["device"] == "cuda":
+        torch.cuda.synchronize()
+    return params
+
+
+def _family_batch(leg, dtype: str):
+    return family_batch(dataclasses.replace(leg["cfg"], dtype=dtype),
+                        leg["batch"], leg["n_text"], leg["batch_seed"],
+                        device=leg["device"])
+
+
+def _family_rank(rank: int, world: int, job):
+    """One rank of phase 5o: every leg of ``job["legs"]`` on
+    ``job["shape"]``, in each of its dtypes and MoE layouts, each freed
+    before the next; the policy's layout beside each run."""
+    import torch
+
+    from repro_torch.distributed.spmd import make_policy, shard_batch
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = job["device"] == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    mesh = make_host_mesh(job["shape"], device=job["device"])
+    out = {"rank": rank, "coords": mesh.coords}
+    for leg in job["legs"]:
+        for dt in leg["dtypes"]:
+            for ep in leg["eps"]:
+                cfg = dataclasses.replace(leg["cfg"], dtype=dt)
+                pol = make_policy(cfg, mesh, batch=leg["batch"], fsdp=False,
+                                  moe_ep=ep)
+                params = _family_weights(leg, dt, mesh=mesh, moe_ep=ep)
+                if cuda:
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                batch = {k: shard_batch(v, mesh, pol.batch_axes,
+                                        dim=1 if k == "positions" else 0)
+                         for k, v in _family_batch(leg, dt).items()}
+                res = _serve_run(leg, cfg, params, batch, policy=pol,
+                                 mesh=mesh)
+                block = pol.ssm_block()
+                res.update(
+                    param_bytes=_tree_nbytes(params),
+                    layout=dict(kv_len_sharded=pol.kv_len_sharded,
+                                heads_split=pol.heads_split,
+                                vocab_parallel=pol.vocab_parallel,
+                                mlp_split=pol.mlp_split,
+                                ssm_groups_split=pol.ssm_groups_split,
+                                moe_ep=pol.moe_ep, moe_split=pol.moe_split,
+                                expert_block=pol.expert_block,
+                                ssm_heads=None if block is None
+                                else block.heads,
+                                gathers_layers=pol.gathers_layers))
+                if cuda:
+                    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+                out[(leg["leg"], dt, ep)] = res
+                del params, batch
+                if cuda:
+                    torch.cuda.empty_cache()
+    return out
+
+
+def _family_layout(cfg, n_model: int, ep: bool, m: int):
+    """The layout the policy must pick on "model" rank ``m`` of
+    ``n_model``: the rank's heads or the cache's length, its SSM heads
+    and whether its groups split, its experts (over "model" with
+    ``moe_ep``, else expert-TP)."""
+    want = {"heads_split": cfg.n_kv_heads % n_model == 0,
+            "kv_len_sharded": (cfg.family != "ssm"
+                               and cfg.n_kv_heads % n_model != 0)}
+    if cfg.ssm is not None:
+        k = cfg.ssm.n_ssm_heads(cfg.d_model) // n_model
+        want.update(ssm_heads=(k * m, k * m + k),
+                    ssm_groups_split=cfg.ssm.n_groups % n_model == 0)
+    if cfg.moe is not None:
+        e = cfg.moe.n_experts // n_model
+        want.update(moe_split=True, moe_ep=ep,
+                    expert_block=(e * m, e * m + e) if ep else None)
+    return want
+
+
+def spmd_family_phase(card: str, groups=None) -> None:
+    """Phase 5o: the SPMD policy for the MoE, SSM, hybrid, VLM and audio
+    families over gloo ranks sharing the card, each leg against the single
+    process's ``make_prefill_step`` and ``make_serve_step`` on the same
+    weights; every single-process leg of a mesh runs to its end, keeps its
+    results on the host and is freed before that mesh's ranks start.
+    ``groups`` ((mesh shape, legs) pairs) defaults to
+    :func:`_family_legs`'."""
+    from repro_torch.launch.spmd import run_ranks
+
+    t_phase = time.perf_counter()
+    for shape, legs in groups or _family_legs(card):
+        cuda = legs[0]["device"] == "cuda"
+        refs = {}
+        for leg in legs:
+            for dt in leg["dtypes"]:
+                cfg = dataclasses.replace(leg["cfg"], dtype=dt)
+                params = _family_weights(leg, dt)
+                refs[(leg["leg"], dt)] = _serve_run(
+                    leg, cfg, params, _family_batch(leg, dt))
+                del params
+                if cuda:
+                    _free_device_memory()
+        world = int(np.prod(shape))
+        t0 = time.perf_counter()
+        res = run_ranks(_family_rank, world, args=(dict(
+            device=legs[0]["device"], shape=shape, legs=legs),),
+            timeout=SPMD_TIMEOUT_S)
+        log(f"  {world} ranks on {shape} (legs "
+            f"{', '.join(leg['leg'] for leg in legs)}): spawned, ran and "
+            f"joined in {time.perf_counter() - t0:.1f} s")
+        for leg in legs:
+            _family_checks(card, leg, shape, res, refs)
+    log(f"  phase 5o: {time.perf_counter() - t_phase:.1f} s of wall time "
+        f"[{card}]")
+
+
+def _family_checks(card: str, leg, shape, res, refs) -> None:
+    """One leg's gates and log lines, for each of its dtypes and layouts:
+    the tokens and logits against the single process (f32 exact tokens and
+    MODEL_TOL; bf16 as phase 5n holds it), the policy's layout on every
+    rank, the kernels' launches on every rank, and the times, collectives,
+    bytes and memory."""
+    cfg = leg["cfg"]
+    n_attn, n_ssm = _layer_counts(cfg)
+    audio = cfg.family == "audio"
+    flash_want = n_attn + (cfg.n_enc_layers + cfg.n_layers if audio else 0)
+    step_flash = cfg.n_layers if audio else 0
+    for dt in leg["dtypes"]:
+        ref = refs[(leg["leg"], dt)]
+        single = float(np.median(ref["ms"][1:]))
+        for ep in leg["eps"]:
+            rows = [r[(leg["leg"], dt, ep)] for r in res]
+            layout = ("" if cfg.moe is None
+                      else " experts over model" if ep else " expert-TP")
+            label = f"({leg['leg']}) {cfg.name} {shape}{layout}"
+            _spmd_check_tokens(f"{label} {dt}", rows, ref,
+                               refs[(leg["leg"], "float32")],
+                               f32=dt == "float32")
+            for r, row in zip(res, rows):
+                want = _family_layout(cfg, shape[1], ep, r["coords"][1])
+                got = {k: row["layout"][k] for k in want}
+                check(got == want, f"{label}: rank {r['rank']}'s layout "
+                      f"{got}, expected {want}")
+                if leg["device"] != "cuda":
+                    continue              # the plain versions count nothing
+                check(row["flash_launches"] == flash_want
+                      and row["ssd_launches"] == n_ssm
+                      and all(n == n_attn for n in row["decode_launches"])
+                      and all(n == step_flash
+                              for n in row["step_flash_launches"]),
+                      f"{label} {dt}: rank {r['rank']} launched flash "
+                      f"{row['flash_launches']} and SSD "
+                      f"{row['ssd_launches']} times in the prefill, decode "
+                      f"{row['decode_launches']} and flash "
+                      f"{row['step_flash_launches']} a step; expected "
+                      f"{flash_want}, {n_ssm}, {n_attn} and {step_flash}")
+            ms = float(np.median([np.median(r["ms"][1:]) for r in rows]))
+            coll = float(np.median([np.median(r["coll_ms"][1:])
+                                    for r in rows]))
+            wire = rows[0]["wire"][-1]
+            log(f"  {label} {dt}: flash {flash_want} and SSD {n_ssm} a "
+                f"prefill, decode {n_attn} and flash {step_flash} a step on "
+                f"every rank; {ms:.2f} ms a serve step (median of ranks' "
+                f"medians, steps 2-{leg['steps']}) beside the single "
+                f"process's {single:.2f} ms; {coll:.2f} ms of host time in "
+                f"collectives a step; bytes each rank sends a step "
+                f"{json.dumps({k: int(v) for k, v in wire.items()})} (ring "
+                f"wire bytes) [{card}]")
+            peak = ("not measured" if "peak_bytes" not in rows[0] else
+                    f"{max(r['peak_bytes'] for r in rows) / 2**30:.3f} GiB")
+            reckon = _spmd_reckon(leg, shape, dt, moe_ep=ep)
+            log(f"  {label} {dt}: peak allocated a rank {peak} + its "
+                f"context, reckoned {reckon / 2**30:.3f} GiB "
+                f"(parameter blocks {rows[0]['param_bytes'] / 2**30:.3f} "
+                f"GiB, cache block {rows[0]['cache_bytes'] / 2**30:.3f} GiB)"
+                f" [{card}]")
 
 
 SSD_KERNELS = ("ssd_cumsum_kernel", "ssd_cb_kernel", "ssd_chunk_state_kernel",
@@ -5723,6 +6070,11 @@ def main() -> int:
                 or "spill" in line or "==" in line):
             log("  " + line.strip())
 
+    if "--spmd-families" in sys.argv[1:]:
+        log("phase 5o alone: spmd families")
+        spmd_family_phase(card)
+        return 0
+
     log("phase 3: kernels against their plain versions")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -5846,6 +6198,12 @@ def main() -> int:
         "sharing the card: (a) length-sharded decode on (data 2, model 3), "
         "(b) head-aligned on (1, 2), (c) a compressed train step on (pod 2)")
     spmd_phase(card)
+    _free_device_memory()
+
+    log("phase 5o: spmd families, the policy for mamba2, deepseek (both MoE "
+        "layouts), jamba, whisper and qwen2-vl over gloo ranks sharing the "
+        "card")
+    spmd_family_phase(card)
     _free_device_memory()
 
     for row in rows:

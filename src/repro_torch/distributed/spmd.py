@@ -31,6 +31,33 @@ rules into explicit collectives over the sub-groups of a process mesh
 * **the MLP** output-channel-sharded where ``d_ff`` divides ``"model"``,
   ``"mlp_out"`` summed over it; sums are taken in f32 and cast back, as
   ``TPShardPolicy`` does;
+* **MoE**, with ``moe_ep`` and the experts dividing "model" (the
+  reference's ``"moe_ecap"`` case): each rank holds ``E / model`` experts
+  (``expert_block``), routes the same tokens into all E buckets (the
+  router is replicated, so every rank drops the same assignments), runs
+  its own buckets, empty ones too, and combines their outputs; else
+  **expert-TP**: each expert's ``[gate | up]`` columns (permuted per
+  expert, as the MLP's are) and ``wo`` rows over "model".  Either way the
+  partial outputs and the shared experts' output-split MLP are summed once
+  at ``"mlp_out"``;
+* **SSM heads** over "model" where they divide it (Mamba-2 and the
+  hybrid's SSM layers; :meth:`ActivationPolicy.ssm_block`): ``wz``, ``wx``,
+  ``wdt`` column-split, ``out_proj`` row-split and summed at
+  ``"attn_out"``; the rank cuts the replicated ``A_log``, ``D``,
+  ``dt_bias``, norm scale and ``conv_w`` to its heads and channels; B and
+  C (``wb``, ``wc``) are split where the groups divide "model", else
+  gathered, and each rank then reads the groups of its heads
+  (``ssm_groups``); the gated norm's sum of squares is all-reduced in f32
+  (``"ssm-norm"``) and divided by the whole ``d_inner``.  The rank's decode
+  state is its heads' ``ssm`` and a conv window of its channels, where
+  ``cache_specs`` replicates the window (:meth:`ActivationPolicy.
+  shard_caches` and ``gather_caches`` place and gather caches).  SSM heads
+  that do not divide "model" are gathered and run whole on every rank;
+* **VLM and audio**: the caller places ``extra_embeds`` and the (3, B, S)
+  M-RoPE positions by ``train_batch_specs``; the audio encoder runs under
+  the policy as decoder layers do, and the cross-attention's K/V are the
+  rank's heads (whole where the kv heads do not divide "model"), its output
+  summed at ``"cross_out"``;
 * **vocab-parallel** embedding (:meth:`embed`: a masked local gather, then
   an f32 sum over ``"model"``: one shard contributes each row, so the sum
   is exact) and ``"logits"`` (each model rank's vocab slice, all-gathered
@@ -48,9 +75,9 @@ numbers are counted from the tensors sent, so both agree
 
 gloo moves CPU tensors: a CUDA tensor goes through host memory (a copy
 each way, which waits for the card); an all-gather moves raw bytes, so any
-dtype travels.  Only the pure-attention dense families are covered
-(:func:`policy_supported`); MoE (with its ``"moe_ecap"`` rule), SSM,
-hybrid, VLM and audio are refused by name.
+dtype travels.  Every family is covered; the paged, prefix and verify
+programs under the policy, and training over the data and model axes, are
+not (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -58,16 +85,18 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..kernels.common import record_collective
 from ..models.attention import KVCacheView
+from ..models.ssm import SSMState
+from ..models.transformer import Caches, LayerSpec, period_structure
 from .sharding import (
-    P, _Div, _swiglu_tp_perm, batch_shard, mesh_axis_size, param_specs,
-    permute_wi, spec_map, tp_supported,
+    P, _swiglu_tp_perm, batch_shard, cache_specs, mesh_axis_size, param_specs,
+    spec_map,
 )
 
 
@@ -228,44 +257,91 @@ def gather_tree(tree, spec_tree, mesh):
         spec_tree, tree)
 
 
-def _wi_perm(cfg, mesh) -> Optional[np.ndarray]:
-    """The column permutation of swiglu's packed ``[gate | up]`` ``wi``
-    under a "model" split (``_swiglu_tp_perm``), or None where ``wi`` is
-    not split over whole features (``d_ff % model != 0``: then the MLP is
-    gathered whole, see :meth:`ActivationPolicy.layer`)."""
+def _shared_d_ff(cfg) -> int:
+    """Width of the shared experts' one MLP (0 without them)."""
+    m = cfg.moe
+    return m.n_shared_experts * (m.shared_d_ff or m.expert_d_ff)
+
+
+def _swiglu_perms(cfg, mesh, moe_ep: bool) -> Dict[str, np.ndarray]:
+    """The column permutation (``_swiglu_tp_perm``) of each packed ``[gate
+    | up]`` ``wi`` the policy uses split over "model": "mlp" (the dense
+    MLP, the audio encoder's too), "experts" (every expert's ``wi`` under
+    expert-TP, the layout when ``moe_ep`` is off or the experts do not
+    divide "model") and "shared" (the shared experts' MLP).  A ``wi`` whose
+    features do not divide "model" has none: the policy gathers it whole
+    (:meth:`ActivationPolicy.layer`)."""
     m = mesh_axis_size(mesh, "model")
-    if cfg.mlp_kind != "swiglu" or m == 1 or cfg.d_ff % m:
-        return None
-    return _swiglu_tp_perm(cfg.d_ff, m)
+    out: Dict[str, np.ndarray] = {}
+    if m == 1:
+        return out
+    if cfg.mlp_kind == "swiglu" and cfg.d_ff % m == 0:
+        out["mlp"] = _swiglu_tp_perm(cfg.d_ff, m)
+    mo = cfg.moe
+    if mo is not None:
+        if not (moe_ep and mo.n_experts % m == 0) and mo.expert_d_ff % m == 0:
+            out["experts"] = _swiglu_tp_perm(mo.expert_d_ff, m)
+        d_sh = _shared_d_ff(cfg)
+        if d_sh and d_sh % m == 0:
+            out["shared"] = _swiglu_tp_perm(d_sh, m)
+    return out
+
+
+def _permute(params, perms, *, inverse: bool = False):
+    """``params`` with each packed ``wi`` that ``perms`` names taken in its
+    column order (``inverse`` undoes it): one copy of each such leaf, on
+    its device; every other leaf is the input's tensor."""
+    if not perms:
+        return params
+
+    def take(wi, perm):
+        perm = np.argsort(perm) if inverse else perm
+        return wi[..., torch.from_numpy(perm).to(wi.device)]
+
+    def layer(lp):
+        lp = dict(lp)
+        if "mlp" in lp and "mlp" in perms:
+            lp["mlp"] = dict(lp["mlp"], wi=take(lp["mlp"]["wi"], perms["mlp"]))
+        if "moe" in lp:
+            moe = dict(lp["moe"])
+            if "experts" in perms:
+                moe["wi"] = take(moe["wi"], perms["experts"])
+            if "shared" in perms:
+                moe["shared"] = dict(moe["shared"], wi=take(
+                    moe["shared"]["wi"], perms["shared"]))
+            lp["moe"] = moe
+        return lp
+
+    out = dict(params)
+    out["blocks"] = [layer(lp) for lp in params["blocks"]]
+    if "encoder" in params:
+        out["encoder"] = dict(params["encoder"], blocks=[
+            layer(lp) for lp in params["encoder"]["blocks"]])
+    return out
 
 
 def param_shardings(cfg, mesh, params, *, fsdp: bool = True,
                     moe_ep: bool = True):
     """This rank's block of every leaf of the full parameter tree
     ``params`` (the weight bridge's or ``init_params``'s) under
-    ``param_specs(cfg, mesh, fsdp=, moe_ep=)``: "model" over the width,
-    "data" (FSDP) over the other dimension, replicated over "pod".
-    swiglu's packed ``wi`` is first put into per-rank ``[gate_i | up_i]``
-    column blocks (``_swiglu_tp_perm``), as the tensor-parallel path does:
-    a plain split would hand rank 0 only gate columns.
-    :func:`gather_param_shards` is its inverse."""
-    perm = _wi_perm(cfg, mesh)
-    if perm is not None:
-        params = permute_wi(params, perm)
-    return shard_tree(params, param_specs(cfg, mesh, fsdp=fsdp,
-                                          moe_ep=moe_ep), mesh)
+    ``param_specs(cfg, mesh, fsdp=, moe_ep=)``: "model" over the width (or
+    the experts), "data" (FSDP) over the other dimension, replicated over
+    "pod".  Each packed swiglu ``wi`` split over whole features is first
+    put into per-rank ``[gate_i | up_i]`` column blocks
+    (``_swiglu_tp_perm``; per expert under expert-TP), as the
+    tensor-parallel path does: a plain split would hand rank 0 only gate
+    columns.  :func:`gather_param_shards` is its inverse."""
+    return shard_tree(_permute(params, _swiglu_perms(cfg, mesh, moe_ep)),
+                      param_specs(cfg, mesh, fsdp=fsdp, moe_ep=moe_ep), mesh)
 
 
 def gather_param_shards(cfg, mesh, shards, *, fsdp: bool = True,
                         moe_ep: bool = True):
     """The full parameter tree from every rank's :func:`param_shardings`
-    blocks, bit for bit: all-gathers, then ``wi``'s permutation undone."""
+    blocks, bit for bit: all-gathers, then the permutations undone."""
     full = gather_tree(shards, param_specs(cfg, mesh, fsdp=fsdp,
                                            moe_ep=moe_ep), mesh)
-    perm = _wi_perm(cfg, mesh)
-    if perm is not None:
-        full = permute_wi(full, np.argsort(perm))
-    return full
+    return _permute(full, _swiglu_perms(cfg, mesh, moe_ep), inverse=True)
 
 
 # ---------------------------------------------------------------------------
@@ -274,46 +350,108 @@ def gather_param_shards(cfg, mesh, shards, *, fsdp: bool = True,
 
 
 def policy_supported(cfg) -> Optional[str]:
-    """None where :func:`make_policy` covers ``cfg``'s family, else why
-    not: the pure-attention dense families only (``tp_supported``'s rule);
-    MoE with its ``"moe_ecap"`` rule, SSM, hybrid, VLM and audio are the
-    next item of ROADMAP.md Queue 1."""
-    return tp_supported(cfg)
+    """None: :func:`make_policy` covers every family (pure attention,
+    MoE, SSM, hybrid, VLM and audio).  What it cannot place it refuses by
+    name where it meets it: a length-sharded decode cache whose length
+    does not split over "model" (:meth:`ActivationPolicy.kv_block`)."""
+    return None
+
+
+class SSMBlock(NamedTuple):
+    """One "model" rank's share of every SSM layer: its heads ``[h0, h1)``
+    and the channels of ``xBC`` (the causal conv's input, ``[x | B | C]``,
+    ``d_inner + 2 G N`` wide) it computes: its heads' x channels, and the
+    B and C channels of its groups where the groups split over "model",
+    of all G groups where they do not."""
+
+    heads: Tuple[int, int]
+    channels: np.ndarray
+
+
+def _head_groups(h0: int, h1: int, nh: int, G: int):
+    """Which of the G groups of B and C heads ``h0 .. h1 - 1`` read (head
+    ``h`` reads group ``h // (nh / G)``), as an index that keeps that map
+    under the scan's own ``h_local // (nh_local / groups)``: a slice where
+    every group of the range holds as many of these heads, else one group
+    a head."""
+    rep = nh // G
+    g0, g1 = h0 // rep, (h1 - 1) // rep + 1
+    counts = {min(h1, (g + 1) * rep) - max(h0, g * rep) for g in range(g0, g1)}
+    if len(counts) == 1:
+        return slice(g0, g1)
+    return [h // rep for h in range(h0, h1)]
+
+
+_ENCODER_LAYER = LayerSpec(mixer="attn", mlp="mlp")
 
 
 class ActivationPolicy:
-    """The ``policy=`` of the model's prefill, ``prefill_kv`` and
-    ``decode_step`` (and so of ``make_prefill_step`` and
-    ``make_serve_step``) on one rank of a mesh; the module docstring says
-    what each hook does.  ``log`` counts this rank's collectives
-    (:class:`CollectiveLog`)."""
+    """The ``policy=`` of the model's prefill, ``prefill_kv``,
+    ``decode_step`` and audio encoder (and so of ``make_prefill_step``,
+    ``make_serve_step`` and ``make_decode_chunk``) on one rank of a mesh;
+    the module docstring says what each hook does.  ``log`` counts this
+    rank's collectives (:class:`CollectiveLog`)."""
 
-    def __init__(self, cfg, mesh, *, batch: int, fsdp: bool = True):
-        why = policy_supported(cfg)
-        if why is not None:
-            raise ValueError(
-                f"make_policy does not cover {cfg.name}: {why} (the policy "
-                f"for the MoE, SSM, hybrid, VLM and audio families is "
-                f"ROADMAP.md Queue 1's next item)")
-        dv = _Div(mesh)
+    def __init__(self, cfg, mesh, *, batch: int, fsdp: bool = True,
+                 moe_ep: bool = True):
+        m = mesh_axis_size(mesh, "model")
+        self.cfg = cfg
         self.mesh = mesh
-        self.model = dv.model
+        self.model = m
+        self.batch = batch
         self.batch_axes = batch_shard(mesh, batch)
         self.batch_split = math.prod(mesh_axis_size(mesh, a)
                                      for a in (self.batch_axes or ()))
-        self.vocab_parallel = (dv.m(cfg.vocab_padded) is not None
-                               and dv.model > 1)
-        self.kv_len_sharded = cfg.n_kv_heads % dv.model != 0 and dv.model > 1
-        self.heads_split = dv.model > 1 and not self.kv_len_sharded
-        self.mlp_split = dv.model > 1 and cfg.d_ff % dv.model == 0
+        self.vocab_parallel = m > 1 and cfg.vocab_padded % m == 0
+        self.kv_len_sharded = (cfg.family != "ssm" and m > 1
+                               and cfg.n_kv_heads % m != 0)
+        self.heads_split = m > 1 and cfg.n_kv_heads % m == 0
+        self.mlp_split = m > 1 and cfg.d_ff % m == 0
+        self.ssm_split = self.ssm_groups_split = False
+        if cfg.ssm is not None:
+            nh = cfg.ssm.n_ssm_heads(cfg.d_model)
+            self.ssm_split = m > 1 and nh % m == 0
+            self.ssm_groups_split = (self.ssm_split
+                                     and cfg.ssm.n_groups % m == 0)
+        self.moe_split = self.moe_ep = False
+        if cfg.moe is not None:
+            ep = moe_ep and cfg.moe.n_experts % m == 0
+            self.moe_split = (m > 1 and (ep or cfg.moe.expert_d_ff % m == 0)
+                              and _shared_d_ff(cfg) % m == 0)
+            self.moe_ep = self.moe_split and ep
         self.live = mesh.is_process_mesh
         self.log = CollectiveLog()
-        # each period position's spec tree without the stacked-blocks axis,
-        # and whether any of its leaves is gathered at all
-        self._layer_specs = [
-            spec_map(lambda s: P(*s[1:]), blk)
-            for blk in param_specs(cfg, mesh, fsdp=fsdp)["blocks"]]
+        # this rank's experts, SSM heads and their groups (a description's
+        # program is the global one: none)
+        self.expert_block = None
+        self.ssm_groups = None
+        self._ssm_block = None
+        if self.live:
+            c = mesh.coord("model")
+            if self.moe_ep:
+                e = cfg.moe.n_experts // m
+                self.expert_block = (c * e, (c + 1) * e)
+            if self.ssm_split:
+                self._ssm_block = self.ssm_block(c)
+                if not self.ssm_groups_split:
+                    self.ssm_groups = _head_groups(
+                        *self._ssm_block.heads, nh, cfg.ssm.n_groups)
+        self._channel_index: Dict[torch.device, torch.Tensor] = {}
+        # each period position's spec tree without the stacked-blocks axis
+        # (and the audio encoder's), and whether any of its leaves is
+        # gathered at all
+        specs = param_specs(cfg, mesh, fsdp=fsdp, moe_ep=moe_ep)
+        self._structure = period_structure(cfg)
+        self._layer_specs = [spec_map(lambda s: P(*s[1:]), blk)
+                             for blk in specs["blocks"]]
         self._gathers = [self._layer_gathers(sp) for sp in self._layer_specs]
+        self._enc_specs = (spec_map(lambda s: P(*s[1:]),
+                                    specs["encoder"]["blocks"][0])
+                           if "encoder" in specs else None)
+        self._enc_gathers = (self._enc_specs is not None
+                             and self._layer_gathers(self._enc_specs))
+        # which of the running layer's outputs are partial sums
+        self._sums: Dict[str, bool] = {}
 
     # -- issuing or recording one collective ---------------------------------
     def _local_bytes(self, x, split: int = 1, itemsize=None) -> float:
@@ -323,9 +461,10 @@ class ActivationPolicy:
         return (x.numel() * (itemsize or x.element_size())
                 / self.batch_split / split)
 
-    def _sum(self, x, site: str):
+    def model_sum(self, x, site: str):
         """The sum over "model" of a batch-sharded activation, in f32, cast
-        back to ``x``'s dtype."""
+        back to ``x``'s dtype (on a mesh description, recorded and
+        returned)."""
         if not self.live:
             _note("all-reduce", self._local_bytes(x, itemsize=4), self.model,
                   site, self.log)
@@ -335,10 +474,10 @@ class ActivationPolicy:
                                site=site).to(x.dtype)
 
     # -- hooks ---------------------------------------------------------------
+    # -- hooks ---------------------------------------------------------------
     def __call__(self, x, name: str):
-        if ((name == "attn_out" and self.heads_split)
-                or (name == "mlp_out" and self.mlp_split)):
-            return self._sum(x, name)
+        if self._sums.get(name):
+            return self.model_sum(x, name)
         if name == "logits" and self.vocab_parallel:
             if not self.live:
                 _note("all-gather", self._local_bytes(x, self.model),
@@ -349,46 +488,79 @@ class ActivationPolicy:
         return x
 
     def layer_cfg(self, cfg):
-        """The config a layer runs with: the rank's heads where they are
-        split over "model", else ``cfg``."""
-        if not self.heads_split:
+        """The config an attention layer runs with: the rank's heads where
+        they are split over "model" on a process mesh, else ``cfg`` (a mesh
+        description's program is the global one; SSM and MoE layers read
+        their widths from their blocks)."""
+        if not (self.heads_split and self.live):
             return cfg
         return dataclasses.replace(cfg, n_heads=cfg.n_heads // self.model,
                                    n_kv_heads=cfg.n_kv_heads // self.model)
 
-    def layer(self, lp: Dict[str, Any], p: int) -> Dict[str, Any]:
-        """The usable parameters of one layer at period position ``p``
-        from this rank's blocks: each leaf's "data" (FSDP) blocks gathered,
-        then its "model" blocks where the layer cannot use them split
-        (attention under ``kv_len_sharded``; an MLP whose ``d_ff`` does not
-        divide "model").  On a mesh description ``lp`` is the whole layer:
-        only the bytes are recorded."""
-        if not self._gathers[p]:
-            return lp
-        specs = self._layer_specs[p]
-        return {key: spec_map(
-                    lambda s, t, key=key: self._gather_leaf(t, s, key),
-                    specs[key], sub)
-                for key, sub in lp.items()}
+    def layer(self, lp: Dict[str, Any], p: int, *,
+              encoder: bool = False) -> Dict[str, Any]:
+        """The usable parameters of one layer at period position ``p`` (of
+        the audio encoder with ``encoder``) from this rank's blocks (all of
+        the layer's keys, or some): each leaf's "data" (FSDP) blocks
+        gathered, then its "model" blocks where the layer cannot use them
+        split (attention under ``kv_len_sharded``; an MLP whose ``d_ff``
+        does not divide "model"; SSM heads that do not divide it, or its B
+        and C where the groups do not; a MoE neither layout splits), and
+        an SSM's replicated leaves cut to the rank's heads and channels
+        (:meth:`ssm_block`).  Sets which of the layer's outputs the hooks
+        sum.  On a mesh description ``lp`` is the whole layer: only the
+        bytes are recorded."""
+        spec = _ENCODER_LAYER if encoder else self._structure[p]
+        self._sums = {
+            "attn_out": (self.heads_split if spec.mixer == "attn"
+                         else self.ssm_split),
+            "mlp_out": {"mlp": self.mlp_split,
+                        "moe": self.moe_split}.get(spec.mlp, False),
+            "cross_out": self.heads_split,
+        }
+        specs = self._enc_specs if encoder else self._layer_specs[p]
+        if self._enc_gathers if encoder else self._gathers[p]:
+            lp = {key: {name: spec_map(
+                        lambda s, t, keep=self._keeps_model(key, name):
+                        self._gather_leaf(t, s, keep), specs[key][name], sub)
+                        for name, sub in part.items()}
+                  for key, part in lp.items()}
+        if self._ssm_block is not None and "ssm" in lp:
+            lp = dict(lp, ssm=self._ssm_local(lp["ssm"]))
+        return lp
 
-    def _todo(self, spec: P, key: str):
-        """(dim, axis) of each gather a leaf of ``spec`` under the layer's
-        ``key`` ("attn", "mlp", a norm) needs, on axes of more than one
-        rank."""
-        keep_model = {"attn": self.heads_split,
-                      "mlp": self.mlp_split}.get(key, False)
+    def _keeps_model(self, key: str, name: str) -> bool:
+        """Whether leaf ``name`` of the layer's ``key`` is used split over
+        "model"."""
+        if key in ("attn", "cross"):
+            return self.heads_split
+        if key == "mlp":
+            return self.mlp_split
+        if key == "moe":
+            return self.moe_split
+        if key == "ssm":
+            return self.ssm_split and (self.ssm_groups_split
+                                       or name not in ("wb", "wc"))
+        return False
+
+    def _todo(self, spec: P, keep_model: bool):
+        """(dim, axis) of each gather a leaf of ``spec`` needs, on axes of
+        more than one rank."""
         return [(dim, a) for dim, entry in enumerate(spec) for a in _axes(entry)
                 if mesh_axis_size(self.mesh, a) > 1
                 and (a == "data" or (a == "model" and not keep_model))]
 
     def _layer_gathers(self, specs) -> bool:
         found = []
-        for key, sub in specs.items():
-            spec_map(lambda s, key=key: found.extend(self._todo(s, key)), sub)
+        for key, part in specs.items():
+            for name, sub in part.items():
+                keep = self._keeps_model(key, name)
+                spec_map(lambda s, keep=keep: found.extend(self._todo(s, keep)),
+                         sub)
         return bool(found)
 
-    def _gather_leaf(self, t, spec: P, key: str):
-        todo = self._todo(spec, key)
+    def _gather_leaf(self, t, spec: P, keep_model: bool):
+        todo = self._todo(spec, keep_model)
         if not todo:
             return t
         split = math.prod(mesh_axis_size(self.mesh, a)
@@ -403,6 +575,44 @@ class ActivationPolicy:
                       f"gather-{a}", self.log)
             split //= n
         return t
+
+    # -- the SSM's heads -----------------------------------------------------
+    def ssm_block(self, rank: Optional[int] = None) -> Optional[SSMBlock]:
+        """The heads and ``xBC`` channels of "model" rank ``rank`` (this
+        rank's by default), or None where every rank runs all heads (they do
+        not divide "model", or a mesh description).  Its decode state is
+        that block: ``ssm`` (B, nh / model, hd, N), as ``cache_specs``
+        splits it, and the conv window (B, K - 1, its channels), where
+        ``cache_specs`` replicates the window whole
+        (:meth:`shard_caches`)."""
+        if rank is None:
+            return self._ssm_block
+        s, d = self.cfg.ssm, self.cfg.d_model
+        d_in, nh = s.d_inner(d), s.n_ssm_heads(d)
+        k, gn = nh // self.model, s.n_groups * s.d_state
+        h0, h1 = rank * k, (rank + 1) * k
+        bc = np.arange(gn)
+        if self.ssm_groups_split:
+            g = gn // self.model
+            bc = bc[rank * g:(rank + 1) * g]
+        x = np.arange(h0 * s.head_dim, h1 * s.head_dim)
+        return SSMBlock((h0, h1), np.concatenate([x, d_in + bc,
+                                                  d_in + gn + bc]))
+
+    def _ssm_local(self, sp: Dict[str, Any]) -> Dict[str, Any]:
+        """An SSM layer's replicated leaves cut to this rank's heads: its
+        slice of ``A_log``, ``D``, ``dt_bias`` and the norm's scale, and
+        ``conv_w``'s columns of its channels."""
+        (h0, h1), channels = self._ssm_block
+        hd = self.cfg.ssm.head_dim
+        conv_w = sp["conv_w"]
+        idx = self._channel_index.get(conv_w.device)
+        if idx is None:
+            idx = torch.from_numpy(channels).to(conv_w.device)
+            self._channel_index[conv_w.device] = idx
+        return dict(sp, A_log=sp["A_log"][h0:h1], D=sp["D"][h0:h1],
+                    dt_bias=sp["dt_bias"][h0:h1], conv_w=conv_w[:, idx],
+                    norm={"scale": sp["norm"]["scale"][h0 * hd:h1 * hd]})
 
     def embed(self, table, ids):
         """The vocab-parallel lookup of ``ids`` in this rank's rows of the
@@ -478,7 +688,7 @@ class ActivationPolicy:
     def gathers_layers(self) -> bool:
         """Whether any layer's parameters are gathered before use (FSDP
         blocks, or "model" blocks a layer cannot use split)."""
-        return any(self._gathers)
+        return any(self._gathers) or self._enc_gathers
 
     @property
     def merges_length_shards(self) -> bool:
@@ -516,17 +726,75 @@ class ActivationPolicy:
         return (total[..., :-1] / total[..., -1:]).to(out.dtype)
 
 
-def make_policy(cfg, mesh, *, batch: int,
-                fsdp: bool = True) -> ActivationPolicy:
+    # -- placing decode caches ----------------------------------------------
+    def _cross_spec(self) -> P:
+        """The audio cross K/V (nb, B, S_enc, Hkv, dh) as the rank holds
+        them: its rows, and its heads where they are split (``cache_specs``
+        replicates the heads)."""
+        return P(None, self.batch_axes, None,
+                 "model" if self.heads_split else None, None)
+
+    def shard_caches(self, caches):
+        """This rank's blocks of whole (single-process) decode caches as its
+        programs hold them: ``cache_specs``' blocks, except that each SSM
+        conv window holds the rank's channels (:meth:`ssm_block`) and the
+        audio cross K/V the rank's heads where they are split.  A process
+        mesh only."""
+        specs = cache_specs(self.cfg, self.mesh, batch=self.batch)
+        rows = P(None, self.batch_axes, None, None)
+        ssm = {}
+        for p, st in caches.ssm.items():
+            conv = block_of(st.conv, rows, self.mesh)
+            if self._ssm_block is not None:
+                conv = conv[..., torch.from_numpy(self._ssm_block.channels)
+                            .to(conv.device)]
+            ssm[p] = SSMState(conv=conv, ssm=block_of(st.ssm, specs.ssm[p].ssm,
+                                                      self.mesh))
+        cross = None if caches.cross is None else {
+            p: tuple(block_of(t, self._cross_spec(), self.mesh) for t in kv)
+            for p, kv in caches.cross.items()}
+        return Caches(kv=shard_tree(caches.kv, specs.kv, self.mesh), ssm=ssm,
+                      cross=cross)
+
+    def gather_caches(self, caches):
+        """The whole decode caches from every rank's blocks
+        (:meth:`shard_caches`' inverse): what the single process holds."""
+        specs = cache_specs(self.cfg, self.mesh, batch=self.batch)
+        rows = P(None, self.batch_axes, None, None)
+        ssm = {}
+        for p, st in caches.ssm.items():
+            conv = gather_block(st.conv, rows, self.mesh)
+            if self._ssm_block is not None:
+                s = self.cfg.ssm
+                width = s.d_inner(self.cfg.d_model) + 2 * s.n_groups * s.d_state
+                parts = mesh_all_gather(conv, self.mesh, "model", conv.dim() - 1)
+                whole = conv.new_zeros(conv.shape[:-1] + (width,))
+                c = conv.shape[-1]
+                for r in range(self.model):
+                    idx = torch.from_numpy(self.ssm_block(r).channels)
+                    whole[..., idx.to(conv.device)] = parts[..., r * c:(r + 1) * c]
+                conv = whole
+            ssm[p] = SSMState(conv=conv, ssm=gather_block(
+                st.ssm, specs.ssm[p].ssm, self.mesh))
+        cross = None if caches.cross is None else {
+            p: tuple(gather_block(t, self._cross_spec(), self.mesh) for t in kv)
+            for p, kv in caches.cross.items()}
+        return Caches(kv=gather_tree(caches.kv, specs.kv, self.mesh), ssm=ssm,
+                      cross=cross)
+
+
+def make_policy(cfg, mesh, *, batch: int, fsdp: bool = True,
+                moe_ep: bool = True) -> ActivationPolicy:
     """The activation policy of ``cfg`` on ``mesh`` for a global batch of
     ``batch`` rows, the reference's ``make_policy``: ``kv_len_sharded`` when
-    the kv heads do not divide "model" (and "model" is more than one),
-    ``vocab_parallel`` when the padded vocab does.  ``fsdp`` says how the
-    parameters were placed (``param_shardings``' keyword): with it, each
-    layer's "data" blocks are gathered before use.  The reference's
-    ``moe_ep`` has no counterpart: it picks the MoE layout, and MoE is not
-    covered yet."""
-    return ActivationPolicy(cfg, mesh, batch=batch, fsdp=fsdp)
+    the kv heads do not divide "model" (and "model" is more than one; never
+    for the SSM family, which has no attention), ``vocab_parallel`` when
+    the padded vocab does.  ``fsdp`` and ``moe_ep`` say how the parameters
+    were placed (``param_shardings``' keywords): with ``fsdp``, each
+    layer's "data" blocks are gathered before use; ``moe_ep`` puts the
+    experts over "model" where they divide it (the reference's
+    ``"moe_ecap"`` case), else each expert's width (expert-TP)."""
+    return ActivationPolicy(cfg, mesh, batch=batch, fsdp=fsdp, moe_ep=moe_ep)
 
 
 def shard_batch(x: torch.Tensor, mesh, batch_axes, *, dim: int = 0):
@@ -546,7 +814,7 @@ def gather_batch(x: torch.Tensor, mesh, batch_axes, *, dim: int = 0):
 
 
 __all__ = [
-    "ActivationPolicy", "CollectiveLog", "block_of", "gather_batch",
+    "ActivationPolicy", "CollectiveLog", "SSMBlock", "block_of", "gather_batch",
     "gather_block", "gather_param_shards", "gather_tree", "make_policy",
     "mesh_all_gather", "mesh_all_reduce", "param_shardings",
     "policy_supported", "ring_wire_bytes", "shard_batch", "shard_tree",

@@ -5,13 +5,12 @@ Counterpart of ``repro.launch.cells``.  A *cell* bundles what the dry-run
 and the card's cells read:
 
     program          the step callable (train_step / prefill_step /
-                     serve_step); the serving steps of the families
-                     ``distributed.spmd.make_policy`` covers are built
-                     under it (``policy``), so on a mesh description
-                     their trace records each collective a device would
-                     issue, and on a process mesh they run one rank's
-                     share; train cells and the other families run
-                     without a policy
+                     serve_step); every serving step is built under
+                     ``distributed.spmd.make_policy`` (``policy``, with
+                     the cell's ``fsdp`` and ``moe_ep``), so on a mesh
+                     description its trace records each collective a
+                     device would issue, and on a process mesh it runs
+                     one rank's share; train cells run without a policy
     abstract_args    the arguments as ``meta`` tensors (shapes and dtypes,
                      no memory), the reference's ``ShapeDtypeStruct``s
     in_specs         the arguments' layout over ``mesh`` (``P`` trees)
@@ -40,7 +39,7 @@ from ..device import resolve_device, torch_dtype
 from ..distributed.sharding import (
     P, batch_shard, cache_specs, param_specs, train_batch_specs,
 )
-from ..distributed.spmd import make_policy, policy_supported
+from ..distributed.spmd import make_policy
 from ..models import init_caches, init_params
 from ..optim import adamw_init, opt_state_specs
 from ..serving.engine import ServeConfig, make_prefill_step, make_serve_step
@@ -248,8 +247,7 @@ def build_cell(
 
     scfg = ServeConfig(max_len=S, attn_impl=attn_impl)
     c_specs = cache_specs(cfg, mesh, batch=B)
-    policy = (make_policy(cfg, mesh, batch=B, fsdp=fsdp)
-              if policy_supported(cfg) is None else None)
+    policy = make_policy(cfg, mesh, batch=B, fsdp=fsdp, moe_ep=moe_ep)
 
     if shape.kind == "prefill":
         program = make_prefill_step(cfg, scfg, policy=policy)

@@ -16,11 +16,10 @@ it out over each mesh description (``launch.mesh``):
 * ``per_device_estimate`` — the arguments per device plus the global
   program's peak temporaries split evenly, labelled as such;
 * ``collectives`` — what one device's share of the program would send:
-  the serving cells of the families ``distributed.spmd.make_policy``
-  covers are built under it, and on a mesh description each of its hooks
-  records its collective's ring wire bytes a device (by op and by site);
-  null, with ``collectives_reason``, for train cells and the other
-  families.
+  every serving cell is built under ``distributed.spmd.make_policy``, and
+  on a mesh description each of its hooks records its collective's ring
+  wire bytes a device (by op and by site); null, with
+  ``collectives_reason``, for train cells.
 
 Each record goes to ``<out>/<arch>__<shape>__<mesh>.json`` (default
 ``build/dryrun_torch/``, git-ignored).  Usage:
@@ -48,12 +47,10 @@ from .cells import argument_bytes_per_device, build_cell
 from .mesh import make_production_mesh
 
 def collectives_reason(cell) -> str:
-    """Why a cell records no collectives."""
-    if cell.shape.kind == "train":
-        return ("the train step runs under no policy over data and model "
-                "axes: training there is ROADMAP.md Queue 1's next item")
-    return (f"make_policy does not cover {cell.cfg.name}: the policy for its "
-            f"family is ROADMAP.md Queue 1's next item")
+    """Why a cell records no collectives: a train cell's step runs under
+    no policy."""
+    return ("the train step runs under no policy over data and model "
+            "axes: training there is ROADMAP.md Queue 1's next item")
 
 
 #: the kernels' route of each kind of cell: training differentiates the

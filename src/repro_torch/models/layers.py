@@ -61,11 +61,23 @@ def rmsnorm(params, x, *, eps: float = 1e-6):
     return (y * params["scale"].float()).to(x.dtype)
 
 
-def gated_rmsnorm(params, x, gate, *, eps: float = 1e-6):
+def gated_rmsnorm(params, x, gate, *, eps: float = 1e-6, width=None,
+                  sum_fn=None):
     """Mamba-2 output norm: RMSNorm(x * silu(gate)), with the gate's SiLU in
     f32 and rounded to x's dtype before the product, as the reference
-    rounds it."""
-    return rmsnorm(params, x * F.silu(gate.float()).to(x.dtype), eps=eps)
+    rounds it.
+
+    ``sum_fn`` normalises a block of the channels: x holds some of the
+    norm's ``width`` channels, ``sum_fn`` turns this block's f32 sum of
+    squares (..., 1) into the sum over all of them (an SPMD rank's
+    all-reduce), and the mean divides by ``width``."""
+    xg = x * F.silu(gate.float()).to(x.dtype)
+    if sum_fn is None:
+        return rmsnorm(params, xg, eps=eps)
+    xf = xg.float()
+    var = sum_fn(torch.sum(xf * xf, dim=-1, keepdim=True)) / width
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -29,18 +29,24 @@ run inside a ``moe.dispatch`` range and the expert products inside
 time by them); otherwise no range is opened.
 
 Shared experts (DeepSeek-MoE) are one always-on MLP of width
-``n_shared * shared_d_ff``, as in the reference.  The reference's
-``policy`` argument is the train-side expert-parallel
-``ActivationPolicy`` with its ``"moe_ecap"`` rule; the port's
-``distributed.spmd.make_policy`` does not cover MoE yet (ROADMAP.md Queue
-1's next item after item 18 part a), and tensor-parallel serving refuses
-MoE archs, as the reference's ``check_tp`` does.
+``n_shared * shared_d_ff``, as in the reference.  Under an SPMD
+``policy`` (``distributed.spmd.make_policy``) the params are one rank's
+blocks and the output is the rank's partial sum, which the caller sums
+over "model" at ``"mlp_out"``: expert-parallel (the reference's
+``"moe_ecap"`` case), each rank holds ``E / model`` experts
+(``policy.expert_block``); every rank routes the same tokens into all
+``E`` buckets with the global capacity, computes only its own buckets
+(an empty one too, so every rank runs the same products) and combines
+only their outputs; expert-TP, each expert's ``[gate | up]`` columns and
+``wo`` rows are split over "model" and the code is the single process's.
+Tensor-parallel serving refuses MoE archs, as the reference's
+``check_tp`` does.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -162,16 +168,21 @@ def _route(x, top_p, top_i, E: int, capacity: int):
     return buf[:-1].reshape(E, B * capacity, d), slot, w_sorted, keep, inv
 
 
-def _combine(y, slot, w_sorted, keep, inv, T: int, k: int):
+def _combine(y, slot, w_sorted, keep, inv, T: int, k: int, first: int = 0):
     """y: (E, B * capacity, d) expert outputs -> (B, T, d).  Token t's k
     contributions are gathered through ``inv`` and added in ascending
     expert order (ascending sorted index), in ``y.dtype``; a dropped
-    assignment adds zero."""
+    assignment adds zero.  ``y`` may hold only the buffer rows from
+    ``first`` on (an expert-parallel rank's experts): an assignment to
+    any other row adds zero too."""
     B = slot.shape[0]
     d = y.shape[-1]
+    rows = y.shape[0] * y.shape[1]
+    local = slot - first
+    keep = keep & (local >= 0) & (local < rows)
     y_flat = torch.cat([y.reshape(-1, d), y.new_zeros((1, d))], dim=0)
-    contrib = (y_flat[slot.reshape(-1)].reshape(B, T * k, d)
-               * w_sorted[..., None].to(y.dtype))
+    contrib = (y_flat[torch.where(keep, local, rows).reshape(-1)]
+               .reshape(B, T * k, d) * w_sorted[..., None].to(y.dtype))
     contrib = torch.where(keep[..., None], contrib, 0)
     idx = torch.sort(inv.reshape(B, T, k), dim=-1).values.reshape(B, T * k)
     parts = torch.gather(contrib, 1, idx[..., None].expand(B, T * k, d))
@@ -182,10 +193,14 @@ def _combine(y, slot, w_sorted, keep, inv, T: int, k: int):
     return out
 
 
-def moe_grouped(params, x, cfg, *, capacity: Optional[int] = None):
+def moe_grouped(params, x, cfg, *, capacity: Optional[int] = None,
+                experts: Optional[Tuple[int, int]] = None):
     """x: (B, S, d) -> (out (B, S, d), aux loss).  Capacity per expert and
     batch row, ``max(1, int(S * k / E * capacity_factor))`` capped at
-    ``S * k``, computed on the host as the reference does."""
+    ``S * k``, computed on the host as the reference does.  ``experts=(lo,
+    hi)``: ``params`` hold experts lo .. hi - 1 only (an expert-parallel
+    rank); the tokens are routed into all E buckets, only these are
+    computed and combined, and ``out`` is this rank's partial sum."""
     m = cfg.moe
     B, S, d = x.shape
     if capacity is None:
@@ -196,9 +211,13 @@ def moe_grouped(params, x, cfg, *, capacity: Optional[int] = None):
         buf, slot, w_sorted, keep, inv = _route(
             x, top_p.reshape(B, S, m.top_k), top_i.reshape(B, S, m.top_k),
             m.n_experts, capacity)
+    first = 0
+    if experts is not None:
+        buf = buf[experts[0]:experts[1]]
+        first = experts[0] * buf.shape[1]
     y = _expert_ffn(buf, params["wi"], params["wo"])
     with _profiled("moe.dispatch"):
-        out = _combine(y, slot, w_sorted, keep, inv, S, m.top_k)
+        out = _combine(y, slot, w_sorted, keep, inv, S, m.top_k, first)
     if "shared" in params:
         out = out + mlp(params["shared"], x)
     return out, load_balance_loss(probs, top_i, m.n_experts)
@@ -209,9 +228,12 @@ def moe_grouped(params, x, cfg, *, capacity: Optional[int] = None):
 # ---------------------------------------------------------------------------
 
 
-def moe_dense_decode(params, x, cfg):
+def moe_dense_decode(params, x, cfg, *,
+                     experts: Optional[Tuple[int, int]] = None):
     """x: (B, S_small, d): every expert for every token, weighted by the
-    router's top-k probabilities.  Returns (out, 0.0): no aux loss."""
+    router's top-k probabilities.  Returns (out, 0.0): no aux loss.
+    ``experts=(lo, hi)`` weighs only those experts' columns (the params'
+    experts on an expert-parallel rank): a partial sum."""
     m = cfg.moe
     B, S, d = x.shape
     x2 = x.reshape(B * S, d)
@@ -219,6 +241,8 @@ def moe_dense_decode(params, x, cfg):
         top_p, top_i, _ = router_probs(params, x2, cfg)
         w = torch.zeros((B * S, m.n_experts), dtype=torch.float32,
                         device=x.device).scatter_(1, top_i, top_p)
+        if experts is not None:
+            w = w[:, experts[0]:experts[1]]
     y = _expert_ffn(x2[None], params["wi"], params["wo"])      # (E, T, d)
     # out[t] = sum_e w[t, e] y[e, t]: a (1, E) @ (E, d) product per token
     out = torch.matmul(w.to(y.dtype)[:, None, :], y.transpose(0, 1))
@@ -228,12 +252,14 @@ def moe_dense_decode(params, x, cfg):
     return out, 0.0
 
 
-def moe_apply(params, x, cfg, *, decode: bool = False):
+def moe_apply(params, x, cfg, *, decode: bool = False, policy=None):
     """Grouped dispatch for prefill, dense for decode and for prompts of at
-    most 4 tokens, as in the reference."""
+    most 4 tokens, as in the reference.  An expert-parallel ``policy``
+    names this rank's experts (``expert_block``)."""
+    experts = getattr(policy, "expert_block", None)
     if decode or x.shape[1] <= 4:
-        return moe_dense_decode(params, x, cfg)
-    return moe_grouped(params, x, cfg)
+        return moe_dense_decode(params, x, cfg, experts=experts)
+    return moe_grouped(params, x, cfg, experts=experts)
 
 
 __all__ = ["init_moe", "load_balance_loss", "moe_apply", "moe_dense_decode",

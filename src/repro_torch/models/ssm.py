@@ -17,7 +17,10 @@ decode caches), as ``attention.decode_attention`` writes its cache views.
 
 Heads follow Mamba-2: ``d_inner = expand·d_model`` is split into ``nh =
 d_inner / head_dim`` heads, and B and C are shared across ``nh / n_groups``
-heads.  bf16 rounds where the reference rounds: after each shifted add of
+heads.  The block reads its widths from its params, so an SPMD rank
+(``distributed.spmd``) runs it on its own heads: its ``xBC`` channels,
+the groups its heads read (``policy.ssm_groups`` where B and C are whole),
+and the gated norm's sum of squares summed over "model".  bf16 rounds where the reference rounds: after each shifted add of
 the causal conv, the SiLU outputs, and the intra-chunk scores before their
 product with x.
 """
@@ -221,22 +224,48 @@ def _split_proj(params, x):
     return z, torch.cat([xc, bc, cc], dim=-1), dt
 
 
+def _local(params, cfg, policy):
+    """This layer's dims from its blocks (an SPMD rank holds ``nh / model``
+    heads, which a config derived from ``d_model`` cannot express): the
+    x channels, heads and B (or C) channels its ``wx``, ``wdt`` and ``wb``
+    hold, and the group selection of its heads where B and C are whole
+    (``policy.ssm_groups``: a slice or per-head list of groups, or None)."""
+    d_loc, nh = params["wx"].shape[-1], params["wdt"].shape[-1]
+    return d_loc, nh, params["wb"].shape[-1], getattr(policy, "ssm_groups",
+                                                      None)
+
+
+def _norm(params, y, z, cfg, policy):
+    """The gated norm over all of ``d_inner``: where the policy splits the
+    heads over "model", this rank's sum of squares is all-reduced in f32
+    (``policy.model_sum``) and divided by the whole ``d_inner``."""
+    if not getattr(policy, "ssm_split", False):
+        return gated_rmsnorm(params["norm"], y, z, eps=cfg.norm_eps)
+    return gated_rmsnorm(params["norm"], y, z, eps=cfg.norm_eps,
+                         width=ssm_dims(cfg)[0],
+                         sum_fn=lambda ss: policy.model_sum(ss, "ssm-norm"))
+
+
 def ssm_forward(params, x, cfg, *, impl: str = "cuda",
-                return_state: bool = False):
+                return_state: bool = False, policy=None):
     """x: (B, S, d_model) -> (B, S, d_model); the prefill path.
     ``return_state=True`` also returns the :class:`SSMState` after the last
-    token (what decode continues from)."""
+    token (what decode continues from).  Under an SPMD ``policy`` the
+    params are the rank's heads (``distributed.spmd``): the output is this
+    rank's partial sum, which the caller sums at ``"attn_out"``."""
     s = cfg.ssm
-    d_in, nh, _ = ssm_dims(cfg)
-    G, N, hd = s.n_groups, s.d_state, s.head_dim
+    N, hd = s.d_state, s.head_dim
+    d_loc, nh, gn, groups = _local(params, cfg, policy)
     B, S, _ = x.shape
 
     z, xBC_raw, dt = _split_proj(params, x)
     xBC = causal_conv(xBC_raw, params["conv_w"])
     xBC = F.silu(xBC.float()).to(x.dtype)
-    xs = xBC[..., :d_in].reshape(B, S, nh, hd)
-    Bm = xBC[..., d_in:d_in + G * N].reshape(B, S, G, N)
-    Cm = xBC[..., d_in + G * N:].reshape(B, S, G, N)
+    xs = xBC[..., :d_loc].reshape(B, S, nh, hd)
+    Bm = xBC[..., d_loc:d_loc + gn].reshape(B, S, gn // N, N)
+    Cm = xBC[..., d_loc + gn:].reshape(B, S, gn // N, N)
+    if groups is not None:
+        Bm, Cm = Bm[:, :, groups], Cm[:, :, groups]
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
 
@@ -254,8 +283,7 @@ def ssm_forward(params, x, cfg, *, impl: str = "cuda",
     else:
         raise ValueError(f"unknown ssm impl {impl!r}")
     y = y + params["D"][None, None, :, None].to(y.dtype) * xs
-    y = y.reshape(B, S, d_in)
-    y = gated_rmsnorm(params["norm"], y, z, eps=cfg.norm_eps)
+    y = _norm(params, y.reshape(B, S, d_loc), z, cfg, policy)
     out = y @ params["out_proj"]
     if not return_state:
         return out
@@ -263,25 +291,30 @@ def ssm_forward(params, x, cfg, *, impl: str = "cuda",
     return out, SSMState(conv=conv_state, ssm=final_state)
 
 
-def ssm_decode(params, x, state: SSMState, cfg) -> Tuple[torch.Tensor, SSMState]:
+def ssm_decode(params, x, state: SSMState, cfg, *,
+               policy=None) -> Tuple[torch.Tensor, SSMState]:
     """One token.  x: (B, 1, d_model) -> (y (B, 1, d_model), state), with
-    ``state``'s tensors updated in place to the state after the token."""
+    ``state``'s tensors updated in place to the state after the token.
+    Under an SPMD ``policy`` the state is the rank's block, as in
+    :func:`ssm_forward`."""
     s = cfg.ssm
-    d_in, nh, _ = ssm_dims(cfg)
-    G, N, hd = s.n_groups, s.d_state, s.head_dim
+    N, hd = s.d_state, s.head_dim
+    d_loc, nh, gn, groups = _local(params, cfg, policy)
     B = x.shape[0]
 
     z, xBC, dt = _split_proj(params, x[:, 0, :])
     xBC, conv_new = causal_conv_step(xBC, state.conv, params["conv_w"])
     xBC = F.silu(xBC.float()).to(x.dtype)
-    xt = xBC[..., :d_in].reshape(B, nh, hd)
-    Bt = xBC[..., d_in:d_in + G * N].reshape(B, G, N)
-    Ct = xBC[..., d_in + G * N:].reshape(B, G, N)
+    xt = xBC[..., :d_loc].reshape(B, nh, hd)
+    Bt = xBC[..., d_loc:d_loc + gn].reshape(B, gn // N, N)
+    Ct = xBC[..., d_loc + gn:].reshape(B, gn // N, N)
+    if groups is not None:
+        Bt, Ct = Bt[:, groups], Ct[:, groups]
     dt = F.softplus(dt.float() + params["dt_bias"])               # (B, nh)
     A = -torch.exp(params["A_log"])
     dA = torch.exp(dt * A)                                        # (B, nh)
 
-    rep = nh // G
+    rep = nh // Bt.shape[1]
     Brep = Bt.repeat_interleave(rep, dim=1)                       # (B, nh, N)
     Crep = Ct.repeat_interleave(rep, dim=1)
     # state * dA + dt * x ⊗ B, rounded as the reference's expression is
@@ -291,8 +324,7 @@ def ssm_decode(params, x, state: SSMState, cfg) -> Tuple[torch.Tensor, SSMState]
     state.conv.copy_(conv_new)
     y = torch.einsum("bhpn,bhn->bhp", state.ssm, Crep.float())
     y = y.to(x.dtype) + params["D"][None, :, None].to(x.dtype) * xt
-    y = y.reshape(B, d_in)
-    y = gated_rmsnorm(params["norm"], y, z, eps=cfg.norm_eps)
+    y = _norm(params, y.reshape(B, d_loc), z, cfg, policy)
     return (y @ params["out_proj"])[:, None, :], state
 
 

@@ -47,11 +47,15 @@ Tensor-parallel serving passes ``distributed.sharding.TP_POLICY``, which
 sums the shards' partial outputs at ``"attn_out"`` and ``"mlp_out"``.
 The SPMD policy (``distributed.spmd.ActivationPolicy``, on one rank of a
 mesh) also has ``embed`` (the vocab-parallel lookup), ``layer`` (the
-gathers at the start of each layer), ``layer_cfg`` (the rank's heads) and
+gathers at the start of each layer, which also tell the hooks which of the
+layer's outputs are partial sums), ``layer_cfg`` (the rank's heads) and
 the length-sharded decode cache (``models.attention.decode_attention``);
-``prefill``, ``prefill_kv`` and ``decode_step`` on dense caches run under
-it, and the paged, prefix and verify paths refuse it.  Without a policy
-nothing changes.
+an SSM mixer, a MoE and the encoder take it too, and the decoder's
+cross-attention output is summed at ``"cross_out"`` (a rule name the
+reference's GSPMD program needs none for).  ``prefill``, ``prefill_kv``
+and ``decode_step`` on dense caches run under it for every family, and
+the paged, prefix and verify paths refuse it.  Without a policy nothing
+changes.
 """
 
 from __future__ import annotations
@@ -249,13 +253,18 @@ def _embed(params, tokens, policy):
     return embed(params["embed"], tokens)
 
 
-def _layer(params, p: int, b: int, policy):
-    """Block ``b`` of period position ``p``'s stacked params, through the
-    SPMD policy's per-layer gathers where it has them."""
-    lp = _index(params["blocks"][p], b)
+def _layer(params, p: int, b: int, policy, *, encoder: bool = False,
+           key: Optional[str] = None):
+    """Block ``b`` of period position ``p``'s stacked params (of the audio
+    encoder's with ``encoder``), through the SPMD policy's per-layer
+    gathers where it has them; with ``key`` only that part of the layer
+    (its ``"cross"`` attention)."""
+    lp = _index((params["encoder"] if encoder else params)["blocks"][p], b)
+    if key is not None:
+        lp = {key: lp[key]}
     if policy is not None and hasattr(policy, "layer"):
-        return policy.layer(lp, p)
-    return lp
+        lp = policy.layer(lp, p, encoder=encoder)
+    return lp if key is None else lp[key]
 
 
 def _layer_cfg(cfg, policy):
@@ -287,7 +296,8 @@ def _ffn(lp, spec: LayerSpec, x, cfg, *, decode: bool, policy=None):
     h2 = rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
     aux = 0.0
     if spec.mlp == "moe":
-        y2, aux = moe_mod.moe_apply(lp["moe"], h2, cfg, decode=decode)
+        y2, aux = moe_mod.moe_apply(lp["moe"], h2, cfg, decode=decode,
+                                    policy=policy)
     else:
         y2 = mlp(lp["mlp"], h2, kind=cfg.mlp_kind)
     y2 = _shard(y2, policy, "mlp_out")
@@ -311,21 +321,22 @@ def _apply_layer_train(lp, spec: LayerSpec, x, cfg, *, positions, impl,
             prefix_kv=prefix_kv)
     else:
         y, state = ssm_mod.ssm_forward(lp["ssm"], h, cfg, impl=impl,
-                                       return_state=True)
+                                       return_state=True, policy=policy)
     x = x + _shard(_shard(y, policy, "attn_out"), policy, "residual")
     if enc_kv is not None and "cross" in lp:
-        x = _cross(lp, x, enc_kv, cfg, impl)
+        x = _cross(lp, x, enc_kv, cfg, impl, policy)
     aux = 0.0
     if spec.mlp is not None:
         x, aux = _ffn(lp, spec, x, cfg, decode=False, policy=policy)
     return x, aux, state
 
 
-def _cross(lp, x, enc_kv, cfg, impl):
-    """The decoder layer's cross-attention over the encoder, added to x."""
+def _cross(lp, x, enc_kv, cfg, impl, policy=None):
+    """The decoder layer's cross-attention over the encoder, added to x
+    (a rank's partial sum over its heads summed at ``"cross_out"``)."""
     hx = rmsnorm(lp["ln_x"], x, eps=cfg.norm_eps)
-    return x + attn_mod.cross_attention(lp["cross"], hx, enc_kv, cfg,
-                                        impl=impl)
+    y = attn_mod.cross_attention(lp["cross"], hx, enc_kv, cfg, impl=impl)
+    return x + _shard(y, policy, "cross_out")
 
 
 def _apply_layer_decode(lp, spec: LayerSpec, x, cfg, *, cur_pos, cache,
@@ -338,7 +349,8 @@ def _apply_layer_decode(lp, spec: LayerSpec, x, cfg, *, cur_pos, cache,
     token.  ``cross_kv`` is the layer's encoder K/V (audio)."""
     h = rmsnorm(lp["ln1"], x, eps=cfg.norm_eps)
     if spec.mixer == "ssm":
-        y, cache = ssm_mod.ssm_decode(lp["ssm"], h, cache, cfg)
+        y, cache = ssm_mod.ssm_decode(lp["ssm"], h, cache, cfg,
+                                      policy=policy)
     elif page_table is not None:
         y, cache = attn_mod.paged_decode_attention(
             lp["attn"], h, cache, cur_pos, page_table, cfg, write_target,
@@ -348,27 +360,30 @@ def _apply_layer_decode(lp, spec: LayerSpec, x, cfg, *, cur_pos, cache,
                                              cfg, impl=impl, policy=policy)
     x = x + _shard(y, policy, "attn_out")
     if cross_kv is not None and "cross" in lp:
-        x = _cross(lp, x, cross_kv, cfg, impl)
+        x = _cross(lp, x, cross_kv, cfg, impl, policy)
     if spec.mlp is not None:
         x, _ = _ffn(lp, spec, x, cfg, decode=True, policy=policy)
     return x, cache
 
 
 def encoder_forward(params, frames, cfg, *, impl: str = "cuda",
-                    remat: str = "none"):
+                    remat: str = "none", policy=None):
     """Audio encoder over stub frame embeddings (B, S_enc, d): sinusoidal
     positions, then ``n_enc_layers`` non-causal attention + MLP layers and
     the encoder's final norm.  ``remat`` checkpoints each layer for
-    training (:func:`_remat_wrap`)."""
+    training (:func:`_remat_wrap`).  Under an SPMD ``policy`` the frames
+    are the rank's rows and each layer runs as a decoder layer does (the
+    rank's heads, the output-split MLP, their sums)."""
     enc = params["encoder"]
     S = frames.shape[1]
     pos = torch.arange(S, dtype=torch.int32, device=frames.device)[None, :]
     x = frames + _sinusoid(pos, cfg.d_model).to(frames.dtype)
+    lcfg = _layer_cfg(cfg, policy)
 
     def body(x, b):
-        return _apply_layer_train(_index(enc["blocks"][0], b), _ENC_SPEC, x,
-                                  cfg, positions=pos, impl=impl,
-                                  causal=False)[0]
+        return _apply_layer_train(_layer(params, 0, b, policy, encoder=True),
+                                  _ENC_SPEC, x, lcfg, positions=pos,
+                                  impl=impl, causal=False, policy=policy)[0]
 
     body_w = _remat_wrap(body, remat)
     for b in range(cfg.n_enc_layers):
@@ -589,17 +604,19 @@ def _embed_prompt(params, tokens, cfg, extra_embeds, policy=None):
     return x
 
 
-def _cross_kv(params, enc_out, cfg):
+def _cross_kv(params, enc_out, cfg, policy=None):
     """{str(p): (k, v)} stacked over blocks, (nb, B, S_enc, Hkv, dh): every
     decoder layer's cross-attention K/V over ``enc_out``.  The stacked
     tensors are allocated once and filled block by block, so no more than
-    one layer's K/V is alive beside them (as in :func:`_stacked_blocks`)."""
+    one layer's K/V is alive beside them (as in :func:`_stacked_blocks`).
+    Under an SPMD ``policy`` they are the rank's rows and heads."""
     nb = n_blocks(cfg)
+    lcfg = _layer_cfg(cfg, policy)
     out = {}
     for p in range(len(params["blocks"])):
         for b in range(nb):
             k, v = attn_mod.encode_cross_kv(
-                _index(params["blocks"][p], b)["cross"], enc_out, cfg)
+                _layer(params, p, b, policy, key="cross"), enc_out, lcfg)
             if b == 0:
                 out[str(p)] = (k.new_empty((nb,) + k.shape),
                                v.new_empty((nb,) + v.shape))
@@ -695,7 +712,8 @@ def prefill(params, tokens, cfg, *, max_len: int, positions=None,
 
     x = _embed_prompt(params, tokens, cfg, extra_embeds, policy)
     positions = _positions(x, positions)
-    cross = _cross_kv(params, enc_out, cfg) if enc_out is not None else None
+    cross = (_cross_kv(params, enc_out, cfg, policy) if enc_out is not None
+             else None)
     logits, ys, ssm = _prefill_layers(params, x, cfg, positions=positions,
                                       impl=impl, cross=cross, policy=policy)
     # a length-sharded cache holds this rank's block of ring slots

@@ -118,7 +118,7 @@ def make_prefill_step(cfg, scfg: ServeConfig, *, policy=None):
             kw["positions"] = batch["positions"]
         if cfg.family == "audio":
             kw["enc_out"] = encoder_forward(params, batch["frames"], cfg,
-                                            impl=scfg.attn_impl)
+                                            impl=scfg.attn_impl, policy=policy)
         return prefill(params, batch["tokens"], cfg, max_len=scfg.max_len,
                        impl=scfg.attn_impl, policy=policy, **kw)
 

@@ -331,6 +331,9 @@ def test_reduced_cell_matches_the_reference_cell(arch, shape):
             jn, jlogits, _ = compiled(jp, jnp.asarray(tokens.numpy()), jcaches,
                                       jnp.asarray(cur_pos.numpy()),
                                       jax.random.PRNGKey(0))
+        # jcaches may alias the port's cache memory, which cell.run updates
+        # in place: the reference's asynchronous step must end first
+        jax.block_until_ready((jn, jlogits))
         n, logits, _ = cell.run(*args)
         _check_logits(logits.float().numpy(), jlogits)
         assert n.dtype == torch.int32 and n.shape == tuple(jn.shape)

@@ -349,10 +349,20 @@ def test_dryrun_writes_a_full_width_record(tmp_path, capsys):
     cache = 28 * 2 * 128 * 32768 * 8 * 128 * 2
     assert rec["peak_live_bytes"] > cache
     assert cache / 256 < rec["argument_bytes_per_device"] < cache / 256 + 2**30
+    # every family's serving cell records its collectives: mamba2's 32
+    # heads split 2 a device over "model" 16, its one group of B and C
+    # gathered whole (the FSDP and "model" blocks of wb and wc), the gated
+    # norm's sum and the output's sum a layer; a train cell records none
     other = dryrun.run_cell("mamba2-370m", "decode_32k", multi_pod=False,
                             out_dir=str(tmp_path))
-    assert other["collectives"] is None
-    assert "next item" in other["collectives_reason"]
+    assert other["collectives_reason"] is None
+    assert other["collectives"]["by_site_count"] == {
+        "embed": 1, "gather-data": 48 * 6, "gather-model": 48 * 2,
+        "ssm-norm": 48, "attn_out": 48, "logits": 1}
+    train = build_cell("qwen3-0.6b", "train_4k",
+                       make_host_mesh((1, 1), device="cpu"), reduced=True)
+    assert train.policy is None
+    assert "next item" in dryrun.collectives_reason(train)
     skip = dryrun.run_cell("qwen3-0.6b", "long_500k", multi_pod=True,
                            out_dir=str(tmp_path))
     assert skip["skipped"] and skip["ok"] and "quadratic" in skip["reason"]

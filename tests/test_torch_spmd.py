@@ -543,13 +543,35 @@ def test_compress_pods_train_step_matches_the_reference(runs):
 # ---------------------------------------------------------------------------
 
 
-def test_make_policy_refuses_the_families_it_does_not_cover():
-    for arch in ("mamba2-370m", "deepseek-moe-16b", "jamba-1.5-large-398b",
-                 "qwen2-vl-72b", "whisper-base"):
-        cfg = get_reduced(arch)
-        assert policy_supported(cfg) is not None
-        with pytest.raises(ValueError, match="next item"):
-            make_policy(cfg, MeshSpec(("data", "model"), (2, 4)), batch=4)
+@pytest.mark.parametrize("arch", ["mamba2-370m", "deepseek-moe-16b",
+                                  "jamba-1.5-large-398b", "qwen2-vl-72b",
+                                  "whisper-base"])
+def test_make_policy_builds_a_policy_for_every_family(arch):
+    """make_policy covers the MoE, SSM, hybrid, VLM and audio families: on
+    the (2, 4) and 16 x 16 descriptions, reduced and full width, with
+    ``moe_ep`` both ways, its batch axes, ``kv_len_sharded`` and
+    ``vocab_parallel`` are the reference's, and it puts the experts over
+    "model" where the reference sets its ``"moe_ecap"`` rule."""
+    from jax.sharding import AbstractMesh
+
+    from repro.configs import get_config as jax_config
+    from repro.distributed.sharding import make_policy as jax_make_policy
+    from repro_torch.configs import get_config
+
+    for cfg, jcfg in ((get_reduced(arch), jax_reduced(arch)),
+                      (get_config(arch), jax_config(arch))):
+        assert policy_supported(cfg) is None
+        for shape in ((2, 4), (16, 16)):
+            for ep in (True, False):
+                pol = make_policy(cfg, MeshSpec(("data", "model"), shape),
+                                  batch=4, moe_ep=ep)
+                ref = jax_make_policy(jcfg, AbstractMesh(shape,
+                                                         ("data", "model")),
+                                      batch=4, moe_ep=ep)
+                assert pol.batch_axes == ref.batch_axes
+                assert pol.kv_len_sharded == ref.kv_len_sharded
+                assert pol.vocab_parallel == ref.vocab_parallel
+                assert pol.moe_ep == ("moe_ecap" in ref.rules)
 
 
 def test_a_cache_that_does_not_split_over_model_is_refused():
