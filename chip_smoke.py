@@ -2473,18 +2473,22 @@ PAGED_CONFIG = dict(slots=8, prompt_len=256, max_len=322, chunk=8, paged=True,
                     page_size=16, n_pages=128, prefix_cache=True)
 
 
-def _paged_requests(cfg, n=16, seed=0, namespace="tenant0"):
-    """``n`` prompts of 256 tokens, one 192-token system prompt shared by
-    all and a 64-token random tail each; ``max_new`` 16-64."""
+def _paged_requests(cfg, n=16, seed=0, namespace="tenant0", *,
+                    prompt_len=256, max_new=(16, 65)):
+    """``n`` prompts of ``prompt_len`` tokens (256), one system prompt of
+    three quarters of it (192 tokens) shared by all and a random tail each;
+    ``max_new`` drawn from ``[16, 65)``."""
     from repro_torch.serving import Request
 
     rng = np.random.default_rng(seed)
-    system = rng.integers(1, cfg.vocab, size=192).astype(np.int32)
+    system = rng.integers(1, cfg.vocab,
+                          size=prompt_len * 3 // 4).astype(np.int32)
     reqs = []
     for rid in range(n):
-        tail = rng.integers(1, cfg.vocab, size=64).astype(np.int32)
+        tail = rng.integers(1, cfg.vocab,
+                            size=prompt_len - len(system)).astype(np.int32)
         reqs.append(Request(rid=rid, prompt=np.concatenate([system, tail]),
-                            max_new=int(rng.integers(16, 65)),
+                            max_new=int(rng.integers(*max_new)),
                             namespace=namespace))
     return reqs
 
@@ -5864,6 +5868,373 @@ def _family_checks(card: str, leg, shape, res, refs) -> None:
                 f" [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 5p: the paged, prefix and speculative batchers under the SPMD policy
+# ---------------------------------------------------------------------------
+
+# max_new 16-24: a budget of 16-32 ran the phase past its 150 s
+SPMD_PAGED_REQUESTS, SPMD_PAGED_MAX_NEW = 8, (16, 25)
+
+
+def spmd_paged_job(cfg, device: str = "cuda", *, modes=None, n_req=None):
+    """Phase 5p's config, passed to every rank: the model, the seed of its
+    weights (5n's), the batchers' configs by mode (phases 5, 5b and 5c's
+    by default) and the requests (``n_req`` of 5b's shape)."""
+    modes = modes or {"dense": DENSE_CONFIG, "paged": PAGED_CONFIG,
+                      "spec": SPEC_CONFIG}
+    return dict(cfg=cfg, device=device, seed=0, modes=modes,
+                prompt_len=modes["paged"]["prompt_len"],
+                n_req=n_req or SPMD_PAGED_REQUESTS)
+
+
+PAGED_COUNTERS = ("flash", "prefix", "decode", "paged decode", "verify")
+
+
+def _kernel_counters():
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.prefix_attention import ops as pfx
+
+    return dict(zip(PAGED_COUNTERS, (
+        fa.flash_attention, pfx.prefix_flash_attention, da.decode_attention,
+        pa.paged_decode_attention, pa.paged_verify_attention)))
+
+
+def _timed_chunks(b, pol):
+    """Wrap ``b``'s chunk dispatch and sync: each chunk's wall ms from its
+    dispatch to its sync, its T, whether an admission ran behind it
+    (overlap), and the collectives (count, ring wire bytes, host seconds)
+    issued in between, by site."""
+    rec = []
+    dispatch, finish = b._dispatch_chunk, b._finish_chunk
+
+    def log():
+        if pol is None:
+            return {}, {}, 0.0
+        return dict(pol.log.count), dict(pol.log.wire), pol.log.seconds
+
+    def timed_dispatch(active):
+        t0, prefills, before = time.perf_counter(), b.stats.prefills, log()
+        pending = dispatch(active)
+        pending["_timer"] = (t0, prefills, before)
+        return pending
+
+    def timed_finish(pending, **kw):
+        out = finish(pending, **kw)
+        t0, prefills, (c0, w0, s0) = pending["_timer"]
+        c1, w1, s1 = log()
+        rec.append(dict(ms=(time.perf_counter() - t0) * 1e3, T=pending["T"],
+                        clean=b.stats.prefills == prefills,
+                        count={k: v - c0.get(k, 0) for k, v in c1.items()},
+                        wire={k: v - w0.get(k, 0.0) for k, v in w1.items()},
+                        coll_ms=(s1 - s0) * 1e3))
+        return out
+
+    b._dispatch_chunk, b._finish_chunk = timed_dispatch, timed_finish
+    return rec
+
+
+def _state_digest(b) -> int:
+    """The slot state and (paged) the page table, the free stack's valid
+    entries, ``free_top`` and ``pinned`` as one integer: ranks whose
+    digests agree hold the same bookkeeping.  The stack's scratch element
+    is left out: masked pushes land there together, and on the card which
+    of them wins is undefined (``serving.engine``'s docstring)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    tensors = list(b.state)
+    if b.paged:
+        top = int(b.pages.free_top)
+        tensors += [b.pages.table, b.pages.free[:top], b.pages.free_top,
+                    b.pages.pinned]
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return int.from_bytes(h.digest()[:8], "little", signed=True)
+
+
+def _paged_serve(job, cfg, params, config, *, policy=None):
+    """The requests through one batcher of ``config`` (under ``policy``
+    on a rank), round by round: each request's tokens, every counter, the
+    chunks' times and collectives, the kernels' launches counted from 0
+    just before; after every round the page ledger's check (paged) and, on
+    a rank, how many rounds left another rank with other bookkeeping (the
+    slot and page state's digest all-gathered over the world)."""
+    import torch
+
+    from repro_torch.serving import ContinuousBatcher, ServingConfig
+
+    cuda = job["device"] == "cuda"
+    b = ContinuousBatcher(params, cfg, ServingConfig(**config),
+                          device=job["device"], policy=policy)
+    # 5b's shape (the system prompt and a tail), max_new 16-24
+    reqs = _paged_requests(cfg, job["n_req"], prompt_len=job["prompt_len"],
+                           max_new=SPMD_PAGED_MAX_NEW)
+    for r in reqs:
+        b.submit(r)
+    chunks = _timed_chunks(b, policy)
+    counters = _kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    parted = rounds = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        while b.queue or any(r is not None for r in b.slot_req):
+            b.step()
+            rounds += 1
+            check(rounds < 1000, f"{cfg.name}: the batcher did not drain")
+            if b.paged:
+                b.kv_pool.check()
+            if policy is not None:
+                import torch.distributed as dist
+
+                mine = torch.tensor([_state_digest(b)], dtype=torch.int64)
+                every = [torch.empty_like(mine)
+                         for _ in range(dist.get_world_size())]
+                dist.all_gather(every, mine)
+                parted += any(int(t) != int(mine) for t in every)
+    if cuda:
+        torch.cuda.synchronize()
+    # the timers' closures hold the batcher: drop them, so it (and the
+    # params it holds) is freed with this frame
+    del b._dispatch_chunk, b._finish_chunk
+    return {"tokens": [list(r.out) for r in reqs],
+            "done": all(r.done and len(r.out) == r.max_new for r in reqs),
+            "stats": b.stats.as_dict(), "chunks": chunks,
+            "launches": {k: c.launches for k, c in counters.items()},
+            "rounds": rounds, "parted": parted,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _spmd_paged_rank(rank: int, world: int, job):
+    """One rank of phase 5p: every mode of ``job["modes"]`` in each of
+    ``job["dtypes"]`` on ``job["shape"]``, the params placed once a dtype
+    (``param_shardings(fsdp=False)``); with ``job["refuse"]`` the paged
+    batcher's construction, whose refusal is recorded."""
+    import torch
+
+    from repro_torch.distributed.spmd import make_policy, param_shardings
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serving import ContinuousBatcher, ServingConfig
+    from repro_torch.serving.kv_cache import (
+        kv_cache_bytes, paged_kv_cache_bytes)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cuda = job["device"] == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    mesh = make_host_mesh(job["shape"], device=job["device"])
+    out = {"rank": rank, "coords": mesh.coords}
+    for dt in job["dtypes"]:
+        cfg = dataclasses.replace(job["cfg"], dtype=dt)
+        params = param_shardings(cfg, mesh, _spmd_weights(job, dt),
+                                 fsdp=False)
+        for mode, config in job["modes"].items():
+            pol = make_policy(cfg, mesh, batch=config["slots"], fsdp=False)
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            res = _paged_serve(job, cfg, params, config, policy=pol)
+            res["param_bytes"] = _tree_nbytes(params)
+            res["cache_bytes"] = (
+                paged_kv_cache_bytes(cfg, config["n_pages"],
+                                     config["page_size"], policy=pol)
+                if config.get("paged") else
+                kv_cache_bytes(cfg, config["slots"], config["max_len"],
+                               policy=pol))
+            res["kv_len_sharded"] = pol.kv_len_sharded
+            if cuda:
+                res["peak_bytes"] = torch.cuda.max_memory_allocated()
+            out[(mode, dt)] = res
+        if job.get("refuse"):
+            pol = make_policy(cfg, mesh, batch=job["refuse"]["slots"],
+                              fsdp=False)
+            try:
+                ContinuousBatcher(params, cfg, ServingConfig(**job["refuse"]),
+                                  device=job["device"], policy=pol)
+                out["refused"] = None
+            except NotImplementedError as e:
+                out["refused"] = str(e)
+        del params
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def spmd_paged_legs(job):
+    """Phase 5p's legs: (label, mesh shape, modes, dtypes, the mode whose
+    batcher must be refused).  (a) every mode on (data 2, model 2), f32
+    and bf16; (b) the dense mode on (1, 3), f32, its ring made a multiple
+    of 3 slots (``max_len`` rounded up), and the paged batcher refused."""
+    dense = job["modes"]["dense"]
+    ring = dict(dense, max_len=-(-dense["max_len"] // 3) * 3)
+    return [("(a)", (2, 2), job["modes"], ("float32", "bfloat16"), None),
+            ("(b)", (1, 3), {"dense": ring}, ("float32",),
+             job["modes"]["paged"])]
+
+
+def spmd_paged_phase(card: str, job=None) -> None:
+    """Phase 5p: the port's ``ContinuousBatcher`` under ``make_policy``
+    over gloo ranks sharing the card, full-width qwen3-0.6b (``job``,
+    ``spmd_paged_job``, by default): each leg against the single
+    process's batcher on the same weights, run and freed first."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.spmd import run_ranks
+
+    job = job or spmd_paged_job(get_config("qwen3-0.6b"))
+    cuda = job["device"] == "cuda"
+    t_phase = time.perf_counter()
+    for label, shape, modes, dtypes, refuse in spmd_paged_legs(job):
+        refs = {}
+        for dt in dtypes:
+            cfg = dataclasses.replace(job["cfg"], dtype=dt)
+            params = _spmd_weights(job, dt)
+            for mode, config in modes.items():
+                refs[(mode, dt)] = _paged_serve(job, cfg, params, config)
+            del params
+            if cuda:
+                _free_device_memory()
+        world = int(np.prod(shape))
+        t0 = time.perf_counter()
+        res = run_ranks(_spmd_paged_rank, world, args=(dict(
+            job, shape=shape, modes=modes, dtypes=dtypes, refuse=refuse),),
+            timeout=SPMD_TIMEOUT_S)
+        log(f"  {label} {world} ranks on {shape}: spawned, ran and joined in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if refuse is not None:
+            msgs = {r["refused"] for r in res}
+            check(msgs == {"paged decode does not support a length-sharded "
+                           "KV cache"},
+                  f"{label}: the paged batcher on {shape} was not refused as "
+                  f"the reference refuses it: {msgs}")
+            log(f"  {label} the paged batcher on {shape} refused on every "
+                f"rank: NotImplementedError({msgs.pop()!r})")
+        for mode in modes:
+            for dt in dtypes:
+                _spmd_paged_checks(card, f"{label} {mode} {dt} {shape}",
+                                   [r[(mode, dt)] for r in res],
+                                   refs[(mode, dt)], f32=dt == "float32",
+                                   cuda=cuda, config=modes[mode],
+                                   n_attn=_layer_counts(job["cfg"])[0])
+    log(f"  phase 5p: {time.perf_counter() - t_phase:.1f} s of wall time "
+        f"[{card}]")
+
+
+def _launches_of(launches, stats, config, n_attn: int):
+    """Each attention kernel's launches a run of ``config`` makes, from
+    its own counters and the split of its admissions it launched: flash
+    or prefix once a layer an admission dispatch (together ``n_attn``
+    times the dispatches), the decode step's or verify window's kernel
+    once a layer a step or window (a dense verify has none)."""
+    W = config.get("draft_window", 4) if config.get("speculative") else 1
+    steps = n_attn * stats["steps"] // W
+    want = dict.fromkeys(PAGED_COUNTERS, 0)
+    if stats["prefix_hits"]:        # at least one cached dispatch
+        want["prefix"] = n_attn * max(1, launches["prefix"] // n_attn)
+    want["flash"] = n_attn * stats["prefills"] - want["prefix"]
+    if config.get("paged"):
+        want["verify" if config.get("speculative") else "paged decode"] = steps
+    elif not config.get("speculative"):
+        want["decode"] = steps
+    return want
+
+
+def _spmd_paged_checks(card: str, label: str, rows, ref, *, f32: bool,
+                       cuda: bool, config, n_attn: int) -> None:
+    """One leg's gates and log lines: with a prefix cache, at least one
+    admission hit it; on the card the mode's kernels launched once an
+    attention layer a step (window) and an admission dispatch by each
+    process's own counters (:func:`_launches_of`); every rank's
+    launches and slot and page state (after every round) equal; f32 every
+    token, counter and launch count equal to the single process's, bf16
+    every request completed (the share of equal tokens printed: its
+    stream, and so its steps, may differ); ms a chunk,
+    host ms in collectives, collectives and ring wire bytes a step by site
+    (chunks with no admission behind them), peaks beside the reckoning."""
+    check(not config.get("prefix_cache") or ref["stats"]["prefix_hits"] > 0,
+          f"{label}: no admission of the single process hit the prefix "
+          f"cache")
+    if cuda:
+        want = _launches_of(ref["launches"], ref["stats"], config, n_attn)
+        check(ref["launches"] == want, f"{label}: the single process "
+              f"launched {ref['launches']}, its admissions and steps make "
+              f"{want}")
+    for i, row in enumerate(rows):
+        check(row["done"], f"{label}: rank {i} left a request unfinished")
+        check(row["parted"] == 0, f"{label}: rank {i}'s bookkeeping parted "
+              f"from another rank's after {row['parted']} rounds")
+        if cuda:
+            want = _launches_of(row["launches"], row["stats"], config,
+                                n_attn)
+            check(row["launches"] == want,
+                  f"{label}: rank {i} launched {row['launches']}, its "
+                  f"admissions and steps make {want}")
+        check(row["launches"] == rows[0]["launches"],
+              f"{label}: rank {i} launched {row['launches']}, rank 0 "
+              f"{rows[0]['launches']}")
+        if f32:
+            check(row["launches"] == ref["launches"],
+                  f"{label}: rank {i} launched {row['launches']}, the single "
+                  f"process {ref['launches']}")
+            check(row["tokens"] == ref["tokens"],
+                  f"{label}: rank {i}'s tokens differ from the single "
+                  f"process's")
+            diff = {k: (v, ref["stats"][k]) for k, v in row["stats"].items()
+                    if v != ref["stats"][k]}
+            check(not diff, f"{label}: rank {i}'s counters differ from the "
+                  f"single process's: {diff}")
+    toks = [t for r in rows[0]["tokens"] for t in r]
+    want = [t for r in ref["tokens"] for t in r]
+    same = sum(a == b for a, b in zip(toks, want))
+    st = rows[0]["stats"]
+    log(f"  {label}: {same}/{len(want)} tokens equal to the single process "
+        f"{'(gated)' if f32 else '(completion gated)'}; every counter "
+        f"{'equal' if f32 else 'of rank 0'} ({st['prefills']} admissions, "
+        f"{st['prefix_hits']} prefix hits, {st['chunks']} chunks, "
+        f"{st['steps']} steps, {st['accepted_tokens']} drafts accepted, "
+        f"{st['overlap_rounds']} overlap rounds); slot and page state equal "
+        f"on every rank after each of {rows[0]['rounds']} rounds; launches "
+        f"on every rank {json.dumps(rows[0]['launches'])} (the single "
+        f"process: {json.dumps(ref['launches'])}) [{card}]")
+    clean = [[c for c in r["chunks"] if c["clean"]] for r in rows]
+    ms = float(np.median([np.median([c["ms"] for c in r["chunks"]])
+                          for r in rows]))
+    single = float(np.median([c["ms"] for c in ref["chunks"]]))
+    steps = sum(c["T"] for c in clean[0]) or 1
+    coll = sum(c["coll_ms"] for r in clean for c in r) / (
+        len(rows) * steps)
+    count, wire = {}, {}
+    for c in clean[0]:
+        for k, v in c["count"].items():
+            count[k] = count.get(k, 0) + v
+        for k, v in c["wire"].items():
+            wire[k] = wire.get(k, 0.0) + v
+    per = {k: round(v / steps, 2) for k, v in count.items()}
+    kv = {k: v for k, v in wire.items() if k == "pool-kv"}
+    rest = {k: int(v / steps) for k, v in wire.items() if k != "pool-kv"}
+    log(f"  {label}: {ms:.2f} ms a chunk (median of ranks' medians; "
+        f"{len(rows[0]['chunks'])} chunks) beside the single process's "
+        f"{single:.2f} ms; {coll:.2f} ms of host time in collectives a step "
+        f"(a decode step or verify window; {steps} steps in chunks with no "
+        f"admission behind them); collectives a step "
+        f"{sum(per.values()):.2f} {json.dumps(per)}; bytes rank 0 sends a "
+        f"step (ring wire) {json.dumps(rest)} [{card}]")
+    log(f"  {label}: the data-axis K/V gather (pool-kv): "
+        f"{per.get('pool-kv', 0):.2f} a step, "
+        f"{int(kv.get('pool-kv', 0.0) / steps)} bytes a step [{card}]")
+    if cuda:
+        peak = max(r["peak_bytes"] for r in rows)
+        reckon = (rows[0]["param_bytes"] + rows[0]["cache_bytes"]
+                  + CUDA_CONTEXT_BYTES)
+        log(f"  {label}: peak allocated a rank {peak / 2**30:.3f} GiB + its "
+            f"context, reckoned {reckon / 2**30:.3f} GiB (parameter blocks "
+            f"{rows[0]['param_bytes'] / 2**30:.3f} GiB, cache "
+            f"{rows[0]['cache_bytes'] / 2**30:.3f} GiB, context "
+            f"{CUDA_CONTEXT_BYTES / 2**30:.1f}) [{card}]")
+
+
 SSD_KERNELS = ("ssd_cumsum_kernel", "ssd_cb_kernel", "ssd_chunk_state_kernel",
                "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
 # the first match names the class (the SSD's f32 route is ssd_f32_kernel);
@@ -6074,6 +6445,11 @@ def main() -> int:
         log("phase 5o alone: spmd families")
         spmd_family_phase(card)
         return 0
+    if "--spmd-paged" in sys.argv[1:]:
+        log("phase 5p alone: the paged, prefix and speculative batchers "
+            "under the SPMD policy")
+        spmd_paged_phase(card)
+        return 0
 
     log("phase 3: kernels against their plain versions")
     gen = torch.Generator(device="cuda")
@@ -6204,6 +6580,13 @@ def main() -> int:
         "layouts), jamba, whisper and qwen2-vl over gloo ranks sharing the "
         "card")
     spmd_family_phase(card)
+    _free_device_memory()
+
+    log("phase 5p: the dense, paged + prefix and speculative + overlap "
+        "batchers under the SPMD policy, full-width qwen3-0.6b over gloo "
+        "ranks sharing the card: (a) (data 2, model 2), (b) (1, 3) "
+        "length-sharded")
+    spmd_paged_phase(card)
     _free_device_memory()
 
     for row in rows:

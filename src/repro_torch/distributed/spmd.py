@@ -73,11 +73,42 @@ all-gather of S-byte blocks (n - 1) S.  On a process mesh the same
 numbers are counted from the tensors sent, so both agree
 (``tests/test_torch_spmd.py``).
 
+**Serving state** (``serving.ContinuousBatcher(..., policy=...)``, and the
+``serving.engine`` programs it builds):
+
+* the slot, page and draft bookkeeping (``SlotState``, ``PageState``:
+  table, free stack, ``free_top``, quota, pinned; ``DraftState``) is
+  whole and bit-equal on every rank: every rank runs the same page
+  faults, grants, frees, drafts and acceptance on the same values;
+* the model runs on the rank's rows of the slots (:meth:`ActivationPolicy.
+  row_block`, the slots split as ``batch_shard`` splits them), and what
+  the bookkeeping reads of its output (the chosen tokens and the finite
+  flag of each row; a verify window's tokens and flags) is all-gathered
+  over the data axes, one collective a step (:meth:`gather_rows`; the
+  logits stay on their rank);
+* a dense ring is the rank's slots and heads (``cache_specs``; its length
+  block under ``kv_len_sharded``); a dense admission runs its bucket whole
+  on every data group and each keeps the rows of its own slots, so no
+  ring crosses the data axes;
+* the **page pool** ``(nb, P + 1, ps, Hkv, dh)`` holds the rank's kv heads
+  over "model" and is whole over the data axes: a prefix page written by
+  one data group's admission is read by slots of another.  So every pool
+  write is all-gathered over the data axes first (:meth:`pool_rows`: the
+  new K/V rows with their (page, offset) targets, one collective a layer
+  of a decode step or verify window; the prompt K/V of a paged admission,
+  whose bucket is split by its own size, ``batch_shard(mesh, n)``, one
+  collective a period position), and every rank writes every row;
+* host decisions read from the wall clock (the watchdog's trip, deadline
+  shedding) are agreed by a MAX over the world first (:meth:`agree_max`),
+  so the ranks' ledgers never part;
+* under ``kv_len_sharded`` the paged decode and verify programs keep the
+  reference's refusal (its length-sharded slot write serves dense rings
+  only); the dense batcher runs on the length-sharded ring.
+
 gloo moves CPU tensors: a CUDA tensor goes through host memory (a copy
 each way, which waits for the card); an all-gather moves raw bytes, so any
-dtype travels.  Every family is covered; the paged, prefix and verify
-programs under the policy, and training over the data and model axes, are
-not (ROADMAP.md Queue 1).
+dtype travels.  Every family and every serving program is covered;
+training over the data and model axes is not (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -91,9 +122,12 @@ import numpy as np
 import torch
 
 from ..kernels.common import record_collective
-from ..models.attention import KVCacheView
-from ..models.ssm import SSMState
-from ..models.transformer import Caches, LayerSpec, period_structure
+from ..models.attention import KVCacheView, PagedKVView
+from ..models.ssm import SSMState, ssm_dims
+from ..models.transformer import (
+    Caches, LayerSpec, init_caches, init_paged_caches, n_blocks,
+    period_structure,
+)
 from .sharding import (
     P, _swiglu_tp_perm, batch_shard, cache_specs, mesh_axis_size, param_specs,
     spec_map,
@@ -387,10 +421,11 @@ _ENCODER_LAYER = LayerSpec(mixer="attn", mlp="mlp")
 
 class ActivationPolicy:
     """The ``policy=`` of the model's prefill, ``prefill_kv``,
-    ``decode_step`` and audio encoder (and so of ``make_prefill_step``,
-    ``make_serve_step`` and ``make_decode_chunk``) on one rank of a mesh;
-    the module docstring says what each hook does.  ``log`` counts this
-    rank's collectives (:class:`CollectiveLog`)."""
+    ``prefix_prefill``, ``decode_step`` (dense and paged), ``verify_step``
+    and audio encoder, and so of every ``serving.engine`` program and of
+    ``ContinuousBatcher``, on one rank of a mesh; the module docstring
+    says what each hook does.  ``log`` counts this rank's collectives
+    (:class:`CollectiveLog`)."""
 
     def __init__(self, cfg, mesh, *, batch: int, fsdp: bool = True,
                  moe_ep: bool = True):
@@ -725,8 +760,146 @@ class ActivationPolicy:
                                 site="attn-merge-sum")
         return (total[..., :-1] / total[..., -1:]).to(out.dtype)
 
+    # -- serving state: the rank's rows, the whole pool ----------------------
+    def row_axes(self, n: Optional[int] = None):
+        """The data axes that split a batch of ``n`` rows (``batch_shard``'s;
+        the policy's own batch, the slots, by default), or None."""
+        return self.batch_axes if n is None else batch_shard(self.mesh, n)
+
+    def row_block(self, n: Optional[int] = None) -> Optional[Tuple[int, int]]:
+        """This rank's rows ``[lo, hi)`` of a batch of ``n`` rows (the
+        policy's batch by default) as :meth:`row_axes` splits it, or None
+        where every rank holds all of them (the rows do not split, or a mesh
+        description, whose program is the global one)."""
+        axes = self.row_axes(n)
+        if not self.live or axes is None:
+            return None
+        split, idx = 1, 0
+        for a in _axes(axes):
+            size = mesh_axis_size(self.mesh, a)
+            split *= size
+            idx = idx * size + self.mesh.coord(a)
+        size = (self.batch if n is None else n) // split
+        return idx * size, (idx + 1) * size
+
+    def _rows(self, parts, n, dim: int, site: str):
+        """Every part (this rank's rows of a batch of ``n`` rows on ``dim``)
+        with the other data groups' rows, in one all-gather a data axis:
+        the parts travel packed as raw bytes, row by row.  On a mesh
+        description the rows are already the whole batch's."""
+        axes = self.row_axes(n)
+        if axes is None or not self.live:
+            return parts
+        rows = parts[0].shape[dim]
+        flat = [p.movedim(dim, 0).contiguous().reshape(rows, -1)
+                .view(torch.uint8) for p in parts]
+        packed = torch.cat(flat, dim=1)
+        for a in reversed(_axes(axes)):
+            packed = mesh_all_gather(packed, self.mesh, a, 0, log=self.log,
+                                     site=site)
+        out, col = [], 0
+        for p, f in zip(parts, flat):
+            piece = packed[:, col:col + f.shape[1]].contiguous().view(p.dtype)
+            rest = p.movedim(dim, 0).shape[1:]
+            out.append(piece.reshape((packed.shape[0],) + tuple(rest))
+                       .movedim(0, dim))
+            col += f.shape[1]
+        return tuple(out)
+
+    def gather_rows(self, *parts, n: Optional[int] = None, dim: int = 0):
+        """What the serving bookkeeping reads of the model's output on this
+        rank's rows (the chosen tokens, each row's finite flag), all-gathered
+        over the data axes that split a batch of ``n`` rows, in one
+        collective (site ``"rows"``): the parts, whole, as a tuple."""
+        return self._rows(parts, n, dim, "rows")
+
+    def pool_rows(self, *parts, n: Optional[int] = None, dim: int = 0):
+        """A pool write's rows from every data group, before the write: the
+        new K/V of this rank's rows and their (page, offset) targets (a
+        decode step's or verify window's; the admission's prompt K/V with
+        ``n`` its bucket and ``dim`` 1), all-gathered over the data axes in
+        one collective (site ``"pool-kv"``), so every data group's pool
+        stays the whole pool (the module docstring)."""
+        return self._rows(parts, n, dim, "pool-kv")
+
+    def agree_max(self, value: float) -> float:
+        """The largest of every rank's ``value`` (one MAX all-reduce over the
+        world, site ``"agree"``): a host decision read from the wall clock,
+        taken alike on every rank.  On a mesh description ``value``."""
+        if not self.live:
+            return value
+        import torch.distributed as dist
+
+        _note("all-reduce", 8, self.mesh.size, "agree", self.log)
+        t0 = time.perf_counter()
+        t = torch.tensor([float(value)], dtype=torch.float64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        self.log.seconds += time.perf_counter() - t0
+        return float(t[0])
+
+    def _local_rows(self) -> int:
+        blk = self.row_block()
+        return self.batch if blk is None else blk[1] - blk[0]
+
+    def _ssm_zeros(self, rows: int, device) -> Dict[str, SSMState]:
+        """Zeroed SSM decode states of ``rows`` slots at the rank's layout:
+        its heads' ``ssm`` and a conv window of its channels
+        (:meth:`ssm_block`)."""
+        from ..device import resolve_device, torch_dtype
+
+        device = resolve_device(device)
+        out: Dict[str, SSMState] = {}
+        for p, spec in enumerate(self._structure):
+            if spec.mixer != "ssm":
+                continue
+            s = self.cfg.ssm
+            d_in, nh, d_bc = ssm_dims(self.cfg)
+            ch = (d_in + d_bc if self._ssm_block is None
+                  else len(self._ssm_block.channels))
+            nh_l = nh // self.model if self._ssm_block is not None else nh
+            nb = n_blocks(self.cfg)
+            out[str(p)] = SSMState(
+                conv=torch.zeros((nb, rows, s.d_conv - 1, ch),
+                                 dtype=torch_dtype(self.cfg.dtype),
+                                 device=device),
+                ssm=torch.zeros((nb, rows, nh_l, s.head_dim, s.d_state),
+                                dtype=torch.float32, device=device))
+        return out
+
+    def init_caches(self, max_len: int, *, device="cuda") -> Caches:
+        """The rank's zeroed dense decode caches for the policy's batch (a
+        batcher's slots), as :meth:`shard_caches` places whole ones: its
+        rows, its kv heads (the ring's block of C / model slots under
+        ``kv_len_sharded``), its SSM heads and conv channels, the audio
+        cross K/V at its heads.  Made at that size: no whole cache exists."""
+        from ..serving.kv_cache import cache_len
+
+        C = cache_len(self.cfg, max_len)
+        if self.kv_len_sharded:
+            C = self._cache_block(C)
+        rows = self._local_rows()
+        caches = init_caches(self.layer_cfg(self.cfg), rows, C, device=device)
+        return caches._replace(ssm=self._ssm_zeros(rows, device))
+
+    def init_paged_caches(self, n_pages: int, page_size: int, *,
+                          device="cuda") -> Caches:
+        """The rank's zeroed page pool (its kv heads, whole over the data
+        axes) and the SSM decode states of its slots."""
+        rows = self._local_rows()
+        caches = init_paged_caches(self.layer_cfg(self.cfg), rows, n_pages,
+                                   page_size, device=device)
+        return caches._replace(ssm=self._ssm_zeros(rows, device))
 
     # -- placing decode caches ----------------------------------------------
+    def _kv_specs(self, kv, specs):
+        """``cache_specs``' spec of each attention cache, and of a page pool
+        its kv heads over "model" where they are split, whole over the data
+        axes (the module docstring)."""
+        pool = P(None, None, None, "model" if self.heads_split else None, None)
+        return {p: PagedKVView(k=pool, v=pool)
+                if isinstance(view, PagedKVView) else specs.kv[p]
+                for p, view in kv.items()}
+
     def _cross_spec(self) -> P:
         """The audio cross K/V (nb, B, S_enc, Hkv, dh) as the rank holds
         them: its rows, and its heads where they are split (``cache_specs``
@@ -737,9 +910,10 @@ class ActivationPolicy:
     def shard_caches(self, caches):
         """This rank's blocks of whole (single-process) decode caches as its
         programs hold them: ``cache_specs``' blocks, except that each SSM
-        conv window holds the rank's channels (:meth:`ssm_block`) and the
-        audio cross K/V the rank's heads where they are split.  A process
-        mesh only."""
+        conv window holds the rank's channels (:meth:`ssm_block`), the
+        audio cross K/V the rank's heads where they are split, and a page
+        pool the rank's heads, whole over the data axes.  A process mesh
+        only."""
         specs = cache_specs(self.cfg, self.mesh, batch=self.batch)
         rows = P(None, self.batch_axes, None, None)
         ssm = {}
@@ -753,8 +927,8 @@ class ActivationPolicy:
         cross = None if caches.cross is None else {
             p: tuple(block_of(t, self._cross_spec(), self.mesh) for t in kv)
             for p, kv in caches.cross.items()}
-        return Caches(kv=shard_tree(caches.kv, specs.kv, self.mesh), ssm=ssm,
-                      cross=cross)
+        return Caches(kv=shard_tree(caches.kv, self._kv_specs(caches.kv, specs),
+                                    self.mesh), ssm=ssm, cross=cross)
 
     def gather_caches(self, caches):
         """The whole decode caches from every rank's blocks
@@ -779,8 +953,9 @@ class ActivationPolicy:
         cross = None if caches.cross is None else {
             p: tuple(gather_block(t, self._cross_spec(), self.mesh) for t in kv)
             for p, kv in caches.cross.items()}
-        return Caches(kv=gather_tree(caches.kv, specs.kv, self.mesh), ssm=ssm,
-                      cross=cross)
+        return Caches(kv=gather_tree(caches.kv,
+                                     self._kv_specs(caches.kv, specs),
+                                     self.mesh), ssm=ssm, cross=cross)
 
 
 def make_policy(cfg, mesh, *, batch: int, fsdp: bool = True,

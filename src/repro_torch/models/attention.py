@@ -689,19 +689,17 @@ def paged_decode_attention(params, x, cache: PagedKVView, cur_pos, page_table,
     step by the caller: it is the same for every layer.  ``impl="cuda"``
     walks the page table inside the kernel; ``"torch"`` gathers the slot's pages into a
     (B, max_pages*ps, Hkv, dh) view first (the reference's XLA oracle).
-    Returns (out (B, 1, D), the same cache view).  A length-sharded
+    Returns (out (B, 1, D), the same cache view).  Under an SPMD
+    ``policy`` ``x`` holds the rank's rows and heads, and the pool write
+    takes every data group's rows (:func:`_pool_write`).  A length-sharded
     ``policy`` is refused, as the reference refuses it: its slot write is
     for dense rings only.
     """
     _refuse_len_sharded(policy, "paged decode")
     B = x.shape[0]
     q, k_new, v_new = _project_qkv(params, x, cfg, positions=cur_pos[:, None])
-    k_new = k_new.to(cache.k.dtype)
-    v_new = v_new.to(cache.v.dtype)
     cur_pos = cur_pos.to(torch.int32)
-    dest, off = write_target
-    cache.k.index_put_((dest, off), k_new[:, 0])
-    cache.v.index_put_((dest, off), v_new[:, 0])
+    _pool_write(cache, k_new[:, 0], v_new[:, 0], write_target, policy)
 
     if impl == "cuda":
         from ..kernels.paged_attention import ops as pa_ops
@@ -716,6 +714,20 @@ def paged_decode_attention(params, x, cache: PagedKVView, cur_pos, page_table,
         raise ValueError(f"unknown attn impl {impl!r} for paged decode")
     y = out.reshape(B, 1, cfg.q_dim) @ params["wo"]
     return y, cache
+
+
+def _pool_write(cache: PagedKVView, k_new, v_new, write_target,
+                policy=None) -> None:
+    """Write the new K/V rows (B, ..., Hkv, dh) at their (page, offset)
+    targets in place, cast to the pool's dtype.  Under an SPMD policy the
+    rows and targets are first all-gathered over the data axes
+    (``policy.pool_rows``): every data group's pool is the whole pool."""
+    dest, off = write_target
+    k_new, v_new = k_new.to(cache.k.dtype), v_new.to(cache.v.dtype)
+    if hasattr(policy, "pool_rows"):
+        k_new, v_new, dest, off = policy.pool_rows(k_new, v_new, dest, off)
+    cache.k.index_put_((dest, off), k_new)
+    cache.v.index_put_((dest, off), v_new)
 
 
 def _gather_pages(cache: PagedKVView, page_table, cfg):
@@ -844,16 +856,15 @@ def paged_verify_attention(params, x, cache: PagedKVView, cur_pos, page_table,
 
     ``impl="cuda"`` walks the page table inside the multi-query kernel
     (:mod:`repro_torch.kernels.paged_attention`); ``"torch"`` is the gather
-    oracle.  Returns (out (B, W, D), the same cache view).
+    oracle.  Returns (out (B, W, D), the same cache view).  An SPMD
+    ``policy`` as in :func:`paged_decode_attention`.
     """
     _refuse_len_sharded(policy, "paged decode")
     B, W, _ = x.shape
     pos_w = cur_pos.to(torch.int32)[:, None] + torch.arange(
         W, dtype=torch.int32, device=x.device)[None, :]            # (B, W)
     q, k_new, v_new = _project_qkv(params, x, cfg, positions=pos_w)
-    dest, off = write_target
-    cache.k.index_put_((dest, off), k_new.to(cache.k.dtype))
-    cache.v.index_put_((dest, off), v_new.to(cache.v.dtype))
+    _pool_write(cache, k_new, v_new, write_target, policy)
 
     if impl == "cuda":
         from ..kernels.paged_attention import ops as pa_ops

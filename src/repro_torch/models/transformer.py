@@ -52,10 +52,14 @@ layer's outputs are partial sums), ``layer_cfg`` (the rank's heads) and
 the length-sharded decode cache (``models.attention.decode_attention``);
 an SSM mixer, a MoE and the encoder take it too, and the decoder's
 cross-attention output is summed at ``"cross_out"`` (a rule name the
-reference's GSPMD program needs none for).  ``prefill``, ``prefill_kv``
-and ``decode_step`` on dense caches run under it for every family, and
-the paged, prefix and verify paths refuse it.  Without a policy nothing
-changes.
+reference's GSPMD program needs none for).  Every entry point runs under
+it: ``prefill``, ``prefill_kv`` and ``decode_step`` on dense caches for
+every family; ``prefix_prefill``, the paged ``decode_step`` and
+``verify_step`` on the rank's rows and heads, the pool writes of the paged
+paths all-gathered over the data axes first (``pool_rows``; the layout is
+in ``distributed.spmd``'s docstring), and under ``kv_len_sharded`` the
+paged and verify attention keep the reference's refusal.  Without a
+policy nothing changes.
 """
 
 from __future__ import annotations
@@ -273,18 +277,6 @@ def _layer_cfg(cfg, policy):
     if policy is not None and hasattr(policy, "layer_cfg"):
         return policy.layer_cfg(cfg)
     return cfg
-
-
-def _dense_spmd_only(policy, what: str) -> None:
-    """The SPMD policy runs prefill, prefill_kv and dense decode; a
-    length-sharded one reaches the reference's own refusal in the
-    attention function instead."""
-    if (policy is not None and hasattr(policy, "layer")
-            and not getattr(policy, "kv_len_sharded", False)):
-        raise NotImplementedError(
-            f"{what} under distributed.spmd.ActivationPolicy is not ported: "
-            f"the paged, prefix and verify programs under make_policy are "
-            f"ROADMAP.md Queue 1's next item")
 
 
 def _ffn(lp, spec: LayerSpec, x, cfg, *, decode: bool, policy=None):
@@ -755,22 +747,23 @@ def prefix_prefill(params, tokens, prefix_kv, cfg, *, prefix_len: int,
     if cfg.family in ("audio", "vlm"):
         raise ValueError(
             f"prefix_prefill does not support the {cfg.family} family")
-    _dense_spmd_only(policy, "prefix_prefill")
-    x = _shard(embed(params["embed"], tokens), policy, "hidden")
+    x = _shard(_embed(params, tokens, policy), policy, "hidden")
     B, S, _ = x.shape
     positions = prefix_len + torch.arange(S, dtype=torch.int32,
                                           device=x.device)[None, :]
+    lcfg = _layer_cfg(cfg, policy)
     ys: Dict[str, List] = {str(p): [] for p in range(len(specs))}
     for b in range(n_blocks(cfg)):
         for p, spec in enumerate(specs):
             pk, pv = prefix_kv[str(p)]
             x, _, kv = _apply_layer_train(
-                _index(params["blocks"][p], b), spec, x, cfg,
+                _layer(params, p, b, policy), spec, x, lcfg,
                 positions=positions, impl=impl, prefix_kv=(pk[b], pv[b]),
                 policy=policy)
             ys[str(p)].append(kv)
     x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
-    logits = logits_fn(params, x[:, -1:, :], cfg)[:, 0]
+    logits = _shard(logits_fn(params, x[:, -1:, :], cfg)[:, 0], policy,
+                    "logits")
     out = {p: (torch.stack([k for k, _ in ys[p]]),
                torch.stack([v for _, v in ys[p]])) for p in ys}
     return logits, out
@@ -794,7 +787,6 @@ def decode_step(params, tokens, caches: Caches, cur_pos, cfg, *,
     cross = caches.cross or {}
     target = None
     if page_table is not None:
-        _dense_spmd_only(policy, "paged decode_step")
         # every layer writes the same (page, offset): compute it once
         pool = next(iter(caches.kv.values())).k          # (nb, P+1, ps, ...)
         target = attn_mod.paged_write_target(
@@ -851,9 +843,9 @@ def verify_step(params, tokens, caches: Caches, cur_pos, cfg, *,
             f"verify_step does not support the {cfg.family} family")
     if cfg.sliding_window:
         raise ValueError("verify_step does not support sliding-window archs")
-    _dense_spmd_only(policy, "verify_step")
-    x = _shard(embed(params["embed"], tokens), policy,
+    x = _shard(_embed(params, tokens, policy), policy,
                "hidden_decode")                        # (B, W, d)
+    lcfg = _layer_cfg(cfg, policy)
     target = None
     if page_table is not None:
         pool = next(iter(caches.kv.values())).k          # (nb, P+1, ps, ...)
@@ -864,22 +856,22 @@ def verify_step(params, tokens, caches: Caches, cur_pos, cfg, *,
                                              pool.shape[1] - 1)
     for b in range(n_blocks(cfg)):
         for p, spec in enumerate(specs):
-            lp = _index(params["blocks"][p], b)
+            lp = _layer(params, p, b, policy)
             view = _block_cache(caches.kv[str(p)], b)
             h = rmsnorm(lp["ln1"], x, eps=cfg.norm_eps)
             if page_table is not None:
                 y, _ = attn_mod.paged_verify_attention(
-                    lp["attn"], h, view, cur_pos, page_table, cfg, target,
+                    lp["attn"], h, view, cur_pos, page_table, lcfg, target,
                     impl=impl, policy=policy)
             else:
                 y, _ = attn_mod.verify_decode_attention(
-                    lp["attn"], h, view, cur_pos, cfg, impl=impl,
+                    lp["attn"], h, view, cur_pos, lcfg, impl=impl,
                     write_limit=write_limit, policy=policy)
             x = x + _shard(y, policy, "attn_out")
             if spec.mlp is not None:
-                x, _ = _ffn(lp, spec, x, cfg, decode=True, policy=policy)
+                x, _ = _ffn(lp, spec, x, lcfg, decode=True, policy=policy)
     x = rmsnorm(params["final_norm"], x, eps=cfg.norm_eps)
-    return logits_fn(params, x, cfg), caches
+    return _shard(logits_fn(params, x, cfg), policy, "logits"), caches
 
 
 __all__ = [

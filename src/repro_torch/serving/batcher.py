@@ -88,6 +88,24 @@ inputs aside, which every shard reads) goes to each replica.
 between two chunks, token-identically; the hypervisor drives it through
 ``ServingExecutor.register_remesh``.  As in the reference, only
 pure-attention dense-MLP text archs shard (``check_tp``).
+
+**SPMD** (``policy=distributed.spmd.make_policy(cfg, mesh, batch=slots)``
+on a process mesh of gloo ranks, every rank running this batcher on the
+same request stream): ``params`` are the rank's ``param_shardings``
+blocks, the caches the rank's layout (``ActivationPolicy.init_caches`` /
+``init_paged_caches``: its slots and heads, the dense ring's length block
+under ``kv_len_sharded``, the page pool whole over the data axes), and
+every program is built under the policy.  The slot, page and draft state
+and every host ledger (queue, page ledger, prefix cache, audit) are whole
+and equal on every rank, so each rank makes the same decisions and issues
+the same dispatches, with one fetch a chunk of its own; the two decisions
+read from the wall clock (the watchdog's trip, deadline shedding) are
+agreed by a MAX over the world first.  ``BatcherStats.cache_bytes`` counts
+the whole logical cache, as the reference's global arrays do.  As in the
+reference, a policy stays single-width (no ``tp > 1``, no
+:meth:`ContinuousBatcher.remesh`), and under ``kv_len_sharded`` the paged
+and speculative modes are refused with the reference's
+``NotImplementedError``; the dense mode runs.
 """
 
 from __future__ import annotations
@@ -107,7 +125,7 @@ from ..distributed.sharding import (
     permute_params_for_tp, tp_cache_specs, tp_gather, tp_local_cfg,
     tp_param_specs, tp_replicas, tp_shards, tp_tree_bytes,
 )
-from ..models.attention import check_attn_impl
+from ..models.attention import _refuse_len_sharded, check_attn_impl
 from ..models.transformer import (
     Caches, init_caches, init_paged_caches, period_structure,
 )
@@ -358,8 +376,9 @@ class ContinuousBatcher:
 
     ``device`` (default ``"cuda"``) is where the caches live and the steps
     run; ``params`` are moved there.  Without a GPU, pass ``device="cpu"``.
-    ``policy`` is the model's activation policy (single-device only);
-    ``mesh`` is the flat device array a ``tp > 1`` config shards over
+    ``policy`` is the model's activation policy: single-device, or one
+    rank's SPMD policy on a process mesh (the module docstring); ``mesh``
+    is the flat device array a ``tp > 1`` config shards over
     (``VirtualAcceleratorPool.tp_mesh_for``; default ``tp`` logical cores of
     ``device``), whose entries must all be ``device``.  The legacy keyword
     constructor (``ContinuousBatcher(params, cfg, slots=4, ...)``) still
@@ -397,6 +416,20 @@ class ContinuousBatcher:
                 f"ContinuousBatcher serves token prompts only; a {cfg.family} "
                 f"prompt carries patch embeddings or encoder frames: serve "
                 f"it with repro_torch.serving.generate(..., extras=...)")
+        # an SPMD policy on a process mesh: this batcher is one rank's
+        self._spmd = bool(getattr(policy, "live", False))
+        if self._spmd:
+            if policy.batch != config.slots:
+                raise ValueError(
+                    f"the SPMD policy was made for a batch of {policy.batch} "
+                    f"rows; the batcher has {config.slots} slots: "
+                    f"make_policy(cfg, mesh, batch=slots)")
+            # the reference's refusals: its length-sharded slot write
+            # serves dense rings only
+            if config.paged:
+                _refuse_len_sharded(policy, "paged decode")
+            if config.speculative:
+                _refuse_len_sharded(policy, "verify decode")
         self.device = resolve_device(device)
         if mesh is not None:
             mesh_device(mesh, self.device)
@@ -466,15 +499,22 @@ class ContinuousBatcher:
             self._page_limit = min(config.page_quota, self.n_pages) \
                 if config.page_quota is not None else self.n_pages
             self.kv_pool = PagedKVPool(self.n_pages, self.page_size)
-            caches = [init_paged_caches(local, slots, self.n_pages,
-                                        self.page_size, device=self.device)
-                      for _ in range(self.tp)]
+            if self._spmd:
+                caches = [policy.init_paged_caches(
+                    self.n_pages, self.page_size, device=self.device)]
+            else:
+                caches = [init_paged_caches(local, slots, self.n_pages,
+                                            self.page_size,
+                                            device=self.device)
+                          for _ in range(self.tp)]
             if not caches[0].kv:
                 raise ValueError("paged mode needs at least one attn layer")
             self.pages = init_page_state(slots, self.n_pages, self.max_pages,
                                          quota=self._page_limit,
                                          device=self.device)
             self._push_fn = make_page_push()
+        elif self._spmd:
+            caches = [policy.init_caches(config.max_len, device=self.device)]
         else:
             caches = [init_caches(local, slots, config.max_len,
                                   device=self.device)
@@ -526,10 +566,18 @@ class ContinuousBatcher:
         self._build_programs()
 
     def _cache_bytes(self) -> int:
-        """Bytes of the logical cache tree (``BatcherStats.cache_bytes``)."""
+        """Bytes of the logical cache tree (``BatcherStats.cache_bytes``):
+        under an SPMD policy the whole tree's, counted on meta tensors."""
         if isinstance(self.caches, PerShard):
             return tp_tree_bytes(self.caches,
                                  tp_cache_specs(self.cfg, paged=self.paged))
+        if self._spmd:
+            if self.paged:
+                return tree_bytes(init_paged_caches(
+                    self.cfg, self.B, self.n_pages, self.page_size,
+                    device="meta"))
+            return tree_bytes(init_caches(self.cfg, self.B,
+                                          self.config.max_len, device="meta"))
         return tree_bytes(self.caches)
 
     # -- programs: single-device, or tp shards in lockstep ---------------
@@ -588,6 +636,8 @@ class ContinuousBatcher:
         if not self._has_deadlines:
             return
         now = self._clock()
+        if self._spmd:
+            now = self._policy.agree_max(now)
         kept: Deque[Request] = deque()
         for req in self.queue:
             if req.deadline is not None and now > req.deadline:
@@ -709,6 +759,10 @@ class ContinuousBatcher:
         (``VirtualAcceleratorPool.tp_mesh_for``) whose entries are all
         the batcher's device; its width is the new tp.
         """
+        if self._spmd:
+            raise ValueError(
+                "a batcher under an SPMD policy keeps its width: its params "
+                "and caches are one rank's blocks of a process mesh")
         if mesh is not None:
             mesh_device(mesh, self.device)
             new_tp = len(np.asarray(mesh, dtype=object))
@@ -1495,8 +1549,12 @@ class ContinuousBatcher:
             self._admitted_pages_since_sync = keep_admitted_pages
             if self._audit:
                 self._run_audit(table_np.reshape(B, -1))
-        if self._watchdog_s is not None and elapsed > self._watchdog_s:
-            self._watchdog_trip(stall_slot)
+        if self._watchdog_s is not None:
+            tripped = elapsed > self._watchdog_s
+            if self._spmd:
+                tripped = self._policy.agree_max(float(tripped)) > 0
+            if tripped:
+                self._watchdog_trip(stall_slot)
 
     def _maybe_complete(self, slot: int, req: Request) -> None:
         """Retire ``slot`` if its request just hit EOS or its budget."""

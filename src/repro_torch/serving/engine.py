@@ -17,6 +17,10 @@ reference's ``ProgramRegistry`` of compiled programs has no counterpart.
 Every ``make_*`` takes the reference's ``policy=None`` (the model's
 activation-policy hook), and :func:`tp_program` runs one of them
 tensor-parallel over a :class:`~repro_torch.distributed.ShardGroup`.
+Under an SPMD policy (``distributed.spmd``) a program takes the whole
+slot, page and draft state on every rank and runs the model on the
+rank's rows: its bookkeeping is taken alike on every rank from what one
+gather a step brings back.
 
 Invariant: a slot that deactivates mid-chunk (EOS or token budget) keeps
 decoding with its position frozen — it overwrites its *own* ring slot with
@@ -96,6 +100,43 @@ def select_token(logits, mask, scfg: ServeConfig,
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(logits.float() / scfg.temperature, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+
+def _slot_rows(policy, B: int) -> Optional[slice]:
+    """This rank's rows of a whole slot state of ``B`` rows under an SPMD
+    policy that splits the slots over the data axes (a policy batcher's
+    layout: the bookkeeping whole on every rank, the model on the rank's
+    rows; ``distributed.spmd``), else None: no such policy, slots that do
+    not split, or a state of fewer rows than the policy's batch, which is
+    already the rank's own."""
+    if not hasattr(policy, "row_block") or B != policy.batch:
+        return None
+    blk = policy.row_block()
+    return None if blk is None else slice(*blk)
+
+
+def _bucket_rows(policy, n: int) -> Optional[slice]:
+    """This rank's rows of an admission bucket of ``n`` rows: the bucket is
+    split by its own size (``batch_shard(mesh, n)``), not the slots'; None
+    where it runs whole on every data group."""
+    blk = policy.row_block(n) if hasattr(policy, "row_block") else None
+    return None if blk is None else slice(*blk)
+
+
+def _take(x, rows: Optional[slice]):
+    return x if rows is None else x[rows]
+
+
+def _select_rows(logits, mask, scfg, generator, policy, rows):
+    """The next token and the finite flag of each row (on the raw logits,
+    before the vocab mask), all-gathered over the data axes when the model
+    ran on the rank's ``rows``: one collective for what the bookkeeping
+    reads."""
+    finite = torch.isfinite(logits).all(dim=-1)
+    nxt = select_token(logits, mask, scfg, generator)
+    if rows is not None:
+        nxt, finite = policy.gather_rows(nxt, finite)
+    return nxt, finite
 
 
 # ---------------------------------------------------------------------------
@@ -201,16 +242,19 @@ def make_decode_chunk(cfg, scfg: ServeConfig, n_steps: int, *, policy=None):
     def decode_chunk(params, caches: Caches, state: SlotState,
                      generator: Optional[torch.Generator] = None):
         mask = scfg.logit_mask(cfg, state.tokens.device)
+        rows = _slot_rows(policy, state.tokens.shape[0])
         st = state
         poisoned = torch.zeros_like(state.active)
         toks, emitted = [], []
         for _ in range(n_steps):
-            logits, caches = decode_step(params, st.tokens, caches, st.cur_pos,
+            logits, caches = decode_step(params, _take(st.tokens, rows),
+                                         caches, _take(st.cur_pos, rows),
                                          cfg, impl=scfg.attn_impl,
                                          policy=policy)
-            bad = st.active & ~torch.isfinite(logits).all(dim=-1)
+            nxt, finite = _select_rows(logits, mask, scfg, generator,
+                                       policy, rows)
+            bad = st.active & ~finite
             active = st.active & ~bad
-            nxt = select_token(logits, mask, scfg, generator)
             nxt = torch.where(active, nxt, st.tokens)
             remaining = st.remaining - active.to(torch.int32)
             done = active & ((nxt == st.eos) | (remaining <= 0))
@@ -229,9 +273,17 @@ def make_decode_chunk(cfg, scfg: ServeConfig, n_steps: int, *, policy=None):
     return decode_chunk
 
 
-def _merge_fresh(resident, fresh, idx) -> None:
+def _merge_fresh(resident, fresh, idx, policy=None) -> None:
     """Scatter each freshly prefilled per-slot tensor (stacked over blocks,
-    slots on axis 1) into the resident tree's rows ``idx``, in place."""
+    slots on axis 1) into the resident tree's rows ``idx``, in place.
+    Under an SPMD policy that splits the slots the resident tree holds
+    only the rank's slots: each rank keeps the bucket's rows of its own."""
+    blk = policy.row_block() if hasattr(policy, "row_block") else None
+    if blk is not None:
+        lo, hi = blk
+        mine = (idx >= lo) & (idx < hi)
+        fresh = {p: tuple(t[:, mine] for t in v) for p, v in fresh.items()}
+        idx = idx[mine] - lo
     for p, old in resident.items():
         for o, n in zip(old, fresh[p]):
             o[:, idx] = n.to(o.dtype)
@@ -252,6 +304,10 @@ def make_admit_step(cfg, scfg: ServeConfig, *, policy=None):
     Duplicate entries in ``slots`` are allowed only when they carry
     identical rows (the batcher pads a partial bucket by repeating row 0):
     which duplicate write wins is then irrelevant.
+
+    Under an SPMD policy the bucket runs whole on every data group and
+    each rank keeps the rows of its own slots (a ring is per slot; see
+    ``distributed.spmd``); the slot state is whole.
     """
     prefill_step = make_prefill_step(cfg, scfg, policy=policy)
 
@@ -264,10 +320,10 @@ def make_admit_step(cfg, scfg: ServeConfig, *, policy=None):
             logits = logits + mask.to(logits.dtype)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         idx = slots.long()
-        _merge_fresh(caches.kv, fresh.kv, idx)
-        _merge_fresh(caches.ssm, fresh.ssm, idx)
+        _merge_fresh(caches.kv, fresh.kv, idx, policy)
+        _merge_fresh(caches.ssm, fresh.ssm, idx, policy)
         if caches.cross is not None and fresh.cross is not None:
-            _merge_fresh(caches.cross, fresh.cross, idx)
+            _merge_fresh(caches.cross, fresh.cross, idx, policy)
         # the admission token already counts toward the budget; a slot with
         # nothing left (or an immediate EOS) never activates
         remaining = budget - 1
@@ -382,6 +438,11 @@ def make_paged_decode_chunk(cfg, scfg: ServeConfig, n_steps: int,
     it, and the decode step writes the new token's K/V into the pool before
     attention reads it.  The caches are updated in place; the slot and page
     state come back as new tensors.
+
+    Under an SPMD policy the slot and page state are whole on every rank
+    and every grant, pop and push is taken alike on each; the model runs
+    on the rank's rows (their tokens, positions and table rows), and the
+    chosen tokens and finite flags come back whole (``gather_rows``).
     """
     ps = int(page_size)
 
@@ -394,6 +455,7 @@ def make_paged_decode_chunk(cfg, scfg: ServeConfig, n_steps: int,
         B = state.tokens.shape[0]
         maxp = pages.table.shape[1]
         bidx = torch.arange(B, device=dev)
+        rows = _slot_rows(policy, B)
         st, pg = state, pages
         poisoned = torch.zeros_like(state.active)
         ctr = torch.zeros((4,), dtype=torch.int32, device=dev)
@@ -419,13 +481,15 @@ def make_paged_decode_chunk(cfg, scfg: ServeConfig, n_steps: int,
             oom = need & ~got
             active = st.active & ~oom
             # -- decode against the (updated) page table ------------------
-            logits, caches = decode_step(params, st.tokens, caches,
-                                         st.cur_pos, cfg,
+            logits, caches = decode_step(params, _take(st.tokens, rows),
+                                         caches, _take(st.cur_pos, rows), cfg,
                                          impl=scfg.attn_impl,
-                                         page_table=table, policy=policy)
-            bad = active & ~torch.isfinite(logits).all(dim=-1)
+                                         page_table=_take(table, rows),
+                                         policy=policy)
+            nxt, finite = _select_rows(logits, mask, scfg, generator,
+                                       policy, rows)
+            bad = active & ~finite
             active = active & ~bad
-            nxt = select_token(logits, mask, scfg, generator)
             nxt = torch.where(active, nxt, st.tokens)
             remaining = st.remaining - _i32(active)
             done = active & ((nxt == st.eos) | (remaining <= 0))
@@ -523,6 +587,31 @@ def _dup_row0(real, vals):
     return torch.where(real[:, None], vals, vals[0:1])
 
 
+def _first_tokens(logits, cfg, scfg: ServeConfig, policy, rows, n: int):
+    """The admission's greedy first tokens (n,), all-gathered over the data
+    axes when the bucket ran on the rank's ``rows``."""
+    mask = scfg.logit_mask(cfg, logits.device)
+    if mask is not None:
+        logits = logits + mask.to(logits.dtype)
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    if rows is not None:
+        (nxt,) = policy.gather_rows(nxt, n=n)
+    return nxt
+
+
+def _whole_fresh(fresh_kv, fresh_ssm, policy, rows, n: int):
+    """A split bucket's fresh K/V (``pool_rows``: the pool is whole on every
+    data group) and SSM states (``gather_rows``) of every row, (nb, n,
+    ...), one collective a period position."""
+    if rows is None:
+        return fresh_kv, fresh_ssm
+    kv = {p: policy.pool_rows(k, v, n=n, dim=1)
+          for p, (k, v) in fresh_kv.items()}
+    ssm = {p: type(st)(*policy.gather_rows(*st, n=n, dim=1))
+           for p, st in fresh_ssm.items()}
+    return kv, ssm
+
+
 def make_paged_admit_step(cfg, scfg: ServeConfig, *, policy=None):
     """admit_step(params, batch, caches, state, pages, slots, pos0, budget,
     eos, real, pin) -> (first_tokens (n,), caches, state, pages, rows).
@@ -541,6 +630,12 @@ def make_paged_admit_step(cfg, scfg: ServeConfig, *, policy=None):
     ``PageState.pinned``.  ``rows`` returns the written table rows so the
     host learns the physical ids it is about to share.  Caches and slot
     state are updated in place; the page state comes back new.
+
+    Under an SPMD policy the bucket is split over the data axes by its own
+    size (``batch_shard(mesh, n)``; whole on every data group where ``n``
+    does not divide them); the first tokens and the prompt K/V (and SSM
+    states) of every row are all-gathered before the bookkeeping and the
+    pool write, which every rank takes whole (``distributed.spmd``).
     """
 
     def admit_step(params, batch, caches: Caches, state: SlotState,
@@ -548,14 +643,14 @@ def make_paged_admit_step(cfg, scfg: ServeConfig, *, policy=None):
         ps = _page_size(caches)
         tokens = batch["tokens"]
         n, S = tokens.shape
+        rows = _bucket_rows(policy, n)
         # the prompt's K/V in absolute-position order, ready to pack
-        logits, fresh, fresh_ssm = prefill_kv(params, tokens, cfg,
-                                              impl=scfg.attn_impl,
+        logits, fresh, fresh_ssm = prefill_kv(params, _take(tokens, rows),
+                                              cfg, impl=scfg.attn_impl,
                                               policy=policy)
-        mask = scfg.logit_mask(cfg, logits.device)
-        if mask is not None:
-            logits = logits + mask.to(logits.dtype)
-        nxt = _dup_row0(real, torch.argmax(logits, dim=-1).to(torch.int32))
+        nxt = _dup_row0(real, _first_tokens(logits, cfg, scfg, policy, rows,
+                                            n))
+        fresh, fresh_ssm = _whole_fresh(fresh, fresh_ssm, policy, rows, n)
 
         np_ = pages_for(S, ps)
         maxp = pages.table.shape[1]
@@ -569,7 +664,7 @@ def make_paged_admit_step(cfg, scfg: ServeConfig, *, policy=None):
         row = _dup_row0(real, row)
         table = pages.table.index_put((slots.long(),), row)
         _scatter_fresh_kv(caches.kv, fresh, dest, S=S, np_=np_, ps=ps, n=n)
-        _merge_fresh(caches.ssm, fresh_ssm, slots.long())
+        _merge_fresh(caches.ssm, fresh_ssm, slots.long(), policy)
 
         activates = wants & (ok | (np_ == 0))
         pin_vals = torch.where(grant, pin.clamp(0, np_), 0)
@@ -597,7 +692,9 @@ def make_cached_admit_step(cfg, scfg: ServeConfig, n_prefix_pages: int, *,
     mapped **read-only** into the joining slot's table row (copy on write:
     the page holding the last prompt token is always private).  ``pin``
     (n,) counts the row's leading cache-owned logical pages.  Bucketing and
-    padding rules are those of the cold step.
+    padding rules are those of the cold step, and so is the SPMD layout:
+    each rank gathers the prefix pages of its rows at its heads from its
+    pool, which is the whole pool.
     """
     kp = int(n_prefix_pages)
     if kp < 1:
@@ -611,23 +708,23 @@ def make_cached_admit_step(cfg, scfg: ServeConfig, n_prefix_pages: int, *,
         Lp = kp * ps
         tokens = batch["tokens"]
         n, S = tokens.shape                       # S = suffix length
-        pids = prefix_pids.long()
+        rows = _bucket_rows(policy, n)
+        pids = _take(prefix_pids, rows).long()
 
         def gather(a):
-            # pool (nb, P+1, ps, Hkv, dh) -> (nb, n, Lp, Hkv, dh)
-            g = a[:, pids]                        # (nb, n, kp, ps, Hkv, dh)
-            return g.reshape(g.shape[0], n, Lp, *g.shape[4:])
+            # pool (nb, P+1, ps, Hkv, dh) -> (nb, rows, Lp, Hkv, dh)
+            g = a[:, pids]                        # (nb, rows, kp, ps, ...)
+            return g.reshape(g.shape[0], pids.shape[0], Lp, *g.shape[4:])
 
         prefix_kv = {p: (gather(view.k), gather(view.v))
                      for p, view in caches.kv.items()}
-        logits, ys = prefix_prefill(params, tokens, prefix_kv, cfg,
-                                    prefix_len=Lp, impl=scfg.attn_impl,
+        logits, ys = prefix_prefill(params, _take(tokens, rows), prefix_kv,
+                                    cfg, prefix_len=Lp, impl=scfg.attn_impl,
                                     policy=policy)
         del prefix_kv
-        mask = scfg.logit_mask(cfg, logits.device)
-        if mask is not None:
-            logits = logits + mask.to(logits.dtype)
-        nxt = _dup_row0(real, torch.argmax(logits, dim=-1).to(torch.int32))
+        nxt = _dup_row0(real, _first_tokens(logits, cfg, scfg, policy, rows,
+                                            n))
+        ys, _ = _whole_fresh(ys, {}, policy, rows, n)
 
         np_ = pages_for(S, ps)                    # private pages
         maxp = pages.table.shape[1]
@@ -752,6 +849,23 @@ def _advance_draft(draft: DraftState, toks, c) -> DraftState:
                       n=torch.clamp(n + c, max=N).to(torch.int32))
 
 
+def _verify_rows(params, q_toks, caches, st: SlotState, cfg, scfg, mask,
+                 policy, rows, **kw):
+    """One verify window on the model's rows: the greedy token and the
+    finite flag of each window position (B, W), all-gathered over the data
+    axes when the model ran on the rank's ``rows``."""
+    logits, caches = verify_step(params, _take(q_toks, rows), caches,
+                                 _take(st.cur_pos, rows), cfg,
+                                 impl=scfg.attn_impl, policy=policy, **kw)
+    finite = torch.isfinite(logits).all(dim=-1)
+    if mask is not None:
+        logits = logits + mask.to(logits.dtype)
+    g = torch.argmax(logits, dim=-1).to(torch.int32)
+    if rows is not None:
+        g, finite = policy.gather_rows(g, finite)
+    return g, finite, caches
+
+
 def _spec_accept(q_toks, g, st: SlotState, active):
     """The acceptance algebra of the dense and paged spec chunks.
 
@@ -791,19 +905,19 @@ def _spec_accept(q_toks, g, st: SlotState, active):
     return c, nxt, done, emitted
 
 
-def _spec_window_bad(logits, st: SlotState, active):
+def _spec_window_bad(finite, st: SlotState, active):
     """The NaN sentinel of a verify window: an active slot whose logits are
     non-finite at a committable position (``w < remaining``).  Past the
     budget the dense ring write was masked and the query may read stale
-    slots, so garbage there is expected and never emitted.
+    slots, so garbage there is expected and never emitted.  ``finite``
+    (B, W) flags the positions whose logits are all finite.
 
     The check runs on the raw logits, before the additive vocab mask puts
     -inf on the padding, as the decode chunks check.  (The reference's spec
     chunks check after the mask, so with ``vocab_padded > vocab`` every
     active slot is flagged on every window; see ROADMAP.md Queue 3.)"""
-    finite = torch.isfinite(logits).all(dim=-1)                     # (B, W)
-    wi = torch.arange(logits.shape[1], dtype=torch.int32,
-                      device=logits.device)
+    wi = torch.arange(finite.shape[1], dtype=torch.int32,
+                      device=finite.device)
     committable = wi[None, :] < st.remaining[:, None]
     return active & ~(finite | ~committable).all(dim=1)
 
@@ -822,7 +936,9 @@ def make_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
     come back non-finite.  The dense ring writes are masked at the
     remaining budget (``write_limit``) so overshoot writes can never wrap
     the ring onto live context.  The caches are updated in place; the
-    slot state and the draft come back as new tensors.
+    slot state and the draft come back as new tensors.  Under an SPMD
+    policy the drafts and acceptance are taken whole on every rank, the
+    verify on the rank's rows (its window's tokens and flags gathered).
     """
     if not scfg.greedy:
         raise ValueError("speculative decode requires greedy selection")
@@ -831,20 +947,17 @@ def make_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
     def spec_chunk(params, caches: Caches, state: SlotState,
                    draft: DraftState):
         mask = scfg.logit_mask(cfg, state.tokens.device)
+        rows = _slot_rows(policy, state.tokens.shape[0])
         st, dr = state, draft
         poisoned = torch.zeros_like(state.active)
         toks, emitted = [], []
         for _ in range(n_windows):
             drafts = _propose_drafts(dr, st.tokens, W - 1, ngram)
             q_toks = torch.cat([st.tokens[:, None], drafts], dim=1)
-            logits, caches = verify_step(params, q_toks, caches, st.cur_pos,
-                                         cfg, impl=scfg.attn_impl,
-                                         write_limit=st.remaining,
-                                         policy=policy)
-            bad = _spec_window_bad(logits, st, st.active)
-            if mask is not None:
-                logits = logits + mask.to(logits.dtype)
-            g = torch.argmax(logits, dim=-1).to(torch.int32)        # (B, W)
+            g, finite, caches = _verify_rows(
+                params, q_toks, caches, st, cfg, scfg, mask, policy, rows,
+                write_limit=_take(st.remaining, rows))             # (B, W)
+            bad = _spec_window_bad(finite, st, st.active)
             active = st.active & ~bad
             c, nxt, done, emit = _spec_accept(q_toks, g, st, active)
             dr = _advance_draft(dr, g, c)
@@ -885,6 +998,8 @@ def make_paged_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
     (they are the next window's) and recycled by
     :func:`_free_finished_pages` when the slot finishes.  The caches are
     updated in place; slot, page and draft state come back as new tensors.
+    The SPMD layout is :func:`make_paged_decode_chunk`'s, the verify window
+    on the rank's rows.
     """
     if not scfg.greedy:
         raise ValueError("speculative decode requires greedy selection")
@@ -902,6 +1017,7 @@ def make_paged_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
         B = state.tokens.shape[0]
         maxp = pages.table.shape[1]
         bidx = torch.arange(B, device=dev)
+        rows = _slot_rows(policy, B)
         span_off = torch.arange(max_span, dtype=torch.int32, device=dev)
         st, pg, dr = state, pages, draft
         poisoned = torch.zeros_like(state.active)
@@ -939,13 +1055,10 @@ def make_paged_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
             # -- draft + batched verify against the (updated) table -------
             drafts = _propose_drafts(dr, st.tokens, W - 1, ngram)
             q_toks = torch.cat([st.tokens[:, None], drafts], dim=1)
-            logits, caches = verify_step(params, q_toks, caches, st.cur_pos,
-                                         cfg, impl=scfg.attn_impl,
-                                         page_table=table, policy=policy)
-            bad = _spec_window_bad(logits, st, active)
-            if mask is not None:
-                logits = logits + mask.to(logits.dtype)
-            g = torch.argmax(logits, dim=-1).to(torch.int32)
+            g, finite, caches = _verify_rows(
+                params, q_toks, caches, st, cfg, scfg, mask, policy, rows,
+                page_table=_take(table, rows))
+            bad = _spec_window_bad(finite, st, active)
             active = active & ~bad
             c, nxt, done, emit = _spec_accept(q_toks, g, st, active)
             dr = _advance_draft(dr, g, c)

@@ -303,15 +303,29 @@ def page_bytes(cfg, page_size: int) -> int:
     return n_attn * nb * page_size * cfg.n_kv_heads * cfg.d_head * 2 * dt
 
 
-def paged_kv_cache_bytes(cfg, n_pages: int, page_size: int) -> int:
+def paged_kv_cache_bytes(cfg, n_pages: int, page_size: int, *,
+                         policy=None) -> int:
     """HBM bytes of the full paged pool (incl. the trash page) — the paged
-    analogue of :func:`kv_cache_bytes` for admission control."""
+    analogue of :func:`kv_cache_bytes` for admission control.  With an
+    SPMD ``policy`` (on a process mesh), one rank's pool: its kv heads,
+    whole over the data axes (``distributed.spmd``)."""
+    if policy is not None:
+        cfg = policy.layer_cfg(cfg)
     return (n_pages + 1) * page_bytes(cfg, page_size)
 
 
-def kv_cache_bytes(cfg, batch: int, max_len: int) -> int:
-    """Device bytes of the full decode cache for admission control."""
+def kv_cache_bytes(cfg, batch: int, max_len: int, *, policy=None) -> int:
+    """Device bytes of the full decode cache for admission control.  With
+    an SPMD ``policy`` made for ``batch`` rows, the bytes one rank holds:
+    ``policy.init_caches``' blocks (its slots, heads or ring block, SSM
+    heads and channels), counted on meta tensors."""
     from ..models.transformer import n_blocks, period_structure
+
+    if policy is not None:
+        if policy.batch != batch:
+            raise ValueError(f"the policy was made for {policy.batch} rows, "
+                             f"not {batch}")
+        return tree_bytes(policy.init_caches(max_len, device="meta"))
 
     specs = period_structure(cfg)
     nb = n_blocks(cfg)

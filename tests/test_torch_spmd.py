@@ -599,6 +599,8 @@ def test_a_ring_block_seeds_what_the_whole_ring_holds_there():
 
 
 def test_the_paged_and_verify_paths_refuse_the_policy():
+    """A length-sharded policy keeps the reference's refusal on the verify
+    path; a head-aligned one runs it."""
     from repro_torch.models import init_caches, init_params, verify_step
 
     cfg = dataclasses.replace(get_reduced(ARCH), dtype="float32")
@@ -610,9 +612,15 @@ def test_the_paged_and_verify_paths_refuse_the_policy():
     with pytest.raises(NotImplementedError,
                        match="verify decode does not support a length-sharded"):
         verify_step(params, toks, caches, cur, cfg, impl="torch", policy=pol)
+    # head-aligned, the verify path runs under the policy: on a mesh
+    # description its program is the global one, the collectives recorded
     heads = make_policy(cfg, MeshSpec(("data", "model"), (1, 2)), batch=2)
-    with pytest.raises(NotImplementedError, match="next item"):
-        verify_step(params, toks, caches, cur, cfg, impl="torch", policy=heads)
+    plain, _ = verify_step(params, toks, init_caches(cfg, 2, 16, device="cpu"),
+                           cur, cfg, impl="torch")
+    got, _ = verify_step(params, toks, caches, cur, cfg, impl="torch",
+                         policy=heads)
+    assert torch.equal(got, plain)
+    assert heads.log.count["attn_out"] == cfg.n_layers
 
 
 def test_a_mesh_of_several_devices_needs_a_process_group():
