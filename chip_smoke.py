@@ -225,8 +225,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
               weights, the cache and 10 % of the weights.
 5k. tp      — tensor-parallel serving over logical cores of cuda:0 (a
               pool of 16).  f32 leg: full-width qwen3-0.6b cut to 2 layers
-              (TF32 off), the requests of phases 5, 5b and 5c through their
-              dense, paged + prefix and speculative + overlap batchers at
+              (TF32 off), 8 of the requests of phases 5, 5b and 5c (each
+              leg of the phase takes 8, for the whole script's time)
+              through their dense, paged + prefix and speculative +
+              overlap batchers at
               ``tp`` 1, 2 and 4: tokens, admissions, chunks, dispatches and
               syncs identical to tp=1; a tenant leased 1 core through
               ``ServingExecutor`` and resized 1 -> 2 -> 4 -> 1 between
@@ -269,7 +271,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               a seeded 32,768-slot cache, every slot valid), train_4k
               (batch 2, "flash", remat full).  Each: the analyzer's FLOPs
               and bytes of the same program on the same route
-              (``Cell.analyze``), the median ms of 10 calls after 2
+              (``Cell.analyze``), the median ms of 3 calls after 2
               warm-ups (CUDA events), t_compute, t_memory, bound and
               t_bound at chips = 1, t_bound / ms, MFU, the cell's own peak
               memory (its argument bytes + what its calls add above all
@@ -298,7 +300,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               ``param_shardings(fsdp=False)``: 8 kv heads do not divide 3,
               so the cache's 3,072 slots are split 1,024 a rank, the
               vocab (152,064) and the MLP are split over "model", batch 4
-              prompts of 512 tokens, 2 a data rank, 16 decode steps; f32
+              prompts of 512 tokens, 2 a data rank, 4 decode steps; f32
               every token equal and logits within MODEL_TOL, then bf16
               (the first step's logits within BF16_TOL of the largest
               logit, the share of tokens equal printed); (b) (data 1,
@@ -325,7 +327,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the same weights (bf16 from the seed, Mamba-2's dt and A
               draws on every SSM layer, cast to f32 for the f32 runs;
               ``param_shardings(fsdp=False)``), 4 prompts (2 a data rank
-              where data is 2) and 8 greedy steps: (a) mamba2-370m uncut
+              where data is 2) and 3 greedy steps: (a) mamba2-370m uncut
               on (data 2, model 2), 16 of 32 SSM heads a rank, its one
               group of B and C whole on every rank, f32 then bf16; (b)
               deepseek-moe-16b at full width cut to 4 layers on (1, 2),
@@ -354,6 +356,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
               beside the single process's, host ms in collectives, bytes
               each rank sends a step by site, each rank's reckoned and
               peak memory, and the phase's wall seconds.
+5p. spmd batcher — after 5o: ``ContinuousBatcher`` under ``make_policy``
+              (``spmd_paged_phase``), full-width qwen3-0.6b: (a) (2, 2) in
+              phase 5's dense, 5b's paged + prefix and 5c's spec + overlap
+              configs, f32 then bf16, (b) (1, 3) dense and the paged
+              batcher refused; 8 requests, ``max_new`` 4-8; f32 tokens and
+              every counter the single process's, the bookkeeping equal on
+              every rank after every round, launches equal.
+5q. spmd train — after 5p: ``make_train_step`` under ``make_policy``
+              (``spmd_train_phase``) over gloo ranks sharing the card, each
+              leg against the single process's step on the same weights
+              (5n's) and batch (``make_batch(seq_len=256, batch=4)``),
+              ``"flash"``, ``loss_chunk`` 128, lr 3e-4: (a) full-width
+              qwen3-0.6b on (data 2, model 2), ``param_shardings(fsdp=
+              True)``, 2 steps f32 then 1 bf16; (b) on (1, 3), 2 steps f32
+              (8 kv heads do not divide 3: attention whole on every rank);
+              (c) deepseek-moe-16b cut to 2 layers (both MoE) on (1, 2),
+              one step with the experts over "model", one as expert-TP.
+              f32 gates: loss, aux, lr and grad norm within 1e-5 (1e-4),
+              tokens equal, the first step's gradients before clipping
+              within 1e-4 of each leaf's largest, the params after the
+              last step within rtol 1e-3 + atol 1e-4 (the single process's
+              saved to a temp file the ranks read through a memory map),
+              every block equal on the ranks that hold it, each rank's
+              flash launches the single process's; bf16: finite loss and
+              grad norm, the loss gap printed.  Logs ms a step, host ms in
+              collectives, collectives and ring bytes a step by site
+              (forward, backward, after the backward) and each rank's peak
+              beside its reckoning.
 6. trace    — the first rounds of the dense, the paged, the spec, the
               Mamba-2 and the MoE path,
               all untraced first, then each under ``torch.profiler``: device
@@ -397,7 +427,8 @@ compare in turns in one chip call.  Prints one JSON line
 
     python3 chip_smoke.py --spmd-families
 
-runs phases 1, 2 and 5o only (no result lines).
+runs phases 1, 2 and 5o only (no result lines); ``--spmd-paged`` and
+``--spmd-train`` run phases 1, 2 and 5p, or 5q, the same way.
 
     python3 chip_smoke.py --ssd-faults
 
@@ -433,7 +464,14 @@ F32_TOL, BF16_TOL, MODEL_TOL = 1e-4, 2e-2, 2e-3
 MOE_SPREAD = 2.0
 
 
+_T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """One line of the script's log; a phase's first line carries the
+    seconds since the script started."""
+    if msg.startswith("phase "):
+        msg += f" [at {time.perf_counter() - _T_START:.1f} s]"
     print(f"[chip_smoke] {msg}", flush=True)
 
 
@@ -3291,6 +3329,7 @@ def serve_guarded_path(card: str, params, cfg, paged_tokens):
 
 
 TP_WIDTHS = (1, 2, 4)
+TP_REQUESTS = 8            # a leg's requests: the whole script's time budget
 TP_CORES = 16              # the pool a tenant leases from: cores of cuda:0
 TP_RESIZES = (2, 4, 1)     # a leased tenant's widths, one round apart
 # the plain attention routes of models/attention.py: none may run on the
@@ -3381,7 +3420,7 @@ def _tp_resize(card: str, label: str, params, cfg, config, reqs_fn):
     ex = ServingExecutor(pool)
     ex.exec_admit(TenantSpec(name="t", requested_cores=1, artifact=None), 1,
                   at=0.0)
-    reqs = reqs_fn(cfg)
+    reqs = reqs_fn(cfg, n=TP_REQUESTS)
     batcher = _tp_batcher(params, cfg, config, reqs, 1)
     ex.register_remesh("t", lambda mesh: batcher.remesh(mesh=mesh))
     batcher.step()
@@ -3419,7 +3458,7 @@ def serve_tp_f32(card: str):
     for label, config, reqs_fn in _tp_modes():
         tokens, counts = {}, {}
         for tp in TP_WIDTHS:
-            reqs = reqs_fn(cfg)
+            reqs = reqs_fn(cfg, n=TP_REQUESTS)
             stats = _tp_batcher(params, cfg, config, reqs, tp).run()
             _check_served(f"f32 {label} tp={tp}", reqs, cfg)
             tokens[tp] = [list(r.out) for r in reqs]
@@ -3434,7 +3473,8 @@ def serve_tp_f32(card: str):
                   f"syncs) {counts[tp]} != tp=1's {counts[1]}")
         log(f"  f32 {label}: tokens at tp " + ", ".join(
             map(str, TP_WIDTHS[1:])) + f" identical to tp=1 "
-            f"({sum(map(len, tokens[1]))} tokens, 16 requests); admissions, "
+            f"({sum(map(len, tokens[1]))} tokens, {TP_REQUESTS} requests); "
+            f"admissions, "
             f"chunks, dispatches, syncs {counts[1]} at every width")
         if label == "spec + overlap":
             spec_tokens = tokens[1]
@@ -3485,7 +3525,7 @@ def serve_tp_bf16(card: str, params, cfg):
                 _free_device_memory()
                 base = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
-                reqs = reqs_fn(cfg)
+                reqs = reqs_fn(cfg, n=TP_REQUESTS)
                 batcher = _tp_batcher(params, cfg, config, reqs, tp)
                 for c in counters.values():
                     c.launches = 0
@@ -3544,7 +3584,7 @@ def serve_tp_bf16(card: str, params, cfg):
                         dense_tokens = toks
                 agree = ("" if tp == 1 else
                          f"; against tp=1: {_agreement(toks, ref_tokens)}")
-                log(f"  {name}: {stats.completed}/16 requests, "
+                log(f"  {name}: {stats.completed}/{len(reqs)} requests, "
                     f"{stats.tokens} tokens, {stats.prefills} admissions, "
                     f"{stats.chunks} chunks, {stats.steps} steps in "
                     f"{wall:.3f} s: tokens/s={stats.tokens / wall:.1f}, "
@@ -4762,7 +4802,9 @@ FULL_ATTENTION = ("command-r-plus-104b", "qwen3-0.6b", "starcoder2-7b",
 # (shape, one-card batch, route): each cell's seq_len kept, its batch cut
 CARD_CELLS = (("prefill_32k", 1, "cuda"), ("decode_32k", 8, "cuda"),
               ("train_4k", 2, "flash"))
-CELL_CALLS = 10                # timed calls a cell, after two warm-up calls
+# timed calls a cell, after two warm-up calls: 3 keep the whole script
+# within its time budget
+CELL_CALLS = 3
 CELL_REF_ROWS = 512            # prefill's gate: the last query rows
 
 
@@ -5165,7 +5207,7 @@ CUDA_CONTEXT_BYTES = 0.5 * 2**30    # a rank's CUDA context, reckoned
 
 
 def spmd_job(cfg, device: str = "cuda", *, batch: int = 4, prompt: int = 512,
-             max_len: int = 3072, steps: int = 16, train_seq: int = 256):
+             max_len: int = 3072, steps: int = 4, train_seq: int = 256):
     """Phase 5n's sizes and config, passed to every rank (a spawned rank
     imports this script afresh, so nothing here may live in a global that
     a rehearsal patches)."""
@@ -5581,7 +5623,7 @@ def _spmd_check_pods(card, rows) -> None:
 # phase 5o: the SPMD policy for the MoE, SSM, hybrid, VLM and audio families
 # ---------------------------------------------------------------------------
 
-FAMILY_PROMPT, FAMILY_STEPS, FAMILY_MAX_LEN = 512, 8, 1536
+FAMILY_PROMPT, FAMILY_STEPS, FAMILY_MAX_LEN = 512, 3, 1536
 JAMBA_HELD = (4, 2)           # leg (c): the most of these experts that fit
 
 
@@ -5872,8 +5914,9 @@ def _family_checks(card: str, leg, shape, res, refs) -> None:
 # phase 5p: the paged, prefix and speculative batchers under the SPMD policy
 # ---------------------------------------------------------------------------
 
-# max_new 16-24: a budget of 16-32 ran the phase past its 150 s
-SPMD_PAGED_REQUESTS, SPMD_PAGED_MAX_NEW = 8, (16, 25)
+# max_new 4-8: more ran the phase past its 150 s, or the whole script
+# past its time budget
+SPMD_PAGED_REQUESTS, SPMD_PAGED_MAX_NEW = 8, (4, 9)
 
 
 def spmd_paged_job(cfg, device: str = "cuda", *, modes=None, n_req=None):
@@ -5968,7 +6011,7 @@ def _paged_serve(job, cfg, params, config, *, policy=None):
     cuda = job["device"] == "cuda"
     b = ContinuousBatcher(params, cfg, ServingConfig(**config),
                           device=job["device"], policy=policy)
-    # 5b's shape (the system prompt and a tail), max_new 16-24
+    # 5b's shape (the system prompt and a tail), max_new 4-8
     reqs = _paged_requests(cfg, job["n_req"], prompt_len=job["prompt_len"],
                            max_new=SPMD_PAGED_MAX_NEW)
     for r in reqs:
@@ -6235,6 +6278,488 @@ def _spmd_paged_checks(card: str, label: str, rows, ref, *, f32: bool,
             f"{CUDA_CONTEXT_BYTES / 2**30:.1f}) [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 5q: training under the SPMD policy over the data and model axes
+# ---------------------------------------------------------------------------
+
+SPMD_TRAIN_LR, SPMD_TRAIN_CHUNK = 3e-4, 128
+# what the single process's grads and params are held to, as the CPU tests
+# hold them (tests/test_torch_train_parity.py)
+SPMD_TRAIN_GRAD_TOL, SPMD_TRAIN_RTOL, SPMD_TRAIN_ATOL = 1e-4, 1e-3, 1e-4
+SPMD_TRAIN_METRIC_RTOL = {"loss": 1e-5, "aux": 1e-5, "lr": 1e-5,
+                          "grad_norm": 1e-4}
+# the collectives a train step issues after its backward, on their own line
+STEP_SITES = ("grad-sum", "grad-norm", "loss", "moments-max")
+
+
+def spmd_train_job(cfg, moe_cfg, device: str = "cuda", *, seq: int = 256,
+                   batch: int = 4):
+    """Phase 5q's config, passed to every rank: the dense model of legs (a)
+    and (b) and the MoE model of leg (c) (both from 5n's seed) and the
+    batch (5n (c)'s, ``make_batch(seq_len=seq, batch=batch)``)."""
+    return dict(cfg=cfg, moe_cfg=moe_cfg, device=device, seed=0, seq=seq,
+                batch=batch)
+
+
+def spmd_train_legs(job):
+    """Phase 5q's legs: (label, model key of the job, mesh shape, runs),
+    each run (dtype, steps, moe_ep), the params placed by
+    ``param_shardings(fsdp=True)``: (a) (data 2, model 2), 2 steps at f32,
+    then 1 at bf16 (one bf16 step cut for the phase's time); (b) (1, 3), 2
+    steps at f32 (8 kv heads do not divide 3); (c) the MoE model on (1, 2),
+    one step with its experts over "model", then one as expert-TP."""
+    return [("(a)", "cfg", (2, 2), (("float32", 2, True),
+                                    ("bfloat16", 1, True))),
+            ("(b)", "cfg", (1, 3), (("float32", 2, True),)),
+            ("(c)", "moe_cfg", (1, 2), (("float32", 1, True),
+                                        ("float32", 1, False)))]
+
+
+def _train_batch(job, cfg):
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.training import batch_to_torch
+
+    return batch_to_torch(make_batch(cfg, seq_len=job["seq"],
+                                     batch=job["batch"], step=0, seed=0),
+                          device=job["device"])
+
+
+def _train_tcfg():
+    from repro_torch.training import TrainerConfig
+
+    return TrainerConfig(attn_impl="flash", lr=SPMD_TRAIN_LR,
+                         loss_chunk=SPMD_TRAIN_CHUNK)
+
+
+def _timed(fn, sync):
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _train_single(job, dtype: str, steps: int, path=None):
+    """The single process's ``make_train_step`` on the full weights of
+    ``job["cfg"]`` and the batch: ``steps`` steps, each timed with its
+    flash launches counted from 0 just before, the first keeping its
+    gradients before clipping (``keep_grads``); with ``path``, those
+    gradients and the params after the last step saved there (CPU) for
+    the ranks."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import make_train_step
+    from repro_torch.tree import tree_map
+
+    cuda = job["device"] == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = dataclasses.replace(job["cfg"], dtype=dtype)
+    params = _spmd_weights(job, dtype)
+    batch = _train_batch(job, cfg)
+    step = make_train_step(cfg, _train_tcfg())
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    out = {"ms": [], "metrics": [], "launches": []}
+    opt = adamw_init(params)
+    for i in range(steps):
+        fa.flash_attention.launches = 0
+        (params, opt, m, *grads), ms = _timed(
+            lambda: step(params, opt, batch, keep_grads=i == 0), sync)
+        if grads and path is not None:
+            saved = {"grads": tree_map(lambda t: t.float().cpu(), grads[0])}
+        del grads
+        out["ms"].append(ms)
+        out["launches"].append(fa.flash_attention.launches)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+    if cuda:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if path is not None:
+        saved["params"] = tree_map(lambda t: t.float().cpu(), params)
+        torch.save(saved, path)
+        del saved
+    out["path"] = path
+    return out
+
+
+def _ref_block(leaf, plan, mesh):
+    """This rank's block of a whole reference leaf, as ``param_shardings``
+    places it (a permuted ``wi``'s columns first put in their order)."""
+    import torch
+
+    from repro_torch.distributed.spmd import block_of
+
+    if plan.perm is not None:
+        leaf = leaf[..., torch.from_numpy(plan.perm).to(leaf.device)]
+    return block_of(leaf, plan.spec, mesh)
+
+
+def _held_to_single(path, pol, mesh, grads, params, device):
+    """This rank's blocks of step 0's gradients and of the params after the
+    last step against the same blocks of the single process's (``path``,
+    read through a memory map): each leaf's largest gradient error over the
+    leaf's largest magnitude, and its params' largest excess over rtol
+    1e-3 (|a - b| - 1e-3 |b|), the largest over every rank (a MAX
+    all-reduce over the world)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.tree import flatten_with_path, leaves
+
+    ref = torch.load(path, mmap=True, weights_only=True)
+    plans = leaves(pol.leaf_plans())
+    keys = [k for k, _ in flatten_with_path(ref["grads"])]
+    vals = []
+    for g, rg, plan in zip(leaves(grads), leaves(ref["grads"]), plans):
+        rg = rg.to(device)                   # a leaf at a time on the card
+        scale = max(float(rg.abs().max()), 1e-30)
+        vals.append(float((g.float() - _ref_block(rg, plan, mesh)).abs()
+                          .max()) / scale)
+    for p, rp, plan in zip(leaves(params), leaves(ref["params"]), plans):
+        b = _ref_block(rp.to(device), plan, mesh)
+        vals.append(float(((p.float() - b).abs() - SPMD_TRAIN_RTOL
+                           * b.abs()).max()))
+    worst = torch.tensor(vals, dtype=torch.float64)
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    n = len(keys)
+    return {"keys": keys, "grad_err": worst[:n].tolist(),
+            "param_excess": worst[n:].tolist()}
+
+
+def _parted_blocks(pol, mesh, params) -> int:
+    """Leaves whose block differs between two ranks that hold the same
+    block (every rank, for a replicated leaf): a digest of each of this
+    rank's blocks that some other rank holds too, all-gathered over the
+    world."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.tree import leaves
+
+    plans = leaves(pol.leaf_plans())
+    shared = [any(n > 1 and a not in plan.split
+                  for a, n in zip(mesh.axis_names, mesh.sizes))
+              for plan in plans]
+    mine = torch.tensor([int.from_bytes(hashlib.blake2b(
+        p.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes(),
+        digest_size=8).digest(), "little", signed=True) if s else 0
+        for p, s in zip(leaves(params), shared)], dtype=torch.int64)
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    here = torch.tensor(mesh.coords, dtype=torch.int64)
+    all_coords = [torch.empty_like(here) for _ in range(len(every))]
+    dist.all_gather(all_coords, here)
+    coords = [tuple(int(c) for c in t) for t in all_coords]
+    parted = 0
+    for i, plan in enumerate(plans):
+        split = [mesh.axis_names.index(a) for a in plan.split]
+        owners = {}
+        for r, c in enumerate(coords):
+            owners.setdefault(tuple(c[j] for j in split), set()).add(
+                int(every[r][i]))
+        parted += any(len(d) > 1 for d in owners.values())
+    return parted
+
+
+def _sites(log_count, log_wire):
+    """A step's collectives by site, split into the forward (with the
+    loss's sums and the count), the backward (``bwd:`` sites) and what the
+    step issues after the backward (``STEP_SITES``)."""
+    out = {"forward": {}, "backward": {}, "step": {}}
+    for site, n in log_count.items():
+        part = ("backward" if site.startswith("bwd:") else
+                "step" if site in STEP_SITES else "forward")
+        out[part][site] = (n, int(log_wire.get(site, 0.0)))
+    return out
+
+
+def _spmd_train_run(job, mesh, dtype: str, steps: int, moe_ep: bool,
+                    path=None):
+    """One run of phase 5q on this rank: the params placed
+    (``param_shardings(fsdp=True)``), then ``steps`` train steps under
+    ``make_policy``, each timed, with its collectives and flash launches
+    counted from 0 just before, the first keeping its gradients before
+    clipping where ``path`` holds the single process's; then the blocks
+    held against the single process's and each other."""
+    import torch
+
+    from repro_torch.distributed.spmd import (
+        make_policy, param_shardings, shard_batch)
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.optim import adamw_init
+    from repro_torch.training import make_train_step
+
+    cuda = job["device"] == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(job["cfg"], dtype=dtype)
+    pol = make_policy(cfg, mesh, batch=job["batch"], moe_ep=moe_ep)
+    params = param_shardings(cfg, mesh, _spmd_weights(job, dtype),
+                             moe_ep=moe_ep)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    batch = {k: shard_batch(v, mesh, pol.batch_axes)
+             for k, v in _train_batch(job, cfg).items()}
+    step = make_train_step(cfg, _train_tcfg(), policy=pol, mesh=mesh)
+    out = {"kv_len_sharded": pol.kv_len_sharded,
+           "vocab_parallel": pol.vocab_parallel,
+           "expert_block": pol.expert_block, "ms": [], "coll_ms": [],
+           "sites": [], "launches": [], "metrics": [],
+           "setup_s": time.perf_counter() - t0}
+    grads = None
+    opt = adamw_init(params)
+    for i in range(steps):
+        pol.log.reset()
+        fa.flash_attention.launches = 0
+        keep = i == 0 and path is not None
+        (params, opt, m, *kept), ms = _timed(
+            lambda: step(params, opt, batch, keep_grads=keep), sync)
+        grads = kept[0] if kept else grads
+        out["ms"].append(ms)
+        out["coll_ms"].append(pol.log.seconds * 1e3)
+        out["sites"].append(_sites(pol.log.count, pol.log.wire))
+        out["launches"].append(fa.flash_attention.launches)
+        out["metrics"].append({k: float(v) for k, v in m.items()})
+    if cuda:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["param_bytes"] = _tree_nbytes(params)
+    del opt
+    t0 = time.perf_counter()
+    out["parted"] = _parted_blocks(pol, mesh, params)
+    if path is not None:
+        out.update(_held_to_single(path, pol, mesh, grads, params,
+                                   params["embed"]["w"].device))
+    out["checks_s"] = time.perf_counter() - t0
+    return out
+
+
+def _spmd_train_rank(rank: int, world: int, job):
+    """One rank of phase 5q: every run of ``job["runs"]`` on
+    ``job["shape"]``, in order."""
+    import torch
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if job["device"] == "cuda":
+        torch.cuda.set_device(0)
+    mesh = make_host_mesh(job["shape"], device=job["device"])
+    out = {"rank": rank, "coords": mesh.coords, "runs": []}
+    for dtype, steps, moe_ep in job["runs"]:
+        out["runs"].append(_spmd_train_run(
+            job, mesh, dtype, steps, moe_ep, job["paths"].get(dtype)))
+        if job["device"] == "cuda":
+            _free_device_memory()
+    return out
+
+
+def _spmd_train_reckon(cfg, shape, moe_ep: bool, batch: int, seq: int,
+                       kept: bool) -> tuple:
+    """(bytes a train rank should hold at most, the single process's): the
+    larger of two moments of a step, each over its parameter blocks P,
+    their gradients G, two f32 moments M and, with ``kept``, the first
+    step's gradients held for the checks: the update, which makes new
+    params, clipped gradients and moments beside the old ones (2 (P + G +
+    M)); and the backward, which also holds every layer's gathered
+    parameters (no remat) and the loss's f32 logits of one chunk of its
+    rows, twice.  Activations are not counted; a rank adds a CUDA
+    context."""
+    import math
+
+    from repro_torch.distributed.sharding import batch_shard, param_specs
+    from repro_torch.distributed.spmd import _axes
+    from repro_torch.launch.cells import _spec_leaves
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models import init_params
+
+    mesh = MeshSpec(("data", "model"), shape)
+    full = init_params(cfg, device="meta")
+    size = {"data": shape[0], "model": shape[1]}
+
+    def split(spec, axes=("data", "model")):
+        return math.prod(size[a] for e in spec for a in _axes(e) if a in axes)
+
+    def peak(blocks, gathered, rows, vp):
+        state = blocks * (2 + 2 * 4 / item)            # P + G + M
+        logits = 2 * rows * min(SPMD_TRAIN_CHUNK, seq) * vp * 4
+        held = blocks if kept else 0.0
+        return max(2 * state, state + gathered + logits) + held
+
+    blocks = gathered = 0.0
+    for spec, t in _spec_leaves(param_specs(cfg, mesh, moe_ep=moe_ep), full):
+        nbytes = t.numel() * t.element_size()
+        blocks += nbytes / split(spec)
+        if split(spec, ("data",)) > 1:          # an FSDP block, gathered
+            gathered += nbytes / split(spec, ("model",))
+    item = full["embed"]["w"].element_size()
+    m = size["model"]
+    rows = batch // math.prod(size[a] for a in _axes(batch_shard(mesh,
+                                                                  batch)))
+    vp = cfg.vocab_padded // (m if cfg.vocab_padded % m == 0 else 1)
+    p_all = sum(t.numel() * t.element_size() for _, t in _spec_leaves(
+        param_specs(cfg, MeshSpec(("data", "model"), (1, 1))), full))
+    return (peak(blocks, gathered, rows, vp) + CUDA_CONTEXT_BYTES,
+            peak(p_all, 0.0, batch, cfg.vocab_padded))
+
+
+def spmd_train_phase(card: str, job=None) -> None:
+    """Phase 5q: ``make_train_step`` under ``make_policy`` over gloo ranks
+    sharing the card, each leg (``spmd_train_legs``) against the single
+    process's ``make_train_step`` on the same weights and batch, run and
+    freed first (its f32 gradients and params kept on the host for the
+    ranks).  ``job`` (``spmd_train_job``) defaults to full-width
+    qwen3-0.6b and deepseek-moe-16b cut to 2 layers (both MoE)."""
+    import os
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.spmd import run_ranks
+
+    job = job or spmd_train_job(get_config("qwen3-0.6b"), dataclasses.replace(
+        get_config("deepseek-moe-16b"), n_layers=2))
+    cuda = job["device"] == "cuda"
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="spmd-train-")
+    refs = {}           # (model, dtype, steps): one single process serves legs
+    try:
+        for label, key, shape, runs in spmd_train_legs(job):
+            leg = dict(job, cfg=job[key])
+            t0 = time.perf_counter()
+            for dtype, steps in sorted({(r[0], r[1]) for r in runs}):
+                if (key, dtype, steps) in refs:
+                    continue
+                path = (os.path.join(tmp, f"{key}-{dtype}-{steps}.pt")
+                        if dtype == "float32" else None)
+                refs[key, dtype, steps] = _train_single(leg, dtype, steps,
+                                                        path)
+                if cuda:
+                    _free_device_memory()
+            paths = {dtype: refs[key, dtype, steps]["path"]
+                     for dtype, steps, _ in runs if dtype == "float32"}
+            log(f"  {label} the single process: "
+                f"{time.perf_counter() - t0:.1f} s")
+            world = int(np.prod(shape))
+            t0 = time.perf_counter()
+            res = run_ranks(_spmd_train_rank, world, args=(dict(
+                leg, shape=shape, runs=runs, paths=paths),),
+                timeout=SPMD_TIMEOUT_S)
+            log(f"  {label} {world} ranks on {shape}: spawned, ran and joined "
+                f"in {time.perf_counter() - t0:.1f} s")
+            for i, (dtype, steps, moe_ep) in enumerate(runs):
+                _spmd_train_checks(card, label, leg, shape, dtype, moe_ep,
+                                   [r["runs"][i] for r in res],
+                                   refs[key, dtype, steps], cuda=cuda)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 5q: {time.perf_counter() - t_phase:.1f} s of wall time "
+        f"[{card}]")
+
+
+def _spmd_train_checks(card, label, job, shape, dtype, moe_ep, rows, ref, *,
+                       cuda: bool) -> None:
+    """Phase 5q's gates on one run of the ranks against the single
+    process: every rank's metrics equal, its flash launches the single
+    process's a step, every block held alike on the ranks that hold it;
+    f32: loss, aux, tokens, lr and grad norm at SPMD_TRAIN_METRIC_RTOL,
+    step 0's gradients within SPMD_TRAIN_GRAD_TOL of each leaf's largest,
+    the params after the last step within rtol / atol; bf16: finite loss
+    and grad norm, the loss gap printed.  Logs ms a step, host ms in
+    collectives, collectives and wire bytes a step by site (forward,
+    backward, after the backward) and each rank's peak beside its
+    reckoning."""
+    cfg = job["cfg"]
+    name = (f"{label} {cfg.name} {dtype} {shape}"
+            + ("" if cfg.moe is None else
+               " experts over model" if moe_ep else " expert-TP"))
+    r0 = rows[0]
+    for i, r in enumerate(rows):
+        check(r["metrics"] == r0["metrics"],
+              f"{name}: rank {i}'s metrics differ from rank 0's")
+        check(r["parted"] == 0, f"{name}: rank {i}: {r['parted']} leaves "
+                                f"whose block differs between its holders")
+        check(r["launches"] == ref["launches"][:len(r["launches"])],
+              f"{name}: rank {i} launched flash {r['launches']} times a "
+              f"step, the single process {ref['launches']}")
+    if shape == (1, 3):
+        check(r0["kv_len_sharded"] and r0["vocab_parallel"],
+              f"{name}: attention is not whole on every rank or the vocab is "
+              f"not split")
+    if cfg.moe is not None:
+        check((r0["expert_block"] is not None) == moe_ep,
+              f"{name}: the experts' layout is not the run's")
+    got, want = r0["metrics"], ref["metrics"]
+    if dtype == "float32":
+        for i, (g, w) in enumerate(zip(got, want)):
+            for k, rtol in SPMD_TRAIN_METRIC_RTOL.items():
+                check(abs(g[k] - w[k]) <= rtol * max(abs(w[k]), 1e-6),
+                      f"{name}: step {i} {k} {g[k]} against {w[k]}")
+            check(g["tokens"] == w["tokens"], f"{name}: tokens differ")
+        worst_g = max(zip(r0["grad_err"], r0["keys"]))
+        worst_p = max(zip(r0["param_excess"], r0["keys"]))
+        check(worst_g[0] <= SPMD_TRAIN_GRAD_TOL,
+              f"{name}: gradient of {worst_g[1]} {worst_g[0]:.3e} of its "
+              f"largest from the single process's")
+        check(worst_p[0] <= SPMD_TRAIN_ATOL,
+              f"{name}: params of {worst_p[1]} part by {worst_p[0]:.3e} "
+              f"beyond rtol {SPMD_TRAIN_RTOL:g}")
+        log(f"  {name}: loss {got[-1]['loss']:.6f} (single "
+            f"{want[-1]['loss']:.6f}), aux {got[-1]['aux']:.6f}, grad norm "
+            f"{got[-1]['grad_norm']:.6f} (single {want[-1]['grad_norm']:.6f}); "
+            f"step 0's gradients within {worst_g[0]:.2e} of each leaf's "
+            f"largest (worst {worst_g[1]}; tol {SPMD_TRAIN_GRAD_TOL:g}), "
+            f"params after step {len(got)} within rtol {SPMD_TRAIN_RTOL:g} + "
+            f"{max(worst_p[0], 0.0):.2e} (atol {SPMD_TRAIN_ATOL:g}); every "
+            f"block equal on its holders; flash {r0['launches']} a step on "
+            f"every rank")
+    else:
+        for i, g in enumerate(got):
+            check(np.isfinite(g["loss"]) and np.isfinite(g["grad_norm"]),
+                  f"{name}: step {i} loss {g['loss']} grad norm "
+                  f"{g['grad_norm']}")
+        log(f"  {name}: loss {[round(g['loss'], 6) for g in got]} against the "
+            f"single process's {[round(w['loss'], 6) for w in want]} (gap "
+            f"{max(abs(g['loss'] - w['loss']) for g, w in zip(got, want)):.3e}"
+            f"), grad norm {[round(g['grad_norm'], 4) for g in got]}; every "
+            f"block equal on its holders; flash {r0['launches']} a step on "
+            f"every rank")
+    ms = [float(np.median([r["ms"][i] for r in rows]))
+          for i in range(len(r0["ms"]))]
+    coll = [float(np.median([r["coll_ms"][i] for r in rows]))
+            for i in range(len(r0["ms"]))]
+    grads_ms = (f"; rank 0 took {r0['setup_s']:.1f} s to make and place "
+                f"the weights, {r0['checks_s']:.1f} s for the checks")
+    log(f"  {name}: ms a step (median of the ranks) "
+        f"{[round(x, 1) for x in ms]} beside the single process's "
+        f"{[round(x, 1) for x in ref['ms']]}; host ms in collectives "
+        f"{[round(x, 1) for x in coll]}{grads_ms} [{card}]")
+    for part, sites in r0["sites"][-1].items():
+        n = sum(c for c, _ in sites.values())
+        b = sum(w for _, w in sites.values())
+        log(f"  {name}: {part}: {n} collectives, {b} bytes a rank sends a "
+            f"step (ring wire) "
+            f"{json.dumps({k: list(v) for k, v in sorted(sites.items())})}")
+    if cuda:
+        need, single = _spmd_train_reckon(dataclasses.replace(
+            cfg, dtype=dtype), shape, moe_ep, job["batch"], job["seq"],
+            kept=dtype == "float32")
+        peaks = [r["peak_bytes"] / 2**30 for r in rows]
+        log(f"  {name}: peak allocated a rank {[round(p, 3) for p in peaks]} "
+            f"GiB + its context, reckoned {need / 2**30:.3f} GiB (parameter "
+            f"blocks {r0['param_bytes'] / 2**30:.3f} GiB; the update's old "
+            f"and new params, gradients and f32 moments, or the backward's "
+            f"gathered layers and logits, with the first step's gradients "
+            f"kept at f32 and a {CUDA_CONTEXT_BYTES / 2**30:.1f} GiB "
+            f"context; activations not counted); the single process "
+            f"{ref['peak_bytes'] / 2**30:.3f} GiB, reckoned "
+            f"{single / 2**30:.3f} [{card}]")
+
+
 SSD_KERNELS = ("ssd_cumsum_kernel", "ssd_cb_kernel", "ssd_chunk_state_kernel",
                "ssd_state_pass_kernel", "ssd_chunk_scan_kernel")
 # the first match names the class (the SSD's f32 route is ssd_f32_kernel);
@@ -6450,6 +6975,10 @@ def main() -> int:
             "under the SPMD policy")
         spmd_paged_phase(card)
         return 0
+    if "--spmd-train" in sys.argv[1:]:
+        log("phase 5q alone: training under the SPMD policy")
+        spmd_train_phase(card)
+        return 0
 
     log("phase 3: kernels against their plain versions")
     gen = torch.Generator(device="cuda")
@@ -6587,6 +7116,13 @@ def main() -> int:
         "ranks sharing the card: (a) (data 2, model 2), (b) (1, 3) "
         "length-sharded")
     spmd_paged_phase(card)
+    _free_device_memory()
+
+    log("phase 5q: training under the SPMD policy over gloo ranks sharing "
+        "the card: (a) full-width qwen3-0.6b on (data 2, model 2) with FSDP, "
+        "f32 then bf16, (b) on (1, 3), (c) deepseek-moe-16b cut to 2 layers "
+        "on (1, 2), experts over model then expert-TP")
+    spmd_train_phase(card)
     _free_device_memory()
 
     for row in rows:

@@ -28,7 +28,12 @@ every aten op, and counts:
   layer), each shard's call its own ring all-reduce wire bytes
   2·size·(N−1)/N in ``collective_bytes`` and its size in
   ``raw_collective_bytes``.  Totals are summed over the shards, as flops
-  and bytes are summed over the whole program.
+  and bytes are summed over the whole program.  An SPMD policy on a mesh
+  description (``distributed.spmd``) records through the same
+  ``record_collective`` what one device would send: every all-gather,
+  all-reduce and, in a train step's backward, each adjoint's
+  reduce-scatter or sum, so a backward's collectives are counted where
+  autograd runs them.
 * **peak_live_bytes** — the largest sum of live ``meta`` storages during
   the run: the arguments' storages plus every storage an op made, each
   counted from its first appearance until its last reference dies (a

@@ -105,15 +105,68 @@ numbers are counted from the tensors sent, so both agree
   reference's refusal (its length-sharded slot write serves dense rings
   only); the dense batcher runs on the length-sharded ring.
 
+**Training** (``training.make_train_step(policy=...)``): each rank holds
+its ``param_shardings`` blocks of the params and of the AdamW moments and
+its ``shard_batch`` rows; the reference's GSPMD program derives every
+backward collective, and here each forward collective carries its adjoint
+(:func:`with_adjoint`, an ``autograd.Function``), as Megatron pairs them:
+
+* an FSDP gather over "data" is reduce-scattered (summed) over "data" in
+  the backward, each data group's rows adding to the gradient (where the
+  batch is not split over "data", the rank's own block of a gradient every
+  rank holds whole);
+* a gather over "model" of a block used whole on the same rows
+  (attention under ``kv_len_sharded``, an MLP whose ``d_ff`` does not
+  divide "model", SSM heads that do not) takes the rank's own block, with
+  no sum; B and C gathered whole but read by the rank's own heads only are
+  reduce-scattered over "model";
+* a sum over "model" whose consumer is replicated (``"attn_out"``,
+  ``"mlp_out"``, ``"cross_out"``, ``embed``, the vocab-parallel loss's sums)
+  has the identity backward; the SSM norm's ``"ssm-norm"``, whose consumer
+  is split, sums again;
+* **entry hooks**, the identity in the forward pass (so serving does not
+  change), sum each rank's part of a gradient over "model" in the backward
+  where a replicated tensor enters split compute: ``"attn_in"`` (the
+  normed input of attention or the SSM), ``"mlp_in"`` (of the MLP and the
+  MoE's experts), ``"moe_weights"`` (the MoE's combine weights: the
+  replicated router then gets its whole gradient), ``"cross_in"`` and
+  ``"enc_in"`` (the decoder's cross-attention and the encoder output its
+  K/V are made from) and ``"logits_in"`` (the final hidden state before
+  the vocab-parallel logits).  The reference has no such names: GSPMD
+  derives them;
+* after the backward (:meth:`ActivationPolicy.reduce_grads`), each leaf's
+  gradient is summed over the data axes that split the batch unless its
+  FSDP reduce-scatter did, and a leaf whole on every "model" rank but read
+  only by split compute (``q_norm``/``k_norm`` on split heads, the SSM
+  leaves :meth:`ActivationPolicy._ssm_local` cuts) over "model" too;
+* the loss is the rank's rows' summed loss over the whole batch's count of
+  valid labels (``global_count``), vocab-parallel where the vocab splits
+  (``models.transformer._vocab_parallel_loss``: row maxima and sums over
+  "model", never the logits gathered); the MoE aux loss reads the whole
+  batch's expert counts and probabilities (``batch_sum``);
+* clipping reads the whole tree's norm (:meth:`ActivationPolicy.
+  global_norm`: each element once), AdamW is elementwise on the blocks,
+  and 8-bit moments keep the whole leaf's blocks of 256
+  (:meth:`ActivationPolicy.quantize_moments`: the rank's int8 values and
+  every block scale of the leaf, a MAX over the ranks holding a part), so
+  a rank stores what one process would for its elements.
+
+On a mesh description every adjoint records the collective it would issue
+in the backward pass too (sites ``"bwd:<site>"``), so the dry-run's train
+cells count their backward.  Every rank issues the same collectives in the
+same order, a remat recompute's gathers included (``layer`` sets which
+outputs are partial sums each time a layer runs).
+
 gloo moves CPU tensors: a CUDA tensor goes through host memory (a copy
 each way, which waits for the card); an all-gather moves raw bytes, so any
-dtype travels.  Every family and every serving program is covered;
-training over the data and model axes is not (ROADMAP.md Queue 1).
+dtype travels.  Every family, every serving program and training are
+covered.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import time
 from typing import Any, Dict, NamedTuple, Optional, Tuple
@@ -128,6 +181,7 @@ from ..models.transformer import (
     Caches, LayerSpec, init_caches, init_paged_caches, n_blocks,
     period_structure,
 )
+from ..tree import leaves, unflatten_like
 from .sharding import (
     P, _swiglu_tp_perm, batch_shard, cache_specs, mesh_axis_size, param_specs,
     spec_map,
@@ -141,10 +195,13 @@ from .sharding import (
 
 def ring_wire_bytes(op: str, operand_bytes: float, n: int) -> float:
     """Bytes one rank sends in a ring collective over ``n`` ranks: an
-    all-reduce of an S-byte operand 2 S (n - 1) / n, an all-gather of
-    S-byte blocks (n - 1) S."""
+    all-reduce of an S-byte operand 2 S (n - 1) / n, a reduce-scatter of an
+    S-byte operand S (n - 1) / n, an all-gather of S-byte blocks (n - 1)
+    S."""
     if op == "all-gather":
         return float((n - 1) * operand_bytes)
+    if op == "reduce-scatter":
+        return operand_bytes * (n - 1) / n
     return 2.0 * operand_bytes * (n - 1) / n
 
 
@@ -232,6 +289,54 @@ def mesh_all_gather(x: torch.Tensor, mesh, axis: str, dim: int, *,
     if log is not None:
         log.seconds += time.perf_counter() - t0
     return out
+
+
+def mesh_reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int, *,
+                        log: Optional[CollectiveLog] = None,
+                        site: str = "reduce-scatter") -> torch.Tensor:
+    """The sum of ``x`` over the ranks along ``axis``, cut on ``dim`` into
+    one block a rank in rank order: this rank's block (``x.shape[dim] / n``
+    wide), on ``x``'s device in ``x``'s dtype (:func:`mesh_all_gather`'s
+    adjoint)."""
+    import torch.distributed as dist
+
+    n = mesh_axis_size(mesh, axis)
+    if n == 1:
+        return x
+    _note("reduce-scatter", x.numel() * x.element_size(), n, site, log)
+    t0 = time.perf_counter()
+    host = x.detach().movedim(dim, 0).to("cpu").contiguous()
+    out = torch.empty((host.shape[0] // n,) + tuple(host.shape[1:]),
+                      dtype=host.dtype)
+    dist.reduce_scatter_tensor(out, host, group=mesh.group(axis))
+    out = out.movedim(0, dim).to(x.device)
+    if log is not None:
+        log.seconds += time.perf_counter() - t0
+    return out
+
+
+class _Adjoint(torch.autograd.Function):
+    """``fwd(x)`` in the forward pass and ``bwd(g)`` on its gradient in the
+    backward: a collective and its adjoint, each a function of one tensor
+    (a collective, a slice or the identity)."""
+
+    @staticmethod
+    def forward(ctx, x, fwd, bwd):
+        ctx.bwd = bwd
+        out = fwd(x)
+        return x.view_as(x) if out is x else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.bwd(g), None, None
+
+
+def with_adjoint(x: torch.Tensor, fwd, bwd) -> torch.Tensor:
+    """``fwd(x)``, with ``bwd`` as its backward where ``x`` takes a gradient
+    (else the plain call: serving builds no graph)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Adjoint.apply(x, fwd, bwd)
+    return fwd(x)
 
 
 # ---------------------------------------------------------------------------
@@ -421,11 +526,12 @@ _ENCODER_LAYER = LayerSpec(mixer="attn", mlp="mlp")
 
 class ActivationPolicy:
     """The ``policy=`` of the model's prefill, ``prefill_kv``,
-    ``prefix_prefill``, ``decode_step`` (dense and paged), ``verify_step``
-    and audio encoder, and so of every ``serving.engine`` program and of
-    ``ContinuousBatcher``, on one rank of a mesh; the module docstring
-    says what each hook does.  ``log`` counts this rank's collectives
-    (:class:`CollectiveLog`)."""
+    ``prefix_prefill``, ``decode_step`` (dense and paged), ``verify_step``,
+    audio encoder and training ``forward`` and ``lm_loss``, and so of every
+    ``serving.engine`` program, of ``ContinuousBatcher`` and of
+    ``training.make_train_step``, on one rank of a mesh; the module
+    docstring says what each hook does.  ``log`` counts this rank's
+    collectives (:class:`CollectiveLog`)."""
 
     def __init__(self, cfg, mesh, *, batch: int, fsdp: bool = True,
                  moe_ep: bool = True):
@@ -476,6 +582,8 @@ class ActivationPolicy:
         # (and the audio encoder's), and whether any of its leaves is
         # gathered at all
         specs = param_specs(cfg, mesh, fsdp=fsdp, moe_ep=moe_ep)
+        self._specs = specs
+        self._perms = _swiglu_perms(cfg, mesh, moe_ep)
         self._structure = period_structure(cfg)
         self._layer_specs = [spec_map(lambda s: P(*s[1:]), blk)
                              for blk in specs["blocks"]]
@@ -496,23 +604,50 @@ class ActivationPolicy:
         return (x.numel() * (itemsize or x.element_size())
                 / self.batch_split / split)
 
+    def _sum(self, x, axis: str, site: str, nbytes=None):
+        """The sum of ``x`` over ``axis`` in f32, cast back to ``x``'s dtype;
+        on a mesh description recorded at ``nbytes`` a device (default: a
+        batch-sharded activation's rows, :meth:`_local_bytes`) and
+        returned."""
+        n = mesh_axis_size(self.mesh, axis)
+        if n == 1:
+            return x
+        if not self.live:
+            _note("all-reduce", (self._local_bytes(x, itemsize=4)
+                                 if nbytes is None else nbytes), n, site,
+                  self.log)
+            return x
+        xf = x if x.dtype == torch.float32 else x.float()
+        return mesh_all_reduce(xf, self.mesh, axis, log=self.log,
+                               site=site).to(x.dtype)
+
     def model_sum(self, x, site: str):
         """The sum over "model" of a batch-sharded activation, in f32, cast
         back to ``x``'s dtype (on a mesh description, recorded and
-        returned)."""
-        if not self.live:
-            _note("all-reduce", self._local_bytes(x, itemsize=4), self.model,
-                  site, self.log)
-            return x
-        xf = x if x.dtype == torch.float32 else x.float()
-        return mesh_all_reduce(xf, self.mesh, "model", log=self.log,
-                               site=site).to(x.dtype)
+        returned).  Its backward is the identity where the sum's consumer
+        is replicated over "model" (every site but one); the SSM norm's
+        ``"ssm-norm"`` feeds each rank's own heads, whose gradients are
+        summed over "model" again (site ``"bwd:ssm-norm"``)."""
+        bwd = ((lambda g: self._sum(g, "model", "bwd:" + site))
+               if site in _SPLIT_CONSUMERS else (lambda g: g))
+        return with_adjoint(x, lambda t: self._sum(t, "model", site), bwd)
 
-    # -- hooks ---------------------------------------------------------------
+    def _enter(self, x, site: str):
+        """Where a replicated tensor enters compute split over "model": the
+        identity forward; backward, each rank's part of the gradient summed
+        over "model" (site ``"bwd:<site>"``)."""
+        return with_adjoint(x, lambda t: t,
+                            lambda g: self._sum(g, "model", "bwd:" + site))
+
     # -- hooks ---------------------------------------------------------------
     def __call__(self, x, name: str):
         if self._sums.get(name):
             return self.model_sum(x, name)
+        if name in _ENTRIES:
+            split = (self.vocab_parallel if name == "logits_in"
+                     else self.heads_split if name == "enc_in"
+                     else self._sums.get(_ENTRIES[name], False))
+            return self._enter(x, name) if split else x
         if name == "logits" and self.vocab_parallel:
             if not self.live:
                 _note("all-gather", self._local_bytes(x, self.model),
@@ -556,13 +691,30 @@ class ActivationPolicy:
         specs = self._enc_specs if encoder else self._layer_specs[p]
         if self._enc_gathers if encoder else self._gathers[p]:
             lp = {key: {name: spec_map(
-                        lambda s, t, keep=self._keeps_model(key, name):
-                        self._gather_leaf(t, s, keep), specs[key][name], sub)
+                        lambda s, t, keep=self._keeps_model(key, name),
+                        part=self._model_partial(key, name):
+                        self._gather_leaf(t, s, keep, part),
+                        specs[key][name], sub)
                         for name, sub in part.items()}
                   for key, part in lp.items()}
         if self._ssm_block is not None and "ssm" in lp:
             lp = dict(lp, ssm=self._ssm_local(lp["ssm"]))
         return lp
+
+    def _model_partial(self, key: str, name: str) -> bool:
+        """Whether leaf ``name`` of the layer's ``key`` is whole on every
+        "model" rank yet read only by the rank's split compute, so that each
+        rank's gradient of it is a part: the attention's ``q_norm`` and
+        ``k_norm`` on split heads, and on split SSM heads B and C gathered
+        whole (``wb``, ``wc``) and the replicated leaves
+        :meth:`_ssm_local` cuts."""
+        if key in ("attn", "cross"):
+            return self.heads_split and name in ("q_norm", "k_norm")
+        if key == "ssm":
+            return self.ssm_split and (
+                name in ("A_log", "D", "dt_bias", "conv_w", "norm")
+                or (not self.ssm_groups_split and name in ("wb", "wc")))
+        return False
 
     def _keeps_model(self, key: str, name: str) -> bool:
         """Whether leaf ``name`` of the layer's ``key`` is used split over
@@ -594,22 +746,53 @@ class ActivationPolicy:
                          sub)
         return bool(found)
 
-    def _gather_leaf(self, t, spec: P, keep_model: bool):
+    def _gather_leaf(self, t, spec: P, keep_model: bool,
+                     model_partial: bool = False):
+        """One leaf of a layer, all-gathered over "data" (FSDP) and then over
+        "model" where the layer cannot use it split.  Each gather's
+        backward is its adjoint: a reduce-scatter (sum, then the rank's
+        block) where each rank's gradient is a part of the whole (over
+        "data" when the batch is split there, each data group's rows; over
+        "model" for a ``model_partial`` leaf), else the rank's own block of
+        a gradient every rank holds whole."""
         todo = self._todo(spec, keep_model)
         if not todo:
             return t
         split = math.prod(mesh_axis_size(self.mesh, a)
                           for entry in spec for a in _axes(entry))
         for dim, a in sorted(todo, key=lambda da: da[1] != "data"):
-            n = mesh_axis_size(self.mesh, a)
-            if self.live:
-                t = mesh_all_gather(t, self.mesh, a, dim, log=self.log,
-                                    site=f"gather-{a}")
-            else:
-                _note("all-gather", t.numel() * t.element_size() / split, n,
-                      f"gather-{a}", self.log)
-            split //= n
+            summed = (a in _axes(self.batch_axes) if a == "data"
+                      else model_partial)
+            t = with_adjoint(
+                t, functools.partial(self._gather, axis=a, dim=dim,
+                                     split=split),
+                functools.partial(self._gather_adjoint, axis=a, dim=dim,
+                                  split=split, summed=summed))
+            split //= mesh_axis_size(self.mesh, a)
         return t
+
+    def _gather(self, t, *, axis: str, dim: int, split: int):
+        if self.live:
+            return mesh_all_gather(t, self.mesh, axis, dim, log=self.log,
+                                   site=f"gather-{axis}")
+        _note("all-gather", t.numel() * t.element_size() / split,
+              mesh_axis_size(self.mesh, axis), f"gather-{axis}", self.log)
+        return t
+
+    def _gather_adjoint(self, g, *, axis: str, dim: int, split: int,
+                        summed: bool):
+        n = mesh_axis_size(self.mesh, axis)
+        if not self.live:
+            if summed:
+                _note("reduce-scatter", g.numel() * 4 * n / split, n,
+                      f"bwd:gather-{axis}", self.log)
+            return g
+        if summed:
+            return mesh_reduce_scatter(
+                g.float(), self.mesh, axis, dim, log=self.log,
+                site=f"bwd:gather-{axis}").to(g.dtype)
+        b = g.shape[dim] // n
+        return g.narrow(dim, self.mesh.coord(axis) * b, b)
 
     # -- the SSM's heads -----------------------------------------------------
     def ssm_block(self, rank: Optional[int] = None) -> Optional[SSMBlock]:
@@ -657,17 +840,246 @@ class ActivationPolicy:
         if not self.vocab_parallel:
             return table[ids.long()]
         if not self.live:
-            out = table[ids.long()]
-            _note("all-reduce", self._local_bytes(out, itemsize=4),
-                  self.model, "embed", self.log)
-            return out
+            return self.model_sum(table[ids.long()], "embed")
         vloc = table.shape[0]
-        local = ids.long() - self.mesh.coord("model") * vloc
+        local = ids.long() - self.vocab_offset(vloc)
         ok = (local >= 0) & (local < vloc)
         out = table[local.clamp(0, vloc - 1)]
         out = torch.where(ok[..., None], out.float(), 0.0)
-        return mesh_all_reduce(out, self.mesh, "model", log=self.log,
-                               site="embed").to(table.dtype)
+        return self.model_sum(out, "embed").to(table.dtype)
+
+    # -- training: the vocab-parallel loss, global counts, gradient sums -----
+    def vocab_offset(self, vloc: int) -> int:
+        """The first vocab row of this rank's ``vloc`` rows of a
+        vocab-parallel table (0 on a mesh description, whose table is
+        whole)."""
+        return self.mesh.coord("model") * vloc if self.live else 0
+
+    def model_max(self, x, site: str):
+        """The MAX over "model" of ``x`` (no gradient: the loss's row
+        maxima, which cancel in its value)."""
+        if self.model == 1:
+            return x
+        if not self.live:
+            _note("all-reduce", self._local_bytes(x, itemsize=4), self.model,
+                  site, self.log)
+            return x
+        return mesh_all_reduce(x.detach(), self.mesh, "model", op="max",
+                               log=self.log, site=site)
+
+    def batch_sum(self, x, site: str, nbytes=None):
+        """The sum of ``x`` over the data axes that split the batch (each
+        data group's part of a global sum), in f32; its backward is the
+        identity, since the step sums every rank's gradients over the same
+        axes afterwards (:meth:`reduce_grads`)."""
+        def fwd(t):
+            for a in _axes(self.batch_axes):
+                t = self._sum(t, a, site, t.numel() * 4 if nbytes is None
+                              else nbytes)
+            return t
+
+        return with_adjoint(x, fwd, lambda g: g)
+
+    def global_count(self, count):
+        """A count of this rank's rows (the valid labels) summed over the
+        data axes that split the batch (site ``"tokens"``)."""
+        for a in _axes(self.batch_axes):
+            n = mesh_axis_size(self.mesh, a)
+            if n == 1:
+                continue
+            if not self.live:
+                _note("all-reduce", 4, n, "tokens", self.log)
+            else:
+                count = mesh_all_reduce(count, self.mesh, a, log=self.log,
+                                        site="tokens")
+        return count
+
+    def reduce_metrics(self, metrics):
+        """The step's metrics with ``loss`` (each rank's rows' share of the
+        global mean) summed over the data axes that split the batch (site
+        ``"loss"``); ``tokens`` and ``aux`` are global already."""
+        return dict(metrics, loss=self.batch_sum(metrics["loss"].float(),
+                                                 "loss"))
+
+    def leaf_plans(self):
+        """A tree beside the parameters (dict keys as ``param_specs``') of
+        :class:`_LeafPlan`: each leaf's split axes and the axes its
+        gradient is summed over after the backward."""
+        def walk(spec, path):
+            if isinstance(spec, P):
+                return self._leaf_plan(spec, path)
+            if isinstance(spec, dict):
+                return {k: walk(v, path + (k,)) for k, v in spec.items()}
+            return [walk(v, path) for v in spec]
+
+        return walk(self._specs, ())
+
+    def _leaf_plan(self, spec: P, path) -> "_LeafPlan":
+        split = tuple(a for entry in spec for a in _axes(entry)
+                      if mesh_axis_size(self.mesh, a) > 1)
+        # a layer's leaf: (key, name) after "blocks" or the encoder's
+        rest = (path[1:] if path[:1] == ("blocks",) else
+                path[2:] if path[:2] == ("encoder", "blocks") else ())
+        layer = len(rest) >= 2
+        key, name = rest[:2] if layer else (None, None)
+        fsdp = layer and "data" in split
+        sums = tuple(a for a in _axes(self.batch_axes)
+                     if mesh_axis_size(self.mesh, a) > 1
+                     and not (a == "data" and fsdp))
+        if layer and "model" not in split and self._model_partial(key, name):
+            sums += ("model",)
+        perm = None
+        if layer and rest[-1] == "wi":
+            perm = self._perms.get({"mlp": "mlp", "moe": "experts"}[key]
+                                   if name == "wi" else "shared")
+        return _LeafPlan(split=split, sums=sums, spec=spec, perm=perm)
+
+    def reduce_grads(self, grads):
+        """Every rank's gradients after the backward made the whole
+        tree's gradients of the rank's blocks: each leaf that no FSDP
+        reduce-scatter summed is summed over the data axes that split the
+        batch, and each :meth:`_model_partial` leaf whole on every "model"
+        rank over "model" too; the leaves of one set of axes travel packed
+        in f32, one all-reduce an axis (site ``"grad-sum"``)."""
+        flat, plans = leaves(grads), leaves(self.leaf_plans())
+        out = list(flat)
+        groups: Dict[Tuple[str, ...], list] = {}
+        for i, plan in enumerate(plans):
+            if plan.sums:
+                groups.setdefault(plan.sums, []).append(i)
+        for axes in sorted(groups):
+            idx = groups[axes]
+            packed = torch.cat([flat[i].float().reshape(-1) for i in idx])
+            nbytes = sum(flat[i].numel() * 4 / self._split_of(plans[i])
+                         for i in idx)
+            for a in axes:
+                packed = self._sum(packed, a, "grad-sum", nbytes)
+            at = 0
+            for i in idx:
+                n = flat[i].numel()
+                out[i] = packed[at:at + n].view(flat[i].shape).to(
+                    flat[i].dtype)
+                at += n
+        return unflatten_like(grads, out)
+
+    def _split_of(self, plan) -> int:
+        """Devices a leaf's blocks differ over on a mesh description (1 on
+        a process mesh, whose leaves are the rank's blocks)."""
+        if self.live:
+            return 1
+        return math.prod(mesh_axis_size(self.mesh, a) for a in plan.split)
+
+    # -- 8-bit moments in the whole leaf's blocks ---------------------------
+    def _whole_index(self, plan, shape, device) -> Tuple[torch.Tensor, int]:
+        """(the row-major index in the whole leaf, as ``param_shardings``
+        received it, of each element of this rank's block of ``shape``,
+        flat; the whole leaf's size).  A permuted ``wi``'s columns map back
+        through the permutation.  On a mesh description ``shape`` is the
+        whole leaf's."""
+        dims = len(shape)
+        whole, pos = [], []
+        for d in range(dims):
+            i, n = 0, 1
+            if self.live and d < len(plan.spec):
+                for a in _axes(plan.spec[d]):
+                    size = mesh_axis_size(self.mesh, a)
+                    i, n = i * size + self.mesh.coord(a), n * size
+            whole.append(shape[d] * n)
+            ar = torch.arange(shape[d], device=device) + i * shape[d]
+            if plan.perm is not None and d == dims - 1 and self.live:
+                ar = torch.from_numpy(plan.perm).to(device)[ar]
+            pos.append(ar)
+        flat = torch.zeros((), dtype=torch.int64, device=device)
+        stride = 1
+        for d in reversed(range(dims)):
+            flat = flat + (pos[d] * stride).view(
+                [-1 if k == d else 1 for k in range(dims)])
+            stride *= whole[d]
+        return flat.reshape(-1), stride
+
+    def quantize_moments(self, xs, plans, block: int):
+        """Each f32 block of ``xs`` (this rank's block of a leaf, the leaf's
+        plan beside it) as int8 in the **whole leaf's** blocks of ``block``
+        consecutive elements, as the single process quantizes the whole
+        leaf: ``(q, scale)`` with ``q`` the block's int8 values (flat,
+        row-major) and ``scale`` (n_blocks, 1) the whole leaf's block scales,
+        each the largest |x| over the ranks that hold a part of its block
+        (one MAX all-reduce an axis over the leaves split alike, site
+        ``"moments-max"``) over 127."""
+        ids, maxes = [], []
+        for x, plan in zip(xs, plans):
+            flat, n = self._whole_index(plan, x.shape, x.device)
+            bid = flat // block
+            ids.append(bid)
+            maxes.append(torch.zeros((-(-n // block),), dtype=torch.float32,
+                                     device=x.device).scatter_reduce(
+                0, bid, x.reshape(-1).abs(), "amax"))
+        groups: Dict[Tuple[str, ...], list] = {}
+        for i, plan in enumerate(plans):
+            groups.setdefault(plan.split, []).append(i)
+        for axes in sorted(groups):
+            idx = groups[axes]
+            if not axes:
+                continue
+            packed = torch.cat([maxes[i] for i in idx])
+            for a in axes:
+                if self.live:
+                    packed = mesh_all_reduce(packed, self.mesh, a, op="max",
+                                             log=self.log, site="moments-max")
+                else:
+                    _note("all-reduce", packed.numel() * 4,
+                          mesh_axis_size(self.mesh, a), "moments-max",
+                          self.log)
+            at = 0
+            for i in idx:
+                maxes[i], at = packed[at:at + maxes[i].numel()], at + maxes[
+                    i].numel()
+        out = []
+        for x, bid, mx in zip(xs, ids, maxes):
+            scale = torch.clamp(mx / 127.0, min=1e-12)[:, None]
+            q = torch.clamp(torch.round(x.reshape(-1) / scale[bid, 0]),
+                            -127, 127).to(torch.int8)
+            out.append((q, scale))
+        return out
+
+    def note_moment_maxes(self, params, block: int) -> None:
+        """On a mesh description, whose moments are the whole leaves'
+        (the reference's layout): record the MAX all-reduces
+        :meth:`quantize_moments` issues on a process mesh for the moments
+        of ``params``."""
+        groups: Dict[Tuple[str, ...], float] = {}
+        for p, plan in zip(leaves(params), leaves(self.leaf_plans())):
+            groups[plan.split] = (groups.get(plan.split, 0.0)
+                                  + 2 * 4 * -(-p.numel() // block))
+        for axes in sorted(groups):
+            for a in axes:
+                _note("all-reduce", groups[axes], mesh_axis_size(self.mesh, a),
+                      "moments-max", self.log)
+
+    def dequantize_moment(self, q, scale, plan, shape, block: int):
+        """f32 values of this rank's block of ``shape`` from
+        :meth:`quantize_moments`' ``(q, scale)``."""
+        flat, _ = self._whole_index(plan, shape, q.device)
+        return (q.float() * scale[flat // block, 0]).reshape(shape)
+
+    def global_norm(self, tree):
+        """sqrt of the sum of squares of every element of the whole tree
+        from the rank's blocks: each leaf's squares summed in f32 with the
+        other leaves split over the same axes, each such sum then over
+        those axes (leaves replicated over an axis are not summed over it),
+        one packed all-reduce an axis (site ``"grad-norm"``)."""
+        groups: Dict[Tuple[str, ...], Any] = {}
+        for x, plan in zip(leaves(tree), leaves(self.leaf_plans())):
+            xf = x.float()
+            groups[plan.split] = groups.get(plan.split, 0) + torch.sum(xf * xf)
+        keys = sorted(groups)
+        sums = torch.stack([torch.as_tensor(groups[k]) for k in keys])
+        for a in sorted({a for k in keys for a in k}):
+            idx = [i for i, k in enumerate(keys) if a in k]
+            part = self._sum(sums[idx], a, "grad-norm", 4 * len(idx))
+            sums = sums.index_put((torch.tensor(idx, device=sums.device),),
+                                  part)
+        return torch.sqrt(sums.sum())
 
     # -- the length-sharded decode cache -------------------------------------
     def _cache_block(self, C: int) -> int:
@@ -958,6 +1370,29 @@ class ActivationPolicy:
                                      self.mesh), ssm=ssm, cross=cross)
 
 
+class _LeafPlan:
+    """A parameter leaf's place under the policy: ``split``, the mesh axes
+    its blocks differ over; ``sums``, the axes its gradient is summed over
+    after the backward (:meth:`ActivationPolicy.reduce_grads`); ``spec``,
+    its ``param_specs`` entry; ``perm``, the column permutation
+    ``param_shardings`` put a swiglu ``wi`` in (or None)."""
+
+    __slots__ = ("split", "sums", "spec", "perm")
+
+    def __init__(self, split, sums, spec, perm):
+        self.split, self.sums, self.spec, self.perm = split, sums, spec, perm
+
+
+#: the sums over "model" whose consumer is split over it: their backward
+#: sums again (:meth:`ActivationPolicy.model_sum`)
+_SPLIT_CONSUMERS = ("ssm-norm",)
+#: the entry hooks (identity forward, a sum over "model" backward) and the
+#: output each stands before: the split compute between them
+_ENTRIES = {"attn_in": "attn_out", "mlp_in": "mlp_out",
+            "moe_weights": "mlp_out", "cross_in": "cross_out",
+            "enc_in": "cross_out", "logits_in": None}
+
+
 def make_policy(cfg, mesh, *, batch: int, fsdp: bool = True,
                 moe_ep: bool = True) -> ActivationPolicy:
     """The activation policy of ``cfg`` on ``mesh`` for a global batch of
@@ -972,12 +1407,20 @@ def make_policy(cfg, mesh, *, batch: int, fsdp: bool = True,
     return ActivationPolicy(cfg, mesh, batch=batch, fsdp=fsdp, moe_ep=moe_ep)
 
 
-def shard_batch(x: torch.Tensor, mesh, batch_axes, *, dim: int = 0):
+def shard_batch(x: torch.Tensor, mesh, batch_axes, *, dim: int = 0,
+                micro: int = 1):
     """This rank's rows of a global batch tensor under ``batch_axes``
-    (``batch_shard``'s axes, or None: every rank holds every row)."""
+    (``batch_shard``'s axes, or None: every rank holds every row).  With
+    ``micro`` the batch is ``micro`` microbatches of consecutive rows (the
+    train step's ``grad_accum`` split) and the rank holds its rows of each,
+    in order, so that its own split into ``micro`` gives its rows of the
+    reference's microbatches."""
     spec = [None] * x.dim()
     spec[dim] = batch_axes
-    return block_of(x, P(*spec), mesh)
+    if micro == 1:
+        return block_of(x, P(*spec), mesh)
+    return torch.cat([block_of(part, P(*spec), mesh)
+                      for part in torch.chunk(x, micro, dim=dim)], dim=dim)
 
 
 def gather_batch(x: torch.Tensor, mesh, batch_axes, *, dim: int = 0):

@@ -10,7 +10,8 @@ and the card's cells read:
                      the cell's ``fsdp`` and ``moe_ep``), so on a mesh
                      description its trace records each collective a
                      device would issue, and on a process mesh it runs
-                     one rank's share; train cells run without a policy
+                     one rank's share; so is every train step, whose
+                     record holds the backward's collectives too
     abstract_args    the arguments as ``meta`` tensors (shapes and dtypes,
                      no memory), the reference's ``ShapeDtypeStruct``s
     in_specs         the arguments' layout over ``mesh`` (``P`` trees)
@@ -224,11 +225,12 @@ def build_cell(
     p_specs = param_specs(cfg, mesh, fsdp=fsdp, moe_ep=moe_ep)
     params_abs = abstract_params(cfg)
     n_active = cfg.param_count(active_only=True)
+    policy = make_policy(cfg, mesh, batch=B, fsdp=fsdp, moe_ep=moe_ep)
 
     if shape.kind == "train":
         tcfg = tcfg or trainer_defaults(cfg, shape, attn_impl=attn_impl,
                                         remat=remat)
-        program = make_train_step(cfg, tcfg, mesh=mesh)
+        program = make_train_step(cfg, tcfg, policy=policy, mesh=mesh)
         opt_abs = adamw_init(params_abs, quantize=tcfg.quantize_opt)
         o_specs = opt_state_specs(p_specs, quantize=tcfg.quantize_opt,
                                   params=params_abs, mesh=mesh)
@@ -242,12 +244,11 @@ def build_cell(
             out_specs=(p_specs, o_specs, None),
             donate_argnums=(0, 1),
             model_flops=6.0 * n_active * shape.tokens,
-            cfg=cfg, reduced=reduced, tcfg=tcfg,
+            cfg=cfg, reduced=reduced, tcfg=tcfg, policy=policy,
         )
 
     scfg = ServeConfig(max_len=S, attn_impl=attn_impl)
     c_specs = cache_specs(cfg, mesh, batch=B)
-    policy = make_policy(cfg, mesh, batch=B, fsdp=fsdp, moe_ep=moe_ep)
 
     if shape.kind == "prefill":
         program = make_prefill_step(cfg, scfg, policy=policy)

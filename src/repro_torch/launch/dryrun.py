@@ -16,10 +16,13 @@ it out over each mesh description (``launch.mesh``):
 * ``per_device_estimate`` — the arguments per device plus the global
   program's peak temporaries split evenly, labelled as such;
 * ``collectives`` — what one device's share of the program would send:
-  every serving cell is built under ``distributed.spmd.make_policy``, and
-  on a mesh description each of its hooks records its collective's ring
-  wire bytes a device (by op and by site); null, with
-  ``collectives_reason``, for train cells.
+  every cell is built under ``distributed.spmd.make_policy``, and on a
+  mesh description each of its hooks records its collective's ring wire
+  bytes a device (by op and by site); a train cell's record holds its
+  backward's collectives (sites ``"bwd:..."``, each adjoint recording what
+  it would issue) and the step's gradient sums, norm and counts;
+  ``collectives_reason`` says why a cell records none (only a cell on one
+  device).
 
 Each record goes to ``<out>/<arch>__<shape>__<mesh>.json`` (default
 ``build/dryrun_torch/``, git-ignored).  Usage:
@@ -46,11 +49,12 @@ from ..tree import leaves
 from .cells import argument_bytes_per_device, build_cell
 from .mesh import make_production_mesh
 
-def collectives_reason(cell) -> str:
-    """Why a cell records no collectives: a train cell's step runs under
-    no policy."""
-    return ("the train step runs under no policy over data and model "
-            "axes: training there is ROADMAP.md Queue 1's next item")
+
+def collectives_reason(cell):
+    """Why a cell records no collectives, or None: only a cell whose mesh
+    is one device has nothing to send."""
+    return ("one device: nothing to communicate" if cell.mesh.size == 1
+            else None)
 
 
 #: the kernels' route of each kind of cell: training differentiates the
@@ -100,10 +104,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
         attn_impl = cell_route(attn_impl, shape_name)
         cell = build_cell(arch, shape_name, mesh, attn_impl=attn_impl,
                           remat=remat, fsdp=fsdp, moe_ep=moe_ep)
-        key = (arch, shape_name, attn_impl, remat)
-        if cell.policy is not None:
-            # the recorded collectives are the mesh's own: trace it again
-            key += (mesh_tag,)
+        # the recorded collectives are the mesh's own: trace it again
+        key = (arch, shape_name, attn_impl, remat, mesh_tag)
         if traced is not None and key in traced:
             # the program is the mesh's own; its arguments and their count
             # are the first mesh's
@@ -115,22 +117,20 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
                 traced[key] = (cell.abstract_args, st)
         trace_s = st.trace_s
         chips = mesh.size
-        coll = None
-        if cell.policy is not None:
-            coll = {
-                "per_device_wire_bytes": st.collective_bytes,
-                "by_op_bytes": st.collective_by_op,
-                "by_op_count": st.collective_count,
-                "by_site_bytes": dict(cell.policy.log.wire),
-                "by_site_count": dict(cell.policy.log.count),
-                "basis": "ring wire bytes one device sends (all-reduce 2 S "
-                         "(n - 1) / n, all-gather (n - 1) S of an S-byte "
-                         "block), recorded by the policy's hooks on the "
-                         "mesh description",
-            }
+        coll = {
+            "per_device_wire_bytes": st.collective_bytes,
+            "by_op_bytes": st.collective_by_op,
+            "by_op_count": st.collective_count,
+            "by_site_bytes": dict(cell.policy.log.wire),
+            "by_site_count": dict(cell.policy.log.count),
+            "basis": "ring wire bytes one device sends (all-reduce 2 S "
+                     "(n - 1) / n, reduce-scatter S (n - 1) / n of an "
+                     "S-byte operand, all-gather (n - 1) S of an S-byte "
+                     "block), recorded by the policy's hooks on the mesh "
+                     "description",
+        }
         roof = Roofline(chips=chips, hlo_flops=st.flops, hlo_bytes=st.bytes,
-                        collective_bytes=(None if coll is None
-                                          else st.collective_bytes * chips),
+                        collective_bytes=st.collective_bytes * chips,
                         model_flops=cell.model_flops)
         args_dev = argument_bytes_per_device(cell, st)
         args_global = sum(t.numel() * t.element_size()
@@ -158,8 +158,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
             },
             "kernels": st.kernels,
             "collectives": coll,
-            "collectives_reason": (None if coll is not None
-                                   else collectives_reason(cell)),
+            "collectives_reason": collectives_reason(cell),
             "roofline": roof.as_dict(),
             "t_bound": roof.t_bound,
         })

@@ -107,16 +107,42 @@ def router_probs(params, x, cfg):
     return top_p, top_i, probs
 
 
-def load_balance_loss(probs, top_i, n_experts: int) -> torch.Tensor:
+def load_balance_loss(probs, top_i, n_experts: int, *,
+                      batch_sum=None) -> torch.Tensor:
     """Switch-style aux loss: E * sum_e f_e * P_e (1.0 = perfectly
-    balanced)."""
+    balanced).  ``batch_sum`` (an SPMD policy's ``batch_sum`` where the
+    batch is split over data groups) turns this rank's expert counts,
+    probability sums and row count into the whole batch's, as the
+    reference's one program reads them."""
     counts = torch.zeros((n_experts,), dtype=torch.float32,
                          device=probs.device)
     counts.index_add_(0, top_i.reshape(-1),
                       torch.ones((top_i.numel(),), dtype=torch.float32,
                                  device=probs.device))
+    if batch_sum is None:
+        mean = probs.mean(dim=0)
+    else:
+        rows = probs.new_full((1,), float(probs.shape[0]))
+        both = batch_sum(torch.cat([counts, probs.sum(dim=0), rows]))
+        counts = both[:n_experts]
+        mean = both[n_experts:2 * n_experts] / both[-1]
     f = counts / counts.sum().clamp(min=1.0)
-    return n_experts * torch.sum(f * probs.mean(dim=0))
+    return n_experts * torch.sum(f * mean)
+
+
+def _enter(policy, x, name: str):
+    """The SPMD policy's entry hook ``name`` (the identity without one)."""
+    return policy(x, name) if policy is not None else x
+
+
+def _aux_sum(policy, probs):
+    """The policy's sum over the data groups of the aux loss's statistics,
+    where the batch is split over them and the aux takes a gradient (it is
+    discarded when serving)."""
+    if (policy is None or not getattr(policy, "batch_axes", None)
+            or not probs.requires_grad):
+        return None
+    return lambda x: policy.batch_sum(x, "aux")
 
 
 def _expert_ffn(h, wi, wo):
@@ -194,13 +220,17 @@ def _combine(y, slot, w_sorted, keep, inv, T: int, k: int, first: int = 0):
 
 
 def moe_grouped(params, x, cfg, *, capacity: Optional[int] = None,
-                experts: Optional[Tuple[int, int]] = None):
+                experts: Optional[Tuple[int, int]] = None, policy=None):
     """x: (B, S, d) -> (out (B, S, d), aux loss).  Capacity per expert and
     batch row, ``max(1, int(S * k / E * capacity_factor))`` capped at
     ``S * k``, computed on the host as the reference does.  ``experts=(lo,
     hi)``: ``params`` hold experts lo .. hi - 1 only (an expert-parallel
     rank); the tokens are routed into all E buckets, only these are
-    computed and combined, and ``out`` is this rank's partial sum."""
+    computed and combined, and ``out`` is this rank's partial sum.  Under
+    an SPMD ``policy`` the router reads ``x`` whole, while the dispatched
+    tokens and the combine weights enter the split experts through the
+    entry hooks ``"mlp_in"`` and ``"moe_weights"``, and the aux loss is the
+    whole batch's."""
     m = cfg.moe
     B, S, d = x.shape
     if capacity is None:
@@ -208,8 +238,10 @@ def moe_grouped(params, x, cfg, *, capacity: Optional[int] = None,
         capacity = min(capacity, S * m.top_k)
     with _profiled("moe.dispatch"):
         top_p, top_i, probs = router_probs(params, x.reshape(B * S, d), cfg)
+        xs = _enter(policy, x, "mlp_in")
+        top_p = _enter(policy, top_p, "moe_weights")
         buf, slot, w_sorted, keep, inv = _route(
-            x, top_p.reshape(B, S, m.top_k), top_i.reshape(B, S, m.top_k),
+            xs, top_p.reshape(B, S, m.top_k), top_i.reshape(B, S, m.top_k),
             m.n_experts, capacity)
     first = 0
     if experts is not None:
@@ -219,8 +251,9 @@ def moe_grouped(params, x, cfg, *, capacity: Optional[int] = None,
     with _profiled("moe.dispatch"):
         out = _combine(y, slot, w_sorted, keep, inv, S, m.top_k, first)
     if "shared" in params:
-        out = out + mlp(params["shared"], x)
-    return out, load_balance_loss(probs, top_i, m.n_experts)
+        out = out + mlp(params["shared"], xs)
+    return out, load_balance_loss(probs, top_i, m.n_experts,
+                                  batch_sum=_aux_sum(policy, probs))
 
 
 # ---------------------------------------------------------------------------
@@ -229,7 +262,7 @@ def moe_grouped(params, x, cfg, *, capacity: Optional[int] = None,
 
 
 def moe_dense_decode(params, x, cfg, *,
-                     experts: Optional[Tuple[int, int]] = None):
+                     experts: Optional[Tuple[int, int]] = None, policy=None):
     """x: (B, S_small, d): every expert for every token, weighted by the
     router's top-k probabilities.  Returns (out, 0.0): no aux loss.
     ``experts=(lo, hi)`` weighs only those experts' columns (the params'
@@ -239,16 +272,18 @@ def moe_dense_decode(params, x, cfg, *,
     x2 = x.reshape(B * S, d)
     with _profiled("moe.dispatch"):
         top_p, top_i, _ = router_probs(params, x2, cfg)
+        top_p = _enter(policy, top_p, "moe_weights")
         w = torch.zeros((B * S, m.n_experts), dtype=torch.float32,
                         device=x.device).scatter_(1, top_i, top_p)
         if experts is not None:
             w = w[:, experts[0]:experts[1]]
+    x2 = _enter(policy, x2, "mlp_in")
     y = _expert_ffn(x2[None], params["wi"], params["wo"])      # (E, T, d)
     # out[t] = sum_e w[t, e] y[e, t]: a (1, E) @ (E, d) product per token
     out = torch.matmul(w.to(y.dtype)[:, None, :], y.transpose(0, 1))
     out = out.reshape(B, S, d)
     if "shared" in params:
-        out = out + mlp(params["shared"], x)
+        out = out + mlp(params["shared"], x2.view(B, S, d))
     return out, 0.0
 
 
@@ -258,8 +293,9 @@ def moe_apply(params, x, cfg, *, decode: bool = False, policy=None):
     names this rank's experts (``expert_block``)."""
     experts = getattr(policy, "expert_block", None)
     if decode or x.shape[1] <= 4:
-        return moe_dense_decode(params, x, cfg, experts=experts)
-    return moe_grouped(params, x, cfg, experts=experts)
+        return moe_dense_decode(params, x, cfg, experts=experts,
+                                policy=policy)
+    return moe_grouped(params, x, cfg, experts=experts, policy=policy)
 
 
 __all__ = ["init_moe", "load_balance_loss", "moe_apply", "moe_dense_decode",

@@ -52,8 +52,12 @@ layer's outputs are partial sums), ``layer_cfg`` (the rank's heads) and
 the length-sharded decode cache (``models.attention.decode_attention``);
 an SSM mixer, a MoE and the encoder take it too, and the decoder's
 cross-attention output is summed at ``"cross_out"`` (a rule name the
-reference's GSPMD program needs none for).  Every entry point runs under
-it: ``prefill``, ``prefill_kv`` and ``decode_step`` on dense caches for
+reference's GSPMD program needs none for).  Training's ``forward`` and
+:func:`lm_loss` run under it too, with the port's entry hooks
+(``"attn_in"``, ``"mlp_in"``, ``"cross_in"``, ``"enc_in"``,
+``"logits_in"``: the identity forward, a sum over "model" of the
+gradient backward, where a replicated tensor enters split compute) and
+the vocab-parallel cross-entropy.  Every entry point runs under it: ``prefill``, ``prefill_kv`` and ``decode_step`` on dense caches for
 every family; ``prefix_prefill``, the paged ``decode_step`` and
 ``verify_step`` on the rank's rows and heads, the pool writes of the paged
 paths all-gathered over the data axes first (``pool_rows``; the layout is
@@ -288,10 +292,11 @@ def _ffn(lp, spec: LayerSpec, x, cfg, *, decode: bool, policy=None):
     h2 = rmsnorm(lp["ln2"], x, eps=cfg.norm_eps)
     aux = 0.0
     if spec.mlp == "moe":
+        # the router reads h2 whole; the MoE enters its split compute itself
         y2, aux = moe_mod.moe_apply(lp["moe"], h2, cfg, decode=decode,
                                     policy=policy)
     else:
-        y2 = mlp(lp["mlp"], h2, kind=cfg.mlp_kind)
+        y2 = mlp(lp["mlp"], _shard(h2, policy, "mlp_in"), kind=cfg.mlp_kind)
     y2 = _shard(y2, policy, "mlp_out")
     if not decode:
         y2 = _shard(y2, policy, "residual")
@@ -306,7 +311,7 @@ def _apply_layer_train(lp, spec: LayerSpec, x, cfg, *, positions, impl,
     layer's (k, v) for an attention layer or its :class:`SSMState` after
     the last token for an SSM layer.  ``enc_kv`` is the layer's
     cross-attention K/V over the encoder (audio decoder layers)."""
-    h = rmsnorm(lp["ln1"], x, eps=cfg.norm_eps)
+    h = _shard(rmsnorm(lp["ln1"], x, eps=cfg.norm_eps), policy, "attn_in")
     if spec.mixer == "attn":
         y, state = attn_mod.self_attention(
             lp["attn"], h, cfg, positions=positions, causal=causal, impl=impl,
@@ -326,7 +331,7 @@ def _apply_layer_train(lp, spec: LayerSpec, x, cfg, *, positions, impl,
 def _cross(lp, x, enc_kv, cfg, impl, policy=None):
     """The decoder layer's cross-attention over the encoder, added to x
     (a rank's partial sum over its heads summed at ``"cross_out"``)."""
-    hx = rmsnorm(lp["ln_x"], x, eps=cfg.norm_eps)
+    hx = _shard(rmsnorm(lp["ln_x"], x, eps=cfg.norm_eps), policy, "cross_in")
     y = attn_mod.cross_attention(lp["cross"], hx, enc_kv, cfg, impl=impl)
     return x + _shard(y, policy, "cross_out")
 
@@ -448,13 +453,15 @@ def forward(params, tokens, cfg, *, positions=None, extra_embeds=None,
                policy, "hidden")
     positions = _positions(x, positions)
     lcfg = _layer_cfg(cfg, policy)
+    if enc_out is not None:
+        enc_out = _shard(enc_out, policy, "enc_in")
 
     def body(x, aux, b):
         for p, spec in enumerate(specs):
             lp = _layer(params, p, b, policy)
             enc_kv = None
             if enc_out is not None:
-                enc_kv = attn_mod.encode_cross_kv(lp["cross"], enc_out, cfg)
+                enc_kv = attn_mod.encode_cross_kv(lp["cross"], enc_out, lcfg)
             x, aux_p, _ = _apply_layer_train(
                 lp, spec, x, lcfg, positions=positions, impl=impl,
                 enc_kv=enc_kv, causal=causal, policy=policy)
@@ -488,9 +495,15 @@ def lm_loss(params, hidden, labels, cfg, *, chunk: int = 1024,
     < 0 ignored, over chunks of ``chunk`` positions so the (B, S, V) logits
     are never made at once in the forward (autograd keeps each chunk's f32
     logits for the backward).  Returns (sum of the losses f32, count of
-    valid labels int32).  ``policy`` is accepted for the reference's
-    signature; the port shards no logits."""
+    valid labels int32).  Under an SPMD ``policy`` whose vocab is split
+    over "model" (``vocab_parallel``) each rank holds its rows of the
+    table and the loss is the vocab-parallel cross-entropy
+    (:func:`_vocab_parallel_loss`); otherwise the logits are whole and the
+    policy changes nothing here."""
     w = unembed_weight(params, cfg)               # (Vp, d)
+    if getattr(policy, "vocab_parallel", False) and hasattr(policy,
+                                                            "model_max"):
+        return _vocab_parallel_loss(w, hidden, labels, chunk, policy)
     S = hidden.shape[1]
     ck = min(chunk, S)
     sums, counts = [], []
@@ -502,6 +515,38 @@ def lm_loss(params, hidden, labels, cfg, *, chunk: int = 1024,
                             lab.clamp(min=0).long()[..., None])[..., 0]
         valid = lab >= 0
         sums.append(torch.where(valid, lz - gold, 0.0).sum())
+        counts.append(valid.sum())
+    return torch.stack(sums).sum(), torch.stack(counts).sum().to(torch.int32)
+
+
+def _vocab_parallel_loss(w, hidden, labels, chunk: int, policy):
+    """:func:`lm_loss` on one "model" rank's rows ``w`` (Vp / model, d) of
+    the table, never gathering a chunk's logits: each row's log-sum-exp is
+    its max over "model" (no gradient; it cancels) plus the log of the sum
+    of the ranks' ``exp(logits - max)``, and its gold logit comes from the
+    rank holding the label, the other ranks adding 0; the two sums travel
+    in one f32 sum over "model" (``"loss-sum"``, whose backward is the
+    identity: every rank holds the whole loss).  The hidden state enters
+    the split product through ``"logits_in"``."""
+    hidden = policy(hidden, "logits_in")
+    vloc = w.shape[0]
+    first = policy.vocab_offset(vloc)
+    S = hidden.shape[1]
+    ck = min(chunk, S)
+    sums, counts = [], []
+    for lo in range(0, S, ck):
+        h, lab = hidden[:, lo:lo + ck], labels[:, lo:lo + ck]
+        logits = (h @ w.T).float()                # (B, ck, Vp / model)
+        m = policy.model_max(logits.detach().amax(dim=-1), "loss-max")
+        local = lab.long() - first
+        ok = (local >= 0) & (local < vloc)
+        gold = torch.gather(logits, -1, local.clamp(0, vloc - 1)[..., None])
+        both = policy.model_sum(torch.stack(
+            [torch.exp(logits - m[..., None]).sum(dim=-1),
+             torch.where(ok, gold[..., 0], 0.0)], dim=-1), "loss-sum")
+        lz = m + torch.log(both[..., 0])
+        valid = lab >= 0
+        sums.append(torch.where(valid, lz - both[..., 1], 0.0).sum())
         counts.append(valid.sum())
     return torch.stack(sums).sum(), torch.stack(counts).sum().to(torch.int32)
 

@@ -26,7 +26,7 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from ..distributed.compression import dequantize_int8, quantize_int8
-from ..tree import leaves, tree_map
+from ..tree import leaves, tree_map, unflatten_like
 
 QBLOCK = 256
 
@@ -54,21 +54,39 @@ class AdamWState(NamedTuple):
     v: Any
 
 
-def adamw_init(params, *, quantize: bool = False) -> AdamWState:
+def adamw_init(params, *, quantize: bool = False, policy=None) -> AdamWState:
     """Zero moments on each parameter's device; ``step`` on the first
-    parameter's."""
+    parameter's.  ``params`` may be an SPMD rank's blocks: f32 moments are
+    then its blocks; quantized ones need the rank's ``policy``
+    (:func:`adamw_update`)."""
     def z(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     make = (lambda p: _q(z(p))) if quantize else z
+    if quantize and policy is not None and policy.live:
+        def make(p, plan):
+            (q, s), = policy.quantize_moments([z(p)], [plan], QBLOCK)
+            return QTensor(q=q, scale=s)
+
+        plans = policy.leaf_plans()
+        m = tree_map(make, params, plans)
+        v = tree_map(make, params, plans)
+    else:
+        m, v = tree_map(make, params), tree_map(make, params)
     dev = leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
-                      m=tree_map(make, params), v=tree_map(make, params))
+                      m=m, v=v)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, *, policy=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32, the leaves added in
-    the reference's order."""
+    the reference's order.  Under an SPMD ``policy`` the leaves are one
+    rank's blocks and the norm is the whole tree's, each element counted
+    once: a leaf's squares are summed over the mesh axes its blocks are
+    split on, not over those it is replicated on
+    (``ActivationPolicy.global_norm``), so every rank gets one value."""
+    if policy is not None:
+        return policy.global_norm(tree)
     total = 0
     for x in leaves(tree):
         xf = x.float()
@@ -76,10 +94,11 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, policy=None):
     """(grads scaled to a global norm of at most ``max_norm``, the norm
-    before clipping)."""
-    norm = global_norm(grads)
+    before clipping); ``policy`` as :func:`global_norm` takes it.  The
+    scale is elementwise, so a rank scales its blocks alone."""
+    norm = global_norm(grads, policy=policy)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
@@ -95,8 +114,14 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     quantized: bool = False,
+    policy=None,
 ) -> Tuple[Any, AdamWState]:
-    """One AdamW step.  ``lr`` may be a float or a 0-d tensor."""
+    """One AdamW step.  ``lr`` may be a float or a 0-d tensor.  Every
+    operation is elementwise, so an SPMD rank steps its blocks alone; with
+    quantized moments the rank's ``policy`` keeps them in the whole leaf's
+    blocks, as one process quantizes them
+    (``ActivationPolicy.quantize_moments``: its int8 values, the whole
+    leaf's block scales)."""
     step = state.step + 1
     s = step.float()
     c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
@@ -104,11 +129,24 @@ def adamw_update(
     c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                       device=s.device), s)
 
-    def one(p, g, m, v):
+    # a process mesh's rank keeps its blocks' moments in the whole leaf's
+    # blocks; a mesh description's program is the global one
+    spmd_q = quantized and policy is not None and policy.live
+    plans = policy.leaf_plans() if spmd_q else None
+    if quantized and policy is not None and not policy.live:
+        policy.note_moment_maxes(params, QBLOCK)
+
+    def dq(qt, p, plan):
+        if spmd_q:
+            return policy.dequantize_moment(qt.q, qt.scale, plan, p.shape,
+                                            QBLOCK)
+        return _dq(qt, p.shape)
+
+    def one(p, g, m, v, plan=None):
         g = g.float()
         if quantized:
-            m_f = _dq(m, p.shape)
-            v_f = torch.square(_dq(v, p.shape))     # v stored in sqrt-space
+            m_f = dq(m, p, plan)
+            v_f = torch.square(dq(v, p, plan))     # v stored in sqrt-space
         else:
             m_f, v_f = m, v
         m_new = b1 * m_f + (1 - b1) * g
@@ -117,12 +155,24 @@ def adamw_update(
         v_hat = v_new / c2
         upd = m_hat / (torch.sqrt(v_hat) + eps) + weight_decay * p.float()
         p_new = (p.float() - lr * upd).to(p.dtype)
-        if quantized:
-            return p_new, _q(m_new), _q(torch.sqrt(v_new))
-        return p_new, m_new, v_new
+        if not quantized:
+            return p_new, m_new, v_new
+        if spmd_q:              # quantized below, with every other leaf's
+            return p_new, m_new, torch.sqrt(v_new)
+        return p_new, _q(m_new), _q(torch.sqrt(v_new))
 
-    out = tree_map(lambda p, g, m, v: one(p, g, m, v), params, grads,
-                   state.m, state.v)
+    out = tree_map(one, params, grads, state.m, state.v,
+                   *([plans] if spmd_q else []))
+    if spmd_q:
+        # every leaf's moments quantized together: one packed MAX of the
+        # block scales an axis
+        flat, plan_list = leaves(out), leaves(plans)   # (p, m, sqrt v) each
+        n = len(plan_list)
+        qs = policy.quantize_moments(flat[1::3] + flat[2::3], plan_list * 2,
+                                     QBLOCK)
+        flat[1::3] = [QTensor(*x) for x in qs[:n]]
+        flat[2::3] = [QTensor(*x) for x in qs[n:]]
+        out = unflatten_like(out, flat)
     # ``out`` has a (p, m, v) triple at each leaf position of ``params``
     pick = lambda i: tree_map(lambda _, o: o[i], params, out)  # noqa: E731
     return pick(0), AdamWState(step=step, m=pick(1), v=pick(2))

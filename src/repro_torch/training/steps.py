@@ -29,17 +29,29 @@ refused: the reference's ``"pallas"`` cannot be differentiated (its
 ``pallas_call`` has no JVP rule that ``jax.grad`` can use), so its only
 differentiable fast path is ``"flash"``, and so is the port's.
 
-Over the ``"pod"`` axis of a process mesh (``launch.mesh.make_host_mesh``
-inside a ``torch.distributed`` group, one rank a pod) each rank takes the
-batch rows of its pod, computes their gradients, and the pods' gradients
-are combined: with ``compress_pods`` by ``distributed.compression.
-pod_psum_compressed`` (the reference's per-pod branch under its
-``shard_map``), otherwise by an f32 mean, the all-reduce the reference's
-GSPMD program makes; the metrics are the pods' means.  Every rank then
-takes the same clip and AdamW step on its replica of the params.  Without
-a ``"pod"`` axis the reference takes its own uncompressed branch, and so
-does the port, as it does on a mesh description (the dry-run's production
-meshes), where ``compress_pods`` raises.
+Under an SPMD ``policy`` (``distributed.spmd.make_policy``, the
+reference's GSPMD program with its policy) the step runs on one rank of a
+process mesh over "pod", "data" and "model": the rank's
+``param_shardings`` blocks of the params and moments, its ``shard_batch``
+rows, collectives that autograd differentiates, the loss over the whole
+batch's count, the gradients summed over the data axes after the
+backward, the whole tree's norm, and AdamW on the blocks
+(``distributed.spmd``'s docstring).  On a mesh description (the dry-run's
+production meshes) the program is the global one and the policy records
+every collective, the backward's too.  ``compress_pods`` under a policy
+over a "pod" axis is refused: the reference's own step fails there.
+
+Without a policy, over the ``"pod"`` axis of a process mesh
+(``launch.mesh.make_host_mesh`` inside a ``torch.distributed`` group, one
+rank a pod) each rank takes the batch rows of its pod, computes their
+gradients, and the pods' gradients are combined: with ``compress_pods``
+by ``distributed.compression.pod_psum_compressed`` (the reference's
+per-pod branch under its ``shard_map``), otherwise by an f32 mean, the
+all-reduce the reference's GSPMD program makes; the metrics are the pods'
+means.  Every rank then takes the same clip and AdamW step on its replica
+of the params.  Without a ``"pod"`` axis the reference takes its own
+uncompressed branch, and so does the port, as it does on a mesh
+description, where ``compress_pods`` raises.
 """
 
 from __future__ import annotations
@@ -119,7 +131,12 @@ def make_loss_fn(cfg, tcfg: TrainerConfig, *, policy=None):
 
     The audio family's stub frames are cast to the model's dtype before the
     encoder (the reference adds its f32 frames to bf16 weights by type
-    promotion, which torch's products do not do; at f32 the two agree)."""
+    promotion, which torch's products do not do; at f32 the two agree).
+    Under an SPMD policy (``distributed.spmd.ActivationPolicy``) ``batch``
+    is the rank's rows and the loss their summed loss over the whole
+    batch's count of valid labels, so the ranks' losses add up to the
+    global mean."""
+    spmd = _is_spmd(policy)
 
     def loss_fn(params, batch):
         kw = _forward_kwargs(cfg, batch, impl=tcfg.attn_impl, policy=policy,
@@ -127,10 +144,13 @@ def make_loss_fn(cfg, tcfg: TrainerConfig, *, policy=None):
         if cfg.family == "audio":
             kw["enc_out"] = encoder_forward(
                 params, batch["frames"].to(torch_dtype(cfg.dtype)), cfg,
-                impl=tcfg.attn_impl, remat=tcfg.remat)
+                impl=tcfg.attn_impl, policy=policy, remat=tcfg.remat)
         out = forward(params, batch["tokens"], cfg, **kw)
         sum_loss, count = lm_loss(params, out.hidden, batch["labels"], cfg,
                                   chunk=tcfg.loss_chunk, policy=policy)
+        if spmd:
+            # the rank's rows' share of the mean over the whole batch
+            count = policy.global_count(count)
         loss = sum_loss / torch.clamp(count.float(), min=1.0)
         total = loss + tcfg.aux_coef * out.aux
         metrics = {"loss": loss, "aux": out.aux, "tokens": count}
@@ -192,17 +212,23 @@ def _accumulate_grads(loss_fn, params, batch, n_accum: int):
                "tokens": tok_acc}
 
 
+def _is_spmd(policy) -> bool:
+    """Whether ``policy`` is an SPMD rank's (``distributed.spmd``), as
+    opposed to none or the tensor-parallel serving policy."""
+    return policy is not None and hasattr(policy, "reduce_grads")
+
+
 def _has_pod_axis(mesh) -> bool:
     names = getattr(mesh, "axis_names", ())
     return "pod" in names and int(mesh.shape["pod"]) > 1
 
 
 def _pod_mesh(mesh, compress: bool) -> bool:
-    """Whether the step combines gradients over the "pod" axis of a process
-    mesh.  On a mesh description the step is the global program (the
-    reference's GSPMD branch), except that the compressed all-reduce needs
-    the pods' processes: it raises, as do a process mesh that splits
-    another axis too."""
+    """Whether the step without a policy combines gradients over the "pod"
+    axis of a process mesh.  On a mesh description the step is the global
+    program (the reference's GSPMD branch), except that the compressed
+    all-reduce needs the pods' processes: it raises, as does a process mesh
+    that also splits "data" or "model", whose layout a policy places."""
     if mesh is None or not _has_pod_axis(mesh):
         return False
     if not getattr(mesh, "is_process_mesh", False):
@@ -215,28 +241,50 @@ def _pod_mesh(mesh, compress: bool) -> bool:
     others = [a for a in mesh.axis_names if a != "pod" and mesh.shape[a] > 1]
     if others:
         raise NotImplementedError(
-            f"the train step shards over the 'pod' axis only, not over "
-            f"{others}: training under the data and model axes is ROADMAP.md "
-            f"Queue 1's next item")
+            f"the train step without a policy shards over the 'pod' axis "
+            f"only, not over {others}: pass policy=make_policy(cfg, mesh, "
+            f"batch=...) (distributed.spmd), with the params placed by "
+            f"param_shardings")
     return True
+
+
+def _refuse_compressed_under_policy(mesh) -> None:
+    """``compress_pods`` over a "pod" axis under a policy: the reference's
+    own step fails there, on every mesh ``make_policy`` covers, so the port
+    refuses it."""
+    if mesh is not None and _has_pod_axis(mesh):
+        raise NotImplementedError(
+            "compress_pods under an ActivationPolicy: the reference's "
+            "shard_map over 'pod' cannot take the policy's sharding rules "
+            "(its step raises ValueError under every make_policy); train "
+            "under the policy with compress_pods=False (the pods' gradients "
+            "summed uncompressed), or with compress_pods and no policy on a "
+            "'pod'-only process mesh")
 
 
 def make_train_step(cfg, tcfg: TrainerConfig, *, policy=None, mesh=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     metrics): metrics ``loss``, ``aux``, ``tokens``, ``grad_norm``, ``lr``.
 
-    With a process mesh whose "pod" axis has several ranks, ``batch`` is
-    this rank's pod's rows and the gradients are combined over the pods
-    (the module docstring).  Raises ``NotImplementedError`` for
-    ``compress_pods`` on a "pod" mesh that is only a description, and for
-    a process mesh that also splits "data" or "model"."""
-    pods = _pod_mesh(mesh, tcfg.compress_pods)
-    if getattr(policy, "live", False) and (policy.model > 1
-                                           or policy.gathers_layers):
-        raise NotImplementedError(
-            "the train step under an ActivationPolicy that splits 'data' or "
-            "'model' needs collectives autograd can differentiate: ROADMAP.md "
-            "Queue 1's next item")
+    Under an SPMD ``policy`` (``make_policy(cfg, mesh, batch=B)``) the
+    params and optimizer state are the rank's ``param_shardings`` blocks
+    and ``batch`` its ``shard_batch`` rows (of each microbatch under
+    ``grad_accum``: ``shard_batch(..., micro=grad_accum)``); the step is
+    the module docstring's.  Without one, on a process mesh whose "pod"
+    axis has several ranks, ``batch`` is this rank's pod's rows and the
+    gradients are combined over the pods.  Raises ``NotImplementedError``
+    for ``compress_pods`` on a "pod" mesh that is only a description or
+    under a policy, and for a process mesh without a policy that also
+    splits "data" or "model".
+
+    ``train_step(..., keep_grads=True)`` also returns, fourth, the
+    gradients as the step has them before clipping (under a policy the
+    whole tree's gradients of the rank's blocks)."""
+    spmd = _is_spmd(policy)
+    if spmd and tcfg.compress_pods:
+        _refuse_compressed_under_policy(mesh if mesh is not None
+                                        else policy.mesh)
+    pods = not spmd and _pod_mesh(mesh, tcfg.compress_pods)
     loss_fn = make_loss_fn(cfg, tcfg, policy=policy)
     lr_fn = tcfg.lr_fn()
 
@@ -264,21 +312,32 @@ def make_train_step(cfg, tcfg: TrainerConfig, *, policy=None, mesh=None):
                    for k, v in metrics.items()}
         return g, metrics
 
-    compute_grads = pod_grads if pods else local_grads
+    def spmd_grads(params, batch):
+        g, metrics = local_grads(params, batch)
+        return policy.reduce_grads(g), policy.reduce_metrics(metrics)
 
-    def train_step(params, opt_state, batch):
+    compute_grads = (spmd_grads if spmd else pod_grads if pods
+                     else local_grads)
+    rank_policy = policy if spmd else None
+
+    def train_step(params, opt_state, batch, *, keep_grads=False):
         grads, metrics = compute_grads(params, batch)
+        kept = grads
         # a profiler range while a profiler records (chip_smoke.py splits
         # a training window's device time by it)
         with _profiled("train.optimizer"):
-            grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm)
+            grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm,
+                                               policy=rank_policy)
             lr = lr_fn(opt_state.step)
             params, opt_state = adamw_update(
                 grads, opt_state, params, lr=lr, b1=tcfg.b1, b2=tcfg.b2,
-                weight_decay=tcfg.weight_decay, quantized=tcfg.quantize_opt)
+                weight_decay=tcfg.weight_decay, quantized=tcfg.quantize_opt,
+                policy=rank_policy)
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
         metrics["lr"] = lr
+        if keep_grads:
+            return params, opt_state, metrics, kept
         return params, opt_state, metrics
 
     return train_step

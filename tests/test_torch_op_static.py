@@ -352,17 +352,37 @@ def test_dryrun_writes_a_full_width_record(tmp_path, capsys):
     # every family's serving cell records its collectives: mamba2's 32
     # heads split 2 a device over "model" 16, its one group of B and C
     # gathered whole (the FSDP and "model" blocks of wb and wc), the gated
-    # norm's sum and the output's sum a layer; a train cell records none
+    # norm's sum and the output's sum a layer
     other = dryrun.run_cell("mamba2-370m", "decode_32k", multi_pod=False,
                             out_dir=str(tmp_path))
     assert other["collectives_reason"] is None
     assert other["collectives"]["by_site_count"] == {
         "embed": 1, "gather-data": 48 * 6, "gather-model": 48 * 2,
         "ssm-norm": 48, "attn_out": 48, "logits": 1}
-    train = build_cell("qwen3-0.6b", "train_4k",
-                       make_host_mesh((1, 1), device="cpu"), reduced=True)
-    assert train.policy is None
-    assert "next item" in dryrun.collectives_reason(train)
+    # a train cell too, backward included (full remat, 2 x 4096 rows a
+    # data group of 16 at 128 rows): a layer's 6 FSDP and 4 attention
+    # gathers in the forward and again in its recompute, each FSDP gather's
+    # reduce-scatter; the MLP's sum once (the recompute stops before it)
+    # and its entry's sum backward; the vocab-parallel loss's MAX and
+    # packed SUM for each of 32 chunks of 128 positions and the hidden
+    # state's entry sum; the count and the loss over "data"; the gradients
+    # of the replicated leaves (the table, the norms) summed, and the
+    # norm's two packed sums (over "data" and over "model")
+    train = dryrun.run_cell("qwen3-0.6b", "train_4k", multi_pod=False,
+                            out_dir=str(tmp_path))
+    assert train["collectives_reason"] is None
+    assert train["collectives"]["by_site_count"] == {
+        "embed": 1, "gather-data": 28 * 6 * 2, "gather-model": 28 * 4 * 2,
+        "bwd:gather-data": 28 * 6, "mlp_out": 28, "bwd:mlp_in": 28,
+        "loss-max": 32, "loss-sum": 32, "bwd:logits_in": 1, "tokens": 1,
+        "loss": 1, "grad-sum": 1, "grad-norm": 2}
+    assert train["collectives"]["by_op_count"] == {
+        "all-gather": 28 * 10 * 2, "reduce-scatter": 28 * 6,
+        "all-reduce": 1 + 28 * 2 + 32 * 2 + 1 + 1 + 1 + 1 + 2}
+    one = build_cell("qwen3-0.6b", "train_4k",
+                     make_host_mesh((1, 1), device="cpu"), reduced=True)
+    assert one.policy is not None
+    assert "one device" in dryrun.collectives_reason(one)
     skip = dryrun.run_cell("qwen3-0.6b", "long_500k", multi_pod=True,
                            out_dir=str(tmp_path))
     assert skip["skipped"] and skip["ok"] and "quadratic" in skip["reason"]

@@ -468,12 +468,14 @@ def test_stats_route_merged_over_three_shards_equals_the_whole_cache(window,
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k"])
+@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k", "train_4k"])
 def test_cell_collectives_equal_what_the_gloo_run_moved(runs, shape):
     """The reduced cell built on a (2, 4) mesh description and counted on
-    meta tensors records, for each collective, the bytes one device sends;
-    every rank of the gloo run of the same cell on a (2, 4) process mesh
-    sent exactly those, collective by collective."""
+    meta tensors records, for each collective, the bytes one device sends
+    (a train cell's backward included); every rank of the gloo run of the
+    same cell on a (2, 4) process mesh sent exactly those, collective by
+    collective.  ``tests/test_torch_spmd_train.py`` holds the train cell
+    on (2, 2) too."""
     cell = build_cell(ARCH, shape, MeshSpec(("data", "model"), (2, 4)),
                       reduced=True)
     st = cell.analyze()
@@ -644,30 +646,46 @@ def test_pod_psum_plain_version_equals_the_gloo_run(runs):
 
 
 def test_training_refuses_a_policy_that_splits_the_model():
-    """The policy's collectives are not differentiable yet: a train step
-    under one that gathers or sums over "data" or "model" is refused."""
+    """Training runs under a policy that splits "data" and "model"; what
+    stays refused is ``compress_pods`` under a policy over a "pod" axis,
+    where the reference's own step fails (its ``shard_map`` over "pod"
+    cannot take the policy's rules), and a process mesh that splits "data"
+    or "model" without a policy.  A live policy's refusal is held in
+    ``tests/test_torch_spmd_train.py``."""
     from repro_torch.training import TrainerConfig, make_train_step
 
-    class Live:
-        live, model, gathers_layers = True, 2, False
-
-    with pytest.raises(NotImplementedError, match="next item"):
-        make_train_step(get_reduced(ARCH), TrainerConfig(), policy=Live())
-    # a description's policy issues nothing and trains as without one
-    make_train_step(get_reduced(ARCH), TrainerConfig(), policy=make_policy(
-        get_reduced(ARCH), MeshSpec(("data", "model"), (2, 4)), batch=4))
+    cfg = get_reduced(ARCH)
+    for shape in ((2, 1, 2), (2, 2, 1)):
+        mesh = MeshSpec(("pod", "data", "model"), shape)
+        with pytest.raises(NotImplementedError, match="shard_map over 'pod'"):
+            make_train_step(cfg, TrainerConfig(compress_pods=True),
+                            policy=make_policy(cfg, mesh, batch=4), mesh=mesh)
+        # uncompressed, the pods' gradients are summed under the policy
+        make_train_step(cfg, TrainerConfig(), mesh=mesh,
+                        policy=make_policy(cfg, mesh, batch=4))
+    # the policy over (data, model): the step builds
+    make_train_step(cfg, TrainerConfig(), policy=make_policy(
+        cfg, MeshSpec(("data", "model"), (2, 4)), batch=4))
 
 
 def test_a_train_cell_on_the_two_pod_description_is_the_global_program():
     """The dry-run's train cells over the 2 x 16 x 16 description build
-    (the reference's uncompressed GSPMD branch); only ``compress_pods``
-    there needs the pods' processes."""
+    under the policy (the reference's uncompressed GSPMD branch, with its
+    ``make_policy``): the global program, each collective and its adjoint
+    recorded, the gradients summed over "pod" and "data"; only
+    ``compress_pods`` there needs the pods' processes."""
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.training import TrainerConfig, make_train_step
 
     mesh = make_production_mesh(multi_pod=True)
     cell = build_cell(ARCH, "train_4k", mesh, reduced=True)
-    assert cell.policy is None and cell.analyze().flops > 0
+    assert cell.policy is not None and cell.analyze().flops > 0
+    count = cell.policy.log.count
+    # 4 rows of the reduced batch split over "pod" (2) and "data" (16
+    # does not divide 4 / 2): the count and the loss over "pod"
+    assert cell.policy.batch_axes == ("pod",)
+    assert count["tokens"] == count["loss"] == 1
+    assert count["bwd:logits_in"] == 1 and count["grad-sum"] >= 1
     with pytest.raises(NotImplementedError, match="needs a process group"):
         make_train_step(get_reduced(ARCH), TrainerConfig(compress_pods=True),
                         mesh=mesh)

@@ -159,7 +159,7 @@ def ranks_2x4(rank, world, data):
     out["merge"] = merge_cases(f32, mesh, data["merge_case"])
     # (g) the reduced cells' collectives on the process mesh
     out["cells"] = {shape: cell_collectives(mesh, shape)
-                    for shape in ("decode_32k", "prefill_32k")}
+                    for shape in ("decode_32k", "prefill_32k", "train_4k")}
     return out
 
 
