@@ -54,8 +54,8 @@ import torch.nn.functional as F
 
 from ..device import resolve_device, torch_dtype
 from ..kernels.common import NEG_INF
+from ..obs import profiled
 from .layers import apply_mrope, apply_rope, init_dense, init_rmsnorm, rmsnorm
-from .moe import _profiled
 
 
 # ---------------------------------------------------------------------------
@@ -368,7 +368,7 @@ class FlashAttentionFn(torch.autograd.Function):
         causal, window, q_offset, block_k = ctx.args
         # a profiler range while a profiler records (chip_smoke.py phase 6
         # splits the training window's device time by it)
-        with _profiled("flash.backward"):
+        with profiled("flash.backward"):
             dq, dk, dv = _flash_bwd(q, k, v, out, lse, do, causal=causal,
                                     window=window, q_offset=q_offset,
                                     block_k=block_k)

@@ -45,7 +45,6 @@ Tensor-parallel serving refuses MoE archs, as the reference's
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional, Tuple
 
 import numpy as np
@@ -53,15 +52,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import torch_dtype
+from ..obs import profiled
 from .layers import init_dense, init_mlp, mlp
-
-
-def _profiled(name: str):
-    """A profiler range named ``name`` while a profiler records, else a
-    no-op context (a check of one flag)."""
-    if torch._C._autograd._profiler_enabled():
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
 
 
 # ---------------------------------------------------------------------------
@@ -150,7 +142,7 @@ def _expert_ffn(h, wi, wo):
     -> (E, T, d), reading ``wi`` (E, d, 2f) and ``wo`` (E, f, d) in
     place.  A broadcast batch of size 1 is expanded with stride 0, which
     the batched product reads without a copy."""
-    with _profiled("moe.expert_products"):
+    with profiled("moe.expert_products"):
         g = torch.matmul(h, wi)
         gate, up = torch.chunk(g, 2, dim=-1)
         return torch.matmul(F.silu(gate) * up, wo)
@@ -236,7 +228,7 @@ def moe_grouped(params, x, cfg, *, capacity: Optional[int] = None,
     if capacity is None:
         capacity = max(1, int(S * m.top_k / m.n_experts * m.capacity_factor))
         capacity = min(capacity, S * m.top_k)
-    with _profiled("moe.dispatch"):
+    with profiled("moe.dispatch"):
         top_p, top_i, probs = router_probs(params, x.reshape(B * S, d), cfg)
         xs = _enter(policy, x, "mlp_in")
         top_p = _enter(policy, top_p, "moe_weights")
@@ -248,7 +240,7 @@ def moe_grouped(params, x, cfg, *, capacity: Optional[int] = None,
         buf = buf[experts[0]:experts[1]]
         first = experts[0] * buf.shape[1]
     y = _expert_ffn(buf, params["wi"], params["wo"])
-    with _profiled("moe.dispatch"):
+    with profiled("moe.dispatch"):
         out = _combine(y, slot, w_sorted, keep, inv, S, m.top_k, first)
     if "shared" in params:
         out = out + mlp(params["shared"], xs)
@@ -270,7 +262,7 @@ def moe_dense_decode(params, x, cfg, *,
     m = cfg.moe
     B, S, d = x.shape
     x2 = x.reshape(B * S, d)
-    with _profiled("moe.dispatch"):
+    with profiled("moe.dispatch"):
         top_p, top_i, _ = router_probs(params, x2, cfg)
         top_p = _enter(policy, top_p, "moe_weights")
         w = torch.zeros((B * S, m.n_experts), dtype=torch.float32,

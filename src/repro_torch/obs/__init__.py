@@ -1,13 +1,15 @@
-"""repro.obs — the unified telemetry plane.
+"""repro_torch.obs — the port's unified telemetry plane.
 
-Three dependency-free pillars shared by every layer of the stack:
+Three pillars shared by every layer of the stack:
 
 * :class:`MetricsRegistry` — typed counters/gauges/log-bucketed histograms
   with per-tenant labels; ``BatcherStats`` fields and the executor's SLO
   counters are thin views over it.
 * :class:`Tracer` — structured spans + instants on an injectable clock,
-  exported as Chrome-trace/Perfetto JSON (``NULL_TRACER`` = disabled,
-  zero-cost).
+  exported as Chrome-trace/Perfetto JSON and mirrored into
+  ``torch.profiler`` ranges while a profiler records (``NULL_TRACER`` =
+  disabled, zero-cost); :func:`profiled` is the one helper that opens a
+  profiler range.
 * :class:`Telemetry` — the bundle a layer accepts as one ``telemetry=``
   kwarg instead of three.
 """
@@ -18,7 +20,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 from .metrics import Counter, Gauge, Histogram, MetricsRegistry, percentile
-from .trace import NULL_TRACER, Tracer
+from .trace import NULL_TRACER, Tracer, profiled
 
 
 @dataclass
@@ -48,4 +50,5 @@ __all__ = [
     "Telemetry",
     "Tracer",
     "percentile",
+    "profiled",
 ]

@@ -1,4 +1,5 @@
-"""Structured tracing: spans + instants, exported as Chrome-trace JSON.
+"""Structured tracing: spans + instants, exported as Chrome-trace JSON, and
+the port's one helper for ``torch.profiler`` ranges.
 
 A :class:`Tracer` collects *complete spans* (name, track, start, duration)
 and *instant events* from the hypervisor event loop, the serving executor,
@@ -10,16 +11,29 @@ become named rows in the timeline.
 Design constraints, in order:
 
 * **Zero-cost when disabled.** Every record method checks ``enabled``
-  before touching the clock; ``span(...)`` returns a shared no-op context
-  manager.  ``NULL_TRACER`` is the canonical disabled instance — layers
-  default to it so instrumented code never branches on ``tracer is None``.
+  before touching the clock; ``span(...)`` and ``range(...)`` return a
+  shared no-op context manager.  ``NULL_TRACER`` is the canonical disabled
+  instance — layers default to it so instrumented code never branches on
+  ``tracer is None``.
+* **Mirrored into the profiler.** While a ``torch.profiler`` session
+  records, each live span (``span(...)``) of an enabled tracer also opens
+  a profiler range named ``RANGE_PREFIX + name`` (``serving.dispatch``),
+  and ``range(name)`` opens such a range alone, around device work inside
+  a span (the engine's ``serving.decode_model``).  The spans then sit on
+  the profiler's own timeline beside the kernels they launch, while the
+  tracer's events stay on its clock and can be read without a profiler.
+  A disabled tracer opens no range even under a profiler, so a session
+  that did not turn tracing on records what it recorded before: a range's
+  GPU-side annotation spans the gaps between its kernels.
 * **Injectable clock.** The tracer never calls ``time`` directly unless
   you let it; pass the same ``clock=`` the batcher/executor use and the
   sim's ``at=`` stamps, the batcher's wall-clock, and the tracer's spans
-  share one timeline.  Events store raw clock *seconds*; export
-  normalizes to the earliest timestamp and converts to microseconds, so
-  sim-time (small floats near 0) and ``time.monotonic`` (large floats)
-  both render sensibly — just don't mix the two in one tracer.
+  share one timeline.  ``span(..., clock=)`` times one span on a caller's
+  clock (the batcher times all of its spans on its own).  Events store
+  raw clock *seconds*; export normalizes to the earliest timestamp and
+  converts to microseconds, so sim-time (small floats near 0) and
+  ``time.monotonic`` (large floats) both render sensibly — just don't mix
+  the two in one tracer.
 * **Bounded memory.** ``max_events`` caps retention; once full, new
   events are counted in ``dropped`` but not stored, so a runaway run
   can't eat the host (and committed sample traces stay small).
@@ -29,7 +43,12 @@ from __future__ import annotations
 
 import json
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+# the prefix of every profiler range a tracer opens
+RANGE_PREFIX = "serving."
 
 
 class _NullSpan:
@@ -47,25 +66,42 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
-class _Span:
-    """Live span context manager: stamps the clock on enter/exit."""
+def profiled(name: str):
+    """A ``torch.profiler`` range named ``name`` while a profiler records,
+    else the shared no-op context: with no profiler, no range object is
+    made."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NULL_SPAN
 
-    __slots__ = ("_tracer", "name", "track", "args", "_t0")
+
+class _Span:
+    """Live span context manager: stamps the clock on enter/exit and, while
+    a profiler records, opens the span's profiler range."""
+
+    __slots__ = ("_tracer", "name", "track", "args", "_clock", "_t0",
+                 "_range")
 
     def __init__(self, tracer: "Tracer", name: str, track: str,
-                 args: Optional[Dict[str, Any]]) -> None:
+                 args: Optional[Dict[str, Any]],
+                 clock: Callable[[], float]) -> None:
         self._tracer = tracer
         self.name = name
         self.track = track
         self.args = args
+        self._clock = clock
         self._t0 = 0.0
+        self._range = _NULL_SPAN
 
     def __enter__(self) -> "_Span":
-        self._t0 = self._tracer._clock()
+        self._range = profiled(RANGE_PREFIX + self.name)
+        self._range.__enter__()
+        self._t0 = self._clock()
         return self
 
     def __exit__(self, *exc: object) -> None:
-        t1 = self._tracer._clock()
+        t1 = self._clock()
+        self._range.__exit__(*exc)
         self._tracer.complete(self.name, self.track, self._t0,
                               t1 - self._t0, self.args)
 
@@ -107,11 +143,23 @@ class Tracer:
                     "ts": ts, "dur": max(dur, 0.0), "args": args})
 
     def span(self, name: str, track: str = "main", *,
-             args: Optional[Dict[str, Any]] = None):
-        """Context manager measuring the enclosed block on the clock."""
+             args: Optional[Dict[str, Any]] = None,
+             clock: Optional[Callable[[], float]] = None):
+        """Context manager measuring the enclosed block on ``clock``
+        (default: the tracer's), mirrored into a profiler range while a
+        profiler records."""
         if not self.enabled:
             return _NULL_SPAN
-        return _Span(self, name, track, args)
+        return _Span(self, name, track, args,
+                     clock if clock is not None else self._clock)
+
+    def range(self, name: str):
+        """A profiler range named ``RANGE_PREFIX + name`` and no event of
+        the tracer's: for device work inside a span, which the host clock
+        cannot time."""
+        if not self.enabled:
+            return _NULL_SPAN
+        return profiled(RANGE_PREFIX + name)
 
     # -- export ----------------------------------------------------------
     def tracks(self) -> List[str]:

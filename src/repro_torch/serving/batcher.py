@@ -208,6 +208,12 @@ class Request:
     ``deadline`` (same clock as the batcher's ``clock`` callable) lets the
     batcher shed the request instead of starting it hopelessly late —
     ``dropped`` marks that outcome (``done`` is set too, with no output).
+
+    The batcher stamps the request's life on its ``clock``, whether or not
+    tracing is on: ``t_submit`` at :meth:`ContinuousBatcher.submit`,
+    ``t_admit`` at the admission dispatch that carries it, ``t_first`` when
+    its first token reaches the host and ``t_done`` when it completes.
+    Each keeps its first value: a requeued request is not stamped again.
     """
 
     rid: int
@@ -223,6 +229,10 @@ class Request:
     # is left-padded differently than the original prompt, which shifts page
     # alignment for the prefix cache
     resumed: bool = False
+    t_submit: Optional[float] = None
+    t_admit: Optional[float] = None
+    t_first: Optional[float] = None
+    t_done: Optional[float] = None
     # prefix-cache nodes this request currently pins (internal)
     _prefix_nodes: List[PrefixNode] = dataclasses.field(
         default_factory=list, repr=False)
@@ -536,6 +546,14 @@ class ContinuousBatcher:
         self.stats = BatcherStats(registry=self.telemetry.registry,
                                   tenant=self.telemetry.tenant,
                                   cache_bytes=self._cache_bytes())
+        # admission's computed tokens (bucket rows x tokens a row) and the
+        # padding among them (each real row's left padding, every token of
+        # the duplicate bucket rows); registry counters beside, not in,
+        # BatcherStats, whose counter set is the reference's
+        reg, tenant = self.telemetry.registry, self.telemetry.tenant
+        self._admit_computed = reg.counter("serving.admit_computed_tokens",
+                                           tenant)
+        self._admit_pad = reg.counter("serving.admit_pad_tokens", tenant)
         # fault guards: watchdog_s bounds the wall time of one chunk
         # dispatch+sync (None = off); audit=True cross-checks the fetched
         # page tables against the no-double-mapping invariant every chunk
@@ -581,14 +599,22 @@ class ContinuousBatcher:
         return tree_bytes(self.caches)
 
     # -- programs: single-device, or tp shards in lockstep ---------------
-    def _program(self, make, *args):
-        """The step ``make(cfg, scfg, *args)``: as built at tp=1, or run
-        over the batcher's shards (:func:`~.engine.tp_program`)."""
+    def _program(self, make, *args, **kw):
+        """The step ``make(cfg, scfg, *args, **kw)``: as built at tp=1, or
+        run over the batcher's shards (:func:`~.engine.tp_program`)."""
         if self._group is None:
-            return make(self.cfg, self.scfg, *args, policy=self._policy)
+            return make(self.cfg, self.scfg, *args, policy=self._policy,
+                        **kw)
         return tp_program(
-            lambda local: make(local, self.scfg, *args, policy=TP_POLICY),
+            lambda local: make(local, self.scfg, *args, policy=TP_POLICY,
+                               **kw),
             self.cfg, self._group)
+
+    def _span(self, name: str, args: Optional[Dict[str, Any]] = None):
+        """A tracer span on the batcher's clock (a no-op when tracing is
+        off): every span of the batcher shares its one timeline."""
+        return self._tracer.span(name, self._track, args=args,
+                                 clock=self._clock)
 
     def _build_programs(self) -> None:
         self._admit_fn = self._program(
@@ -626,6 +652,8 @@ class ContinuousBatcher:
                 f"more than the whole pool of {self.n_pages}")
         if req.deadline is not None:
             self._has_deadlines = True
+        if req.t_submit is None:
+            req.t_submit = self._clock()
         self.queue.append(req)
 
     def _free_slots(self) -> List[int]:
@@ -1224,6 +1252,7 @@ class ContinuousBatcher:
             budget[j] = budget[0]
             eos[j] = eos[0]
         pos0 = np.full((nb,), self.prompt_len, dtype=np.int32)
+        self._stamp_admission(joins, nb, self.prompt_len, 0)
         dev = self.device
         nxt, self.caches, self.state = self._admit_fn(
             self.params, {"tokens": torch.from_numpy(toks).to(dev)},
@@ -1280,6 +1309,7 @@ class ContinuousBatcher:
         pos0 = np.full((nb,), self.prompt_len, dtype=np.int32)
         real = np.zeros((nb,), dtype=bool)
         real[:n] = True
+        self._stamp_admission(group, nb, S, k * ps)
         dev = self.device
 
         def t(a):
@@ -1305,13 +1335,31 @@ class ContinuousBatcher:
         return {"kind": "paged", "joins": group, "k": k, "fetch": fetch,
                 "rows": rows}
 
+    def _stamp_admission(self, joins: List[Dict[str, Any]], nb: int, S: int,
+                         cached: int) -> None:
+        """Stamp ``t_admit`` on the joining requests and count the
+        admission's computed and padding tokens: ``nb`` bucket rows of the
+        ``S`` tokens after the ``cached`` ones the prefix cache serves."""
+        t = self._clock()
+        pad = (nb - len(joins)) * S
+        for join in joins:
+            req = join["req"]
+            if req.t_admit is None:
+                req.t_admit = t
+            left = self.prompt_len - len(req.prompt) - len(req.out)
+            pad += max(0, left - cached)
+        self._admit_computed.inc(nb * S)
+        self._admit_pad.inc(pad)
+
     def _finish_admit(self, rec: Dict[str, Any]) -> None:
         """Post-dispatch half of one admission: read the first tokens (one
         host sync per record), append them, complete done-at-admission
         requests, run the planned prefix inserts, and seed the drafter
         history of the slots that stay resident."""
         k = rec.get("k", 0)
-        fetched = rec["fetch"].wait()                   # ONE host sync
+        with self._span("host_sync"):
+            fetched = rec["fetch"].wait()               # ONE host sync
+        t = self._clock()
         if rec["kind"] == "paged":
             nxt_np, rows_np = fetched[:, 0], fetched[:, 1:]
         else:
@@ -1322,10 +1370,13 @@ class ContinuousBatcher:
             slot, req = join["slot"], join["req"]
             tok = int(nxt_np[j])
             req.out.append(tok)
+            if req.t_first is None:
+                req.t_first = t
             self.stats.admit_tokens += 1
             hit_eos = req.eos is not None and tok == req.eos
             if len(req.out) >= req.max_new or hit_eos:
                 req.done = True
+                req.t_done = t
                 self.stats.completed += 1
                 if rec["kind"] == "paged":
                     if self.prefix is not None:
@@ -1410,27 +1461,39 @@ class ContinuousBatcher:
         T = self._pick_chunk(active)
         t0 = self._clock()
         W = self._draft_window if self._spec else 1
+        with self._span("dispatch", {"T": T, "active": len(active)}):
+            fetch = self._launch_chunk(T, W)
+        self.stats.steps += T * W
+        self.stats.chunks += 1
+        self.stats.dispatches += 1
+        return {"fetch": fetch, "t0": t0, "T": T, "W": W, "active": active}
+
+    def _launch_chunk(self, T: int, W: int) -> _Fetch:
+        """Enqueue one chunk of ``T`` steps (windows of ``W``) and its packed
+        fetch; the model calls run in the tracer's ``decode_model`` range."""
+        tracer = self._tracer
         ctr = None
         if self._spec and self.paged:
             chunk = self._program(make_paged_spec_decode_chunk, T, W,
-                                  self._draft_ngram, self.page_size)
+                                  self._draft_ngram, self.page_size,
+                                  tracer=tracer)
             (self.caches, self.state, self.pages, self.draft, toks, emitted,
              poisoned, ctr) = chunk(self.params, self.caches, self.state,
                                     self.pages, self.draft)
         elif self._spec:
             chunk = self._program(make_spec_decode_chunk, T, W,
-                                  self._draft_ngram)
+                                  self._draft_ngram, tracer=tracer)
             (self.caches, self.state, self.draft, toks, emitted,
              poisoned) = chunk(self.params, self.caches, self.state,
                                self.draft)
         elif self.paged:
             chunk = self._program(make_paged_decode_chunk, T,
-                                  self.page_size)
+                                  self.page_size, tracer=tracer)
             (self.caches, self.state, self.pages, toks, emitted, poisoned,
              ctr) = chunk(self.params, self.caches, self.state, self.pages,
                           self._gen)
         else:
-            chunk = self._program(make_decode_chunk, T)
+            chunk = self._program(make_decode_chunk, T, tracer=tracer)
             self.caches, self.state, toks, emitted, poisoned = chunk(
                 self.params, self.caches, self.state, self._gen)
         # one packed int32 vector so the chunk costs one fetch: tokens,
@@ -1448,15 +1511,7 @@ class ContinuousBatcher:
                       pg0.free_top.reshape(1), ctr]
             if self._audit:
                 parts.append(pg0.table.reshape(-1))
-        fetch = _Fetch(torch.cat(parts))
-        self.stats.steps += T * W
-        self.stats.chunks += 1
-        self.stats.dispatches += 1
-        if self._tracer.enabled:
-            self._tracer.complete("dispatch", self._track, t0,
-                                  self._clock() - t0,
-                                  {"T": T, "active": len(active)})
-        return {"fetch": fetch, "t0": t0, "T": T, "W": W, "active": active}
+        return _Fetch(torch.cat(parts))
 
     def _finish_chunk(self, pending: Dict[str, Any], *,
                       keep_admitted_pages: int = 0) -> None:
@@ -1468,99 +1523,100 @@ class ContinuousBatcher:
         predates those pops, so they survive the estimate's reset."""
         T, W, active = pending["T"], pending["W"], pending["active"]
         B = self.B
-        t_sync0 = self._clock() if self._tracer.enabled else 0.0
-        fetched = pending["fetch"].wait()                 # ONE host sync
-        elapsed = self._clock() - pending["t0"]
+        with self._span("host_sync"):
+            fetched = pending["fetch"].wait()             # ONE host sync
+        t_host = self._clock()
+        elapsed = t_host - pending["t0"]
         if self._tracer.enabled:
-            t_end = pending["t0"] + elapsed
-            self._tracer.complete("host_sync", self._track, t_sync0,
-                                  t_end - t_sync0)
             self._tracer.complete("chunk", self._track, pending["t0"],
                                   elapsed, {"T": T, "slots": len(active)})
-        stall_slot: Optional[int] = None
-        if self._stall is not None:
-            stall_slot, extra = self._stall
-            self._stall = None
-            elapsed += extra
-        n = T * B * W
-        toks_np = fetched[:n].reshape(T, B, W)
-        emit_np = fetched[n:2 * n].reshape(T, B, W)
-        poison_np = fetched[2 * n:2 * n + B]
-        self.stats.host_syncs += 1
-        # busy/total count query positions: speculative occupancy then
-        # shows rejected drafts as idle device work
-        self.stats.slot_total_steps += B * T * W
-        self.stats.slot_busy_steps += int(emit_np.sum())
-        for i in active:
-            req = self.slot_req[i]
-            for t in range(T):
-                # emitted is a per-window prefix mask (W = 1 without spec)
-                c = int(emit_np[t, i].sum())
-                if c == 0:
-                    break       # deactivated (EOS, budget, OOM, poison)
-                req.out.extend(int(x) for x in toks_np[t, i, :c])
-                self.stats.decode_tokens += c
-                if self._spec:
-                    self.stats.spec_windows += 1
-                    self.stats.drafted_tokens += W - 1
-                    self.stats.accepted_tokens += c - 1
-            self._maybe_complete(i, req)
-        # non-finite sentinel: the device deactivated the flagged slots
-        # before selecting or emitting a token (and, paged, recycled their
-        # pages in the same step); requeue the victims
-        for i in active:
-            req = self.slot_req[i]
-            if req is not None and bool(poison_np[i]):
-                self.stats.poisoned_slots += 1
-                self._tracer.instant("poisoned_slot", self._track,
-                                     args={"slot": i})
-                self._requeue_slot(i, req)
-        if self.paged:
-            rest = fetched[2 * n + B:]
-            active_np, free_top = rest[:B], int(rest[B])
-            ctr_np, table_np = rest[B + 1:B + 5], rest[B + 5:]
-            self.stats.device_pages_popped += int(ctr_np[0])
-            self.stats.device_pages_pushed += int(ctr_np[1])
-            self.stats.fault_denied_slots += int(ctr_np[2])
-            self.stats.device_draft_accepted += int(ctr_np[3])
-            self._stalled = self._stalled + 1 \
-                if int(emit_np.sum()) == 0 else 0
-            # a slot that deactivated without finishing was denied a page:
-            # requeue its request at the head, keeping its tokens when
-            # prompt + output still fit the prompt bucket
-            oomed = 0
+        with self._span("bookkeeping"):
+            stall_slot: Optional[int] = None
+            if self._stall is not None:
+                stall_slot, extra = self._stall
+                self._stall = None
+                elapsed += extra
+            n = T * B * W
+            toks_np = fetched[:n].reshape(T, B, W)
+            emit_np = fetched[n:2 * n].reshape(T, B, W)
+            poison_np = fetched[2 * n:2 * n + B]
+            self.stats.host_syncs += 1
+            # busy/total count query positions: speculative occupancy then
+            # shows rejected drafts as idle device work
+            self.stats.slot_total_steps += B * T * W
+            self.stats.slot_busy_steps += int(emit_np.sum())
             for i in active:
                 req = self.slot_req[i]
-                if req is not None and not bool(active_np[i]):
-                    self._tracer.instant("oom_requeue", self._track,
+                for t in range(T):
+                    # emitted is a per-window prefix mask (W = 1 without spec)
+                    c = int(emit_np[t, i].sum())
+                    if c == 0:
+                        break       # deactivated (EOS, budget, OOM, poison)
+                    req.out.extend(int(x) for x in toks_np[t, i, :c])
+                    self.stats.decode_tokens += c
+                    if self._spec:
+                        self.stats.spec_windows += 1
+                        self.stats.drafted_tokens += W - 1
+                        self.stats.accepted_tokens += c - 1
+                self._maybe_complete(i, req, t_host)
+            # non-finite sentinel: the device deactivated the flagged slots
+            # before selecting or emitting a token (and, paged, recycled their
+            # pages in the same step); requeue the victims
+            for i in active:
+                req = self.slot_req[i]
+                if req is not None and bool(poison_np[i]):
+                    self.stats.poisoned_slots += 1
+                    self._tracer.instant("poisoned_slot", self._track,
                                          args={"slot": i})
-                    if self._requeue_slot(i, req):
-                        self.stats.oom_resumed += 1
-                    self.stats.oom_requeues += 1
-                    oomed += 1
-            if oomed:
-                self._resident_cap = max(
-                    1, sum(r is not None for r in self.slot_req))
-            elif self._resident_cap < self.B:
-                self._resident_cap += 1
-            self.stats.pages_in_use = self.n_pages - free_top
-            self.stats.peak_pages_in_use = max(
-                self.stats.peak_pages_in_use, self.stats.pages_in_use)
-            self._admitted_pages_since_sync = keep_admitted_pages
-            if self._audit:
-                self._run_audit(table_np.reshape(B, -1))
-        if self._watchdog_s is not None:
-            tripped = elapsed > self._watchdog_s
-            if self._spmd:
-                tripped = self._policy.agree_max(float(tripped)) > 0
-            if tripped:
-                self._watchdog_trip(stall_slot)
+                    self._requeue_slot(i, req)
+            if self.paged:
+                rest = fetched[2 * n + B:]
+                active_np, free_top = rest[:B], int(rest[B])
+                ctr_np, table_np = rest[B + 1:B + 5], rest[B + 5:]
+                self.stats.device_pages_popped += int(ctr_np[0])
+                self.stats.device_pages_pushed += int(ctr_np[1])
+                self.stats.fault_denied_slots += int(ctr_np[2])
+                self.stats.device_draft_accepted += int(ctr_np[3])
+                self._stalled = self._stalled + 1 \
+                    if int(emit_np.sum()) == 0 else 0
+                # a slot that deactivated without finishing was denied a page:
+                # requeue its request at the head, keeping its tokens when
+                # prompt + output still fit the prompt bucket
+                oomed = 0
+                for i in active:
+                    req = self.slot_req[i]
+                    if req is not None and not bool(active_np[i]):
+                        self._tracer.instant("oom_requeue", self._track,
+                                             args={"slot": i})
+                        if self._requeue_slot(i, req):
+                            self.stats.oom_resumed += 1
+                        self.stats.oom_requeues += 1
+                        oomed += 1
+                if oomed:
+                    self._resident_cap = max(
+                        1, sum(r is not None for r in self.slot_req))
+                elif self._resident_cap < self.B:
+                    self._resident_cap += 1
+                self.stats.pages_in_use = self.n_pages - free_top
+                self.stats.peak_pages_in_use = max(
+                    self.stats.peak_pages_in_use, self.stats.pages_in_use)
+                self._admitted_pages_since_sync = keep_admitted_pages
+                if self._audit:
+                    self._run_audit(table_np.reshape(B, -1))
+            if self._watchdog_s is not None:
+                tripped = elapsed > self._watchdog_s
+                if self._spmd:
+                    tripped = self._policy.agree_max(float(tripped)) > 0
+                if tripped:
+                    self._watchdog_trip(stall_slot)
 
-    def _maybe_complete(self, slot: int, req: Request) -> None:
-        """Retire ``slot`` if its request just hit EOS or its budget."""
+    def _maybe_complete(self, slot: int, req: Request, t: float) -> None:
+        """Retire ``slot`` if its request just hit EOS or its budget (its
+        tokens reached the host at ``t``)."""
         hit_eos = req.eos is not None and req.out and req.out[-1] == req.eos
         if len(req.out) >= req.max_new or hit_eos:
             req.done = True
+            req.t_done = t
             self.slot_req[slot] = None
             self.stats.completed += 1
             if self.paged:
@@ -1585,8 +1641,8 @@ class ContinuousBatcher:
         never see the new slots; this round's admission pops are carried
         across the estimate's reset."""
         if not self._overlap:
-            with self._tracer.span("round", self._track):
-                with self._tracer.span("admission", self._track):
+            with self._span("round"):
+                with self._span("admission"):
                     self._admit()
                 active = [i for i, r in enumerate(self.slot_req)
                           if r is not None]
@@ -1594,12 +1650,12 @@ class ContinuousBatcher:
                     return
                 self._finish_chunk(self._dispatch_chunk(active))
             return
-        with self._tracer.span("round", self._track):
+        with self._span("round"):
             active = [i for i, r in enumerate(self.slot_req)
                       if r is not None]
             pending = self._dispatch_chunk(active) if active else None
             pops_before = self._admitted_pages_since_sync
-            with self._tracer.span("admission", self._track):
+            with self._span("admission"):
                 admits = self._admit(defer=True)
             round_pops = self._admitted_pages_since_sync - pops_before
             if pending is not None and admits:

@@ -56,6 +56,7 @@ from ..models import (
 )
 from ..models.attention import check_attn_impl
 from ..models.transformer import Caches, prefill_kv
+from ..obs import NULL_TRACER
 from .kv_cache import pages_for
 
 
@@ -221,7 +222,8 @@ def init_slot_state(batch: int, *, device="cuda") -> SlotState:
     )
 
 
-def make_decode_chunk(cfg, scfg: ServeConfig, n_steps: int, *, policy=None):
+def make_decode_chunk(cfg, scfg: ServeConfig, n_steps: int, *, policy=None,
+                      tracer=NULL_TRACER):
     """decode_chunk(params, caches, state, generator=None) ->
     (caches, state, tokens (T, B), emitted (T, B), poisoned (B,)).
 
@@ -237,6 +239,12 @@ def make_decode_chunk(cfg, scfg: ServeConfig, n_steps: int, *, policy=None):
     (the reference returns new caches under buffer donation); the slot state
     is returned as new tensors.  No value is read back to the host inside
     the loop.
+
+    With an enabled ``tracer`` under a profiler, each step's model call
+    runs inside a ``serving.decode_model`` range; whatever else the chunk
+    launches (token selection, the EOS and budget mask, and in the paged
+    and speculative twins the page faults, frees and counters) is the
+    chunk's bookkeeping.  The three twins below do the same.
     """
 
     def decode_chunk(params, caches: Caches, state: SlotState,
@@ -247,10 +255,11 @@ def make_decode_chunk(cfg, scfg: ServeConfig, n_steps: int, *, policy=None):
         poisoned = torch.zeros_like(state.active)
         toks, emitted = [], []
         for _ in range(n_steps):
-            logits, caches = decode_step(params, _take(st.tokens, rows),
-                                         caches, _take(st.cur_pos, rows),
-                                         cfg, impl=scfg.attn_impl,
-                                         policy=policy)
+            with tracer.range("decode_model"):
+                logits, caches = decode_step(params, _take(st.tokens, rows),
+                                             caches, _take(st.cur_pos, rows),
+                                             cfg, impl=scfg.attn_impl,
+                                             policy=policy)
             nxt, finite = _select_rows(logits, mask, scfg, generator,
                                        policy, rows)
             bad = st.active & ~finite
@@ -416,7 +425,8 @@ def _free_finished_pages(table, free, free_top, finished, pinned):
 
 
 def make_paged_decode_chunk(cfg, scfg: ServeConfig, n_steps: int,
-                            page_size: int, *, policy=None):
+                            page_size: int, *, policy=None,
+                            tracer=NULL_TRACER):
     """decode_chunk(params, caches, state, pages, generator=None) ->
     (caches, state, pages, tokens (T, B), emitted (T, B), poisoned (B,),
     ctr (4,) int32).
@@ -481,11 +491,11 @@ def make_paged_decode_chunk(cfg, scfg: ServeConfig, n_steps: int,
             oom = need & ~got
             active = st.active & ~oom
             # -- decode against the (updated) page table ------------------
-            logits, caches = decode_step(params, _take(st.tokens, rows),
-                                         caches, _take(st.cur_pos, rows), cfg,
-                                         impl=scfg.attn_impl,
-                                         page_table=_take(table, rows),
-                                         policy=policy)
+            with tracer.range("decode_model"):
+                logits, caches = decode_step(
+                    params, _take(st.tokens, rows), caches,
+                    _take(st.cur_pos, rows), cfg, impl=scfg.attn_impl,
+                    page_table=_take(table, rows), policy=policy)
             nxt, finite = _select_rows(logits, mask, scfg, generator,
                                        policy, rows)
             bad = active & ~finite
@@ -850,13 +860,16 @@ def _advance_draft(draft: DraftState, toks, c) -> DraftState:
 
 
 def _verify_rows(params, q_toks, caches, st: SlotState, cfg, scfg, mask,
-                 policy, rows, **kw):
+                 policy, rows, tracer, **kw):
     """One verify window on the model's rows: the greedy token and the
     finite flag of each window position (B, W), all-gathered over the data
-    axes when the model ran on the rank's ``rows``."""
-    logits, caches = verify_step(params, _take(q_toks, rows), caches,
-                                 _take(st.cur_pos, rows), cfg,
-                                 impl=scfg.attn_impl, policy=policy, **kw)
+    axes when the model ran on the rank's ``rows``.  The verify call runs
+    in ``tracer``'s ``serving.decode_model`` range."""
+    with tracer.range("decode_model"):
+        logits, caches = verify_step(params, _take(q_toks, rows), caches,
+                                     _take(st.cur_pos, rows), cfg,
+                                     impl=scfg.attn_impl, policy=policy,
+                                     **kw)
     finite = torch.isfinite(logits).all(dim=-1)
     if mask is not None:
         logits = logits + mask.to(logits.dtype)
@@ -923,7 +936,8 @@ def _spec_window_bad(finite, st: SlotState, active):
 
 
 def make_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
-                           window: int, ngram: int, *, policy=None):
+                           window: int, ngram: int, *, policy=None,
+                           tracer=NULL_TRACER):
     """spec_chunk(params, caches, state, draft) ->
     (caches, state, draft, tokens (Tw, B, W), emitted (Tw, B, W),
     poisoned (B,)).
@@ -956,7 +970,7 @@ def make_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
             q_toks = torch.cat([st.tokens[:, None], drafts], dim=1)
             g, finite, caches = _verify_rows(
                 params, q_toks, caches, st, cfg, scfg, mask, policy, rows,
-                write_limit=_take(st.remaining, rows))             # (B, W)
+                tracer, write_limit=_take(st.remaining, rows))     # (B, W)
             bad = _spec_window_bad(finite, st, st.active)
             active = st.active & ~bad
             c, nxt, done, emit = _spec_accept(q_toks, g, st, active)
@@ -975,7 +989,7 @@ def make_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
 
 def make_paged_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
                                  window: int, ngram: int, page_size: int, *,
-                                 policy=None):
+                                 policy=None, tracer=NULL_TRACER):
     """spec_chunk(params, caches, state, pages, draft) ->
     (caches, state, pages, draft, tokens (Tw, B, W), emitted, poisoned,
     ctr (4,) int32).
@@ -1057,7 +1071,7 @@ def make_paged_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
             q_toks = torch.cat([st.tokens[:, None], drafts], dim=1)
             g, finite, caches = _verify_rows(
                 params, q_toks, caches, st, cfg, scfg, mask, policy, rows,
-                page_table=_take(table, rows))
+                tracer, page_table=_take(table, rows))
             bad = _spec_window_bad(finite, st, active)
             active = active & ~bad
             c, nxt, done, emit = _spec_accept(q_toks, g, st, active)

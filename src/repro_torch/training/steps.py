@@ -65,7 +65,7 @@ import torch
 from ..device import resolve_device, torch_dtype
 from ..models import encoder_forward, forward, lm_loss
 from ..models.attention import check_attn_impl
-from ..models.moe import _profiled
+from ..obs import profiled
 from ..optim import adamw_update, clip_by_global_norm
 from ..optim.schedules import SCHEDULES
 from ..tree import leaves, tree_map, unflatten_like
@@ -325,7 +325,7 @@ def make_train_step(cfg, tcfg: TrainerConfig, *, policy=None, mesh=None):
         kept = grads
         # a profiler range while a profiler records (chip_smoke.py splits
         # a training window's device time by it)
-        with _profiled("train.optimizer"):
+        with profiled("train.optimizer"):
             grads, gnorm = clip_by_global_norm(grads, tcfg.clip_norm,
                                                policy=rank_policy)
             lr = lr_fn(opt_state.step)
