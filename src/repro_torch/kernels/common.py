@@ -1,5 +1,6 @@
 """Shared kernel constants (counterpart of ``repro.kernels.common``), the
-launch counter every ``ops.py`` wrapper bumps, and the cost sinks a
+launch counter every ``ops.py`` wrapper bumps (and the tallies that count
+a captured CUDA graph's launches once a replay), and the cost sinks a
 wrapper's ``meta`` route reports its kernel's work to.
 
 A cost sink is an object with ``add_kernel(name, flops, n_bytes)`` and
@@ -19,14 +20,46 @@ NEG_INF = -1e30
 # attribute could lose counts between its read and its write
 _LAUNCH_LOCK = threading.Lock()
 
+# open launch tallies: what a captured CUDA graph launches each replay,
+# counted while its capture runs the wrappers once
+_TALLIES: list = []
+
 
 def count_launch(wrapper, route=None, *, by: str = "route_launches") -> None:
     """Add one to ``wrapper.launches`` and, with ``route``, to
-    ``getattr(wrapper, by)[route]``, under one lock."""
+    ``getattr(wrapper, by)[route]``, under one lock; and one to the same
+    key of every open tally (:func:`open_launch_tally`)."""
     with _LAUNCH_LOCK:
         wrapper.launches += 1
         if route is not None:
             getattr(wrapper, by)[route] += 1
+        for tally in _TALLIES:
+            key = (wrapper, route, by)
+            tally[key] = tally.get(key, 0) + 1
+
+
+def open_launch_tally() -> dict:
+    """Start counting launches into a new tally, ``{(wrapper, route, by):
+    n}``, until :func:`close_launch_tally`."""
+    tally: dict = {}
+    with _LAUNCH_LOCK:
+        _TALLIES.append(tally)
+    return tally
+
+
+def close_launch_tally(tally: dict) -> None:
+    with _LAUNCH_LOCK:
+        _TALLIES.remove(tally)
+
+
+def add_launches(tally: dict) -> None:
+    """Count a tally's launches again, under the lock: a replay of a
+    captured graph runs them without running their wrappers."""
+    with _LAUNCH_LOCK:
+        for (wrapper, route, by), n in tally.items():
+            wrapper.launches += n
+            if route is not None:
+                getattr(wrapper, by)[route] += n
 
 
 _COST_SINKS: list = []             # open cost sinks, innermost last

@@ -20,7 +20,11 @@ multiplexes a dynamic request stream onto B fixed slots:
   ``draft_window`` tokens (an on-device n-gram drafter, one verify pass,
   greedy acceptance), token-identical to plain greedy decode;
 * ``overlap=True`` dispatches the decode chunk first and runs admission
-  behind it, so the host plans admission while the card decodes.
+  behind it, so the host plans admission while the card decodes;
+* on a CUDA device the dense family's plain greedy chunk replays a CUDA
+  graph of itself, one a T bucket (``engine.ChunkGraphs``), instead of
+  launching its kernels one by one (``stats.graph_chunks``,
+  ``stats.graph_captures``).
 
 The model is a pure-attention family (dense MLP or Mixture-of-Experts),
 the attention-free SSM (Mamba-2) family or the hybrid (Jamba), whose
@@ -132,11 +136,13 @@ from ..models.transformer import (
 from ..obs import MetricsRegistry, Telemetry
 from .config import ServingConfig, config_from_legacy_kwargs
 from .engine import (
+    ChunkGraphs,
     DraftState,
     PageState,
     ServeConfig,
     SlotState,
     chunk_bucket,
+    chunk_graph_route,
     init_draft_state,
     init_page_state,
     init_slot_state,
@@ -238,10 +244,15 @@ class Request:
         default_factory=list, repr=False)
 
 
+# The port's own counters, which the reference lacks: decode chunks served
+# by a CUDA graph replay (a capturing chunk's own replay included) and the
+# graphs captured (engine.ChunkGraphs); both stay 0 on every eager route.
+PORT_STATS_FIELDS: Tuple[str, ...] = ("graph_chunks", "graph_captures")
+
 # Every BatcherStats counter, in declaration order.  Each name is a view
 # over the ``serving.<name>`` counter in the batcher's MetricsRegistry.  The
 # names of modes the port does not run yet stay (at 0) so both packages
-# report the same counter set.
+# report the reference's counter set; the port's own follow it.
 _STATS_FIELDS: Tuple[str, ...] = (
     "steps",                    # device decode steps executed (Σ chunk T)
     "chunks",                   # decode_chunk dispatches
@@ -291,7 +302,7 @@ _STATS_FIELDS: Tuple[str, ...] = (
     "resume_prefix_misses",
     # tensor parallelism
     "remeshes",                 # live tp-width migrations (hypervisor resizes)
-)
+) + PORT_STATS_FIELDS
 _STATS_FIELD_SET = frozenset(_STATS_FIELDS)
 
 
@@ -619,6 +630,11 @@ class ContinuousBatcher:
     def _build_programs(self) -> None:
         self._admit_fn = self._program(
             make_paged_admit_step if self.paged else make_admit_step)
+        # the plain decode chunk replays a CUDA graph a T bucket where it
+        # can (engine.chunk_graph_route); None runs every chunk eagerly
+        self._graphs = ChunkGraphs() if chunk_graph_route(
+            self.device, self.cfg, self.scfg, speculative=self._spec,
+            policy=self._policy) else None
 
     def _shard_over(self, mesh) -> None:
         """Use ``mesh`` (tp > 1 logical cores of the batcher's device): a
@@ -748,6 +764,8 @@ class ContinuousBatcher:
                 f"{here}; a live batcher changes its cores through remesh, "
                 f"over the logical cores of its own device (across cards: "
                 f"ROADMAP.md Queue 1 item 18 part b)")
+        if self._graphs is not None:
+            self._graphs.clear()
         if self._group is not None:
             self._place_state(state)
             return
@@ -1490,12 +1508,11 @@ class ContinuousBatcher:
             chunk = self._program(make_paged_decode_chunk, T,
                                   self.page_size, tracer=tracer)
             (self.caches, self.state, self.pages, toks, emitted, poisoned,
-             ctr) = chunk(self.params, self.caches, self.state, self.pages,
-                          self._gen)
+             ctr) = self._plain_chunk(chunk, T, self.state, self.pages)
         else:
             chunk = self._program(make_decode_chunk, T, tracer=tracer)
-            self.caches, self.state, toks, emitted, poisoned = chunk(
-                self.params, self.caches, self.state, self._gen)
+            self.caches, self.state, toks, emitted, poisoned = \
+                self._plain_chunk(chunk, T, self.state)
         # one packed int32 vector so the chunk costs one fetch: tokens,
         # emitted, poisoned, then (paged) active, free_top, the counters and
         # (audit) the page table; the copy is the table as this chunk left
@@ -1512,6 +1529,18 @@ class ContinuousBatcher:
             if self._audit:
                 parts.append(pg0.table.reshape(-1))
         return _Fetch(torch.cat(parts))
+
+    def _plain_chunk(self, chunk, T: int, *state):
+        """Run a plain (not speculative) decode chunk on ``state``: a replay
+        of its bucket's CUDA graph on the graph route, else eagerly."""
+        if self._graphs is None:
+            return chunk(self.params, self.caches, *state, self._gen)
+        out, how = self._graphs(chunk, T, self.params, self.caches, *state)
+        if how != "eager":
+            self.stats.graph_chunks += 1
+        if how == "capture":
+            self.stats.graph_captures += 1
+        return out
 
     def _finish_chunk(self, pending: Dict[str, Any], *,
                       keep_admitted_pages: int = 0) -> None:

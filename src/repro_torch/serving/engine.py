@@ -45,18 +45,23 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.common import (
+    add_launches, close_launch_tally, open_launch_tally,
+)
 from ..models import (
     decode_step, encoder_forward, prefill, prefix_prefill, verify_step,
 )
 from ..models.attention import check_attn_impl
 from ..models.transformer import Caches, prefill_kv
 from ..obs import NULL_TRACER
+from ..tree import leaves
 from .kv_cache import pages_for
 
 
@@ -1094,6 +1099,111 @@ def make_paged_spec_decode_chunk(cfg, scfg: ServeConfig, n_windows: int,
                 poisoned, ctr)
 
     return spec_chunk
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the plain decode chunk
+# ---------------------------------------------------------------------------
+
+
+def chunk_graph_route(device, cfg, scfg: ServeConfig, *, speculative: bool,
+                      policy=None) -> bool:
+    """Whether a batcher replays its decode chunks as CUDA graphs
+    (:class:`ChunkGraphs`): the dense family's plain greedy chunk on one
+    CUDA device.  Everything else runs eagerly: the CPU; the MoE (its
+    decode opens the ``moe.expert_products`` range, which a replay does
+    not), SSM, hybrid, VLM and audio families; speculative chunks;
+    sampling; tensor-parallel shards (host threads and host sums between
+    them) and any activation policy, SPMD's gloo collectives among them."""
+    return (torch.device(device).type == "cuda" and cfg.family == "dense"
+            and not speculative and scfg.greedy and policy is None)
+
+
+class _Captured(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    inputs: tuple        # the static slot (and page) state a replay reads
+    outputs: tuple       # the chunk's outputs: the graph's static tensors
+    tally: dict          # the launches a replay makes, by wrapper and route
+
+
+class ChunkGraphs:
+    """One batcher's CUDA graphs of its plain decode chunk, one a T bucket.
+
+    The first chunk of a bucket runs eagerly: it builds the kernel
+    library, sets the kernels' shared-memory attributes and warms cuBLAS.
+    The bucket's second use captures the unchanged chunk program on static
+    copies of the slot (and page) state, which executes nothing, and
+    replays it at once; every later use copies the batcher's state into
+    those copies and replays.  The caches and params are read and written
+    where they lie.  The outputs are the graph's static tensors: what the
+    batcher writes into them between chunks (admissions, releases, the
+    audit's repairs, a new ``quota``) reaches the next replay through its
+    copy-in.  The buckets share one memory pool.  A chunk whose key (the
+    shapes of the state, pages and caches, the addresses of the caches and
+    params) differs from the graphs' drops them all.
+
+    The kernel wrappers count their launches in Python, which a replay
+    does not run: the capture counts one chunk's launches, the ones its
+    own replay runs, into a tally, and each later replay adds the tally
+    again, so every ``launches`` counter reads what the card ran."""
+
+    def __init__(self):
+        self.clear()
+
+    def clear(self) -> None:
+        self._key = None
+        self._graphs: dict = {}
+        self._seen: set = set()
+        self._pool = None
+
+    def __call__(self, chunk, T: int, params, caches, *state):
+        """``chunk(params, caches, *state)``'s outputs, and how the chunk
+        ran: ``"eager"``, ``"capture"`` (captured, then replayed) or
+        ``"replay"``.  ``state`` is the slot state, then (paged) the page
+        state."""
+        key = (tuple((t.data_ptr(), t.shape) for t in leaves((params, caches))
+                     if t is not None),
+               tuple(t.shape for t in leaves(state)))
+        if key != self._key:
+            self.clear()
+            self._key = key
+        with torch.cuda.device(state[0].tokens.device):
+            return self._run(chunk, T, params, caches, state)
+
+    def _run(self, chunk, T, params, caches, state):
+        got = self._graphs.get(T)
+        if got is not None:
+            for dst, src in zip(got.inputs, leaves(state)):
+                if dst is not src:
+                    dst.copy_(src)
+            got.graph.replay()
+            add_launches(got.tally)
+            return got.outputs, "replay"
+        if T not in self._seen:
+            self._seen.add(T)
+            return chunk(params, caches, *state), "eager"
+        static = tuple(type(s)(*(t.clone() for t in s)) for s in state)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        tally = open_launch_tally()
+        # a collection inside the capture would destroy whatever graphs
+        # died in a reference cycle (another batcher's), a call the capture
+        # forbids; it waits until the capture ends
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
+                outputs = chunk(params, caches, *static)
+        finally:
+            close_launch_tally(tally)
+            if collecting:
+                gc.enable()
+        self._graphs[T] = _Captured(graph, tuple(leaves(static)), outputs,
+                                    tally)
+        graph.replay()
+        return outputs, "capture"
 
 
 # ---------------------------------------------------------------------------

@@ -1271,6 +1271,187 @@ def test_paged_batcher_resize_between_chunks_on_the_card(gen):
 
 
 # ---------------------------------------------------------------------------
+# CUDA graphs of the plain decode chunk (serving.engine.ChunkGraphs)
+# ---------------------------------------------------------------------------
+
+
+def _kernel_launches():
+    """Every kernel wrapper's ``launches``, by the wrapper's name."""
+    from repro_torch.kernels.decode_attention import ops as da
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.matmul import ops as mm
+    from repro_torch.kernels.paged_attention import ops as pa
+    from repro_torch.kernels.prefix_attention import ops as pfx
+    from repro_torch.kernels.rmsnorm import ops as rms
+    from repro_torch.kernels.ssd_scan import ops as ssd
+
+    return {w.__name__: w.launches for w in (
+        fa.flash_attention, da.decode_attention, pa.paged_decode_attention,
+        pa.paged_verify_attention, pfx.prefix_flash_attention, rms.rmsnorm,
+        mm.matmul, ssd.ssd)}
+
+
+def _graph_pair_requests(Request, cfg, eos=None):
+    rng = np.random.default_rng(7)
+    return [Request(rid=i, prompt=rng.integers(1, cfg.vocab, size=1 + i % 7)
+                    .astype(np.int32), max_new=10 + (7 * i) % 31,
+                    eos=(eos or {}).get(i)) for i in range(16)]
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_graphed_batcher_matches_the_eager_one_on_the_card(gen, paged):
+    """Reduced qwen3-0.6b (2 layers) in bf16 on the card: a batcher whose
+    plain decode chunks replay CUDA graphs and one forced eager, stepped
+    in lockstep over 20+ rounds with admissions between chunks, frees at
+    EOS and at the budget, and (paged) page faults and OOM requeues on a
+    pool too small for every slot and a lease cut to the pages in use for
+    three rounds: the same tokens and counters after every round, every
+    kernel wrapper's ``launches`` equal, at most one capture a T bucket,
+    the cut honoured by replays (faults denied), and ``adopt_state``
+    dropping the graphs, which later uses of a bucket capture again."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousBatcher, Request, ServingConfig
+    from repro_torch.serving.batcher import PORT_STATS_FIELDS
+
+    def counters(b):
+        return {k: v for k, v in b.stats.as_dict().items()
+                if k not in PORT_STATS_FIELDS}
+
+    cfg = dataclasses.replace(get_reduced("qwen3-0.6b"), dtype="bfloat16")
+    params = init_params(cfg, 0, device="cuda")
+    kw = dict(slots=4, prompt_len=8, max_len=64, chunk=8)
+    if paged:
+        kw.update(paged=True, page_size=4, n_pages=20, reserve_pages=False)
+    probe = ContinuousBatcher(params, cfg, ServingConfig(**kw))
+    probe_reqs = _graph_pair_requests(Request, cfg)
+    for r in probe_reqs:
+        probe.submit(r)
+    probe.run()
+    # EOS on a token that first appears mid-output, for three requests
+    eos = {}
+    for i, r in enumerate(probe_reqs):
+        new = [t for j, t in enumerate(r.out) if j >= 2 and t not in r.out[:j]]
+        if new and len(eos) < 3:
+            eos[i] = new[0]
+    assert eos
+
+    bs = {name: ContinuousBatcher(params, cfg, ServingConfig(**kw))
+          for name in ("graph", "eager")}
+    g = bs["graph"]
+    assert g._graphs is not None
+    bs["eager"]._graphs = None
+    reqs = {name: _graph_pair_requests(Request, cfg, eos) for name in bs}
+    for name, b in bs.items():
+        for r in reqs[name]:
+            b.submit(r)
+    ran = {name: dict.fromkeys(_kernel_launches(), 0) for name in bs}
+    cut, restore, adopt = 9, 12, 15
+    buckets, at_adopt, rounds = set(), 0, 0
+    cut_denied = cut_replays = 0
+    while any(b.queue or any(s is not None for s in b.slot_req)
+              for b in bs.values()):
+        rounds += 1
+        steps, chunks = g.stats.steps, g.stats.graph_chunks
+        denied, captures = g.stats.fault_denied_slots, g.stats.graph_captures
+        for name, b in bs.items():
+            if paged and rounds == cut:
+                b.set_page_limit(b.stats.pages_in_use)
+            if paged and rounds == restore:
+                b.set_page_limit(b.n_pages)
+            if rounds == adopt:
+                b.adopt_state(b.live_state())
+            before = _kernel_launches()
+            b.step()
+            for k, n in _kernel_launches().items():
+                ran[name][k] += n - before[k]
+        assert [r.out for r in reqs["graph"]] == \
+            [r.out for r in reqs["eager"]]
+        assert counters(g) == counters(bs["eager"])
+        if cut <= rounds < restore:
+            cut_denied += g.stats.fault_denied_slots - denied
+            if g.stats.graph_chunks > chunks \
+                    and g.stats.graph_captures == captures:
+                cut_replays += 1
+        if rounds == adopt:
+            assert not g._graphs._graphs
+            at_adopt, buckets = g.stats.graph_captures, set()
+        if g.stats.steps > steps:
+            buckets.add(g.stats.steps - steps)
+        assert g.stats.graph_captures - at_adopt <= len(buckets)
+        assert rounds < 400
+    torch.cuda.synchronize()
+    assert rounds >= 20
+    assert all(r.done and not r.dropped for r in reqs["graph"])
+    assert all(reqs["graph"][i].out[-1] == t for i, t in eos.items())
+    assert bs["eager"].stats.graph_chunks == 0
+    assert bs["eager"].stats.graph_captures == 0
+    assert g.stats.graph_captures > at_adopt > 0
+    assert g.stats.graph_chunks >= g.stats.chunks // 2
+    assert ran["graph"] == ran["eager"]
+    attn = "paged_decode_attention" if paged else "decode_attention"
+    assert ran["graph"][attn] == cfg.n_layers * g.stats.steps
+    if paged:
+        assert cut_denied > 0 and cut_replays > 0
+        assert g.stats.oom_requeues > 0
+        for b in bs.values():
+            b.kv_pool.check()
+
+
+def test_graph_capture_holds_off_the_collector(gen, monkeypatch):
+    """A batcher whose graphs died in a reference cycle is destroyed by the
+    next garbage collection, which inside another batcher's capture would
+    make a call the capture forbids: every capture runs with the collector
+    off (here run at every allocation), and the collector is back on after
+    it."""
+    import gc
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import init_params
+    from repro_torch.serving import ContinuousBatcher, Request, ServingConfig
+    from repro_torch.serving import batcher as batcher_mod
+
+    cfg = dataclasses.replace(get_reduced("qwen3-0.6b"), dtype="bfloat16")
+    params = init_params(cfg, 0, device="cuda")
+    sc = ServingConfig(slots=4, prompt_len=8, max_len=64, chunk=4)
+
+    def served():
+        b = ContinuousBatcher(params, cfg, sc)
+        reqs = _graph_pair_requests(Request, cfg)[:8]
+        for r in reqs:
+            b.submit(r)
+        b.run()
+        assert all(r.done for r in reqs) and b.stats.graph_captures > 0
+        return b
+
+    dead = {"batcher": served()}
+    dead["cycle"] = dead
+    del dead
+    seen = []
+    make = batcher_mod.make_decode_chunk
+
+    def recording(*args, **kw):
+        chunk = make(*args, **kw)
+
+        def run(*a, **k):
+            seen.append((torch.cuda.is_current_stream_capturing(),
+                         gc.isenabled()))
+            return chunk(*a, **k)
+        return run
+
+    monkeypatch.setattr(batcher_mod, "make_decode_chunk", recording)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        b = served()
+    finally:
+        gc.set_threshold(*threshold)
+    assert gc.isenabled()
+    assert (True, False) in seen and (True, True) not in seen
+    assert b.stats.graph_chunks > 0
+
+
+# ---------------------------------------------------------------------------
 # training: the flash kernel's log-sum-exp, FlashAttentionFn, the train step
 # and the checkpoint store on the card
 # ---------------------------------------------------------------------------

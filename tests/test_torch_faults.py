@@ -42,6 +42,7 @@ from repro.serving.batcher import Request as JaxRequest
 from repro_torch.configs import get_reduced
 from repro_torch.core.hrp import HRPError
 from repro_torch.serving import ContinuousBatcher, Request, ServingConfig
+from repro_torch.serving.batcher import PORT_STATS_FIELDS
 from repro_torch.weights import params_from_jax
 
 
@@ -101,10 +102,12 @@ class _Pair:
 def _state(b, reqs):
     """Everything the guards touch, in plain form: tokens, counters, slot
     and queue occupancy, and (paged) quarantine, tables, free stack,
-    ``free_top``, pins and the ledger."""
+    ``free_top``, pins and the ledger.  The reference's counters read the
+    port's CUDA-graph counters as 0, as the port's do on the CPU."""
     out = {"tokens": [list(r.out) for r in reqs],
            "done": [r.done for r in reqs],
-           "stats": b.stats.as_dict(),
+           "stats": {**dict.fromkeys(PORT_STATS_FIELDS, 0),
+                     **b.stats.as_dict()},
            "slots": [None if r is None else r.rid for r in b.slot_req],
            "queue": [r.rid for r in b.queue],
            "active": np.asarray(b.state.active).tolist()}

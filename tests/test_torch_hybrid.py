@@ -47,6 +47,7 @@ from repro_torch.models.transformer import prefill_kv
 from repro_torch.serving import (
     ContinuousBatcher, Request, ServingConfig, generate, kv_cache,
 )
+from repro_torch.serving.batcher import PORT_STATS_FIELDS
 from repro_torch.weights import params_from_jax
 
 SCAN_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -345,7 +346,8 @@ def test_batcher_matches_jax(models, eos_map, mode):
         assert want[i].out[-1] == eos_map[i] and len(want[i].out) < 6 + i % 5
     assert [r.out for r in got] == [r.out for r in want]
     assert all(r.done for r in got)
-    assert b.stats.as_dict() == jb.stats.as_dict()
+    assert b.stats.as_dict() == {**jb.stats.as_dict(),
+                                 **dict.fromkeys(PORT_STATS_FIELDS, 0)}
     assert (b.stats.overlap_rounds > 0) == (mode == "overlap")
     if b.paged:
         b.kv_pool.check()

@@ -41,6 +41,7 @@ from repro_torch.models import (
 )
 from repro_torch.models.transformer import prefill_kv
 from repro_torch.serving import ContinuousBatcher, Request, ServingConfig
+from repro_torch.serving.batcher import PORT_STATS_FIELDS
 from repro_torch.weights import params_from_jax, params_to_jax
 
 # the reference's functions under jit (cfg static): one compile per shape
@@ -413,7 +414,8 @@ def _run_pair(model, kw, prompts, max_new, *, namespace=None):
         runs.append(reqs)
     assert [r.out for r in runs[1]] == [r.out for r in runs[0]]
     assert all(r.done and len(r.out) == r.max_new for r in runs[1])
-    assert tb.stats.as_dict() == jb.stats.as_dict()
+    assert tb.stats.as_dict() == {**jb.stats.as_dict(),
+                                  **dict.fromkeys(PORT_STATS_FIELDS, 0)}
     return tb
 
 

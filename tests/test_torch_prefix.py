@@ -37,6 +37,7 @@ from repro_torch.serving import (
     ContinuousBatcher, PagedKVPool, PageQuotaError, PageState, PrefixCache,
     Request, ServeConfig, ServingConfig, SlotState, make_cached_admit_step,
 )
+from repro_torch.serving.batcher import PORT_STATS_FIELDS
 from repro_torch.weights import params_from_jax
 
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -281,7 +282,8 @@ def test_warm_wave_matches_cold_and_jax(models, impl, jimpl):
     assert [r.out for r in warm] == [r.out for r in want]
     assert all(r.done for r in warm)
     assert b.stats.prefix_hits > 0 and b.stats.prefill_tokens_skipped > 0
-    assert b.stats.as_dict() == jb.stats.as_dict()
+    assert b.stats.as_dict() == {**jb.stats.as_dict(),
+                                 **dict.fromkeys(PORT_STATS_FIELDS, 0)}
     _assert_conservation(b)
 
 
@@ -467,7 +469,8 @@ def test_resume_with_prefix_cache_matches_jax(models):
     assert [r.out for r in reqs] == [r.out for r in want]
     assert all(r.done for r in reqs)
     assert b.stats.prefix_hits > 0 and b.stats.oom_requeues > 0
-    assert b.stats.as_dict() == jb.stats.as_dict()
+    assert b.stats.as_dict() == {**jb.stats.as_dict(),
+                                 **dict.fromkeys(PORT_STATS_FIELDS, 0)}
     _assert_conservation(b)
 
 

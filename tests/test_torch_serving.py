@@ -403,3 +403,126 @@ def test_poisoned_slot_is_requeued_and_resumes(models):
     assert b.stats.poisoned_slots == 1
     assert b.stats.resumed_tokens_kept > 0
     assert outs == clean
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the plain decode chunk: the route and its counters on the
+# CPU (the replays themselves: tests/test_torch_cuda.py)
+# ---------------------------------------------------------------------------
+
+
+GRAPH_ROUTE_CASES = {
+    # case: (arch, ServeConfig keywords, speculative, policy, device)
+    "dense-greedy-cuda": ("qwen3-0.6b", {}, False, None, "cuda"),
+    "cpu": ("qwen3-0.6b", {}, False, None, "cpu"),
+    "moe": ("deepseek-moe-16b", {}, False, None, "cuda"),
+    "ssm": ("mamba2-370m", {}, False, None, "cuda"),
+    "hybrid": ("jamba-1.5-large-398b", {}, False, None, "cuda"),
+    "vlm": ("qwen2-vl-72b", {}, False, None, "cuda"),
+    "audio": ("whisper-base", {}, False, None, "cuda"),
+    "speculative": ("qwen3-0.6b", {}, True, None, "cuda"),
+    "sampling": ("qwen3-0.6b", {"greedy": False}, False, None, "cuda"),
+    "tp": ("qwen3-0.6b", {}, False, "tp", "cuda"),
+    "spmd": ("qwen3-0.6b", {}, False, "spmd", "cuda"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_ROUTE_CASES))
+def test_chunk_graph_route(case):
+    """Only the dense family's plain greedy chunk on one CUDA device, with
+    no tp group and no activation policy, replays graphs."""
+    from repro_torch.distributed.sharding import TP_POLICY
+    from repro_torch.distributed.spmd import make_policy
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.serving.engine import chunk_graph_route
+
+    arch, skw, spec, policy, device = GRAPH_ROUTE_CASES[case]
+    cfg = get_reduced(arch)
+    scfg = ServeConfig(max_len=32, **skw)
+    if policy == "tp":
+        policy = TP_POLICY
+    elif policy == "spmd":
+        policy = make_policy(cfg, make_production_mesh(), batch=256)
+    assert chunk_graph_route(torch.device(device), cfg, scfg,
+                             speculative=spec, policy=policy) \
+        == (case == "dense-greedy-cuda")
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged", "tp"])
+def test_cpu_batcher_replays_no_graph(models, mode):
+    """A CPU batcher has no graph route: every chunk runs eagerly, both
+    graph counters read 0 and the tokens are the reference's."""
+    jp, params = models
+    jcfg, cfg = _configs()
+    kw = dict(slots=4, prompt_len=10, max_len=26, chunk=4)
+    if mode == "paged":
+        kw.update(paged=True, page_size=4)
+    reqs = {}
+    for name, make, Req, cls, p, c, impl in (
+            ("port", _port_batcher, Request, ServingConfig, params, cfg,
+             "torch"),
+            ("ref", JaxBatcher, JaxRequest, JaxServingConfig, jp, jcfg,
+             "xla")):
+        extra = {"tp": 2} if mode == "tp" and name == "port" else {}
+        b = make(p, c, cls(**kw, **extra, attn_impl=impl))
+        reqs[name] = [Req(rid=i, prompt=q, max_new=5 + i % 4)
+                      for i, q in enumerate(PROMPTS)]
+        for r in reqs[name]:
+            b.submit(r)
+        b.run()
+        if name == "port":
+            assert b._graphs is None
+            assert b.stats.chunks > 0
+            assert b.stats.graph_chunks == b.stats.graph_captures == 0
+            assert b.stats.as_dict()["graph_chunks"] == 0
+    assert [r.out for r in reqs["port"]] == [r.out for r in reqs["ref"]]
+
+
+def _graph_share_reader():
+    import importlib.util
+
+    path = ROOT / "perfbench" / "metrics" / "batcher.graph_chunk_share.py"
+    spec = importlib.util.spec_from_file_location("graph_chunk_share", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
+
+
+@pytest.mark.parametrize("counters,want", [
+    ({"chunks": 40, "steps": 320}, None),           # a program without it
+    ({"chunks": 0, "graph_chunks": 0}, None),       # no chunk in the window
+    ({"chunks": 40, "graph_chunks": 0}, 0.0),       # every chunk eager
+    ({"chunks": 40, "graph_chunks": 38}, 95.0),
+])
+def test_graph_chunk_share_reader(counters, want):
+    """``batcher.graph_chunk_share`` reads the window's ``graph_chunks``
+    over its ``chunks``, and nothing where the counter is absent."""
+    run = dataclasses.make_dataclass("View", ["counters"])(counters)
+    assert _graph_share_reader()(run) == want
+
+
+def test_launch_tally_counts_what_a_replay_adds():
+    """A tally counts the launches made while it is open, by wrapper and
+    route; adding it back counts them again on the wrappers."""
+    from repro_torch.kernels import common
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    wrapper.route_launches = {"a": 0, "b": 0}
+    common.count_launch(wrapper, "a")
+    tally = common.open_launch_tally()
+    try:
+        common.count_launch(wrapper, "a")
+        common.count_launch(wrapper, "b")
+        common.count_launch(wrapper)
+    finally:
+        common.close_launch_tally(tally)
+    common.count_launch(wrapper, "b")
+    assert wrapper.launches == 5
+    assert sum(tally.values()) == 3
+    common.add_launches(tally)
+    common.add_launches(tally)
+    assert wrapper.launches == 11
+    assert wrapper.route_launches == {"a": 4, "b": 4}

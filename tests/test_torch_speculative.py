@@ -44,6 +44,7 @@ from repro_torch.serving import (
     ServingConfig, SlotState, init_draft_state, make_paged_spec_decode_chunk,
     make_spec_decode_chunk,
 )
+from repro_torch.serving.batcher import PORT_STATS_FIELDS
 from repro_torch.serving.engine import (
     _advance_draft, _propose_drafts, _spec_accept,
 )
@@ -655,7 +656,8 @@ def test_spec_batcher_matches_jax_and_greedy(models, greedy, case):
     assert [r.out for r in got] == [r.out for r in want]
     assert [r.out for r in got] == greedy[eos]
     assert all(r.done for r in got)
-    assert b.stats.as_dict() == jb.stats.as_dict()
+    assert b.stats.as_dict() == {**jb.stats.as_dict(),
+                                 **dict.fromkeys(PORT_STATS_FIELDS, 0)}
     s = b.stats
     pushes = getattr(b, "page_pushes", 0)
     assert s.dispatches - pushes == s.host_syncs == s.prefills + s.chunks

@@ -38,6 +38,7 @@ from repro_torch.serving import (
     ContinuousBatcher, Request, ServingConfig, ServingExecutor, TensorSpec,
     TwoStageCompiler, VirtualAcceleratorPool,
 )
+from repro_torch.serving.batcher import PORT_STATS_FIELDS
 from repro_torch.weights import params_from_jax
 
 CPU = torch.device("cpu")
@@ -332,6 +333,7 @@ def test_fault_guards_at_tp2_match_reference(models):
     assert t.stats.audit_repairs > 0
     got, want = _guard_state(t, tr), _guard_state(j, jr)
     want["stats"]["remeshes"] = 0
+    want["stats"].update(dict.fromkeys(PORT_STATS_FIELDS, 0))
     assert got == want
 
 
